@@ -14,16 +14,28 @@ arrays keyed by its field names, so this module needs nothing of JAX:
 transposed on the way in and back on the way out. The view-direction grid
 and appearance embeddings are not part of the ported model; a tree that
 carries them is refused.
+
+A whole checkpoint is carried over in a process that has both packages: the
+JAX package's ``load_model`` gives (config, params); :func:`tree_from_params_object`
+turns the params into the dict above (it reads attributes and imports no
+JAX), :func:`config_from_dict` turns ``dataclasses.asdict(config)`` into the
+port's config, and the port's ``utils.checkpoint.save_model`` writes them.
+The other way, :func:`config_to_dict` and :func:`fourier_grid_params_to_numpy`
+give what the JAX package's config class and ``params.replace`` take.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from unboundednerfpytorch_tpu_torch.fields.grids import FourierGrid, MaskGrid
 from unboundednerfpytorch_tpu_torch.fields.mlp import MLP
-from unboundednerfpytorch_tpu_torch.models.fourier_grid import FourierGridParams
+from unboundednerfpytorch_tpu_torch.models.fourier_grid import (
+    FourierGridConfig, FourierGridParams,
+)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -80,3 +92,42 @@ def fourier_grid_params_to_numpy(params: FourierGridParams) -> dict:
                        "xyz_min": params.mask_cache.xyz_min,
                        "xyz_max": params.mask_cache.xyz_max},
     }
+
+
+def tree_from_params_object(p) -> dict:
+    """The nested numpy dict from any object shaped like the JAX
+    ``FourierGridParams`` (attributes ``density``, ``k0``, ``rgbnet``,
+    ``act_shift``, ``mask_cache``, optionally ``vd`` / ``img_embeddings``)."""
+
+    def grid(g) -> dict:
+        return {"grid": np.asarray(g.grid), "xyz_min": tuple(g.xyz_min),
+                "xyz_max": tuple(g.xyz_max), "num_freqs": int(g.num_freqs)}
+
+    return {
+        "density": grid(p.density),
+        "k0": grid(p.k0),
+        "rgbnet": {"weights": [np.asarray(w) for w in p.rgbnet.weights],
+                   "biases": [np.asarray(b) for b in p.rgbnet.biases]},
+        "act_shift": np.asarray(p.act_shift),
+        "mask_cache": {"mask": np.asarray(p.mask_cache.mask),
+                       "xyz_min": tuple(p.mask_cache.xyz_min),
+                       "xyz_max": tuple(p.mask_cache.xyz_max)},
+        "vd": getattr(p, "vd", None),
+        "img_embeddings": getattr(p, "img_embeddings", None),
+    }
+
+
+def config_to_dict(cfg: FourierGridConfig) -> dict:
+    """``model_kwargs`` of a checkpoint's ``meta.json``: every field of the
+    config, tuples as lists once through JSON."""
+    return dataclasses.asdict(cfg)
+
+
+def config_from_dict(d: dict) -> FourierGridConfig:
+    """The port's config from ``model_kwargs`` (the port's own or the JAX
+    package's, whose extra fields name features outside the port and are
+    dropped when they hold their defaults' meaning; a checkpoint that needs
+    one of them is refused by ``create``/``forward``'s own checks)."""
+    names = {f.name for f in dataclasses.fields(FourierGridConfig)}
+    fix = lambda v: tuple(v) if isinstance(v, list) else v
+    return FourierGridConfig(**{k: fix(v) for k, v in d.items() if k in names})

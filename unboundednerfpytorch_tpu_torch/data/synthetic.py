@@ -44,8 +44,11 @@ def _sky_color(d: np.ndarray, phase: np.ndarray) -> np.ndarray:
 
 def orbit_scene(n_views: int = 20, H: int = 411, W: int = 618, *, seed: int = 0,
                 sphere_radius: float = 0.8, cam_radius: float = 3.0,
-                near_clip: float = 0.5) -> dict:
-    """A reference-shaped data_dict (numpy) of ``n_views`` training views.
+                near_clip: float = 0.5, n_test: int = 0) -> dict:
+    """A reference-shaped data_dict (numpy) of ``n_views`` training views and
+    ``n_test`` held-out views (``i_test``), which sit half-way between
+    training cameras on the same orbit; the training views do not depend on
+    ``n_test``.
 
     The seed sets the texture phases and the orbit's starting angle.
     ``sphere_radius`` is the world radius of the object at the origin.
@@ -60,9 +63,10 @@ def orbit_scene(n_views: int = 20, H: int = 411, W: int = 618, *, seed: int = 0,
     dirs_cam = dirs_cam.reshape(-1, 3)
 
     poses, images = [], []
-    for k in range(n_views):
+    held_out = [(n_views // max(n_test, 1)) * k + 0.5 for k in range(n_test)]
+    for k in list(range(n_views)) + held_out:
         theta = theta0 + 2 * np.pi * k / n_views
-        elev = 0.35 if k % 2 == 0 else 0.65
+        elev = 0.5 if k in held_out else (0.35 if k % 2 == 0 else 0.65)
         pos = cam_radius * np.array([np.cos(theta) * np.cos(elev),
                                      np.sin(theta) * np.cos(elev), np.sin(elev)])
         c2w = look_at_pose(pos, np.zeros(3))
@@ -79,16 +83,16 @@ def orbit_scene(n_views: int = 20, H: int = 411, W: int = 618, *, seed: int = 0,
         poses.append(c2w.astype(np.float32))
         images.append(np.clip(rgb, 0.0, 1.0).reshape(H, W, 3).astype(np.float32))
 
-    n = n_views
+    n = n_views + n_test
     return {
         "HW": np.array([[H, W]] * n),
         "Ks": np.stack([K] * n),
         "near": near_clip,
         "far": 100.0,
         "near_clip": near_clip,
-        "i_train": np.arange(n),
+        "i_train": np.arange(n_views),
         "i_val": np.arange(0),
-        "i_test": np.arange(0),
+        "i_test": np.arange(n_views, n),
         "poses": np.stack(poses),
         "images": np.stack(images),
         "irregular_shape": False,
@@ -112,3 +116,41 @@ def occupancy_seed(scene_center, scene_radius, sphere_radius: float = 0.8,
         return ball | (np.abs(p).max(-1) > 1.0)
 
     return fn
+
+
+def imprint_scene(params, scene_center, scene_radius, *, seed: int = 0,
+                  sphere_radius: float = 0.8, haze: float = -3.0, solid: float = 7.0) -> None:
+    """Write the geometry of :func:`orbit_scene` into a model's grids, in
+    place: a few train steps do not make a scene, and a render of a near-empty
+    model exercises neither the early exit nor the thresholds nor the color
+    budget. Bank 0 of the density grid gains an opaque ball where the sphere
+    is (raw density + act_shift = ``solid`` inside, with a soft edge) and a
+    thin haze in a shell of the contracted background (``haze``, where
+    1 < |p|_inf < 1.03, on the white fields of a checkerboard of side 1/4), so
+    that a ray ends on the ball after a few samples, crosses clear sky, or
+    gathers some fifty low-weight samples in the haze (more than a usual
+    ``color_budget``); every k0 bank gains seeded noise, so that the color query returns
+    content. ``params`` is the port's FourierGridParams on any device."""
+    import torch
+
+    dgrid, kgrid = params.density.grid.data, params.k0.grid.data
+    dev = dgrid.device
+    B, X, Y, Z, _ = dgrid.shape
+    mn, mx = params.density.xyz_min, params.density.xyz_max
+    axes = [torch.linspace(lo, hi, n, device=dev) for lo, hi, n in zip(mn, mx, (X, Y, Z))]
+    p = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)
+    radius = float(np.max(scene_radius))
+    center = torch.tensor(-np.asarray(scene_center, np.float64) / radius, dtype=p.dtype,
+                          device=dev)
+    rs = sphere_radius / radius
+    dist = torch.linalg.norm(p - center, dim=-1)
+    shift = params.act_shift
+    raw = (solid - shift) * torch.sigmoid((rs - dist) / (0.08 * rs))
+    far = p.abs().amax(-1)
+    white = torch.floor(p * 4.0).sum(-1) % 2 == 0
+    raw = raw + (haze - shift) * ((far > 1.0) & (far < 1.03) & white)
+    dgrid[0, ..., 0] += (B * raw).to(dgrid.dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for b in range(kgrid.shape[0]):
+        kgrid[b] += (0.5 * torch.randn(kgrid.shape[1:], generator=gen, device=dev)).to(
+            kgrid.dtype)

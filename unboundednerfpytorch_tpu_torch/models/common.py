@@ -26,6 +26,14 @@ class RenderResult(NamedTuple):
     s: torch.Tensor  # [N, S] normalized distance 1 - 1/(1+t)
     depth: torch.Tensor  # [N]
     n_max: int  # static sample count (distortion interval)
+    # two-stage render only: fraction of rays in this call whose survivors
+    # overflowed color_budget (their tail weights were dropped), a device
+    # scalar, so the truncation can be observed. None elsewhere.
+    color_overflow_frac: torch.Tensor | None = None
+    # two-stage render only: raw_rgb above is COMPACTED [N, color_budget, 3]
+    # and pairs with the compacted weights, not with the full [N, S]
+    # ``weights``; training losses (rgbper) must not consume it.
+    rgb_compacted: bool = False
 
 
 def act_shift_from_alpha_init(alpha_init: float) -> float:

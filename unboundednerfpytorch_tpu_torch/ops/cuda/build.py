@@ -34,6 +34,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = {
     "tv": CSRC_DIR / "tv.cu",
     "march": CSRC_DIR / "march.cu",
+    "gather_probe": CSRC_DIR / "gather_probe.cu",
 }
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -45,7 +46,8 @@ NVCC_FLAGS = (
 )
 
 # every kernel wrapper by name (the key it counts its launches under)
-KERNELS = ("tv_add_grad", "march_forward", "march_backward")
+KERNELS = ("tv_add_grad", "march_forward", "march_backward",
+           "gather_rows", "gather_tile_rows", "box_gather8", "box_sum")
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}

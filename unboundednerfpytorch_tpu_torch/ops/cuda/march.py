@@ -13,6 +13,12 @@ fused_alpha2weights`` (two TPU kernels under a ``jax.custom_vjp``):
 ``ops/alpha.py`` cumprod scan under autograd) for CPU tensors only; for CUDA
 tensors it runs the kernels of ``csrc/march.cu`` under :class:`FusedMarch`
 or raises. ``shift`` and ``interval`` get no gradient, nor does ``mask``.
+
+The two launches are registered as ``torch.library`` custom ops
+(``unerf_kernels::march_forward`` / ``march_backward``): the libraries stay
+plain C loaded with ``ctypes``, but each launch now runs inside a dispatcher
+op, which is what ``torch.profiler`` needs to credit the kernel's device
+time to the op and to the ``record_function`` ranges around it.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch import Tensor
 
 from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
 from unboundednerfpytorch_tpu_torch.ops.cuda import build
@@ -63,11 +70,9 @@ def _check(density, mask):
         raise TypeError("fused_alpha2weights: mask must be bool and match density")
 
 
-def march_forward(density, mask, shift: float, interval: float):
-    """Launch the forward kernel: (weights, alphainv, alpha, t_excl)."""
-    _check(density, mask)
-    density = density.contiguous()
-    mask = mask.contiguous()
+@torch.library.custom_op("unerf_kernels::march_forward", mutates_args=())
+def _march_forward_op(density: Tensor, mask: Tensor, shift: float,
+                      interval: float) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     N, S = density.shape
     w = torch.empty_like(density)
     alpha = torch.empty_like(density)
@@ -86,20 +91,18 @@ def march_forward(density, mask, shift: float, interval: float):
     return w, ai, alpha, t_excl
 
 
-def march_backward(alpha, t_excl, alphainv, gw, gl, shift: float, interval: float,
-                   density, mask):
-    """Launch the backward kernel: d(loss)/d(density) through weights and
-    alphainv_last (without the direct alpha cotangent)."""
+def march_forward(density, mask, shift: float, interval: float):
+    """Launch the forward kernel: (weights, alphainv, alpha, t_excl)."""
     _check(density, mask)
+    return _march_forward_op(density.contiguous(), mask.contiguous(), float(shift),
+                             float(interval))
+
+
+@torch.library.custom_op("unerf_kernels::march_backward", mutates_args=())
+def _march_backward_op(alpha: Tensor, t_excl: Tensor, alphainv: Tensor, gw: Tensor,
+                       gl: Tensor, shift: float, interval: float, density: Tensor,
+                       mask: Tensor) -> Tensor:
     N, S = density.shape
-    tensors = [t.contiguous() for t in (alpha, t_excl, alphainv, gw, gl, density, mask)]
-    alpha, t_excl, alphainv, gw, gl, density, mask = tensors
-    for t in (alpha, t_excl, gw):
-        if t.shape != (N, S) or t.dtype != torch.float32:
-            raise TypeError("march_backward: [N, S] f32 inputs expected")
-    for t in (alphainv, gl):
-        if t.shape != (N,) or t.dtype != torch.float32:
-            raise TypeError("march_backward: [N] f32 inputs expected")
     gd = torch.empty_like(density)
     lib = build.load("march")
     fn = lib.march_backward
@@ -114,6 +117,24 @@ def march_backward(alpha, t_excl, alphainv, gw, gl, shift: float, interval: floa
     build.check(lib, err, "march_backward")
     build.LAUNCHES["march_backward"] += 1
     return gd
+
+
+def march_backward(alpha, t_excl, alphainv, gw, gl, shift: float, interval: float,
+                   density, mask):
+    """Launch the backward kernel: d(loss)/d(density) through weights and
+    alphainv_last (without the direct alpha cotangent)."""
+    _check(density, mask)
+    N, S = density.shape
+    tensors = [t.contiguous() for t in (alpha, t_excl, alphainv, gw, gl, density, mask)]
+    alpha, t_excl, alphainv, gw, gl, density, mask = tensors
+    for t in (alpha, t_excl, gw):
+        if t.shape != (N, S) or t.dtype != torch.float32:
+            raise TypeError("march_backward: [N, S] f32 inputs expected")
+    for t in (alphainv, gl):
+        if t.shape != (N,) or t.dtype != torch.float32:
+            raise TypeError("march_backward: [N] f32 inputs expected")
+    return _march_backward_op(alpha, t_excl, alphainv, gw, gl, float(shift), float(interval),
+                              density, mask)
 
 
 class FusedMarch(torch.autograd.Function):

@@ -10,7 +10,10 @@ grids. The kernel is ``csrc/tv.cu``; ``tv_add_grad_plain`` is the same
 function written with :func:`..tv.total_variation_grad`.
 
 :func:`tv_add_grad` takes the plain version only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises.
+for CUDA tensors it launches the kernel or raises. The launch is the
+``torch.library`` custom op ``unerf_kernels::tv_add_grad`` (it mutates
+``out``), so that ``torch.profiler`` credits the kernel to the op and to the
+``record_function`` range around it.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch import Tensor
 
 from unboundednerfpytorch_tpu_torch.ops import tv as tv_ops
 from unboundednerfpytorch_tpu_torch.ops.cuda import build
@@ -36,6 +40,23 @@ def tv_add_grad_plain(param, grad, wx, wy, wz, gate, dense, out=None):
         return res
     out.copy_(res)
     return out
+
+
+@torch.library.custom_op("unerf_kernels::tv_add_grad", mutates_args=("out",))
+def _tv_add_grad_op(param: Tensor, grad: Tensor, out: Tensor, B: int, X: int, Y: int, Z: int,
+                    C: int, wx: float, wy: float, wz: float, gate: float,
+                    dense: bool) -> None:
+    lib = build.load("tv")
+    fn = lib.tv_add_grad
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [
+        ctypes.c_int, ctypes.c_void_p]
+    stream = torch.cuda.current_stream(param.device).cuda_stream
+    err = fn(param.data_ptr(), grad.data_ptr(), out.data_ptr(), _DTYPE_CODE[param.dtype],
+             B, X, Y, Z, C, wx / 6.0, wy / 6.0, wz / 6.0, float(gate), int(bool(dense)),
+             stream)
+    build.check(lib, err, "tv_add_grad")
+    build.LAUNCHES["tv_add_grad"] += 1
 
 
 def _launch(param, grad, out, wx, wy, wz, gate, dense):
@@ -57,17 +78,7 @@ def _launch(param, grad, out, wx, wy, wz, gate, dense):
         B *= int(d)
     if X * Y * Z * C >= 2**31:
         raise ValueError("tv_add_grad: one bank must hold fewer than 2^31 elements")
-    lib = build.load("tv")
-    fn = lib.tv_add_grad
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [
-        ctypes.c_int, ctypes.c_void_p]
-    stream = torch.cuda.current_stream(param.device).cuda_stream
-    err = fn(param.data_ptr(), grad.data_ptr(), out.data_ptr(), _DTYPE_CODE[param.dtype],
-             B, X, Y, Z, C, wx / 6.0, wy / 6.0, wz / 6.0, float(gate), int(bool(dense)),
-             stream)
-    build.check(lib, err, "tv_add_grad")
-    build.LAUNCHES["tv_add_grad"] += 1
+    _tv_add_grad_op(param, grad, out, B, X, Y, Z, C, wx, wy, wz, float(gate), bool(dense))
     return out
 
 

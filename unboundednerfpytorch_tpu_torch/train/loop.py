@@ -5,15 +5,21 @@ Counterpart of ``unboundednerfpytorch_tpu/train/loop.py``: ``build_model``,
 step-keyed ``fast_color_thres`` schedule, and ``run_train`` with the coarse
 stage at ``N_iters=0`` (the ``*_single`` configs).
 
+With ``exp_dir`` the stage ends by writing ``<exp_dir>/fine_last`` through
+the port's ``utils.checkpoint.save_model``, which ``render.run_render``
+loads.
+
 Not ported yet, and refused rather than skipped: ``pg_scale`` boundaries
 (grid upsampling and the occupancy refresh), a coarse stage, samplers other
-than ``flatten``, per-voxel lr, ``maskout_near_cam_vox``, checkpoints, and
-the other model families.
+than ``flatten``, per-voxel lr, ``maskout_near_cam_vox``, resuming from a
+checkpoint and periodic saves (the optimizer state is not saved), and the
+other model families.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable
 
@@ -73,11 +79,19 @@ def gather_training_rays(cfg: ExpConfig, data_dict: dict, device) -> dict:
             "img_index": img_index}
 
 
-def make_forward(mcfg: fg.FourierGridConfig, render_kwargs: dict) -> Callable:
-    """(params, rays_o, rays_d, viewdirs, bg_color) -> RenderResult."""
+def make_forward(mcfg: fg.FourierGridConfig, render_kwargs: dict, cache=None) -> Callable:
+    """(params, rays_o, rays_d, viewdirs, bg_color, cache=...) -> RenderResult.
 
-    def fwd(params, ro, rd, vd, bg_color=None):
-        return fg.forward(params, mcfg, ro, rd, vd, bg=render_kwargs["bg"], bg_color=bg_color)
+    As the JAX package's FourierGrid branch: ``render_kwargs["stepsize"]``
+    reaches the forward and ``render_kwargs["bg"]`` does NOT, so without a
+    random background the forward composites on its default ``bg=0.0``
+    (reproduced from the reference package, where it looks like an oversight;
+    see ROADMAP queue C). ``cache`` is a ``RenderCache`` for rendering with
+    frozen params; it may also be given per call."""
+
+    def fwd(params, ro, rd, vd, bg_color=None, cache=cache):
+        return fg.forward(params, mcfg, ro, rd, vd, stepsize=render_kwargs["stepsize"],
+                          bg_color=bg_color, cache=cache)
 
     return fwd
 
@@ -96,8 +110,10 @@ def scene_rep_reconstruction(
     log_fn: Callable[[str], None] = print,
     callback: Callable[[int, dict], None] | None = None,
     coarse_mask_fn=None,
+    exp_dir: str | None = None,
 ):
     """One training stage; returns (family, model config, params, psnr).
+    With ``exp_dir`` the trained model is saved as ``<exp_dir>/<stage>_last``.
 
     ``coarse_mask_fn(world_size, xyz_min, xyz_max) -> bool [X, Y, Z]`` seeds
     the occupancy cache (in the full recipe, from the coarse stage); with it
@@ -140,6 +156,7 @@ def scene_rep_reconstruction(
     render_kwargs = {
         "bg": 1.0 if cfg.data.white_bkgd else 0.0,
         "rand_bkgd": cfg.data.rand_bkgd,
+        "stepsize": cfg_model.stepsize,
     }
     store = gather_training_rays(cfg, data_dict, device)
     state = create_train_state(params, cfg_train)
@@ -188,19 +205,26 @@ def scene_rep_reconstruction(
                    f"psnr {last_psnr:5.2f} / {time.time() - t0:6.1f}s")
         if callback is not None:
             callback(global_step, metrics)
-    if deferred_budget:
+    if deferred_budget:  # never hand on (or persist) a deferral-zeroed budget
         mcfg = dataclasses.replace(mcfg, sample_budget=deferred_budget)
+    if exp_dir is not None:
+        from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt_mod
+
+        ckpt_mod.save_model(os.path.join(exp_dir, f"{stage}_last"), family, mcfg,
+                            state.params, global_step=n_iters)
     return family, mcfg, state.params, last_psnr
 
 
 def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,
-              device=None, log_every: int = 500, callback=None, coarse_mask_fn=None):
+              device=None, log_every: int = 500, callback=None, coarse_mask_fn=None,
+              exp_dir: str | None = None):
     """The fine stage of a ``*_single`` recipe (coarse ``N_iters=0``).
     Returns (family, model config, params, last logged psnr).
 
     ``device``: ``None`` -> ``cuda`` (raises without a GPU); pass ``"cpu"``
     for the plain PyTorch path. ``coarse_mask_fn``: optional occupancy seed,
     standing in for the coarse stage's (see scene_rep_reconstruction).
+    ``exp_dir``: where ``fine_last`` is written at the end (not at all if None).
     """
     dev = resolve_device(device)
     if cfg.coarse_train.N_iters > 0:
@@ -210,4 +234,4 @@ def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,
     return scene_rep_reconstruction(
         cfg, cfg.fine_model_and_render, cfg.fine_train, xyz_min, xyz_max, data_dict,
         stage="fine", device=dev, seed=seed, log_every=log_every, log_fn=log_fn,
-        callback=callback, coarse_mask_fn=coarse_mask_fn)
+        callback=callback, coarse_mask_fn=coarse_mask_fn, exp_dir=exp_dir)
