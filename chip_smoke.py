@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps 10] [--views 20] [--profile]
+    python3 chip_smoke.py [--steps 10] [--views 20] [--profile] [--kernels-only]
 
 Phases, each reported on its own line:
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   2. build every hand-written kernel from ``unboundednerfpytorch_tpu_torch/csrc``
      (one ``nvcc`` per source, all started together);
-  3. hold each kernel against its plain PyTorch version on the card at the
-     shapes its path gives it, and time kernel, plain version, bound and,
-     where one PyTorch call computes the same function, that call: the TV
-     injection and the two march kernels at the train step's shapes, the
-     march forward also at a render chunk's (its entry sums the two). The
-     four gather-probe kernels are driven through their entry point
-     (``probes.gather.main``), which holds each against its plain version at
-     every one of its shapes (indexed copies bit-equal, ``box_sum`` within
-     1e-3 relative) and times it; that one run, counted from 0, also gives
-     these kernels' launches;
+  3. time an empty kernel (the launch floor), then hold each kernel against
+     its plain PyTorch version on the card and time kernel, plain version,
+     bound and, where one PyTorch call computes the same function, that call.
+     A time is a device time: CUDA events around a call, or, for a call under
+     0.2 ms, around many launches in one CUDA graph, over the count; the time
+     of a call through the Python wrapper is printed beside it. The TV
+     injection runs at the train step's two shapes (bf16 and f32, gate 0 and
+     1, sparse and dense, out of place and in place) and at four ragged shapes
+     (also through views that are aligned otherwise, and with the kernel of
+     one thread an element forced); the march forward at the train step's
+     shape with residuals, at a render chunk's without a gradient (its entry
+     sums the two) and at four ragged shapes, the backward fed by each
+     forward's residuals. A sample whose transmittance lies within rounding of
+     the early-exit threshold may fall on the other side than in the plain
+     version: such samples are counted and bounded, not absorbed in the
+     tolerance. The four gather-probe kernels are driven through their entry
+     point (``probes.gather.main``), which holds each against its plain
+     version at every one of its shapes (indexed copies bit-equal, ``box_sum``
+     within 1e-3 relative) and times it; that one run, counted from 0, also
+     gives these kernels' launches;
   4. train the FourierGrid fine stage of
      ``configs/nerf_unbounded/bicycle_single.py`` at full width (``pg_scale=()``,
      so the grids start at their final ~200^3 x 7 banks) on a seeded synthetic
@@ -44,6 +54,8 @@ Phases, each reported on its own line:
 
 ``--profile`` also traces the last train steps and one rendered view with
 ``torch.profiler`` and prints the device time by range and by kernel.
+``--kernels-only`` stops after phase 3 and prints the kernel table without
+launch counts and without the last line (a quick check of a changed kernel).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -173,51 +185,117 @@ def slice_shapes(cfg):
     return tv_shapes, march, mcfg.act_shift, mcfg.stepsize * mcfg.voxel_size_ratio_density
 
 
-def phase_tv(gen, tv_shapes) -> dict:
+# shapes that break a design built on 16-byte vectors: rows, planes and banks
+# that are no multiple of a vector, one element, a tensor smaller than a vector
+TV_RAGGED_SHAPES = ((2, 7, 9, 11, 1), (3, 5, 7, 199, 12), (1, 1, 1, 1, 1), (1, 2, 1, 3, 5))
+MARCH_RAGGED_SHAPES = ((37, 17), (5, 200), (1, 1), (0, 96))
+
+
+def shape_line(what: str, ms: float, call_ms: float, bnd: float, floor: float) -> dict:
+    """Log one launch shape's times; the yardstick is max(bound, floor)."""
+    share = max(bnd, floor) / ms
+    log(f"[3] {what}: device {ms:.4f} ms a launch ({call_ms:.4f} ms a call through the "
+        f"wrapper), bound {bnd:.5f} ms, launch floor {floor:.5f} ms, "
+        f"max(bound, floor) / ms = {100 * share:.1f}%")
+    return {"shape": what, "ms": ms, "call_ms": call_ms, "bound_ms": bnd, "floor_ms": floor,
+            "share_of_max_bound_floor": share}
+
+
+def tv_case(gen, label, shape, dtype, w) -> float:
+    """One shape and dtype of ``tv_add_grad`` against the plain version: gate 0
+    and 1, sparse and dense, out of place and in place. Returns the max error."""
     import torch
 
     from unboundednerfpytorch_tpu_torch.ops.cuda import tv
-    from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, time_ms
+
+    err = 0.0
+    p = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda")
+    g = (g * (torch.rand(shape, generator=gen, device="cuda") > 0.4)).to(dtype)
+    for gate in (0.0, 1.0):
+        for dense in (False, True):
+            got = tv.tv_add_grad(p, g, *w, gate, dense)
+            # float32 result of the same inputs, before any bf16 store
+            ref = tv.tv_add_grad_plain(p.float(), g.float(), *w, gate, dense)
+            torch.cuda.synchronize()
+            err = max(err, check_each(
+                f"tv {label} {tuple(shape)} {str(dtype)[6:]} gate={gate:g} "
+                f"dense={dense}", got, ref, 1e-5, 1e-6))
+            del ref
+            if gate == 1.0:  # in place, as the train step calls it
+                g2 = g.clone()
+                if tv.tv_add_grad(p, g2, *w, gate, dense, out=g2) is not g2:
+                    raise AssertionError("tv_add_grad(out=grad) returned another tensor")
+                torch.cuda.synchronize()
+                if not torch.equal(g2, got):
+                    raise AssertionError(f"tv {label} {tuple(shape)} {dtype} dense={dense}: "
+                                         "in place differs from out of place")
+                del g2
+            del got
+    return err
+
+
+def tv_views_case(gen, shape, dtype, w) -> float:
+    """Tensors that start 1, 3 and 2 elements past an aligned address (views
+    of larger buffers), so that param, grad and out are each aligned otherwise,
+    and the kernel of one thread an element forced on the same inputs."""
+    import math
+
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import tv
+
+    n = math.prod(shape)
+    bufs = [torch.randn(n + 8, generator=gen, device="cuda").to(dtype) for _ in range(3)]
+    p, g, out = (b[o:o + n].view(shape) for b, o in zip(bufs, (1, 3, 2)))
+    ref = tv.tv_add_grad_plain(p.float(), g.float(), *w, 1.0, False)
+    name = f"tv views {tuple(shape)} {str(dtype)[6:]}"
+    tv.tv_add_grad(p, g, *w, 1.0, False, out=out)
+    torch.cuda.synchronize()
+    err = check_each(f"{name}, out aligned otherwise than grad", out, ref, 1e-5, 1e-6)
+    g2 = g.clone()  # a fresh allocation: aligned
+    tv._launch(p, g2, g2, *w, 1.0, False, simple=True)
+    torch.cuda.synchronize()
+    return max(err, check_each(f"{name}, one thread an element, in place", g2, ref, 1e-5, 1e-6))
+
+
+def phase_tv(gen, tv_shapes, floor: float) -> dict:
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import tv
+    from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms, time_ms
 
     w = (0.3, 0.2, 0.1)
     err = 0.0
-    main = {}
+    for shape in TV_RAGGED_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            err = max(err, tv_case(gen, "ragged", shape, dtype, w),
+                      tv_views_case(gen, shape, dtype, w))
+    main, shapes = {}, []
     for label, shape in tv_shapes.items():
         for dtype in (torch.bfloat16, torch.float32):
-            p = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            g = torch.randn(shape, generator=gen, device="cuda")
-            g = (g * (torch.rand(shape, generator=gen, device="cuda") > 0.4)).to(dtype)
-            for gate in (0.0, 1.0):
-                for dense in (False, True):
-                    got = tv.tv_add_grad(p, g, *w, gate, dense)
-                    # float32 result of the same inputs, before any bf16 store
-                    ref = tv.tv_add_grad_plain(p.float(), g.float(), *w, gate, dense)
-                    torch.cuda.synchronize()
-                    err = max(err, check_each(
-                        f"tv {label} {tuple(shape)} {str(dtype)[6:]} gate={gate:g} "
-                        f"dense={dense}", got, ref, 1e-5, 1e-6))
-                    del got, ref
-            if dtype == torch.bfloat16:  # the train step's case: bf16, dense, in place
-                out = torch.empty_like(g)
-                main[label] = (
-                    time_ms(lambda: tv.tv_add_grad(p, g, *w, 1.0, True, out=out)),
-                    time_ms(lambda: tv.tv_add_grad_plain(p, g, *w, 1.0, True), iters=5),
-                    3 * p.numel() * p.element_size(),
-                    25 * p.numel(),
-                )
-                del out
-            del p, g
+            err = max(err, tv_case(gen, label, shape, dtype, w))
             torch.cuda.empty_cache()
+        # the train step's case: bf16, dense, in place
+        p = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        ms, call_ms = kernel_ms(lambda: tv.tv_add_grad(p, g, *w, 1.0, True, out=g))
+        main[label] = (ms, time_ms(lambda: tv.tv_add_grad_plain(p, g, *w, 1.0, True), iters=5),
+                       3 * p.numel() * p.element_size(), 25 * p.numel())
+        shapes.append(shape_line(f"tv_add_grad {label} {tuple(shape)} bf16 in place", ms,
+                                 call_ms, bound_ms(*main[label][2:])[0], floor))
+        del p, g
+        torch.cuda.empty_cache()
     ms = sum(v[0] for v in main.values())
     plain = sum(v[1] for v in main.values())
     bnd, by = bound_ms(sum(v[2] for v in main.values()), sum(v[3] for v in main.values()))
     log(f"[3] tv_add_grad per step (k0 + density, bf16): {ms:.3f} ms, plain {plain:.3f} ms, "
-        f"bound {bnd:.3f} ms ({by})")
+        f"bound {bnd:.3f} ms ({by}): {100 * bnd / ms:.1f}% of the bound")
     return {"name": "tv_add_grad", "route": "cuda",
             "source": "unboundednerfpytorch_tpu_torch/csrc/tv.cu",
             "replaces": "unboundednerfpytorch_tpu/ops/pallas/tv.py:137",
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-            "bound_by": by, "library_ms": None}
+            "bound_by": by, "library_ms": None, "floor_ms": floor, "shapes": shapes}
 
 
 def march_inputs(gen, shape):
@@ -234,72 +312,143 @@ def march_inputs(gen, shape):
     return d, mask
 
 
-def phase_march(gen, shape, shift: float, interval: float) -> list:
+def check_march_forward(name: str, got, d, mask, shift: float, interval: float) -> float:
+    """(weights, alphainv, alpha, t_excl) of the forward kernel against the
+    plain version. The kernel multiplies the transmittance in another order
+    than the plain ``cumprod``, so a sample whose transmittance lies within
+    rounding of the early-exit threshold may be processed by one of them only:
+    such samples are counted (at most ``MAX_FLIPPED_SHARE`` of all, each within
+    1e-5 relative of the threshold), their rays held to two thresholds' worth,
+    and every other ray to 1e-5 relative + 1e-6. Returns the max error of the
+    rays without a flip."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
+    from unboundednerfpytorch_tpu_torch.ops.cuda import march
+
+    w, ai, alpha, t_excl = got
+    N, S = d.shape
+    if (w.shape, ai.shape, alpha.shape, t_excl.shape) != ((N, S), (N,), (N, S), (N, S)):
+        raise AssertionError(f"{name}: output shapes {w.shape} {ai.shape} {alpha.shape} "
+                             f"{t_excl.shape}")
+    if N == 0:
+        log(f"  {name}: no rays, shapes only")
+        return 0.0
+    w_ref, ai_ref, alpha_ref = march.fused_alpha2weights_plain(d, mask, shift, interval)
+    t_ref = torch.cat([torch.ones_like(alpha_ref[:, :1]),
+                       torch.cumprod(1.0 - alpha_ref, -1)[:, :-1]], -1)
+    thres = alpha_ops.EARLY_EXIT_T
+    flipped = (t_excl >= thres) != (t_ref >= thres)
+    n_flipped = int(flipped.sum())
+    if n_flipped:
+        log(f"  {name}: {n_flipped} of {flipped.numel()} samples fall on the other side of "
+            f"the early-exit threshold, on {int(flipped.any(-1).sum())} rays")
+        if n_flipped > max(1, MAX_FLIPPED_SHARE * flipped.numel()):
+            raise AssertionError(f"{name}: {n_flipped} threshold flips")
+        if float((t_ref[flipped] - thres).abs().max()) > 1e-5 * thres:
+            raise AssertionError(f"{name}: a flipped sample is not within rounding of the "
+                                 "threshold")
+    same = ~flipped.any(-1)
+    err = 0.0
+    for what, g, r in (("weights", w, w_ref), ("alphainv_last", ai, ai_ref),
+                       ("alpha", alpha, alpha_ref), ("t_excl", t_excl, t_ref)):
+        err = max(err, check(f"{name} {what}", g[same], r[same], 1e-5, 1e-6))
+        if n_flipped:
+            check(f"{name} {what}, rays of a flipped sample", g[~same], r[~same], 0.0, 2 * thres)
+    return err
+
+
+def phase_march(gen, shape, shift: float, interval: float, floor: float) -> list:
     import torch
 
     from unboundednerfpytorch_tpu_torch.ops.cuda import march
-    from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, time_ms
+    from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms
+
+    def no_grad_forward(d, mask):  # what the render path calls
+        with torch.no_grad():
+            return march.fused_alpha2weights(d, mask, shift, interval)
+
+    def backward_check(name, d, mask, res):
+        w, ai, alpha, t_excl = res
+        gw = torch.randn(d.shape, generator=gen, device="cuda")
+        gl = torch.randn(d.shape[:1], generator=gen, device="cuda")
+        gd = march.march_backward(alpha, t_excl, ai, gw, gl, shift, interval, d, mask)
+        gd_ref = march.march_backward_plain(alpha, t_excl, ai, gw, gl, shift, interval, d, mask)
+        torch.cuda.synchronize()
+        return gw, gl, check(name, gd, gd_ref, 1e-5, 1e-6)
+
+    err_f = err_b = 0.0
+    for rshape in MARCH_RAGGED_SHAPES + ((RENDER_CHUNK, shape[1]),):
+        d, mask = march_inputs(gen, rshape)
+        res = march.march_forward(d, mask, shift, interval)
+        torch.cuda.synchronize()
+        err_f = max(err_f, check_march_forward(f"march_forward {list(rshape)}", res, d, mask,
+                                               shift, interval))
+        # without a gradient the forward keeps no t_excl: same values otherwise
+        lean = no_grad_forward(d, mask)
+        torch.cuda.synchronize()
+        for a, b in zip(lean, (res[0], res[1], res[2])):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"march_forward {list(rshape)}: the no-grad forward "
+                                     "differs from the one that keeps residuals")
+        if rshape[0]:
+            err_b = max(err_b, backward_check(f"march_backward {list(rshape)}", d, mask, res)[2])
 
     N, S = shape
     d, mask = march_inputs(gen, shape)
-    w, ai, alpha, t_excl = march.march_forward(d, mask, shift, interval)
-    w_ref, ai_ref, alpha_ref = march.fused_alpha2weights_plain(d, mask, shift, interval)
+    res = march.march_forward(d, mask, shift, interval)
     torch.cuda.synchronize()
-    exits = int((t_excl[:, -1] < 1e-3).sum())
+    exits = int((res[3][:, -1] < 1e-3).sum())
     log(f"[3] march inputs: {exits} of {N} rays exit early")
     if exits == 0:
         raise AssertionError("march inputs never reach the early exit")
-    err_f = max(check("march_forward weights", w, w_ref, 1e-5, 1e-6),
-                check("march_forward alphainv_last", ai, ai_ref, 1e-5, 1e-6),
-                check("march_forward alpha", alpha, alpha_ref, 1e-5, 1e-6))
+    err_f = max(err_f, check_march_forward(f"march_forward {[N, S]}", res, d, mask, shift,
+                                           interval))
+    w, ai, alpha, t_excl = res
+    gw, gl, e = backward_check(f"march_backward {[N, S]}", d, mask, res)
+    err_b = max(err_b, e)
 
-    gw = torch.randn((N, S), generator=gen, device="cuda")
-    gl = torch.randn((N,), generator=gen, device="cuda")
-    gd = march.march_backward(alpha, t_excl, ai, gw, gl, shift, interval, d, mask)
-    gd_ref = march.march_backward_plain(alpha, t_excl, ai, gw, gl, shift, interval, d, mask)
-    torch.cuda.synchronize()
-    err_b = check("march_backward", gd, gd_ref, 1e-5, 1e-6)
-
-    f_ms = time_ms(lambda: march.march_forward(d, mask, shift, interval), iters=50)
-    f_plain = time_ms(lambda: march.fused_alpha2weights_plain(d, mask, shift, interval), iters=50)
-    b_ms = time_ms(lambda: march.march_backward(alpha, t_excl, ai, gw, gl, shift, interval,
-                                                d, mask), iters=50)
-    b_plain = time_ms(lambda: march.march_backward_plain(alpha, t_excl, ai, gw, gl, shift,
-                                                         interval, d, mask), iters=50)
     ns = N * S
-    # forward: read density + mask, write weights, alpha, t_excl and alphainv;
-    # backward: read alpha, t_excl, gw, density, mask, alphainv, gl, write gd
+    f_ms, f_call = kernel_ms(lambda: march.march_forward(d, mask, shift, interval), iters=50)
+    f_plain = kernel_ms(lambda: march.fused_alpha2weights_plain(d, mask, shift, interval),
+                        iters=50)[0]
+    b_ms, b_call = kernel_ms(lambda: march.march_backward(alpha, t_excl, ai, gw, gl, shift,
+                                                          interval, d, mask), iters=50)
+    b_plain = kernel_ms(lambda: march.march_backward_plain(alpha, t_excl, ai, gw, gl, shift,
+                                                           interval, d, mask), iters=50)[0]
+    # forward with residuals: read density + mask, write weights, alpha, t_excl
+    # and alphainv; backward: read alpha, t_excl, gw, density, mask, alphainv,
+    # gl, write gd
     f_bnd, f_by = bound_ms(ns * (4 + 1 + 3 * 4) + N * 4, 25 * ns)
-    log(f"[3] march_forward at the train step's {[N, S]}: {f_ms:.4f} ms, plain "
-        f"{f_plain:.4f} ms, bound {f_bnd:.5f} ms ({f_by})")
+    shapes = [shape_line(f"march_forward at the train step's {[N, S]}, residuals kept", f_ms,
+                         f_call, f_bnd, floor)]
+    log(f"[3]   plain version {f_plain:.4f} ms")
 
-    # the render path launches the same forward kernel at one chunk of rays
+    # the render path launches the forward under no_grad at one chunk of rays:
+    # no t_excl is written, so the bound counts two [N, S] outputs
     Nr = RENDER_CHUNK
     dr, mr = march_inputs(gen, (Nr, S))
-    got_r = march.march_forward(dr, mr, shift, interval)
-    ref_r = march.fused_alpha2weights_plain(dr, mr, shift, interval)
-    torch.cuda.synchronize()
-    err_f = max(err_f, check(f"march_forward weights {[Nr, S]}", got_r[0], ref_r[0], 1e-5, 1e-6),
-                check(f"march_forward alphainv_last {[Nr, S]}", got_r[1], ref_r[1], 1e-5, 1e-6))
-    r_ms = time_ms(lambda: march.march_forward(dr, mr, shift, interval), iters=50)
-    r_plain = time_ms(lambda: march.fused_alpha2weights_plain(dr, mr, shift, interval), iters=50)
-    r_bnd, _ = bound_ms(Nr * S * (4 + 1 + 3 * 4) + Nr * 4, 25 * Nr * S)
-    log(f"[3] march_forward at a render chunk's {[Nr, S]}: {r_ms:.4f} ms, plain "
-        f"{r_plain:.4f} ms, bound {r_bnd:.5f} ms")
-    # the entry sums the two shapes, one launch each
-    f_ms, f_plain, f_bnd = f_ms + r_ms, f_plain + r_plain, f_bnd + r_bnd
+    r_ms, r_call = kernel_ms(lambda: no_grad_forward(dr, mr), iters=50)
+    r_plain = kernel_ms(lambda: march.fused_alpha2weights_plain(dr, mr, shift, interval),
+                        iters=50)[0]
+    r_bnd, _ = bound_ms(Nr * S * (4 + 1 + 2 * 4) + Nr * 4, 25 * Nr * S)
+    shapes.append(shape_line(f"march_forward at a render chunk's {[Nr, S]}, no gradient", r_ms,
+                             r_call, r_bnd, floor))
+    log(f"[3]   plain version {r_plain:.4f} ms")
     b_bnd, b_by = bound_ms(ns * (4 * 4 + 1 + 4) + 2 * N * 4, 30 * ns)
-    log(f"[3] march_backward {b_ms:.4f} ms, plain {b_plain:.4f} ms, bound {b_bnd:.5f} ms ({b_by})")
+    b_shape = shape_line(f"march_backward {[N, S]}", b_ms, b_call, b_bnd, floor)
+    log(f"[3]   plain version {b_plain:.4f} ms")
     src = "unboundednerfpytorch_tpu_torch/csrc/march.cu"
+    # the forward's entry sums its two shapes, one launch each
     return [
         {"name": "march_forward", "route": "cuda", "source": src,
          "replaces": "unboundednerfpytorch_tpu/ops/pallas/march.py:161", "max_abs_err": err_f,
-         "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bnd, "bound_by": f_by,
-         "library_ms": None},
+         "ms": f_ms + r_ms, "plain_ms": f_plain + r_plain, "bound_ms": f_bnd + r_bnd,
+         "bound_by": f_by, "library_ms": None, "floor_ms": floor, "shapes": shapes},
         {"name": "march_backward", "route": "cuda", "source": src,
          "replaces": "unboundednerfpytorch_tpu/ops/pallas/march.py:197", "max_abs_err": err_b,
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bnd, "bound_by": b_by,
-         "library_ms": None},
+         "library_ms": None, "floor_ms": floor, "shapes": [b_shape]},
     ]
 
 
@@ -312,7 +461,7 @@ PROBE_REPLACES = {
 }
 
 
-def phase_probes():
+def phase_probes(floor: float):
     """The probe entry point as a user runs it, its launches counted from 0:
     the four gather-probe kernels at every one of its shapes, each against
     its plain version (the probe raises on a disagreement), then the times.
@@ -339,7 +488,9 @@ def phase_probes():
                  "ms": sum(r["ms"] for r in recs),
                  "plain_ms": sum(r["plain_ms"] for r in recs),
                  "bound_ms": sum(r["bound_ms"] for r in recs), "bound_by": "bytes",
-                 "library_ms": None if None in lib else sum(lib)}
+                 "library_ms": None if None in lib else sum(lib), "floor_ms": floor,
+                 "shapes": [shape_line(f"{name} {r['probe']} {r['shape']}", r["ms"],
+                                       r["call_ms"], r["bound_ms"], floor) for r in recs]}
         log(f"[3] {name} over {len(recs)} shapes: {entry['ms']:.4f} ms, plain "
             f"{entry['plain_ms']:.4f} ms, library call {entry['library_ms']}, bound "
             f"{entry['bound_ms']:.4f} ms (bytes)")
@@ -698,6 +849,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help=f"trace the last {PROFILED_STEPS} train steps and one rendered view "
                          "with torch.profiler")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3: the kernel table without launch counts, and no "
+                         "ok line")
     args = ap.parse_args(argv)
     if args.profile and args.steps < PROFILED_STEPS + 4:
         ap.error(f"--profile needs --steps >= {PROFILED_STEPS + 4}")
@@ -715,16 +869,25 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from unboundednerfpytorch_tpu_torch.probes.timing import MANY_LAUNCHES, launch_floor_ms
+
     card = phase_device()
     phase_build()
     cfg = slice_config(args.steps)
     tv_shapes, march_shape, shift, interval = slice_shapes(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [phase_tv(gen, tv_shapes)]
-    kernels += phase_march(gen, march_shape, shift, interval)
-    probe_kernels, probe_counts = phase_probes()
+    floor = launch_floor_ms()
+    log(f"[3] launch floor: an empty <<<1, 32>>> kernel takes {floor:.5f} ms a launch "
+        f"({MANY_LAUNCHES} launches in one CUDA graph between one pair of events)")
+    kernels = [phase_tv(gen, tv_shapes, floor)]
+    kernels += phase_march(gen, march_shape, shift, interval, floor)
+    probe_kernels, probe_counts = phase_probes(floor)
     kernels += probe_kernels
     torch.cuda.empty_cache()
+    if args.kernels_only:
+        log(f"card: {card}")
+        log(json.dumps({"kernels": kernels}))
+        return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as exp_dir:
         train_counts, data = phase_train(cfg, args.steps, args.views, args.profile, exp_dir)
         torch.cuda.empty_cache()

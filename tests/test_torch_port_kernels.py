@@ -51,8 +51,13 @@ def _tv_data(shape, seed=0, sparse_frac=0.4):
     return p, g
 
 
+# shapes whose rows, planes and banks are no multiple of a 16-byte vector, one
+# element, and a tensor smaller than a vector
+RAGGED_TV_SHAPES = [(2, 7, 9, 11, 1), (3, 5, 7, 199, 12), (1, 1, 1, 1, 1), (1, 2, 1, 3, 5)]
+
+
 @pytest.mark.parametrize("shape", [(2, 9, 8, 6, 2), (5, 5, 5, 1), (1, 4, 16, 10, 3),
-                                   (3, 1, 6, 5, 2)])
+                                   (3, 1, 6, 5, 2)] + RAGGED_TV_SHAPES)
 @pytest.mark.parametrize("dense", [True, False])
 def test_tv_plain_matches_pallas(shape, dense):
     p, g = _tv_data(shape)
@@ -100,7 +105,8 @@ def _march_data(seed=0, n=40, s=33):
     return density, mask
 
 
-@pytest.mark.parametrize("n,s", [(40, 33), (37, 17)])
+@pytest.mark.parametrize("n,s", [(40, 33), (37, 17), (37, 96), (5, 200), (2048, 96), (1, 17),
+                                 (37, 1)])
 def test_march_forward_plain_matches_pallas(n, s):
     density, mask = _march_data(n=n, s=s)
     shift, interval = -1.5, 0.6
@@ -188,6 +194,31 @@ def test_fused_march_autograd_wiring(monkeypatch):
     np.testing.assert_allclose(d.grad.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("needs_grad", [True, False])
+def test_fused_march_picks_its_route_by_the_gradient(monkeypatch, needs_grad):
+    """On a CUDA tensor ``fused_alpha2weights`` runs FusedMarch where density
+    needs a gradient, and else the forward alone without residuals. Held here
+    with the launch replaced by a recorder (the route is Python's choice)."""
+    calls = []
+
+    def fake_forward(density, mask, shift, interval, residuals=True):
+        calls.append(residuals)
+        w, ai, alpha = march.fused_alpha2weights_plain(density, mask, shift, interval)
+        return w, ai, alpha, torch.ones_like(w) if residuals else w.new_empty((0, w.shape[1]))
+
+    class OnTheCard(torch.Tensor):
+        device = torch.device("cuda")
+
+    monkeypatch.setattr(march, "march_forward", fake_forward)
+    density, mask = _march_data(9, n=6, s=5)
+    d = torch.from_numpy(density).requires_grad_(needs_grad).as_subclass(OnTheCard)
+    out = march.fused_alpha2weights(d, torch.from_numpy(mask), -1.0, 0.5)
+    assert len(out) == 3 and calls == [needs_grad]
+    with torch.no_grad():
+        march.fused_alpha2weights(d, torch.from_numpy(mask), -1.0, 0.5)
+    assert calls == [needs_grad, False]
+
+
 def test_plain_alpha_ops_match_jax():
     density, mask = _march_data(6)
     a_j = jalpha.raw2alpha(jnp.asarray(density), -2.0, 0.5)
@@ -210,30 +241,83 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("how", ["out_of_place", "in_place", "views", "one_thread_an_element"])
+@pytest.mark.parametrize("gate", [1.0, 0.0])
+@pytest.mark.parametrize("shape", [(3, 9, 8, 7, 5)] + RAGGED_TV_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dense", [True, False])
-def test_tv_kernel_matches_plain(cuda, dtype, dense):
-    p, g = _tv_data((3, 9, 8, 7, 5), seed=11)
+def test_tv_kernel_matches_plain(cuda, dtype, dense, shape, gate, how):
+    """``how``: a fresh output; ``out is grad``; param, grad and out as views
+    that start 1, 3 and 2 elements past an aligned address; the kernel of one
+    thread an element forced."""
+    p, g = _tv_data(shape, seed=11)
     pt = torch.from_numpy(p).to("cuda", dtype)
     gt = torch.from_numpy(g).to("cuda", dtype)
-    got = tv.tv_add_grad(pt, gt, *W3, 1.0, dense)
-    want = tv.tv_add_grad_plain(pt.float(), gt.float(), *W3, 1.0, dense)
+    want = tv.tv_add_grad_plain(pt.float(), gt.float(), *W3, gate, dense)
+    if how == "out_of_place":
+        got = tv.tv_add_grad(pt, gt, *W3, gate, dense)
+    elif how == "in_place":
+        got = tv.tv_add_grad(pt, gt, *W3, gate, dense, out=gt)
+        assert got is gt
+    elif how == "views":
+        n = pt.numel()
+        bufs = [torch.zeros(n + 8, device="cuda", dtype=dtype) for _ in range(3)]
+        pv, gv, got = (b[o:o + n].view(shape) for b, o in zip(bufs, (1, 3, 2)))
+        pv.copy_(pt)
+        gv.copy_(gt)
+        tv.tv_add_grad(pv, gv, *W3, gate, dense, out=got)
+        assert all(float(b[:o].abs().sum() + b[o + n:].abs().sum()) == 0.0
+                   for b, o in zip(bufs, (1, 3, 2))), "wrote outside the views"
+    else:
+        got = tv._launch(pt, gt, torch.empty_like(gt), *W3, gate, dense, simple=True)
     if dtype == torch.bfloat16:
         _assert_bf16_rounding_of(got, want.cpu().numpy())
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+def _rays_without_threshold_flip(t_excl, alpha_ref):
+    """The forward kernel multiplies the transmittance in another order than
+    ``cumprod``: a sample within rounding (1e-5 relative) of the early-exit
+    threshold may be processed by one of the two only. At most one such sample
+    is let through; its ray is left out of the elementwise comparison."""
+    t_ref = torch.cat([torch.ones_like(alpha_ref[:, :1]),
+                       torch.cumprod(1 - alpha_ref, -1)[:, :-1]], -1)
+    thres = march.alpha_ops.EARLY_EXIT_T
+    flipped = (t_excl >= thres) != (t_ref >= thres)
+    assert int(flipped.sum()) <= 1
+    assert bool(((t_ref[flipped] - thres).abs() <= 1e-5 * thres).all())
+    return ~flipped.any(-1), t_ref
+
+
 @pytest.mark.cuda
-def test_march_kernels_match_plain(cuda):
-    density, mask = _march_data(8, n=300, s=70)
+@pytest.mark.parametrize("n,s", [(300, 70)] + [(n, s) for s in (1, 17, 33, 96, 200)
+                                              for n in (0, 1, 37, 2048)])
+def test_march_kernels_match_plain(cuda, n, s):
+    density, mask = _march_data(8, n=n, s=s)
     d = torch.from_numpy(density).cuda()
     m = torch.from_numpy(mask).cuda()
     w, ai, alpha, t_excl = march.march_forward(d, m, -1.0, 0.5)
+    assert (w.shape, ai.shape, alpha.shape, t_excl.shape) == ((n, s), (n,), (n, s), (n, s))
+    # without a gradient: the same values, and no residual kept
+    with torch.no_grad():
+        lean = march.fused_alpha2weights(d, m, -1.0, 0.5)
+    for got, want in zip(lean, (w, ai, alpha)):
+        assert got.shape == want.shape and torch.equal(got, want)
+    if n == 0:
+        return
     w_ref, ai_ref, alpha_ref = march.fused_alpha2weights_plain(d, m, -1.0, 0.5)
-    for got, want in ((w, w_ref), (ai, ai_ref), (alpha, alpha_ref)):
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    cw, cl, _ = (torch.from_numpy(c).cuda() for c in _cotangents(300, 70))
+    same, t_ref = _rays_without_threshold_flip(t_excl, alpha_ref)
+    for got, want in ((w, w_ref), (ai, ai_ref), (alpha, alpha_ref), (t_excl, t_ref)):
+        torch.testing.assert_close(got[same], want[same], rtol=1e-5, atol=1e-6)
+    # the backward kernel, fed by the forward's residuals, and the same through autograd
+    cw, cl, ca = (torch.from_numpy(c).cuda() for c in _cotangents(n, s))
     gd = march.march_backward(alpha, t_excl, ai, cw, cl, -1.0, 0.5, d, m)
     want = march.march_backward_plain(alpha, t_excl, ai, cw, cl, -1.0, 0.5, d, m)
     torch.testing.assert_close(gd, want, rtol=1e-5, atol=1e-6)
+    dg = d.clone().requires_grad_(True)
+    w2, ai2, alpha2 = march.fused_alpha2weights(dg, m, -1.0, 0.5)
+    assert torch.equal(w2, w) and torch.equal(ai2, ai) and torch.equal(alpha2, alpha)
+    (torch.sum(w2 * cw) + torch.sum(ai2 * cl) + torch.sum(alpha2 * ca)).backward()
+    want = want + ca * march._dalpha_ddensity(d, -1.0, 0.5) * m
+    torch.testing.assert_close(dg.grad, want, rtol=1e-5, atol=1e-6)

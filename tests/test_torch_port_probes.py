@@ -24,7 +24,7 @@ import torch
 
 from unboundednerfpytorch_tpu_torch.ops.cuda import build
 from unboundednerfpytorch_tpu_torch.ops.cuda import gather_probe as gp
-from unboundednerfpytorch_tpu_torch.probes import gather, timing
+from unboundednerfpytorch_tpu_torch.probes import gather, timing, variants
 
 
 @pytest.fixture
@@ -261,6 +261,28 @@ def test_probe_entry_point_raises_without_cuda(monkeypatch):
         gather.main()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gather.run_all()
+
+
+def test_probe_records_keep_call_and_launch_time_apart():
+    """On the CPU both are the host clock; the keys are what chip_smoke reads."""
+    recs = [r for r in gather.run_all("cpu") if "bound_ms" in r]
+    assert recs and all(r["ms"] > 0 and r["call_ms"] > 0 for r in recs)
+
+
+@pytest.mark.parametrize("make,n", [(variants.tv_variants, 5), (variants.march_variants, 8)])
+def test_kernel_variants_still_find_their_text(make, n):
+    """A variant is the committed source with one constant replaced: every
+    substitution finds its text, and one variant is the source as committed."""
+    made = make()
+    assert len(made) == n and len(set(made.values())) == n
+    committed = {build.SOURCES["tv"].read_text(), build.SOURCES["march"].read_text()}
+    assert sum(text in committed for text in made.values()) == 1
+
+
+def test_variants_entry_point_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        variants.main()
 
 
 def test_bound_ms():

@@ -10,8 +10,9 @@
 //   t_excl_i = prod_{j<i} (1 - alpha_j)            (exclusive transmittance)
 //   processed_i = t_excl_i >= 1e-3                 (the reference's early exit)
 //   w_i = processed_i ? t_excl_i * alpha_i : 0
-//   alphainv = t_excl after the last processed sample
-// and alpha, t_excl are written as residuals for the backward.
+//   alphainv = t_excl of the first sample that is not processed, or the product
+//              over all samples where every one is
+// and alpha is an output, t_excl the residual the backward needs beside it.
 //
 // Backward, per ray in reverse, carrying back = gl * alphainv + sum_{j>i} gw_j w_j
 // over processed samples:
@@ -21,16 +22,44 @@
 // exactly the formula and epsilons of _bwd_kernel. The direct cotangent of
 // the alpha output is added by the autograd wrapper, as the TPU VJP does.
 //
-// What bounds it: at the train step's [2048, 96] both kernels move about
-// 3-4 MB, which the card's memory streams in about a microsecond; the run is
-// bound by launch latency and by too few threads (one per ray, 2048 of them)
-// rather than by bytes or operations.
+// What bounds it: latency. At the train step's [2048, 96] the forward moves
+// 3.3 MB and the backward 4.1 MB, which the card's memory streams in about a
+// microsecond, as long as an empty launch takes (launch_floor below); a
+// render chunk's [8192, 96] forward, which keeps no t_excl, moves 10 MB in
+// 3 microseconds. What a launch costs beyond that is the chain from the first
+// load to the last store, and how many multiprocessors share it.
 //
-// Design: one thread per ray, the sequential scan in registers, exactly the
-// loop order of the CUDA reference. Left for later: coalescing the per-ray
-// loop (neighbouring threads read addresses S floats apart), a warp per ray
-// with a shuffle scan for long rays, and fusing the kernel into the
-// gather/composite around it.
+// Forward design: a warp a ray. With a thread a ray (the backward's layout
+// still) neighbouring threads read addresses S floats apart (32 sectors a
+// request for 128 useful bytes, on each of five arrays), 2048 rays fill 16 of
+// 132 multiprocessors, and the 96 exp/log1p/multiply steps of a ray form one
+// dependent chain: 58 microseconds at [2048, 96] on an NVIDIA H100 80GB HBM3 at
+// 700 W, where all times of this note were taken. Here the lanes of
+// a warp take 32 consecutive samples of one ray (every load and store is one
+// coalesced 128-byte request), three such chunks are in flight at once (the
+// path's 96 samples in one pass: all loads and all exp/log1p are
+// independent), the products of 1 - alpha within a chunk are a five-step
+// shuffle scan, and only the carry from chunk to chunk is sequential. 2048
+// rays are 256 blocks of eight warps over all multiprocessors: 2.8
+// microseconds, and 5.0 at [8192, 96]. Two, four or eight warps a block and
+// three or four chunks all measure within 10% of each other
+// (probes/variants.py). What is left at [2048, 96] is one wave of warps going
+// from load to store: without exp/log1p the same kernel takes 2.3 microseconds
+// (two and a half launch floors), without the scan 2.9 of its 3.0.
+//
+// The scan multiplies in another order than a sequential loop, so t_excl
+// differs from it in its last bits. `processed` is decided, sample by sample,
+// on the very value written to t_excl, which is what march_backward decides
+// it on again; alphainv is the t_excl of the first sample that is not
+// processed, or the full product where every sample is (the plain version's
+// rule). A transmittance within rounding of the threshold can thus fall on
+// the other side than in the plain version: the checks on the card count such
+// samples instead of loosening their tolerance. Without a gradient (t_excl
+// null) the forward stores no t_excl: a third fewer bytes written.
+//
+// Backward design: one thread per ray, the reverse scan in registers (70
+// microseconds at [2048, 96]). Left for later: the warp-a-ray layout for the
+// backward, and fusing the forward into the gather/composite around it.
 
 #include <cuda_runtime.h>
 
@@ -43,29 +72,68 @@ __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
 }
 
-__global__ void march_forward_kernel(const float* __restrict__ density,
-                                     const unsigned char* __restrict__ mask, float shift,
-                                     float interval, int N, int S, float* __restrict__ weights,
-                                     float* __restrict__ alphainv, float* __restrict__ alpha,
-                                     float* __restrict__ t_excl) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+constexpr int kWarpsPerBlock = 8;
+constexpr int kChunks = 3;  // chunks of 32 samples a warp keeps in flight
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+template <bool kResiduals>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+march_forward_kernel(const float* __restrict__ density, const unsigned char* __restrict__ mask,
+                     float shift, float interval, int N, int S, float* __restrict__ weights,
+                     float* __restrict__ alphainv, float* __restrict__ alpha,
+                     float* __restrict__ t_excl) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (n >= N) return;  // the whole warp leaves together
   const long long row = (long long)n * S;
-  float T = 1.0f;
-  float ai = 1.0f;
-  for (int s = 0; s < S; ++s) {
-    const long long i = row + s;
-    const float a =
-        mask[i] ? 1.0f - expf(-softplus(density[i] + shift) * interval) : 0.0f;
-    const float t_next = T * (1.0f - a);
-    const bool processed = T >= kEarlyExitT;
-    weights[i] = processed ? T * a : 0.0f;
-    if (processed) ai = t_next;
-    alpha[i] = a;
-    t_excl[i] = T;
-    T = t_next;
+  float carry = 1.0f;  // transmittance entering the group of chunks
+  float ai = 0.0f;
+  bool stopped = false;
+  for (int base = 0; base < S; base += 32 * kChunks) {
+    float a[kChunks], v[kChunks];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int s = base + 32 * c + lane;
+      float d = 0.0f;
+      bool live = false;
+      if (s < S) {
+        d = density[row + s];
+        live = mask[row + s] != 0;
+      }
+      a[c] = live ? 1.0f - expf(-softplus(d + shift) * interval) : 0.0f;
+      v[c] = 1.0f - a[c];
+    }
+    // v[c] becomes the product of 1 - alpha over the chunk's lanes 0..lane
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const float u = __shfl_up_sync(kFullWarp, v[c], o);
+        if (lane >= o) v[c] *= u;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int s = base + 32 * c + lane;
+      const bool valid = s < S;
+      float e = __shfl_up_sync(kFullWarp, v[c], 1);
+      if (lane == 0) e = 1.0f;
+      const float T = carry * e;  // exclusive transmittance of this sample
+      const bool processed = T >= kEarlyExitT;
+      if (valid) {
+        weights[row + s] = processed ? T * a[c] : 0.0f;
+        alpha[row + s] = a[c];
+        if (kResiduals) t_excl[row + s] = T;
+      }
+      const unsigned stop = __ballot_sync(kFullWarp, valid && !processed);
+      if (!stopped && stop != 0u) {
+        ai = __shfl_sync(kFullWarp, T, __ffs(stop) - 1);
+        stopped = true;
+      }
+      carry *= __shfl_sync(kFullWarp, v[c], 31);
+    }
   }
-  alphainv[n] = ai;
+  if (lane == 0) alphainv[n] = stopped ? ai : carry;
 }
 
 __global__ void march_backward_kernel(const float* __restrict__ alpha,
@@ -96,17 +164,21 @@ __global__ void march_backward_kernel(const float* __restrict__ alpha,
 
 constexpr int kThreads = 128;
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
 
+// t_excl may be null: the forward then keeps no residual for the backward.
 // Returns the cudaError_t of the launch.
 int march_forward(const void* density, const void* mask, float shift, float interval, int N,
                   int S, void* weights, void* alphainv, void* alpha, void* t_excl,
                   void* stream) {
   if (N <= 0 || S <= 0) return 0;
-  const int blocks = (N + kThreads - 1) / kThreads;
-  march_forward_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (N + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  auto kernel = t_excl != nullptr ? march_forward_kernel<true> : march_forward_kernel<false>;
+  kernel<<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
       (const float*)density, (const unsigned char*)mask, shift, interval, N, S,
       (float*)weights, (float*)alphainv, (float*)alpha, (float*)t_excl);
   return (int)cudaGetLastError();
@@ -122,6 +194,12 @@ int march_backward(const void* alpha, const void* t_excl, const void* alphainv,
       (const float*)alpha, (const float*)t_excl, (const float*)alphainv, (const float*)gw,
       (const float*)gl, shift, interval, (const float*)density,
       (const unsigned char*)mask, N, S, (float*)gd);
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel: timed like the others, it gives the launch floor.
+int launch_floor(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -11,8 +11,10 @@ fused_alpha2weights`` (two TPU kernels under a ``jax.custom_vjp``):
 
 :func:`fused_alpha2weights` runs :func:`fused_alpha2weights_plain` (the
 ``ops/alpha.py`` cumprod scan under autograd) for CPU tensors only; for CUDA
-tensors it runs the kernels of ``csrc/march.cu`` under :class:`FusedMarch`
-or raises. ``shift`` and ``interval`` get no gradient, nor does ``mask``.
+tensors it runs the kernels of ``csrc/march.cu`` or raises: under
+:class:`FusedMarch` where ``density`` needs a gradient, else the forward
+kernel alone, which then keeps no ``t_excl`` for a backward. ``shift`` and
+``interval`` get no gradient, nor does ``mask``.
 
 The two launches are registered as ``torch.library`` custom ops
 (``unerf_kernels::march_forward`` / ``march_backward``): the libraries stay
@@ -71,12 +73,13 @@ def _check(density, mask):
 
 
 @torch.library.custom_op("unerf_kernels::march_forward", mutates_args=())
-def _march_forward_op(density: Tensor, mask: Tensor, shift: float,
-                      interval: float) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+def _march_forward_op(density: Tensor, mask: Tensor, shift: float, interval: float,
+                      residuals: bool) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     N, S = density.shape
     w = torch.empty_like(density)
     alpha = torch.empty_like(density)
-    t_excl = torch.empty_like(density)
+    # without residuals the kernel gets a null pointer and stores no t_excl
+    t_excl = torch.empty_like(density) if residuals else density.new_empty((0, S))
     ai = torch.empty((N,), dtype=density.dtype, device=density.device)
     lib = build.load("march")
     fn = lib.march_forward
@@ -85,17 +88,20 @@ def _march_forward_op(density: Tensor, mask: Tensor, shift: float,
                    ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
     stream = torch.cuda.current_stream(density.device).cuda_stream
     err = fn(density.data_ptr(), mask.data_ptr(), float(shift), float(interval), N, S,
-             w.data_ptr(), ai.data_ptr(), alpha.data_ptr(), t_excl.data_ptr(), stream)
+             w.data_ptr(), ai.data_ptr(), alpha.data_ptr(),
+             t_excl.data_ptr() if residuals else None, stream)
     build.check(lib, err, "march_forward")
     build.LAUNCHES["march_forward"] += 1
     return w, ai, alpha, t_excl
 
 
-def march_forward(density, mask, shift: float, interval: float):
-    """Launch the forward kernel: (weights, alphainv, alpha, t_excl)."""
+def march_forward(density, mask, shift: float, interval: float, residuals: bool = True):
+    """Launch the forward kernel: (weights, alphainv, alpha, t_excl).
+    ``residuals=False`` keeps no ``t_excl`` for the backward (it comes back
+    with no rows): what a forward without a gradient needs."""
     _check(density, mask)
     return _march_forward_op(density.contiguous(), mask.contiguous(), float(shift),
-                             float(interval))
+                             float(interval), bool(residuals))
 
 
 @torch.library.custom_op("unerf_kernels::march_backward", mutates_args=())
@@ -173,4 +179,8 @@ def fused_alpha2weights(density: torch.Tensor, mask: torch.Tensor, shift, interv
     """
     if density.device.type == "cpu":
         return fused_alpha2weights_plain(density, mask, shift, interval)
-    return FusedMarch.apply(density, mask, float(shift), float(interval))
+    if torch.is_grad_enabled() and density.requires_grad:
+        return FusedMarch.apply(density, mask, float(shift), float(interval))
+    # no gradient (the whole render path): the forward alone, without residuals
+    w, ai, alpha, _ = march_forward(density, mask, shift, interval, residuals=False)
+    return w, ai, alpha

@@ -45,21 +45,25 @@ def tv_add_grad_plain(param, grad, wx, wy, wz, gate, dense, out=None):
 @torch.library.custom_op("unerf_kernels::tv_add_grad", mutates_args=("out",))
 def _tv_add_grad_op(param: Tensor, grad: Tensor, out: Tensor, B: int, X: int, Y: int, Z: int,
                     C: int, wx: float, wy: float, wz: float, gate: float,
-                    dense: bool) -> None:
+                    dense: bool, simple: bool) -> None:
     lib = build.load("tv")
     fn = lib.tv_add_grad
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     stream = torch.cuda.current_stream(param.device).cuda_stream
     err = fn(param.data_ptr(), grad.data_ptr(), out.data_ptr(), _DTYPE_CODE[param.dtype],
              B, X, Y, Z, C, wx / 6.0, wy / 6.0, wz / 6.0, float(gate), int(bool(dense)),
-             stream)
+             int(simple), stream)
     build.check(lib, err, "tv_add_grad")
     build.LAUNCHES["tv_add_grad"] += 1
 
 
-def _launch(param, grad, out, wx, wy, wz, gate, dense):
+def _launch(param, grad, out, wx, wy, wz, gate, dense, simple=False):
+    """Check the arguments and launch. ``simple`` forces the kernel of one
+    thread an element, which otherwise serves only rows too long for the tiled
+    kernel's shared memory (for the tests that hold both against the plain
+    version)."""
     if not (param.is_cuda and grad.is_cuda and out.is_cuda):
         raise ValueError("tv_add_grad: all tensors must be on the GPU")
     if param.dtype not in _DTYPE_CODE:
@@ -78,7 +82,8 @@ def _launch(param, grad, out, wx, wy, wz, gate, dense):
         B *= int(d)
     if X * Y * Z * C >= 2**31:
         raise ValueError("tv_add_grad: one bank must hold fewer than 2^31 elements")
-    _tv_add_grad_op(param, grad, out, B, X, Y, Z, C, wx, wy, wz, float(gate), bool(dense))
+    _tv_add_grad_op(param, grad, out, B, X, Y, Z, C, wx, wy, wz, float(gate), bool(dense),
+                    bool(simple))
     return out
 
 

@@ -7,7 +7,9 @@ Counterpart of the JAX package's ``tools/probe_dynamic_gather.py``,
 ``probe_pallas_gather.py``, ``probe_vreg_gather.py`` and
 ``probe_kernel_gather.py``, at their shapes, with the four hand-written
 kernels of ``csrc/gather_probe.cu``. One JSON line per probe, as the tools
-print: the kernel's time, the plain PyTorch version's, the time of the one
+print: the kernel's device time (``ms``; a call under 0.2 ms is timed as many
+launches in one CUDA graph) and the time of a call through its wrapper
+(``call_ms``), the plain PyTorch version's, the time of the one
 PyTorch call that computes the same function where there is one
 (``torch.index_select``: a yardstick, used nowhere in the port), the bound
 (each input read once, each output written once, over the card's memory
@@ -43,7 +45,7 @@ from unboundednerfpytorch_tpu_torch.device import resolve_device
 from unboundednerfpytorch_tpu_torch.ops import interp
 from unboundednerfpytorch_tpu_torch.ops import packed as packed_ops
 from unboundednerfpytorch_tpu_torch.ops.cuda import gather_probe as gp
-from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, time_ms
+from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms
 
 # the shapes of the JAX package's tools
 TILE_SHAPES = (  # (probe, A, C, n_blocks)
@@ -66,9 +68,11 @@ ROW_LOOPS = ("p1_rowloop", "vmem_rowloop")  # probes launched with one thread pe
 
 
 def _timer(device):
-    """ms of a call: CUDA events on the card, the host clock on the CPU."""
+    """(ms a launch, ms a call through the wrapper) of a function: on the
+    card ``timing.kernel_ms`` (CUDA events; a call under 0.2 ms is timed again
+    as many launches in one CUDA graph), on the CPU the host clock for both."""
     if device.type == "cuda":
-        return time_ms
+        return kernel_ms
 
     def host_ms(fn, iters=3, warmup=1):
         for _ in range(warmup):
@@ -76,7 +80,8 @@ def _timer(device):
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
-        return (time.perf_counter() - t0) / iters * 1e3
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        return ms, ms
 
     return host_ms
 
@@ -100,14 +105,15 @@ def _record(probe, kernel, ctx, run, plain, library, n_bytes, exact, shape, unit
     """Check ``run()`` against ``plain()``, then time run, plain and library."""
     device, timer = ctx
     err = _compare(probe, shape, run, plain, exact)
-    ms = timer(run)
-    plain_ms = timer(plain, iters=3, warmup=1)
-    lib_ms = timer(library) if library is not None else None
+    ms, call_ms = timer(run)
+    plain_ms = timer(plain, iters=3, warmup=1)[0]
+    lib_ms = timer(library)[0] if library is not None else None
     bnd, by = bound_ms(n_bytes, 0)
     rec = {"probe": probe, "kernel": kernel, "shape": shape, "ok": True,
            "timed_on": "gpu" if device.type == "cuda" else "cpu (plain version)",
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": bnd, "bound_by": by, "GB_per_s": n_bytes / ms / 1e6}
+           "max_abs_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by,
+           "GB_per_s": n_bytes / ms / 1e6}
     rec.update({k: n / ms / 1e3 for k, n in units.items()})  # M units per second
     return rec
 
@@ -212,7 +218,7 @@ def probe_slice_gather(ctx, gen, scale=1):
         def fn():
             return torch.index_select(table, 0, rows).reshape(N, K * C).float().sum(dim=1)
 
-        ms = timer(fn)
+        ms = timer(fn)[0]
         out.append({"probe": "torch_index_select_slices", "kernel": None, "K": K, "ok": True,
                     "timed_on": device.type, "ms": ms, "M_slices_per_s": N / ms / 1e3,
                     "M_rows_per_s": N * K / ms / 1e3})
@@ -245,8 +251,8 @@ def probe_k0_layouts(ctx, gen, scale=1):
     out = []
     for layout, table, idx in (("8 corner rows of 24 B", flat, idx8),
                                ("1 packed row of 192 B", packed, base)):
-        ms = timer(lambda: gp.gather_rows(table, idx))
-        lib = timer(lambda: torch.index_select(table, 0, idx))
+        ms = timer(lambda: gp.gather_rows(table, idx))[0]
+        lib = timer(lambda: torch.index_select(table, 0, idx))[0]
         out.append({"probe": "k0_layout", "kernel": "gather_rows", "layout": layout, "ok": True,
                     "timed_on": device.type, "bank": [X, Y, Z, C], "queries": N,
                     "table_MB": table.numel() * 2 / 1e6, "ms": ms, "library_ms": lib,
