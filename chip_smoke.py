@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps 10] [--views 20] [--profile] [--kernels-only]
+    python3 chip_smoke.py [--steps 16] [--views 20] [--profile] [--kernels-only]
 
 Phases, each reported on its own line:
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
@@ -18,22 +18,38 @@ Phases, each reported on its own line:
      (also through views that are aligned otherwise, and with the kernel of
      one thread an element forced); the march forward at the train step's
      shape with residuals, at a render chunk's without a gradient (its entry
-     sums the two) and at four ragged shapes, the backward fed by each
-     forward's residuals. A sample whose transmittance lies within rounding of
-     the early-exit threshold may fall on the other side than in the plain
-     version: such samples are counted and bounded, not absorbed in the
-     tolerance. The four gather-probe kernels are driven through their entry
+     sums the two) and at nine ragged shapes (S of 1, 17, 31, 33, 96, 130 and
+     200, N no multiple of a block's rays, rays that end at their first sample,
+     masked tails), the backward fed by each forward's residuals and held to
+     the plain version. A sample whose transmittance lies within
+     rounding of the early-exit threshold may fall on the other side than in
+     the plain version: such samples are counted and bounded, not absorbed in
+     the tolerance; the backward sums in another order than the plain version,
+     which its tolerance allows for element by element
+     (``march_backward_tolerance``). The four gather-probe kernels are driven through their entry
      point (``probes.gather.main``), which holds each against its plain
      version at every one of its shapes (indexed copies bit-equal, ``box_sum``
      within 1e-3 relative) and times it; that one run, counted from 0, also
      gives these kernels' launches;
   4. train the FourierGrid fine stage of
-     ``configs/nerf_unbounded/bicycle_single.py`` at full width (``pg_scale=()``,
-     so the grids start at their final ~200^3 x 7 banks) on a seeded synthetic
-     scene of bicycle's size, with launch counts checked, save ``fine_last``,
-     then compare a forward on the card with the plain path on the CPU.
-     10 steps by default (20 in the first slice), so that the whole script
-     stays well inside its time limit;
+     ``configs/nerf_unbounded/bicycle_single.py`` with its ``pg_scale``
+     boundaries, the schedule compressed to ``PG_SCALE`` = (4, 8): the grids
+     start at 200^3 / 4 voxels, are upsampled at steps 4 and 8 (occupancy
+     refreshed, optimizer rebuilt, lr back at its base), and every step from
+     the last boundary on runs at the config's full width (7 banks of 199^3,
+     k0 12 channels, bf16), where the step is timed. 16 steps by default, on a
+     seeded synthetic scene of bicycle's size, the analytic occupancy seed
+     standing in for the coarse stage. Checked: the grid shapes after each
+     boundary, the occupancy, the budget, ``lr_scale``, ``act_shift`` and the
+     launch counts (``tv_add_grad`` 2 a step, both march kernels 1). It saves
+     ``fine_last``, then compares a forward on the card with the plain path
+     on the CPU;
+  4b. one boundary on the card against the same boundary on the CPU from one
+     state (see ``phase_boundary``): there the refresh bites, a deferred
+     sample budget comes on and Adam restarts;
+  4c. three steps of the same config through ``run_train`` without the seed,
+     one boundary at step 2: the loop itself holds the sample budget at 0
+     until the boundary and switches it on there;
   5. render: the checkpoint gets the synthetic scene's geometry imprinted
      (a few steps do not make a scene) and ``fast_color_thres`` takes its
      schedule's final value; then ``render.run_render`` (``load_model``,
@@ -80,6 +96,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "nerf_unbounded" / "bicycle_single.py"
 
 PROFILED_STEPS = 4
+# bicycle_single's eight pg_scale boundaries (steps 2000 to 16000) compressed
+# to two: the grids start at 200^3 / 4 voxels, double at each boundary, and
+# every step from the last boundary on runs at the config's full width
+PG_SCALE = (4, 8)
+WARMUP_STEPS = 2  # after a boundary, before a step is timed
 H, W = 411, 618  # bicycle at factor=8
 RENDER_VIEWS = 3  # held-out views: one warm-up, two timed
 RENDER_CHUNK = 8192
@@ -161,12 +182,13 @@ def phase_build() -> None:
 
 
 def slice_config(steps: int):
-    """bicycle_single with its fine stage started at the final grid."""
+    """bicycle_single with its fine stage cut to ``steps`` steps and its
+    pg_scale schedule compressed to ``PG_SCALE``."""
     from unboundednerfpytorch_tpu_torch.configs import loader
 
     cfg = loader.load_config(str(CONFIG))
     return dataclasses.replace(
-        cfg, fine_train=dataclasses.replace(cfg.fine_train, pg_scale=(), N_iters=steps))
+        cfg, fine_train=dataclasses.replace(cfg.fine_train, pg_scale=PG_SCALE, N_iters=steps))
 
 
 def slice_shapes(cfg):
@@ -188,7 +210,10 @@ def slice_shapes(cfg):
 # shapes that break a design built on 16-byte vectors: rows, planes and banks
 # that are no multiple of a vector, one element, a tensor smaller than a vector
 TV_RAGGED_SHAPES = ((2, 7, 9, 11, 1), (3, 5, 7, 199, 12), (1, 1, 1, 1, 1), (1, 2, 1, 3, 5))
-MARCH_RAGGED_SHAPES = ((37, 17), (5, 200), (1, 1), (0, 96))
+# S of 1, under, over and far over a warp's 32 lanes and the backward's group
+# of 96, N no multiple of the eight rays of a block, no ray at all
+MARCH_RAGGED_SHAPES = ((37, 17), (5, 200), (1, 1), (0, 96), (37, 1), (13, 31), (37, 33),
+                       (37, 96), (11, 130))
 
 
 def shape_line(what: str, ms: float, call_ms: float, bnd: float, floor: float) -> dict:
@@ -199,6 +224,22 @@ def shape_line(what: str, ms: float, call_ms: float, bnd: float, floor: float) -
         f"max(bound, floor) / ms = {100 * share:.1f}%")
     return {"shape": what, "ms": ms, "call_ms": call_ms, "bound_ms": bnd, "floor_ms": floor,
             "share_of_max_bound_floor": share}
+
+
+def check_within(name: str, got, ref, tol) -> float:
+    """Every element: |got - ref| <= its entry of the tensor ``tol``. Returns
+    the max error."""
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    diff = (got - ref).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    worst = float((diff / tol).max()) if diff.numel() else 0.0
+    log(f"  {name}: max_abs_err {err:.3e}, worst error / its element's tolerance {worst:.3f}")
+    if not worst <= 1.0:
+        raise AssertionError(f"{name}: an element exceeds its tolerance ({worst} x)")
+    return err
 
 
 def tv_case(gen, label, shape, dtype, w) -> float:
@@ -300,7 +341,9 @@ def phase_tv(gen, tv_shapes, floor: float) -> dict:
 
 def march_inputs(gen, shape):
     """[N, S] densities: a third of the rays opaque (the early exit
-    fires), a third empty, a third mixed; a fifth of the samples masked."""
+    fires), a third empty, a third mixed; a fifth of the samples masked. Every
+    seventh ray ends at its first sample (no other is processed), and every
+    seventh has its far half masked off."""
     import torch
 
     N, S = shape
@@ -309,6 +352,9 @@ def march_inputs(gen, shape):
     d = torch.where((kind == 0)[:, None], d + 12.0, d)
     d = torch.where((kind == 1)[:, None], d - 15.0, d)
     mask = torch.rand((N, S), generator=gen, device="cuda") > 0.2
+    d[::7, 0] = 30.0
+    mask[::7, 0] = True
+    mask[1::7, S // 2 + 1:] = False
     return d, mask
 
 
@@ -369,13 +415,19 @@ def phase_march(gen, shape, shift: float, interval: float, floor: float) -> list
             return march.fused_alpha2weights(d, mask, shift, interval)
 
     def backward_check(name, d, mask, res):
+        """The kernel against the plain version: it sums gw * w in another
+        order, which ``march_backward_tolerance`` allows for element by element (1e-5 of
+        the terms of g_alpha before they cancel, with the ray's sum of
+        |gw w| + |gl alphainv| standing for every partial sum; 1e-7 absolute)."""
         w, ai, alpha, t_excl = res
         gw = torch.randn(d.shape, generator=gen, device="cuda")
         gl = torch.randn(d.shape[:1], generator=gen, device="cuda")
-        gd = march.march_backward(alpha, t_excl, ai, gw, gl, shift, interval, d, mask)
-        gd_ref = march.march_backward_plain(alpha, t_excl, ai, gw, gl, shift, interval, d, mask)
+        args = (alpha, t_excl, ai, gw, gl, shift, interval, d, mask)
+        gd_ref = march.march_backward_plain(*args)
+        tol = march.march_backward_tolerance(*args)
+        gd = march.march_backward(*args)
         torch.cuda.synchronize()
-        return gw, gl, check(name, gd, gd_ref, 1e-5, 1e-6)
+        return gw, gl, check_within(name, gd, gd_ref, tol)
 
     err_f = err_b = 0.0
     for rshape in MARCH_RAGGED_SHAPES + ((RENDER_CHUNK, shape[1]),):
@@ -543,8 +595,10 @@ def make_profiler():
                                   acc_events=True)
 
 
-def phase_train(cfg, steps: int, views: int, profile: bool, exp_dir: str):
-    """Returns (launch counts of the train run, the scene's data_dict)."""
+def phase_train(cfg, steps: int, views: int, profile: bool, exp_dir: str, card: str,
+                tv_shapes: dict):
+    """Returns (launch counts of the train run, the scene's data_dict).
+    ``tv_shapes`` holds the full-width grid shapes the run must end at."""
     import numpy as np
     import torch
 
@@ -564,7 +618,8 @@ def phase_train(cfg, steps: int, views: int, profile: bool, exp_dir: str):
         f"probe stride {fm.budget_probe_stride}, weights main {ft.weight_main} entropy "
         f"{ft.weight_entropy_last} nearclip {ft.weight_nearclip} distortion "
         f"{ft.weight_distortion} rgbper {ft.weight_rgbper}, tv {ft.weight_tv_density}/"
-        f"{ft.weight_tv_k0}, rand_bkgd {cfg.data.rand_bkgd}")
+        f"{ft.weight_tv_k0}, rand_bkgd {cfg.data.rand_bkgd}, pg_scale {ft.pg_scale} (the "
+        f"config's own boundaries compressed), decay_after_scale {ft.decay_after_scale}")
 
     t0 = time.time()
     data = synthetic.orbit_scene(views, H, W, seed=0, n_test=RENDER_VIEWS)
@@ -587,7 +642,7 @@ def phase_train(cfg, steps: int, views: int, profile: bool, exp_dir: str):
             out = fg.forward(params, mcfg, ro, rd, vd, bg=0.5)
         return out, float(-10.0 * torch.log10(torch.mean((out.rgb_marched - rgb) ** 2)))
 
-    psnrs, stamps = [], []
+    psnrs, stamps, peaks, lr_scales, boundaries = [], [], [], [], {}
     first_profiled = steps - PROFILED_STEPS + 1 if profile else steps + 1
     # made only when asked for: an unused profiler object crashes the
     # interpreter at exit ("Requested callback is not found", torch 2.11)
@@ -597,6 +652,12 @@ def phase_train(cfg, steps: int, views: int, profile: bool, exp_dir: str):
         loss = float(metrics["loss"])  # synchronises the step
         stamps.append(time.perf_counter())
         psnrs.append(float(metrics["psnr"]))
+        lr_scales.append(float(metrics["lr_scale"]))
+        if "pg_scale" in metrics:
+            boundaries[step] = metrics["pg_scale"]
+        # the peak of this step alone (a boundary's work counts to its step)
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
         if not np.isfinite(loss):
             raise AssertionError(f"step {step}: loss {loss}")
         if prof is not None and step == first_profiled - 1:
@@ -611,16 +672,72 @@ def phase_train(cfg, steps: int, views: int, profile: bool, exp_dir: str):
                                         callback=callback, coarse_mask_fn=seed_fn,
                                         exp_dir=exp_dir)
     counts = dict(build.LAUNCHES)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    dts = np.diff([t_start] + stamps) * 1e3
-    unprofiled = dts[:first_profiled - 1]
-    step_ms = float(np.median(unprofiled[3:] if len(unprofiled) > 3 else unprofiled))
+    dts = np.diff([t_start] + stamps) * 1e3  # dts[i] is step i + 1
     log(f"[4] grids density {tuple(params.density.grid.shape)} k0 "
         f"{tuple(params.k0.grid.shape)} {params.k0.grid.dtype}; S={2 * mcfg.n_inner} -> "
-        f"budget {mcfg.sample_budget}")
-    log(f"[4] {steps} steps: train psnr first {psnrs[0]:.4f} last {psnrs[-1]:.4f}; "
-        f"ms/step median after warm-up {step_ms:.1f} (first step {dts[0]:.1f}); "
-        f"peak memory {peak_gb:.2f} GB; launches {counts}")
+        f"budget {mcfg.sample_budget}; act_shift {params.act_shift:.4f}")
+
+    # ---- the schedule: what each boundary did, and what must hold around it
+    nv = (fm.num_voxels_density, fm.num_voxels_rgb)
+    if sorted(boundaries) != list(PG_SCALE):
+        raise AssertionError(f"boundaries crossed at {sorted(boundaries)}, want {PG_SCALE}")
+    for i, b in enumerate(PG_SCALE):
+        rec, div = boundaries[b], 2 ** (len(PG_SCALE) - 1 - i)
+        want_cfg = mcfg.with_num_voxels(int(nv[0] / div), int(nv[1] / div))
+        sec = rec["seconds"]
+        log(f"[4] boundary at step {b} on {card}: grids -> {rec['world_size_density']}, "
+            f"occupancy {rec['occupancy_carried']:.4f} (the old mask on the new lattice) -> "
+            f"{rec['occupancy']:.4f}, sample_budget {rec['sample_budget']}, seconds resize "
+            f"{sec['resize']:.3f} refresh {sec['refresh']:.3f} rebuild {sec['rebuild']:.3f}, the "
+            f"whole step {dts[b - 1]:.1f} ms, its peak memory {peaks[b - 1]:.2f} GB")
+        if (rec["world_size_density"], rec["world_size_rgb"]) != (
+                want_cfg.world_size_density, want_cfg.world_size_rgb):
+            raise AssertionError(f"boundary {b}: grids {rec['world_size_density']} / "
+                                 f"{rec['world_size_rgb']}, want {want_cfg.world_size_density}")
+        # with a seed mask the budget is on from the first step, and the
+        # occupancy under 1; the refresh may only take voxels away from what
+        # the old mask holds on the new lattice (a share that resampling the
+        # seed moves by a percent or two from that on the old lattice)
+        if not rec["sample_budget_before"] == rec["sample_budget"] == fm.sample_budget:
+            raise AssertionError(f"boundary {b}: sample_budget {rec['sample_budget_before']} "
+                                 f"-> {rec['sample_budget']}")
+        if not 0.0 < rec["occupancy"] <= rec["occupancy_carried"] < 1.0:
+            raise AssertionError(f"boundary {b}: occupancy {rec['occupancy_carried']} -> "
+                                 f"{rec['occupancy']}")
+    last_occupancy = boundaries[PG_SCALE[-1]]["occupancy"]
+    if mcfg.num_voxels_density != nv[0] or mcfg.sample_budget != fm.sample_budget:
+        raise AssertionError(f"final config: {mcfg.num_voxels_density} voxels, budget "
+                             f"{mcfg.sample_budget}")
+    if tuple(params.k0.grid.shape) != tv_shapes["k0"] or params.k0.grid.dtype != torch.bfloat16:
+        raise AssertionError(f"final k0 grid {tuple(params.k0.grid.shape)} "
+                             f"{params.k0.grid.dtype}, want {tv_shapes['k0']} bf16")
+    if tuple(params.density.grid.shape) != tv_shapes["density"]:
+        raise AssertionError(f"final density grid {tuple(params.density.grid.shape)}")
+    if abs(float(params.mask_cache.mask.float().mean()) - last_occupancy) > 1e-6:
+        raise AssertionError("the final mask is not the last boundary's")
+    want_shift = mcfg.act_shift - len(PG_SCALE) * ft.decay_after_scale
+    if abs(params.act_shift - want_shift) > 1e-6:
+        raise AssertionError(f"act_shift {params.act_shift}, want {want_shift}")
+    # the lr is at its base at step 1 and at every boundary, and under it between
+    at_base = [i + 1 for i, x in enumerate(lr_scales) if x == 1.0]
+    if at_base != [1, *PG_SCALE] or max(lr_scales) > 1.0:
+        raise AssertionError(f"lr_scale is 1 at steps {at_base}, want {[1, *PG_SCALE]}")
+
+    def median_ms(first, last):  # steps first..last, unprofiled ones only
+        picked = dts[first - 1:min(last, first_profiled - 1)]
+        if len(picked) == 0:
+            raise AssertionError(f"no unprofiled step between {first} and {last} to time")
+        return float(np.median(picked)), len(picked)
+
+    before_ms, n_before = median_ms(PG_SCALE[-2] + 1, PG_SCALE[-1] - 1)
+    step_ms, n_after = median_ms(PG_SCALE[-1] + 1 + WARMUP_STEPS, steps)
+    peak_gb = max(peaks)
+    log(f"[4] {steps} steps on {card}: train psnr first {psnrs[0]:.4f} last {psnrs[-1]:.4f}; "
+        f"ms/step before the last boundary (grids {boundaries[PG_SCALE[-2]]['world_size_density']}"
+        f", median of {n_before}) {before_ms:.1f}; after it, at full width (median of {n_after} "
+        f"after {WARMUP_STEPS} warm-up steps) {step_ms:.1f}; first step {dts[0]:.1f}; peak "
+        f"memory {peak_gb:.2f} GB (step {int(np.argmax(peaks)) + 1}; a full-width step "
+        f"{peaks[-1]:.2f} GB); launches {counts}")
     want = {"tv_add_grad": 2 * steps, "march_forward": steps, "march_backward": steps}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
@@ -656,6 +773,203 @@ def phase_train(cfg, steps: int, views: int, profile: bool, exp_dir: str):
             raise AssertionError(f"{field}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
         check(f"trained forward {field} (card vs CPU plain path)", got.cpu(), ref, 1e-4, 1e-5)
     return counts, data
+
+
+def phase_boundary(cfg, card: str) -> None:
+    """One pg_scale boundary on the card against the same boundary on the CPU
+    from one state: ``PG_SCALE``'s first, from 200^3 / 4 voxels to 200^3 / 2.
+
+    The state stands for a model some thousand steps into its stage, which a
+    few smoke steps cannot make: free space trained empty (raw density -5, an
+    alpha under the threshold), the synthetic scene's ball and haze imprinted,
+    seeded noise on every bank of both grids, the analytic seed as the
+    occupancy cache, Adam's moments and step count non-zero, and the sample
+    budget still deferred. Checked on the card: the refresh takes the mask
+    strictly under the share it carried over, and no voxel appears that the
+    old mask, looked up at the new lattice, did not hold; the deferred budget
+    comes on; Adam starts over on the new parameters. Card against CPU: the
+    new grids (bf16, each the rounding of an f32 lerp) equal but for elements
+    whose f32 value rounds the other way, at most 1e-3 of them and each by
+    one bf16 step; the new masks equal but for voxels whose pooled alpha lies
+    within one grain of float32 alpha (2^-24) of ``fast_color_thres``. The
+    flips are counted, not absorbed."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.convert import (
+        fourier_grid_params_from_numpy, fourier_grid_params_to_numpy,
+    )
+    from unboundednerfpytorch_tpu_torch.data import synthetic
+    from unboundednerfpytorch_tpu_torch.fields.grids import MaskGrid
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.train.step import create_train_state
+
+    fm, ft = cfg.fine_model_and_render, cfg.fine_train
+    div = 2 ** len(PG_SCALE)
+    lo, hi = (-1.0,) * 3, (1.0,) * 3
+    mcfg = fg.config_from(fm, lo, hi, int(fm.num_voxels_density / div),
+                          int(fm.num_voxels_rgb / div))
+    mcfg = dataclasses.replace(mcfg, sample_budget=0)  # deferred: no refresh yet
+    params = fg.create(mcfg, torch.Generator().manual_seed(0), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        dgrid = params.density.grid
+        dgrid += (0.3 * torch.randn(dgrid.shape, generator=gen, device="cuda")).to(dgrid.dtype)
+        dgrid[0] += -5.0 * dgrid.shape[0]
+    synthetic.imprint_scene(params, mcfg.scene_center, mcfg.scene_radius, seed=0)
+    seed_fn = synthetic.occupancy_seed(np.zeros(3), np.ones(3))
+    params.mask_cache.mask = torch.as_tensor(
+        seed_fn(params.mask_cache.mask.shape, mcfg.xyz_min, mcfg.xyz_max), device="cuda")
+    cpu_params = fourier_grid_params_from_numpy(fourier_grid_params_to_numpy(params), "cpu")
+    for name in ("density", "k0"):
+        grid = getattr(cpu_params, name).grid
+        grid.data = grid.data.to(getattr(params, name).grid.dtype)
+
+    states = []
+    for p_ in (params, cpu_params):
+        state = create_train_state(p_, ft)
+        state.optimizer.step_count = 7
+        for m in (*state.optimizer.exp_avg.values(), *state.optimizer.exp_avg_sq.values()):
+            m.fill_(0.5)
+        states.append(state)
+    old_mask = MaskGrid(params.mask_cache.mask.shape, mcfg.xyz_min, mcfg.xyz_max,
+                           mask=params.mask_cache.mask.clone())
+    old_shift = params.act_shift
+    step = PG_SCALE[0]
+
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = {}
+    state, new_cfg, rec = loop.pg_scale_boundary(states[0], mcfg, fm, ft, step,
+                                                 deferred_budget=fm.sample_budget, report=report)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    cpu_state, cpu_cfg, cpu_rec = loop.pg_scale_boundary(states[1], mcfg, fm, ft, step,
+                                                         deferred_budget=fm.sample_budget)
+    cpu_s = time.perf_counter() - t0
+    sec = rec["seconds"]
+    log(f"[4b] boundary {mcfg.world_size_density} -> {rec['world_size_density']} on {card}: "
+        f"{card_s:.3f} s (resize {sec['resize']:.3f}, refresh {sec['refresh']:.3f}, rebuild "
+        f"{sec['rebuild']:.3f}), peak memory {peak_gb:.2f} GB; on the CPU {cpu_s:.1f} s; "
+        f"occupancy {float(old_mask.mask.float().mean()):.4f} -> {rec['occupancy']:.4f} "
+        f"(CPU {cpu_rec['occupancy']:.4f})")
+    if build.LAUNCHES:
+        raise AssertionError(f"a boundary launched {dict(build.LAUNCHES)}")
+
+    # ---- what the boundary must do, on the card
+    if new_cfg != cpu_cfg or new_cfg.sample_budget != fm.sample_budget or (
+            rec["sample_budget_before"], rec["sample_budget"]) != (0, fm.sample_budget):
+        raise AssertionError(f"config after the boundary: budget {new_cfg.sample_budget}")
+    want_ws = mcfg.with_num_voxels(new_cfg.num_voxels_density, new_cfg.num_voxels_rgb)
+    if (tuple(params.density.grid.shape[1:4]), tuple(params.k0.grid.shape[1:4])) != (
+            want_ws.world_size_density, want_ws.world_size_rgb):
+        raise AssertionError(f"grids {tuple(params.k0.grid.shape)} after the boundary")
+    if abs(params.act_shift - (old_shift - ft.decay_after_scale)) > 1e-9:
+        raise AssertionError(f"act_shift {params.act_shift}")
+    opt = state.optimizer
+    held = set(opt.exp_avg) == set(opt.exp_avg_sq) == {
+        q for q in params.parameters() if q.requires_grad}
+    fresh = all(float(m.abs().max()) == 0.0 and m.shape == q.shape
+                for moments in (opt.exp_avg, opt.exp_avg_sq) for q, m in moments.items())
+    if not (held and fresh and opt.step_count == 0 and state.step == step - 1):
+        raise AssertionError("Adam did not start over on the new parameters")
+    ws = rec["world_size_density"]
+    axes = [torch.linspace(a, b, n, device="cuda")
+            for a, b, n in zip(mcfg.xyz_min, mcfg.xyz_max, ws)]
+    carried = old_mask(torch.stack(torch.meshgrid(*axes, indexing="ij"), -1))
+    mask = params.mask_cache.mask
+    if bool((mask & ~carried).any()) or not rec["occupancy"] < float(carried.float().mean()):
+        raise AssertionError("the refresh added voxels, or took none away")
+
+    # ---- card against CPU
+    for name in ("density", "k0"):
+        got = getattr(params, name).grid.detach().float().cpu()
+        ref = getattr(cpu_params, name).grid.detach().float()
+        diff = (got - ref).abs()
+        n_diff = int((diff > 0).sum())
+        step_of = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+        worst = float((diff / step_of).max())
+        log(f"  boundary {name} grid {tuple(got.shape)}: {n_diff} of {got.numel()} elements "
+            f"differ between card and CPU, the worst by {worst:.2f} bf16 steps")
+        if n_diff > 1e-3 * got.numel() or worst > 1.0:
+            raise AssertionError(f"boundary {name} grid: card and CPU disagree")
+    pooled = report["pooled_alpha"]  # what the refresh on the card held against the threshold
+    # float32 alpha is 1 - exp(..), a multiple of 2^-24 (the grain), and the
+    # two devices' exp may round a value to neighbouring grains: a voxel whose
+    # pooled alpha lies within one grain of the threshold may get another
+    # verdict. Those voxels are counted, and no other may differ
+    grain = 2.0 ** -24
+    off = (pooled - new_cfg.fast_color_thres).abs().cpu()
+    flipped = mask.cpu() != cpu_params.mask_cache.mask
+    n_flipped, n_near = int(flipped.sum()), int((off <= grain).sum())
+    log(f"  boundary mask {tuple(mask.shape)}: {n_flipped} of {flipped.numel()} voxels differ "
+        f"between card and CPU; {n_near} voxels have a pooled alpha within one grain (2^-24) "
+        f"of the threshold {new_cfg.fast_color_thres:g}")
+    if n_flipped and float(off[flipped].max()) > grain:
+        raise AssertionError(f"a voxel whose pooled alpha is {float(off[flipped].max())} off "
+                             "the threshold differs between card and CPU")
+
+
+def phase_deferred_budget(cfg, data, card: str) -> None:
+    """Phase 4c: the train loop on the card without an occupancy seed, as a
+    ``*_single`` recipe runs it: three steps of bicycle_single's fine stage
+    with one boundary at step 2 (158^3 -> 199^3). The cache starts all true,
+    so the loop holds the sample budget at 0 (step 1 marches every sample of
+    a ray) and switches it on at the boundary, whose refresh is the first to
+    read trained density; the config handed back carries the budget."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.train import loop
+
+    steps, boundary = 3, 2
+    fm = cfg.fine_model_and_render
+    cfg = dataclasses.replace(cfg, fine_train=dataclasses.replace(
+        cfg.fine_train, pg_scale=(boundary,), N_iters=steps))
+    seen, stamps, peaks = {}, [], []
+
+    def callback(step, metrics):
+        loss = float(metrics["loss"])  # synchronises the step
+        stamps.append(time.perf_counter())
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        if not np.isfinite(loss):
+            raise AssertionError(f"step {step}: loss {loss}")
+        seen[step] = metrics.get("pg_scale")
+
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t_start = time.perf_counter()
+    _, mcfg, params, _ = loop.run_train(cfg, data, seed=0, device="cuda",
+                                        log_fn=lambda m: log(f"[4c] {m}"), log_every=steps,
+                                        callback=callback)
+    counts = dict(build.LAUNCHES)
+    dts = np.diff([t_start] + stamps) * 1e3
+    rec = seen[boundary]
+    if sorted(seen) != [1, 2, 3] or rec is None or seen[1] is not None or seen[3] is not None:
+        raise AssertionError(f"boundaries seen: {seen}")
+    log(f"[4c] no seed, on {card}: sample_budget {rec['sample_budget_before']} -> "
+        f"{rec['sample_budget']} at step {boundary}, occupancy {rec['occupancy_carried']:.4f} -> "
+        f"{rec['occupancy']:.4f}; ms/step {[round(float(t), 1) for t in dts]}, peak memory by "
+        f"step {[round(p, 2) for p in peaks]} GB; launches {counts}")
+    if (rec["sample_budget_before"], rec["sample_budget"]) != (0, fm.sample_budget):
+        raise AssertionError("the deferred budget did not come on at the boundary")
+    if mcfg.sample_budget != fm.sample_budget or mcfg.num_voxels_density != fm.num_voxels_density:
+        raise AssertionError(f"final config: budget {mcfg.sample_budget}")
+    if rec["occupancy_carried"] != 1.0 or not 0.0 < rec["occupancy"] <= 1.0:
+        raise AssertionError(f"occupancy {rec['occupancy_carried']} -> {rec['occupancy']}")
+    if abs(float(params.mask_cache.mask.float().mean()) - rec["occupancy"]) > 1e-6:
+        raise AssertionError("the final mask is not the boundary's")
+    want = {"tv_add_grad": 2 * steps, "march_forward": steps, "march_backward": steps}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
 
 
 def phase_render(cfg, data, exp_dir: str, profile: bool) -> dict:
@@ -844,7 +1158,7 @@ def phase_render(cfg, data, exp_dir: str, profile: bool) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--views", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
                     help=f"trace the last {PROFILED_STEPS} train steps and one rendered view "
@@ -853,8 +1167,10 @@ def main(argv=None) -> int:
                     help="stop after phase 3: the kernel table without launch counts, and no "
                          "ok line")
     args = ap.parse_args(argv)
-    if args.profile and args.steps < PROFILED_STEPS + 4:
-        ap.error(f"--profile needs --steps >= {PROFILED_STEPS + 4}")
+    least = PG_SCALE[-1] + WARMUP_STEPS + 1 + (PROFILED_STEPS if args.profile else 0)
+    if args.steps < least:
+        ap.error(f"--steps must be at least {least}: the last boundary is at step "
+                 f"{PG_SCALE[-1]}, and full-width steps are timed after it")
 
     import torch
 
@@ -889,7 +1205,12 @@ def main(argv=None) -> int:
         log(json.dumps({"kernels": kernels}))
         return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as exp_dir:
-        train_counts, data = phase_train(cfg, args.steps, args.views, args.profile, exp_dir)
+        train_counts, data = phase_train(cfg, args.steps, args.views, args.profile, exp_dir,
+                                         card, tv_shapes)
+        torch.cuda.empty_cache()
+        phase_boundary(cfg, card)
+        torch.cuda.empty_cache()
+        phase_deferred_budget(cfg, data, card)
         torch.cuda.empty_cache()
         render_counts = phase_render(cfg, data, exp_dir, args.profile)
     # a kernel's launches: those of every path that ran it, each path counted

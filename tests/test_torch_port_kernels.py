@@ -151,6 +151,53 @@ def test_march_backward_formula_matches_pallas():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+# S of 1, under, over and far over a warp's 32 lanes and the backward kernel's
+# group of 96 samples; N no multiple of the eight rays of a block
+RAGGED_MARCH_SHAPES = [(37, 1), (13, 31), (37, 33), (37, 96), (11, 130), (3, 200)]
+
+
+@pytest.mark.parametrize("n,s", RAGGED_MARCH_SHAPES)
+def test_march_backward_formula_matches_pallas_at_ragged_shapes(n, s):
+    """As above at the shapes the warp-a-ray kernel is held to on the card,
+    with rays that end at their first sample and rays whose far half is
+    masked off. The Pallas kernel scans sequentially and the plain version by
+    ``cumsum``: every element within ``march_backward_tolerance`` (1e-5 of the
+    terms of g_alpha before they cancel, 1e-7 absolute)."""
+    density, mask = _march_data(2, n=n, s=s)
+    density[::7, 0] = 30.0
+    mask[::7, 0] = True
+    mask[1::7, s // 2 + 1:] = False
+    shift, interval = -1.0, 0.5
+    cw, cl, _ = _cotangents(n, s)
+    want = _pallas_vjp(density, mask, shift, interval, cw, cl, np.zeros_like(cw))
+    d, m = torch.from_numpy(density), torch.from_numpy(mask)
+    alpha = torch.where(m, march.alpha_ops.raw2alpha(d, shift, interval), 0.0)
+    t_excl = torch.cat([torch.ones(n, 1), torch.cumprod(1 - alpha, -1)[:, :-1]], -1)
+    _, ai, _ = march.fused_alpha2weights_plain(d, m, shift, interval)
+    args = (alpha, t_excl, ai, torch.from_numpy(cw), torch.from_numpy(cl), shift, interval, d, m)
+    got = march.march_backward_plain(*args)
+    assert got.shape == (n, s) and bool((got[~m] == 0).all())
+    if s > 1:  # a ray that ends at its first sample gives the others no gradient
+        assert bool((got[::7, 1:] == 0).all()) and bool((t_excl[::7, 1:] < 1e-3).all())
+    tol = march.march_backward_tolerance(*args)
+    excess = ((got - torch.from_numpy(want.copy())).abs() / tol).max()
+    assert float(excess) <= 1.0, float(excess)
+
+
+def test_march_backward_wrapper_refuses_wrong_inputs(monkeypatch):
+    """Shapes, dtypes and devices are checked before the launch."""
+    monkeypatch.setattr(march, "_check", lambda density, mask: None)
+    d = torch.zeros(4, 8)
+    m = torch.ones(4, 8, dtype=torch.bool)
+    good = dict(alpha=d, t_excl=d, alphainv=d[:, 0], gw=d, gl=d[:, 0])
+    for name, bad in (("gw", d[:, :7]), ("gl", d[:3, 0]), ("alpha", d.double()),
+                      ("alphainv", d), ("t_excl", d.to("meta"))):
+        kw = {**good, name: bad}
+        with pytest.raises(TypeError, match=name):
+            march.march_backward(kw["alpha"], kw["t_excl"], kw["alphainv"], kw["gw"], kw["gl"],
+                                 0.0, 0.5, d, m)
+
+
 def test_march_plain_autograd_matches_pallas_vjp():
     """Autograd through the plain cumprod scan against the Pallas VJP (which
     divides by 1 - alpha): the two routes agree to 2e-3 relative where alpha
@@ -291,10 +338,13 @@ def _rays_without_threshold_flip(t_excl, alpha_ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,s", [(300, 70)] + [(n, s) for s in (1, 17, 33, 96, 200)
+@pytest.mark.parametrize("n,s", [(300, 70)] + [(n, s) for s in (1, 17, 31, 33, 96, 130, 200)
                                               for n in (0, 1, 37, 2048)])
 def test_march_kernels_match_plain(cuda, n, s):
     density, mask = _march_data(8, n=n, s=s)
+    density[::7, 0] = 30.0  # rays that end at their first sample
+    mask[::7, 0] = True
+    mask[1::7, s // 2 + 1:] = False  # masked tails
     d = torch.from_numpy(density).cuda()
     m = torch.from_numpy(mask).cuda()
     w, ai, alpha, t_excl = march.march_forward(d, m, -1.0, 0.5)
@@ -304,20 +354,43 @@ def test_march_kernels_match_plain(cuda, n, s):
         lean = march.fused_alpha2weights(d, m, -1.0, 0.5)
     for got, want in zip(lean, (w, ai, alpha)):
         assert got.shape == want.shape and torch.equal(got, want)
+    cw, cl, ca = (torch.from_numpy(c).cuda() for c in _cotangents(n, s))
     if n == 0:
+        assert march.march_backward(alpha, t_excl, ai, cw, cl, -1.0, 0.5, d, m).shape == (0, s)
         return
     w_ref, ai_ref, alpha_ref = march.fused_alpha2weights_plain(d, m, -1.0, 0.5)
     same, t_ref = _rays_without_threshold_flip(t_excl, alpha_ref)
     for got, want in ((w, w_ref), (ai, ai_ref), (alpha, alpha_ref), (t_excl, t_ref)):
         torch.testing.assert_close(got[same], want[same], rtol=1e-5, atol=1e-6)
-    # the backward kernel, fed by the forward's residuals, and the same through autograd
-    cw, cl, ca = (torch.from_numpy(c).cuda() for c in _cotangents(n, s))
-    gd = march.march_backward(alpha, t_excl, ai, cw, cl, -1.0, 0.5, d, m)
-    want = march.march_backward_plain(alpha, t_excl, ai, cw, cl, -1.0, 0.5, d, m)
-    torch.testing.assert_close(gd, want, rtol=1e-5, atol=1e-6)
+    # the backward kernel, fed by the forward's residuals: it sums gw * w in
+    # another order than the plain version's cumsum, which the tolerance
+    # allows for and nothing else
+    args = (alpha, t_excl, ai, cw, cl, -1.0, 0.5, d, m)
+    want = march.march_backward_plain(*args)
+    tol = march.march_backward_tolerance(*args)
+    gd = march.march_backward(*args)
+    assert bool(torch.isfinite(gd).all())
+    assert float(((gd - want).abs() / tol).max()) <= 1.0
+    # the same through autograd, with the direct alpha cotangent added
     dg = d.clone().requires_grad_(True)
     w2, ai2, alpha2 = march.fused_alpha2weights(dg, m, -1.0, 0.5)
     assert torch.equal(w2, w) and torch.equal(ai2, ai) and torch.equal(alpha2, alpha)
     (torch.sum(w2 * cw) + torch.sum(ai2 * cl) + torch.sum(alpha2 * ca)).backward()
-    want = want + ca * march._dalpha_ddensity(d, -1.0, 0.5) * m
-    torch.testing.assert_close(dg.grad, want, rtol=1e-5, atol=1e-6)
+    direct = ca * march._dalpha_ddensity(d, -1.0, 0.5) * m
+    assert float(((dg.grad - (want + direct)).abs() / (tol + 1e-6 * direct.abs())).max()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_march_backward_takes_an_expanded_cotangent(cuda):
+    """``loss = weights.sum()`` hands the backward a cotangent of stride 0."""
+    density, mask = _march_data(5, n=37, s=33)
+    d = torch.from_numpy(density).cuda().requires_grad_(True)
+    m = torch.from_numpy(mask).cuda()
+    w, ai, _ = march.fused_alpha2weights(d, m, -1.0, 0.5)
+    (w.sum() + ai.sum()).backward()
+    alpha, t_excl = (x.detach() for x in march.march_forward(d.detach(), m, -1.0, 0.5)[2:])
+    args = (alpha, t_excl, ai.detach(), torch.ones_like(w), torch.ones_like(ai), -1.0, 0.5,
+            d.detach(), m)
+    want = march.march_backward_plain(*args)
+    tol = march.march_backward_tolerance(*args)
+    assert float(((d.grad - want).abs() / tol).max()) <= 1.0

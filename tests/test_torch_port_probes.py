@@ -269,7 +269,8 @@ def test_probe_records_keep_call_and_launch_time_apart():
     assert recs and all(r["ms"] > 0 and r["call_ms"] > 0 for r in recs)
 
 
-@pytest.mark.parametrize("make,n", [(variants.tv_variants, 5), (variants.march_variants, 8)])
+@pytest.mark.parametrize("make,n", [(variants.tv_variants, 5), (variants.march_variants, 8),
+                                    (variants.march_backward_variants, 13)])
 def test_kernel_variants_still_find_their_text(make, n):
     """A variant is the committed source with one constant replaced: every
     substitution finds its text, and one variant is the source as committed."""

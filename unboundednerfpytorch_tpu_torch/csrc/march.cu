@@ -29,8 +29,8 @@
 // 3 microseconds. What a launch costs beyond that is the chain from the first
 // load to the last store, and how many multiprocessors share it.
 //
-// Forward design: a warp a ray. With a thread a ray (the backward's layout
-// still) neighbouring threads read addresses S floats apart (32 sectors a
+// Forward design: a warp a ray. With a thread a ray (the first version of both
+// kernels) neighbouring threads read addresses S floats apart (32 sectors a
 // request for 128 useful bytes, on each of five arrays), 2048 rays fill 16 of
 // 132 multiprocessors, and the 96 exp/log1p/multiply steps of a ray form one
 // dependent chain: 58 microseconds at [2048, 96] on an NVIDIA H100 80GB HBM3 at
@@ -57,9 +57,21 @@
 // samples instead of loosening their tolerance. Without a gradient (t_excl
 // null) the forward stores no t_excl: a third fewer bytes written.
 //
-// Backward design: one thread per ray, the reverse scan in registers (70
-// microseconds at [2048, 96]). Left for later: the warp-a-ray layout for the
-// backward, and fusing the forward into the gather/composite around it.
+// Backward design: the forward's layout run in reverse. A warp a ray, lanes on
+// 32 consecutive samples, so each of the five loads and the store is one
+// coalesced request; all chunks of a group (three: the path's 96 samples)
+// loaded before any is used, so every exp, pow and divide of a ray is
+// independent of the others; gw * w over the processed samples summed from the
+// far end by a five-step shuffle scan (__shfl_down_sync) inside a chunk, and a
+// scalar carry, which starts at gl * alphainv, from the far chunk to the near
+// one and from group to group where S > 96. The sums are thus taken in another
+// order than a sequential loop's and than the plain version's cumsum: a
+// result may differ from theirs by a few roundings of the ray's largest
+// partial sum, which the checks allow for per element
+// (ops/cuda/march.py::march_backward_tolerance) and in nothing else.
+// `processed` is read off the stored t_excl, so forward and backward cannot
+// disagree on a sample. The first version, a thread a ray, took 70
+// microseconds at [2048, 96].
 
 #include <cuda_runtime.h>
 
@@ -136,33 +148,72 @@ march_forward_kernel(const float* __restrict__ density, const unsigned char* __r
   if (lane == 0) alphainv[n] = stopped ? ai : carry;
 }
 
-__global__ void march_backward_kernel(const float* __restrict__ alpha,
-                                      const float* __restrict__ t_excl,
-                                      const float* __restrict__ alphainv,
-                                      const float* __restrict__ gw,
-                                      const float* __restrict__ gl, float shift,
-                                      float interval, const float* __restrict__ density,
-                                      const unsigned char* __restrict__ mask, int N, int S,
-                                      float* __restrict__ gd) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const long long row = (long long)n * S;
-  float back = gl[n] * alphainv[n];
-  for (int s = S - 1; s >= 0; --s) {
-    const long long i = row + s;
-    const float a = alpha[i];
-    const float t = t_excl[i];
-    const bool processed = t >= kEarlyExitT;
-    const float g = gw[i];
-    const float g_alpha = processed ? g * t - back / (1.0f - a + 1e-10f) : 0.0f;
-    if (processed) back += g * (t * a);
-    const float e = expf(fminf(fmaxf(density[i] + shift, -50.0f), 50.0f));
-    const float dalpha_dd = interval * powf(1.0f + e, -interval - 1.0f) * fminf(e, 1e10f);
-    gd[i] = mask[i] ? g_alpha * dalpha_dd : 0.0f;
-  }
+__device__ __forceinline__ float dalpha_ddensity(float d, float shift, float interval) {
+  const float e = expf(fminf(fmaxf(d + shift, -50.0f), 50.0f));
+  return interval * powf(1.0f + e, -interval - 1.0f) * fminf(e, 1e10f);
 }
 
-constexpr int kThreads = 128;
+constexpr int kBwdWarpsPerBlock = 8;
+constexpr int kBwdChunks = 3;  // chunks of 32 samples a warp keeps in flight
+
+__global__ void __launch_bounds__(kBwdWarpsPerBlock * 32)
+march_backward_kernel(const float* __restrict__ alpha, const float* __restrict__ t_excl,
+                      const float* __restrict__ alphainv, const float* __restrict__ gw,
+                      const float* __restrict__ gl, float shift, float interval,
+                      const float* __restrict__ density, const unsigned char* __restrict__ mask,
+                      int N, int S, float* __restrict__ gd) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kBwdWarpsPerBlock + (threadIdx.x >> 5);
+  if (n >= N) return;  // the whole warp leaves together
+  const long long row = (long long)n * S;
+  constexpr int kGroup = 32 * kBwdChunks;
+  // gl * alphainv + the sum of gw * w over the processed samples behind the
+  // chunk at hand
+  float carry = gl[n] * alphainv[n];
+  for (int base = (S - 1) / kGroup * kGroup; base >= 0; base -= kGroup) {
+    float a[kBwdChunks], gt[kBwdChunks], dd[kBwdChunks], v[kBwdChunks];
+    bool processed[kBwdChunks], live[kBwdChunks];
+#pragma unroll
+    for (int c = 0; c < kBwdChunks; ++c) {
+      const int s = base + 32 * c + lane;
+      float t = 0.0f, g = 0.0f, d = 0.0f;
+      a[c] = 0.0f;
+      live[c] = false;
+      if (s < S) {
+        a[c] = alpha[row + s];
+        t = t_excl[row + s];
+        g = gw[row + s];
+        d = density[row + s];
+        live[c] = mask[row + s] != 0;
+      }
+      processed[c] = s < S && t >= kEarlyExitT;
+      gt[c] = g * t;
+      v[c] = processed[c] ? g * (t * a[c]) : 0.0f;
+      dd[c] = dalpha_ddensity(d, shift, interval);
+    }
+    // v[c] becomes the sum of gw * w over the chunk's lanes lane..31
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+      for (int c = 0; c < kBwdChunks; ++c) {
+        const float u = __shfl_down_sync(kFullWarp, v[c], o);
+        if (lane + o < 32) v[c] += u;
+      }
+    }
+#pragma unroll
+    for (int c = kBwdChunks - 1; c >= 0; --c) {
+      const int s = base + 32 * c + lane;
+      float behind = __shfl_down_sync(kFullWarp, v[c], 1);
+      if (lane == 31) behind = 0.0f;
+      const float back = carry + behind;
+      if (s < S) {
+        const float g_alpha = processed[c] ? gt[c] - back / (1.0f - a[c] + 1e-10f) : 0.0f;
+        gd[row + s] = live[c] ? g_alpha * dd[c] : 0.0f;
+      }
+      carry += __shfl_sync(kFullWarp, v[c], 0);
+    }
+  }
+}
 
 __global__ void empty_kernel() {}
 
@@ -186,11 +237,10 @@ int march_forward(const void* density, const void* mask, float shift, float inte
 
 int march_backward(const void* alpha, const void* t_excl, const void* alphainv,
                    const void* gw, const void* gl, float shift, float interval,
-                   const void* density, const void* mask, int N, int S, void* gd,
-                   void* stream) {
+                   const void* density, const void* mask, int N, int S, void* gd, void* stream) {
   if (N <= 0 || S <= 0) return 0;
-  const int blocks = (N + kThreads - 1) / kThreads;
-  march_backward_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (N + kBwdWarpsPerBlock - 1) / kBwdWarpsPerBlock;
+  march_backward_kernel<<<blocks, kBwdWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
       (const float*)alpha, (const float*)t_excl, (const float*)alphainv, (const float*)gw,
       (const float*)gl, shift, interval, (const float*)density,
       (const unsigned char*)mask, N, S, (float*)gd);

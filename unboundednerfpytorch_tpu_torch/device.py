@@ -7,6 +7,8 @@ falling back, so a CPU run can never pass for a GPU one.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 
@@ -21,3 +23,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def seconds_since(since: float, device: torch.device) -> float:
+    """Host seconds since ``since`` (a ``time.perf_counter()`` reading), once
+    a CUDA ``device`` has finished what was queued on it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - since

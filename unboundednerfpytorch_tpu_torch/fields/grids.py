@@ -1,9 +1,9 @@
 """Field primitives: the Fourier-embedded multi-bank grid and the occupancy
 mask.
 
-Counterpart of ``FourierGrid``, ``MaskGrid`` and ``nerf_pos_embed_coords``
-of ``unboundednerfpytorch_tpu/fields/grids.py``. Grids are channel-last
-``[B, X, Y, Z, C]`` parameters (B = 2K+1 banks).
+Counterpart of ``FourierGrid`` (with ``scale_volume_grid``), ``MaskGrid`` and
+``nerf_pos_embed_coords`` of ``unboundednerfpytorch_tpu/fields/grids.py``.
+Grids are channel-last ``[B, X, Y, Z, C]`` parameters (B = 2K+1 banks).
 """
 
 from __future__ import annotations
@@ -54,6 +54,21 @@ class FourierGrid(nn.Module):
             c01 = (nerf_pos_embed_coords(coords, self.num_freqs) + 1.0) * 0.5
             return interp.grid_sample_banks(self.grid, c01) / B
         return interp.grid_sample_3d(self.grid[0], (coords + 1.0) * 0.5)
+
+    @torch.no_grad()
+    def scale_volume_grid(self, new_world_size) -> None:
+        """Resample every bank onto ``new_world_size`` (trilinear,
+        align-corners), in place: ``grid`` becomes a new parameter of the
+        same dtype, and the old one is dropped. A bank at a time, in f32,
+        rounded once to the grid's dtype: at full width the f32 image of
+        all banks together would be several GB."""
+        size = tuple(int(s) for s in new_world_size)
+        old = self.grid.detach()
+        new = torch.empty((old.shape[0], *size, old.shape[-1]), dtype=old.dtype,
+                          device=old.device)
+        for b in range(old.shape[0]):
+            new[b] = interp.resize_grid_3d(old[b], size)
+        self.grid = nn.Parameter(new, requires_grad=self.grid.requires_grad)
 
 
 class MaskGrid(nn.Module):

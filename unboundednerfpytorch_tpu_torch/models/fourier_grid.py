@@ -7,7 +7,9 @@ Counterpart of ``unboundednerfpytorch_tpu/models/fourier_grid.py``:
 ``_bank_coords01``, and the render half: ``RenderCache``,
 ``build_render_cache``, the two-stage cached forward
 (``_forward_two_stage``), the single-stage cache branch,
-``_eval_field_on_lattice`` and ``bake_for_rendering``.
+``_eval_field_on_lattice`` and ``bake_for_rendering``; and the ``pg_scale``
+boundary: ``scale_volume_grid`` (both grids upsampled, the occupancy cache
+refreshed from the trained density) and ``update_occupancy_cache``.
 
 A training forward (no cache) gathers the eight corners from the grids
 themselves (one gather over all banks of a grid, one index-add in the
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 
 import numpy as np
 import torch
@@ -35,6 +38,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from unboundednerfpytorch_tpu_torch.configs.schema import normalize_fast_color_thres
+from unboundednerfpytorch_tpu_torch.device import seconds_since
 from unboundednerfpytorch_tpu_torch.fields.grids import FourierGrid, MaskGrid, nerf_pos_embed_coords
 from unboundednerfpytorch_tpu_torch.fields.mlp import MLP
 from unboundednerfpytorch_tpu_torch.models import common
@@ -137,6 +141,10 @@ class FourierGridConfig:
     @property
     def rgbnet_in_dim(self) -> int:
         return 3 + 3 * self.viewbase_pe * 2 + self.k0_dim + max(self.img_emb_dim, 0)
+
+    def with_num_voxels(self, num_voxels_density, num_voxels_rgb) -> "FourierGridConfig":
+        return dataclasses.replace(self, num_voxels_density=num_voxels_density,
+                                   num_voxels_rgb=num_voxels_rgb)
 
 
 def config_from(cfg_model, xyz_min, xyz_max, num_voxels_density, num_voxels_rgb,
@@ -668,3 +676,98 @@ def bake_for_rendering(params: FourierGridParams, cfg: FourierGridConfig,
     baked_params = FourierGridParams(fields["density"], fields["k0"], params.rgbnet,
                                      params.act_shift, params.mask_cache)
     return baked_params, new_cfg
+
+
+# ---------------------------------------------------------------------------
+# the pg_scale boundary: progressive upsampling and the occupancy refresh
+
+
+def activate_density(params: FourierGridParams, cfg: FourierGridConfig,
+                     density: torch.Tensor) -> torch.Tensor:
+    return alpha_ops.raw2alpha(density, params.act_shift, cfg.voxel_size_ratio_density)
+
+
+def _dense_alpha_chunked(params: FourierGridParams, cfg: FourierGridConfig, ws,
+                         max_pts_per_slab: int = 1 << 21) -> torch.Tensor:
+    """Alpha on the full [X, Y, Z] world lattice, evaluated in x-slabs: one
+    query of 199^3 nodes over 7 banks holds 10 GB of corner indices, weights
+    and rows; a slab of 2M nodes about 1.3 GB. The values do not depend on
+    the slab, which is why it may be smaller here than the JAX package's
+    default of 1 << 24 nodes: eager PyTorch holds every intermediate of the
+    query at once, where a compiled query fuses them."""
+    X, Y, Z = (int(v) for v in ws)
+    dev = params.density.grid.device
+    slab = max(1, min(X, max_pts_per_slab // max(Y * Z, 1)))
+    xs = _linspace(cfg.xyz_min[0], cfg.xyz_max[0], X, dev)
+    ys = _linspace(cfg.xyz_min[1], cfg.xyz_max[1], Y, dev)
+    zs = _linspace(cfg.xyz_min[2], cfg.xyz_max[2], Z, dev)
+    out = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for a in range(0, X, slab):
+            xyz = torch.stack(torch.meshgrid(xs[a:a + slab], ys, zs, indexing="ij"), -1)
+            out[a:a + slab] = activate_density(params, cfg, params.density(xyz)[..., 0])
+    return out
+
+
+def _occupancy_dilation_window(cfg: FourierGridConfig) -> int:
+    """Max-pool window of the occupancy refresh: the reference's 3^3, widened
+    so that a strided budget probe stays conservative. The probe's verdict is
+    repeated over its stride group, whose last sample sits stride - 1 steps
+    past the probe, so the mask is dilated by that many voxels (at a stepsize
+    of at most one voxel a step)."""
+    stride = max(1, cfg.budget_probe_stride)
+    if stride <= 2:
+        return 3
+    return 2 * (stride - 1) + 1
+
+
+def _pooled_alpha(params: FourierGridParams, cfg: FourierGridConfig, ws) -> torch.Tensor:
+    return interp.max_pool_3d_same(_dense_alpha_chunked(params, cfg, ws),
+                                   window=_occupancy_dilation_window(cfg))
+
+
+def scale_volume_grid(params: FourierGridParams, cfg: FourierGridConfig,
+                      num_voxels_density: int, num_voxels_rgb: int,
+                      report: dict | None = None):
+    """Progressive upsampling of both grids and the occupancy refresh that
+    follows it. Returns (params, new config); ``params`` is changed in place:
+    its two grids become new parameters at the new size (so an optimizer
+    built on the old ones is void) and its occupancy cache a mask on the new
+    density lattice: the OLD mask looked up at the new lattice's nodes, and
+    the 3^3-or-wider max-pool of the new alpha above ``fast_color_thres``.
+    ``report``, if given, receives the seconds of the two halves ("resize",
+    "refresh"), each ended by a device synchronise, "carried": the share
+    of the new lattice's nodes that the old mask holds, which the refresh can
+    only lower, and "pooled_alpha": the tensor [X, Y, Z] that the refresh held
+    against ``fast_color_thres``."""
+    new_cfg = cfg.with_num_voxels(num_voxels_density, num_voxels_rgb)
+    dev = params.density.grid.device
+    t0 = time.perf_counter()
+    params.density.scale_volume_grid(new_cfg.world_size_density)
+    params.k0.scale_volume_grid(new_cfg.world_size_rgb)
+    if report is not None:
+        report["resize"] = seconds_since(t0, dev)
+    t0 = time.perf_counter()
+    ws = new_cfg.world_size_density
+    with torch.no_grad():
+        pooled = _pooled_alpha(params, new_cfg, ws)
+        axes = [_linspace(mn, mx, n, dev) for mn, mx, n in zip(cfg.xyz_min, cfg.xyz_max, ws)]
+        xyz = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)
+        carried = params.mask_cache(xyz)
+        new_mask = carried & (pooled > new_cfg.fast_color_thres)
+    params.mask_cache = MaskGrid(ws, cfg.xyz_min, cfg.xyz_max, mask=new_mask)
+    if report is not None:
+        report["refresh"] = seconds_since(t0, dev)
+        report["carried"] = float(carried.float().mean())
+        report["pooled_alpha"] = pooled
+    return params, new_cfg
+
+
+def update_occupancy_cache(params: FourierGridParams, cfg: FourierGridConfig):
+    """The occupancy cache ANDed with the pooled alpha of the density as it
+    stands, on the cache's own lattice; in place, returns ``params``."""
+    mask = params.mask_cache.mask
+    with torch.no_grad():
+        pooled = _pooled_alpha(params, cfg, mask.shape)
+    params.mask_cache.mask = mask & (pooled > cfg.fast_color_thres)
+    return params

@@ -26,6 +26,7 @@ time to the op and to the ``record_function`` ranges around it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch import Tensor
@@ -62,6 +63,24 @@ def march_backward_plain(alpha, t_excl, alphainv, gw, gl, shift, interval, densi
     return g_alpha * _dalpha_ddensity(density, shift, interval) * mask.to(gw.dtype)
 
 
+def march_backward_tolerance(alpha, t_excl, alphainv, gw, gl, shift, interval, density, mask,
+                             rtol: float = 1e-5, atol: float = 1e-7):
+    """Per element, how far two evaluations of the backward formula may lie
+    apart when they sum ``gw * w`` in different orders (the kernel's shuffle
+    scan, a sequential loop, ``cumsum``). ``back`` then differs by a few
+    roundings of the ray's largest partial sum, which ``sum |gw w| +
+    |gl alphainv|`` over the ray bounds; the element sees that through
+    ``1 / (1 - alpha + 1e-10)`` and its raw2alpha derivative. So the tolerance
+    is ``atol + rtol * (|gw t_excl| + bound / (1 - alpha + 1e-10)) *
+    dalpha/ddensity``: relative to the two terms of ``g_alpha`` before they
+    cancel, not to their difference, and 0 + atol where the mask is off."""
+    processed = t_excl >= alpha_ops.EARLY_EXIT_T
+    gww = torch.where(processed, gw * (t_excl * alpha), torch.zeros_like(gw)).abs()
+    bound = (gww.sum(-1) + (gl * alphainv).abs())[:, None]
+    terms = (gw * t_excl).abs() + bound / (1.0 - alpha + 1e-10)
+    return atol + rtol * terms * _dalpha_ddensity(density, shift, interval) * mask.to(gw.dtype)
+
+
 def _check(density, mask):
     if not (density.is_cuda and mask.is_cuda):
         raise ValueError("fused_alpha2weights: tensors must be on the GPU")
@@ -70,6 +89,21 @@ def _check(density, mask):
                         f"{density.dtype} {tuple(density.shape)}")
     if mask.dtype != torch.bool or mask.shape != density.shape:
         raise TypeError("fused_alpha2weights: mask must be bool and match density")
+
+
+@functools.cache
+def _functions():
+    """(library, march_forward, march_backward) with their C signatures set,
+    built and loaded at the first launch."""
+    lib = build.load("march")
+    fwd, bwd = lib.march_forward, lib.march_backward
+    fwd.restype = bwd.restype = ctypes.c_int
+    fwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
+                    ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+    bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_float] + [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+    return lib, fwd, bwd
 
 
 @torch.library.custom_op("unerf_kernels::march_forward", mutates_args=())
@@ -81,11 +115,7 @@ def _march_forward_op(density: Tensor, mask: Tensor, shift: float, interval: flo
     # without residuals the kernel gets a null pointer and stores no t_excl
     t_excl = torch.empty_like(density) if residuals else density.new_empty((0, S))
     ai = torch.empty((N,), dtype=density.dtype, device=density.device)
-    lib = build.load("march")
-    fn = lib.march_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+    lib, fn, _ = _functions()
     stream = torch.cuda.current_stream(density.device).cuda_stream
     err = fn(density.data_ptr(), mask.data_ptr(), float(shift), float(interval), N, S,
              w.data_ptr(), ai.data_ptr(), alpha.data_ptr(),
@@ -110,16 +140,11 @@ def _march_backward_op(alpha: Tensor, t_excl: Tensor, alphainv: Tensor, gw: Tens
                        mask: Tensor) -> Tensor:
     N, S = density.shape
     gd = torch.empty_like(density)
-    lib = build.load("march")
-    fn = lib.march_backward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_float] + [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p]
+    lib, _, fn = _functions()
     stream = torch.cuda.current_stream(density.device).cuda_stream
     err = fn(alpha.data_ptr(), t_excl.data_ptr(), alphainv.data_ptr(), gw.data_ptr(),
-             gl.data_ptr(), float(shift), float(interval), density.data_ptr(),
-             mask.data_ptr(), N, S, gd.data_ptr(), stream)
+             gl.data_ptr(), shift, interval, density.data_ptr(), mask.data_ptr(), N, S,
+             gd.data_ptr(), stream)
     build.check(lib, err, "march_backward")
     build.LAUNCHES["march_backward"] += 1
     return gd
@@ -131,16 +156,17 @@ def march_backward(alpha, t_excl, alphainv, gw, gl, shift: float, interval: floa
     alphainv_last (without the direct alpha cotangent)."""
     _check(density, mask)
     N, S = density.shape
-    tensors = [t.contiguous() for t in (alpha, t_excl, alphainv, gw, gl, density, mask)]
-    alpha, t_excl, alphainv, gw, gl, density, mask = tensors
-    for t in (alpha, t_excl, gw):
-        if t.shape != (N, S) or t.dtype != torch.float32:
-            raise TypeError("march_backward: [N, S] f32 inputs expected")
-    for t in (alphainv, gl):
-        if t.shape != (N,) or t.dtype != torch.float32:
-            raise TypeError("march_backward: [N] f32 inputs expected")
-    return _march_backward_op(alpha, t_excl, alphainv, gw, gl, float(shift), float(interval),
-                              density, mask)
+    # one pass: a cotangent from autograd may be an expanded view, the rest
+    # come contiguous from the forward kernel and pass through untouched
+    args = []
+    for name, t, shape in (("alpha", alpha, (N, S)), ("t_excl", t_excl, (N, S)),
+                           ("alphainv", alphainv, (N,)), ("gw", gw, (N, S)), ("gl", gl, (N,))):
+        if t.shape != shape or t.dtype != torch.float32 or t.device != density.device:
+            raise TypeError(f"march_backward: {name} must be f32 {list(shape)} on "
+                            f"{density.device}, got {t.dtype} {list(t.shape)} on {t.device}")
+        args.append(t.contiguous())
+    return _march_backward_op(*args, float(shift), float(interval), density.contiguous(),
+                              mask.contiguous())
 
 
 class FusedMarch(torch.autograd.Function):

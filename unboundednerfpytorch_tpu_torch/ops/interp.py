@@ -16,6 +16,7 @@ allocate a table-sized zero buffer for every corner.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def trilerp_corners(xyz01: torch.Tensor, dims: tuple):
@@ -124,3 +125,37 @@ def grid_sample_banks(grids: torch.Tensor, xyz01_banks: torch.Tensor) -> torch.T
     for b in range(1, B):
         out = out + vals[..., b, :]
     return out
+
+
+def resize_grid_3d(grid: torch.Tensor, new_size) -> torch.Tensor:
+    """Trilinear resize of a channel-last [X, Y, Z, C] grid to a new spatial
+    size, one axis after the other, ``align_corners=True``: output voxel i
+    reads input coordinate i * (in - 1) / (out - 1). An axis of size 1, old or
+    new, repeats index 0. The JAX package's formula written out
+    (``lo * (1 - f) + hi * f`` with an f32 fraction), in f32 whatever the
+    grid's dtype: the result is f32 for a bf16 grid too, and the caller
+    rounds it once to the dtype it keeps."""
+    out = grid.to(torch.promote_types(grid.dtype, torch.float32))
+    for axis, n_new in enumerate(int(n) for n in new_size):
+        n_old = out.shape[axis]
+        if n_new == n_old:
+            continue
+        if n_new == 1 or n_old == 1:
+            zeros = torch.zeros(n_new, dtype=torch.int64, device=out.device)
+            out = out.index_select(axis, zeros)
+            continue
+        pos = torch.arange(n_new, dtype=torch.float32, device=out.device) * (
+            (n_old - 1) / (n_new - 1))
+        lo = torch.floor(pos).to(torch.int64).clamp(0, n_old - 2)
+        shape = [1] * out.ndim
+        shape[axis] = n_new
+        f = (pos - lo.to(torch.float32)).reshape(shape)
+        out = out.index_select(axis, lo) * (1.0 - f) + out.index_select(axis, lo + 1) * f
+    return out
+
+
+def max_pool_3d_same(vol: torch.Tensor, window: int = 3) -> torch.Tensor:
+    """Max over a ``window``^3 neighbourhood of every voxel of [X, Y, Z],
+    stride 1, the outside counting as -inf (``F.max_pool3d`` pads so)."""
+    return F.max_pool3d(vol[None, None], kernel_size=window, stride=1,
+                        padding=window // 2)[0, 0]

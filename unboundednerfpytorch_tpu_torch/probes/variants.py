@@ -10,8 +10,12 @@ state about the roads not taken: the span size, block size and wave count of
 ``tv_add_grad`` at the train step's k0 shape, what its staging costs without
 its arithmetic, and the block and chunk shape of ``march_forward`` at the
 train step's and a render chunk's shape, with what its exp/log1p and its scan
-cost. One JSON line per variant and round; times are device times (a march
-launch is timed as many launches in one CUDA graph). Needs a GPU and ``nvcc``.
+cost, and of ``march_backward`` at the train step's shape, with what its
+``powf`` and its scan cost, and a cheaper form of the ``powf`` with its error.
+One JSON line per variant and round; times are device times (a march launch is timed as many launches
+in one CUDA graph); a variant that claims right values carries its worst
+error over the tolerance of ``march_backward_tolerance``. Needs a GPU and
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import subprocess
 import torch
 
 from unboundednerfpytorch_tpu_torch.device import resolve_device
-from unboundednerfpytorch_tpu_torch.ops.cuda import build
+from unboundednerfpytorch_tpu_torch.ops.cuda import build, march
 from unboundednerfpytorch_tpu_torch.probes.timing import MANY_LAUNCHES, time_ms
 
 K0_SHAPE = (7, 199, 199, 199, 12)  # bicycle_single's k0 grid, bf16
@@ -70,6 +74,35 @@ def march_variants() -> dict[str, str]:
                 src, ("constexpr int kWarpsPerBlock = 8;",
                       f"constexpr int kWarpsPerBlock = {warps};"),
                 ("constexpr int kChunks = 3;", f"constexpr int kChunks = {chunks};"))
+    return out
+
+
+POWF = "return interval * powf(1.0f + e, -interval - 1.0f) * fminf(e, 1e10f);"
+
+
+def march_backward_variants() -> dict[str, str]:
+    src = build.SOURCES["march"].read_text()
+    out = {
+        "no powf (wrong values)": _sub(src, (POWF, "return interval * fminf(e, 1e10f);")),
+        # (1 + e)^(-interval - 1) = exp(-(interval + 1) * log1p(e))
+        "powf as expf of log1pf": _sub(
+            src, (POWF, "return interval * expf((-interval - 1.0f) * log1pf(e)) * "
+                        "fminf(e, 1e10f);")),
+        "powf as exp2f of log2f, fast intrinsics": _sub(
+            src, (POWF, "return interval * exp2f((-interval - 1.0f) * __log2f(1.0f + e)) * "
+                        "fminf(e, 1e10f);")),
+        "no scan within a chunk (wrong values)": _sub(
+            src, ("for (int o = 1; o < 32; o <<= 1) {\n#pragma unroll\n"
+                  "      for (int c = 0; c < kBwdChunks; ++c) {",
+                  "for (int o = 32; o < 32; o <<= 1) {\n#pragma unroll\n"
+                  "      for (int c = 0; c < kBwdChunks; ++c) {")),
+    }
+    for warps in (2, 4, 8):
+        for chunks in (2, 3, 4):
+            out[f"{warps} warps a block, {chunks} chunks in flight"] = _sub(
+                src, ("constexpr int kBwdWarpsPerBlock = 8;",
+                      f"constexpr int kBwdWarpsPerBlock = {warps};"),
+                ("constexpr int kBwdChunks = 3;", f"constexpr int kBwdChunks = {chunks};"))
     return out
 
 
@@ -144,6 +177,49 @@ def run_march(gen, emit) -> None:
                       "ms": time_ms(lambda: launch(lib), launches=MANY_LAUNCHES)})
 
 
+def run_march_backward(gen, emit) -> None:
+    libs = compile_all(march_backward_variants(), "march_backward")
+    N, S, _ = MARCH_SHAPES[0]
+    shift, interval = -4.0, 0.5
+    # a third of the rays opaque, a third empty, a third mixed
+    kind = torch.arange(N, device="cuda") % 3
+    d = torch.randn((N, S), generator=gen, device="cuda") * 3.0
+    d = d + 12.0 * (kind == 0)[:, None] - 15.0 * (kind == 1)[:, None]
+    mask = torch.rand((N, S), generator=gen, device="cuda") > 0.2
+    _, ai, alpha, t_excl = march.march_forward(d, mask, shift, interval)
+    gw = torch.randn((N, S), generator=gen, device="cuda")
+    gl = torch.randn((N,), generator=gen, device="cuda")
+    gd = torch.empty_like(d)
+    inputs = (alpha, t_excl, ai, gw, gl, shift, interval, d, mask)
+    ref = march.march_backward_plain(*inputs)
+    tol = march.march_backward_tolerance(*inputs)
+
+    def launch(lib):
+        fn = lib.march_backward
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_float] + [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p]
+        err = fn(alpha.data_ptr(), t_excl.data_ptr(), ai.data_ptr(), gw.data_ptr(),
+                 gl.data_ptr(), shift, interval, d.data_ptr(), mask.data_ptr(), N, S,
+                 gd.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"march_backward: CUDA error {err}")
+
+    def record(name, rnd, lib):
+        rec = {"kernel": "march_backward", "shape": [N, S], "variant": name, "round": rnd,
+               "ms": time_ms(lambda: launch(lib), launches=MANY_LAUNCHES)}
+        if "wrong values" not in name:
+            launch(lib)
+            torch.cuda.synchronize()
+            rec["worst_error_over_tolerance"] = float(((gd - ref).abs() / tol).max())
+        emit(rec)
+
+    for rnd in range(2):
+        for name, lib in libs.items():
+            record(name, rnd, lib)
+
+
 def main() -> list:
     """Prints one JSON line per variant and round and returns the records."""
     dev = resolve_device(None)
@@ -157,6 +233,7 @@ def main() -> list:
     emit({"device": torch.cuda.get_device_name(dev), "torch": torch.__version__})
     run_tv(gen, emit)
     run_march(gen, emit)
+    run_march_backward(gen, emit)
     return records
 
 

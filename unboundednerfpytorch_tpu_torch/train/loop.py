@@ -2,18 +2,22 @@
 
 Counterpart of ``unboundednerfpytorch_tpu/train/loop.py``: ``build_model``,
 ``gather_training_rays``, ``make_forward``, the stage loop with the
-step-keyed ``fast_color_thres`` schedule, and ``run_train`` with the coarse
-stage at ``N_iters=0`` (the ``*_single`` configs).
+step-keyed ``fast_color_thres`` schedule and the ``pg_scale`` boundaries
+(:func:`pg_scale_boundary`: both grids upsampled, the occupancy cache
+refreshed from the trained density, ``act_shift`` lowered, a deferred
+``sample_budget`` switched on, the optimizer rebuilt and the lr decay
+re-anchored), and ``run_train`` with the coarse stage at ``N_iters=0`` (the
+``*_single`` configs).
 
 With ``exp_dir`` the stage ends by writing ``<exp_dir>/fine_last`` through
 the port's ``utils.checkpoint.save_model``, which ``render.run_render``
 loads.
 
-Not ported yet, and refused rather than skipped: ``pg_scale`` boundaries
-(grid upsampling and the occupancy refresh), a coarse stage, samplers other
-than ``flatten``, per-voxel lr, ``maskout_near_cam_vox``, resuming from a
-checkpoint and periodic saves (the optimizer state is not saved), and the
-other model families.
+Not ported yet, and refused rather than skipped: a coarse stage, samplers
+other than ``flatten``, per-voxel lr, ``maskout_near_cam_vox``, the two-stage
+training forward (``train_survivor_budget``), resuming from a checkpoint and
+periodic saves (the optimizer state is not saved), and the other model
+families.
 """
 
 from __future__ import annotations
@@ -30,12 +34,12 @@ from torch.profiler import record_function
 from unboundednerfpytorch_tpu_torch.configs.schema import (
     ExpConfig, ModelRenderConfig, TrainStageConfig, normalize_fast_color_thres,
 )
-from unboundednerfpytorch_tpu_torch.device import resolve_device
+from unboundednerfpytorch_tpu_torch.device import resolve_device, seconds_since
 from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
 from unboundednerfpytorch_tpu_torch.ops import rays as ray_ops
 from unboundednerfpytorch_tpu_torch.train import bbox as bbox_mod
 from unboundednerfpytorch_tpu_torch.train.step import (
-    FlattenSampler, create_train_state, make_train_step,
+    FlattenSampler, TrainState, create_train_state, make_train_step,
 )
 
 
@@ -96,6 +100,65 @@ def make_forward(mcfg: fg.FourierGridConfig, render_kwargs: dict, cache=None) ->
     return fwd
 
 
+def pg_scale_boundary(state: TrainState, mcfg: fg.FourierGridConfig,
+                      cfg_model: ModelRenderConfig, cfg_train: TrainStageConfig,
+                      global_step: int, deferred_budget: int = 0, report: dict | None = None):
+    """The work of the ``pg_scale`` boundary at ``global_step``, which must be
+    one of ``cfg_train.pg_scale``. Returns (new train state, new model config,
+    record).
+
+    The voxel count becomes the final one over 2^(boundaries left); both grids
+    are resampled to it and the occupancy cache is refreshed from the density
+    as trained so far (``fourier_grid.scale_volume_grid``); ``act_shift``
+    falls by ``decay_after_scale``; a ``deferred_budget`` becomes the config's
+    ``sample_budget`` (the cache now holds geometry); and the optimizer is
+    built anew, so its moments and its step count restart and, with
+    ``lr_anchor = global_step`` at the caller, the lr returns to its base.
+
+    The model is changed in place: ``state.params`` gets new grid parameters
+    and a new mask, and ``state`` itself is void afterwards. Its moments are
+    freed before the larger grids and the new moments are allocated, so the
+    boundary's peak memory is the new size's alone. ``record`` holds the
+    step, the new world sizes, the share of the new lattice that the old cache
+    holds (``occupancy_carried``) and that the refreshed one keeps
+    (``occupancy``), the budget in force before and after, and the seconds of
+    resize, refresh and rebuild. ``report``, if given, receives what
+    ``fourier_grid.scale_volume_grid`` reports, the pooled alpha of the
+    refresh included."""
+    pg_scale = [int(b) for b in cfg_train.pg_scale]
+    n_rest = len(pg_scale) - pg_scale.index(global_step) - 1
+    cur_vox_density = int(cfg_model.num_voxels_density / (2**n_rest))
+    cur_vox_rgb = int(cfg_model.num_voxels_rgb / (2**n_rest))
+    params = state.params
+    dev = params.density.grid.device
+    state.optimizer = None  # the old grids' moments go first
+    for p in params.parameters():
+        p.grad = None
+    report = {} if report is None else report
+    budget_before = mcfg.sample_budget
+    _, mcfg = fg.scale_volume_grid(params, mcfg, cur_vox_density, cur_vox_rgb, report=report)
+    seconds = {part: report[part] for part in ("resize", "refresh")}
+    params.act_shift -= cfg_train.decay_after_scale
+    if deferred_budget:
+        # the cache was just refreshed from trained density: cutting every
+        # ray to a fixed budget of occupied samples is safe from here on
+        mcfg = dataclasses.replace(mcfg, sample_budget=deferred_budget)
+    t0 = time.perf_counter()
+    state = create_train_state(params, cfg_train, start_step=global_step - 1)
+    seconds["rebuild"] = seconds_since(t0, dev)
+    record = {
+        "step": global_step,
+        "world_size_density": tuple(params.density.grid.shape[1:4]),
+        "world_size_rgb": tuple(params.k0.grid.shape[1:4]),
+        "occupancy_carried": report["carried"],
+        "occupancy": float(params.mask_cache.mask.float().mean()),
+        "sample_budget_before": budget_before,
+        "sample_budget": mcfg.sample_budget,
+        "seconds": seconds,
+    }
+    return state, mcfg, record
+
+
 def scene_rep_reconstruction(
     cfg: ExpConfig,
     cfg_model: ModelRenderConfig,
@@ -118,12 +181,13 @@ def scene_rep_reconstruction(
     ``coarse_mask_fn(world_size, xyz_min, xyz_max) -> bool [X, Y, Z]`` seeds
     the occupancy cache (in the full recipe, from the coarse stage); with it
     the cache is trusted and ``sample_budget`` is on from the first step.
-    ``callback(step, metrics)`` runs after every step.
+    Without it a configured ``sample_budget`` is held at 0 until the first
+    ``pg_scale`` boundary has refreshed the cache from trained density (for
+    the whole stage where ``pg_scale`` is empty). ``callback(step, metrics)``
+    runs after every step; at a boundary's step ``metrics["pg_scale"]`` is
+    the record of :func:`pg_scale_boundary`.
     """
     n_iters = cfg_train.N_iters
-    if any(int(b) <= n_iters for b in cfg_train.pg_scale):
-        raise NotImplementedError(
-            "pg_scale boundaries (grid upsampling + occupancy refresh) are not ported yet")
     if cfg_train.ray_sampler != "flatten":
         raise NotImplementedError(f"ray_sampler={cfg_train.ray_sampler!r} is not ported yet")
     if cfg_train.pervoxel_lr:
@@ -170,19 +234,23 @@ def scene_rep_reconstruction(
 
     # the occupancy cache is all-true at init, where a sample budget would cut
     # every ray to its first `budget` samples: hold the budget off until the
-    # cache holds geometry (a coarse seed; the pg_scale refresh is not ported)
+    # cache holds geometry (a coarse seed, or the first pg_scale refresh)
     deferred_budget = 0
     if mcfg.sample_budget > 0 and coarse_mask_fn is None:
         deferred_budget = mcfg.sample_budget
         mcfg = dataclasses.replace(mcfg, sample_budget=0)
 
-    def compile_step(mcfg_now):
+    def compile_step(mcfg_now, lr_anchor_now):
         return make_train_step(
             make_forward(mcfg_now, render_kwargs), cfg_train,
             world_size_max=float(max(mcfg_now.world_size)), near_thres=near_thres,
-            lr_anchor=1, lr_decay_enabled=lr_decay_enabled)
+            lr_anchor=lr_anchor_now, lr_decay_enabled=lr_decay_enabled)
 
-    step_fn = compile_step(mcfg)
+    # the lr decays after each update and returns to the base lr wherever the
+    # optimizer is rebuilt: the decay is anchored at the last boundary
+    lr_anchor = 1
+    step_fn = compile_step(mcfg, lr_anchor)
+    pg_scale = [int(b) for b in cfg_train.pg_scale]
     thres_schedule = dict(normalize_fast_color_thres(cfg_model)[1])
     last_psnr = 0.0
     t0 = time.time()
@@ -191,7 +259,20 @@ def scene_rep_reconstruction(
             new_thres = float(thres_schedule[global_step])
             if new_thres != mcfg.fast_color_thres:
                 mcfg = dataclasses.replace(mcfg, fast_color_thres=new_thres)
-                step_fn = compile_step(mcfg)
+                step_fn = compile_step(mcfg, lr_anchor)
+        boundary = None
+        if global_step in pg_scale:
+            state, mcfg, boundary = pg_scale_boundary(state, mcfg, cfg_model, cfg_train,
+                                                      global_step, deferred_budget)
+            deferred_budget = 0
+            lr_anchor = global_step
+            step_fn = compile_step(mcfg, lr_anchor)
+            sec = boundary["seconds"]
+            log_fn(f"{stage} iter {global_step:6d} / pg_scale: grids "
+                   f"{boundary['world_size_density']}, occupancy "
+                   f"{boundary['occupancy_carried']:.4f} -> {boundary['occupancy']:.4f}, "
+                   f"sample_budget {boundary['sample_budget']}, resize {sec['resize']:.3f}s "
+                   f"refresh {sec['refresh']:.3f}s rebuild {sec['rebuild']:.3f}s")
         with record_function("train_loop/batch"):
             idx = sampler.next_indices()
             batch = {k: v[idx] for k, v in store.items()}
@@ -199,6 +280,8 @@ def scene_rep_reconstruction(
             if render_kwargs["rand_bkgd"]:
                 bg_color = torch.rand((idx.shape[0], 3), generator=gen_step, device=device)
         metrics = step_fn(state, batch, bg_color)
+        if boundary is not None:
+            metrics["pg_scale"] = boundary
         if global_step % log_every == 0 or global_step == n_iters:
             last_psnr = float(metrics["psnr"])
             log_fn(f"{stage} iter {global_step:6d} / loss {float(metrics['loss']):.6f} / "
