@@ -31,31 +31,34 @@ Phases, each reported on its own line:
      version at every one of its shapes (indexed copies bit-equal, ``box_sum``
      within 1e-3 relative) and times it; that one run, counted from 0, also
      gives these kernels' launches;
-  4. train the FourierGrid fine stage of
-     ``configs/nerf_unbounded/bicycle_single.py`` with its ``pg_scale``
-     boundaries, the schedule compressed to ``PG_SCALE`` = (4, 8): the grids
-     start at 200^3 / 4 voxels, are upsampled at steps 4 and 8 (occupancy
-     refreshed, optimizer rebuilt, lr back at its base), and every step from
-     the last boundary on runs at the config's full width (7 banks of 199^3,
-     k0 12 channels, bf16), where the step is timed. 16 steps by default, on a
-     seeded synthetic scene of bicycle's size, the analytic occupancy seed
-     standing in for the coarse stage. Checked: the grid shapes after each
-     boundary, the occupancy, the budget, ``lr_scale``, ``act_shift`` and the
-     launch counts (``tv_add_grad`` 2 a step, both march kernels 1). It saves
+  4. the scene and the trainer: a seeded synthetic 20-view 411x618 scene (the
+     size of bicycle at factor 8) is written in the on-disk layout of a
+     Mip-NeRF-360 capture (``poses_bounds.npy`` and ``images_8/*.png``) and
+     loaded by the port's ``data.common.load_everything`` through a config
+     whose ``_base_`` is ``configs/nerf_unbounded/bicycle_single.py``
+     (spherify, every 8th view held out: 17 training views, 3 test views).
+     Then the FourierGrid fine stage of that config, through ``run_train``,
+     with its ``pg_scale`` boundaries, the schedule compressed to
+     ``PG_SCALE`` = (4, 8): the grids start at 200^3 / 4 voxels, are
+     upsampled at steps 4 and 8 (occupancy refreshed, optimizer rebuilt, lr
+     back at its base), and every step from the last boundary on runs at the
+     config's full width (7 banks of 199^3, k0 12 channels, bf16), where the
+     step is timed. 16 steps by default; the analytic occupancy seed stands
+     in for the coarse stage. Checked: the grid shapes after each boundary,
+     the occupancy, the budget, ``lr_scale``, ``act_shift`` and the launch
+     counts (``tv_add_grad`` 2 a step, both march kernels 1). It saves
      ``fine_last``, then compares a forward on the card with the plain path
      on the CPU;
   4b. one boundary on the card against the same boundary on the CPU from one
      state (see ``phase_boundary``): there the refresh bites, a deferred
      sample budget comes on and Adam restarts;
-  4c. three steps of the same config through ``run_train`` without the seed,
-     one boundary at step 2: the loop itself holds the sample budget at 0
-     until the boundary and switches it on there;
   5. render: the checkpoint gets the synthetic scene's geometry imprinted
      (a few steps do not make a scene) and ``fast_color_thres`` takes its
-     schedule's final value; then ``render.run_render`` (``load_model``,
-     ``build_render_cache``, ``make_forward(cache=...)``,
-     ``render_viewpoints``) renders 3 held-out 411x618 views in chunks of
-     8192 with ground truth: the first warms up, the other two are timed.
+     schedule's final value; then the command line renders it as a user
+     does, ``--program render --render_test --ft_path <checkpoint>`` on the
+     scene on disk (``load_everything``, ``load_model``,
+     ``build_render_cache``, ``render_viewpoints``): the 3 held-out 411x618
+     views in chunks of 8192 with ground truth, the first a warm-up.
      Checked: finite images; ``march_forward`` launched once per chunk and no
      other kernel at all; the two-stage cached render WITHOUT the density
      bake equals the uncached single-stage render (1e-4 relative) on every
@@ -66,12 +69,34 @@ Phases, each reported on its own line:
      occupancy: at most 1e-5 of the samples pass ``fast_color_thres`` on one
      device only, the rays of such samples agree within two thresholds' worth and
      every other ray within 1e-5 + 1e-5 relative); the baked render's PSNR against
-     the exact render is printed and held above ``BAKED_MIN_PSNR``.
+     the exact render is printed and held above ``BAKED_MIN_PSNR``;
+  6a. the command line's ``train`` on the same scene and config, unseeded, as
+     a user runs it (``python -m unboundednerfpytorch_tpu_torch.cli.main
+     --config ...``), the boundaries compressed to ``CLI_PG_SCALE`` = (2, 3):
+     run 1 trains 4 steps with ``--i_weights 3`` and renders the test views.
+     Checked in the loop's own records (``fine_metrics.jsonl``): the sample
+     budget held at 0 until the first boundary and switched on there, the
+     cache all true before it; the periodic checkpoint at step 3 (full width)
+     and ``fine_last`` at step 4, both with the optimizer's state. Run 2 is
+     the same command with ``N_iters`` two larger: it resumes at step 4 from
+     ``fine_last``, the Adam step count and both moments restored bit-equal
+     to what run 1 saved, the lr anchored at the last boundary, and trains
+     two more full-width steps. The seconds and GB of a full-width save and
+     of a load are printed;
+  6b. ``configs/tankstemple_unbounded/truck_single.py`` through the command
+     line on a NeRF++-layout scene written the same way (8 training and 2
+     test views of 546x980, OpenCV poses, ``inverse_y``): 8 steps, its seven
+     boundaries compressed to ``CLI_PG_SCALE``, ending at full width (9 banks
+     of 199^3, ``N_rand`` 4096); ms/step at full width and peak memory.
+     Every command-line run is checked for its launches: ``tv_add_grad`` 2 a
+     step, both march kernels 1 a step, ``march_forward`` once per chunk of
+     the render that follows training.
 
 ``--profile`` also traces the last train steps and one rendered view with
 ``torch.profiler`` and prints the device time by range and by kernel.
 ``--kernels-only`` stops after phase 3 and prints the kernel table without
 launch counts and without the last line (a quick check of a changed kernel).
+The kernel table's launches are those of phases 4 to 6 and of the probe run.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -82,18 +107,20 @@ the repository beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import pathlib
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
-import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "nerf_unbounded" / "bicycle_single.py"
+TRUCK_CONFIG = ROOT / "configs" / "tankstemple_unbounded" / "truck_single.py"
 
 PROFILED_STEPS = 4
 # bicycle_single's eight pg_scale boundaries (steps 2000 to 16000) compressed
@@ -102,8 +129,17 @@ PROFILED_STEPS = 4
 PG_SCALE = (4, 8)
 WARMUP_STEPS = 2  # after a boundary, before a step is timed
 H, W = 411, 618  # bicycle at factor=8
-RENDER_VIEWS = 3  # held-out views: one warm-up, two timed
-RENDER_CHUNK = 8192
+RENDER_CHUNK = 8192  # the command line's chunk (render.renderer.DEFAULT_CHUNK)
+# the synthetic scene: a sphere of this radius at the origin, cameras on an
+# orbit of this radius (data/synthetic.py::orbit_scene)
+SPHERE_RADIUS, CAM_RADIUS = 0.8, 3.0
+# the command line (phase 6): both configs' boundaries compressed to two; 6a's
+# first run saves at step 3 (full width) and ends at 4, its second at 6
+CLI_PG_SCALE = (2, 3)
+CLI_SAVE_EVERY, CLI_STEPS = 3, 4
+# truck_single on a NeRF++ scene at the Tanks & Temples image size of the
+# NeRF++ release: 8 training and 2 test views, 8 steps (6 to 8 timed)
+TRUCK_H, TRUCK_W, TRUCK_VIEWS, TRUCK_TEST, TRUCK_STEPS = 546, 980, 8, 2, 8
 # the density bake (one f32 bank at 2x) against the exact density on the
 # imprinted scene, whose ball has an edge two voxels wide: the floor under
 # which the bake would be broken rather than approximate
@@ -115,6 +151,108 @@ MAX_FLIPPED_SHARE = 1e-5
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Spy:
+    """For a ``with`` block, ``owner.name`` runs through a wrapper that calls
+    the real function and records each call in ``calls`` as a namespace of
+    ``args``, ``kwargs``, ``result`` and ``seconds``; ``before(args, kwargs)``
+    and ``after(call)`` run around it. It reads what the command line's
+    modules do without changing what they do."""
+
+    def __init__(self, owner, name: str, before=None, after=None):
+        self.owner, self.name, self.before, self.after = owner, name, before, after
+        self.calls = []
+
+    def __enter__(self):
+        real = self.real = getattr(self.owner, self.name)
+
+        def wrapper(*args, **kwargs):
+            if self.before is not None:
+                self.before(args, kwargs)
+            t0 = time.perf_counter()
+            result = real(*args, **kwargs)
+            call = argparse.Namespace(args=args, kwargs=kwargs, result=result,
+                                      seconds=time.perf_counter() - t0)
+            self.calls.append(call)
+            if self.after is not None:
+                self.after(call)
+            return result
+
+        setattr(self.owner, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+
+
+class Tee(io.TextIOBase):
+    """Standard output that is also kept: ``lines`` after the block."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, text):
+        self.text.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    @property
+    def lines(self):
+        return "".join(self.text).splitlines()
+
+
+def run_cli(argv) -> list:
+    """``cli.main(argv)`` on the card, as ``python -m
+    unboundednerfpytorch_tpu_torch.cli.main`` runs it; returns what it
+    printed, line by line."""
+    from unboundednerfpytorch_tpu_torch.cli import main as cli
+
+    log(f"[cli] {' '.join(argv)}")
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"the command line returned non-zero: {argv}")
+    return tee.lines
+
+
+def write_config(path: pathlib.Path, base: pathlib.Path, datadir, basedir, steps: int) -> str:
+    """A scene config as a user writes one for a capture: the repository's
+    config as ``_base_``, the capture and the log directories, and the
+    run's length with the boundaries compressed to ``CLI_PG_SCALE``."""
+    path.write_text(f"_base_ = {str(base)!r}\nbasedir = {str(basedir)!r}\n"
+                    f"data = dict(datadir={str(datadir)!r})\n"
+                    f"fine_train = dict(N_iters={steps}, pg_scale={list(CLI_PG_SCALE)})\n")
+    return str(path)
+
+
+def read_records(exp_dir) -> list:
+    """The loop's own record of a stage (``fine_metrics.jsonl``)."""
+    with open(os.path.join(exp_dir, "fine_metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def dir_gb(path) -> float:
+    return sum(f.stat().st_size for f in pathlib.Path(path).iterdir()) / 1e9
+
+
+def launches_since(before: dict) -> dict:
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+
+    diff = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()}
+    return {k: v for k, v in diff.items() if v}
+
+
+def sphere_radius_of(data) -> float:
+    """The synthetic sphere's radius in a loaded scene's frame: the loader
+    rotates and scales the orbit about the sphere's centre (the origin), so
+    the cameras' distance from it gives the scale."""
+    import numpy as np
+
+    cam = np.linalg.norm(np.asarray(data["poses"])[:, :3, 3], axis=-1)
+    return SPHERE_RADIUS * float(cam.mean()) / CAM_RADIUS
 
 
 def check(name: str, got, ref, rtol: float, atol: float) -> float:
@@ -300,7 +438,10 @@ def tv_views_case(gen, shape, dtype, w) -> float:
     return max(err, check_each(f"{name}, one thread an element, in place", g2, ref, 1e-5, 1e-6))
 
 
-def phase_tv(gen, tv_shapes, floor: float) -> dict:
+def phase_tv(gen, tv_shapes, floor: float, truck_shapes: dict) -> dict:
+    """``tv_shapes``: bicycle_single's grids, checked in bf16 and f32 and
+    timed for the entry; ``truck_shapes``: truck_single's 9-bank grids
+    (phase 6b), checked in bf16 and timed apart."""
     import torch
 
     from unboundednerfpytorch_tpu_torch.ops.cuda import tv
@@ -313,20 +454,24 @@ def phase_tv(gen, tv_shapes, floor: float) -> dict:
             err = max(err, tv_case(gen, "ragged", shape, dtype, w),
                       tv_views_case(gen, shape, dtype, w))
     main, shapes = {}, []
-    for label, shape in tv_shapes.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            err = max(err, tv_case(gen, label, shape, dtype, w))
+    for tag, path_shapes, dtypes in (("", tv_shapes, (torch.bfloat16, torch.float32)),
+                                     ("truck ", truck_shapes, (torch.bfloat16,))):
+        for label, shape in path_shapes.items():
+            for dtype in dtypes:
+                err = max(err, tv_case(gen, tag + label, shape, dtype, w))
+                torch.cuda.empty_cache()
+            # the train step's case: bf16, dense, in place
+            p = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            ms, call_ms = kernel_ms(lambda: tv.tv_add_grad(p, g, *w, 1.0, True, out=g))
+            rec = (ms, time_ms(lambda: tv.tv_add_grad_plain(p, g, *w, 1.0, True), iters=5),
+                   3 * p.numel() * p.element_size(), 25 * p.numel())
+            if not tag:
+                main[label] = rec
+            shapes.append(shape_line(f"tv_add_grad {tag}{label} {tuple(shape)} bf16 in place",
+                                     ms, call_ms, bound_ms(*rec[2:])[0], floor))
+            del p, g
             torch.cuda.empty_cache()
-        # the train step's case: bf16, dense, in place
-        p = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-        g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-        ms, call_ms = kernel_ms(lambda: tv.tv_add_grad(p, g, *w, 1.0, True, out=g))
-        main[label] = (ms, time_ms(lambda: tv.tv_add_grad_plain(p, g, *w, 1.0, True), iters=5),
-                       3 * p.numel() * p.element_size(), 25 * p.numel())
-        shapes.append(shape_line(f"tv_add_grad {label} {tuple(shape)} bf16 in place", ms,
-                                 call_ms, bound_ms(*main[label][2:])[0], floor))
-        del p, g
-        torch.cuda.empty_cache()
     ms = sum(v[0] for v in main.values())
     plain = sum(v[1] for v in main.values())
     bnd, by = bound_ms(sum(v[2] for v in main.values()), sum(v[3] for v in main.values()))
@@ -404,7 +549,10 @@ def check_march_forward(name: str, got, d, mask, shift: float, interval: float) 
     return err
 
 
-def phase_march(gen, shape, shift: float, interval: float, floor: float) -> list:
+def phase_march(gen, shape, shift: float, interval: float, floor: float,
+                 truck_shape: tuple) -> list:
+    """``shape``: bicycle_single's train step, timed; ``truck_shape``:
+    truck_single's (phase 6b), checked with the ragged shapes."""
     import torch
 
     from unboundednerfpytorch_tpu_torch.ops.cuda import march
@@ -430,7 +578,7 @@ def phase_march(gen, shape, shift: float, interval: float, floor: float) -> list
         return gw, gl, check_within(name, gd, gd_ref, tol)
 
     err_f = err_b = 0.0
-    for rshape in MARCH_RAGGED_SHAPES + ((RENDER_CHUNK, shape[1]),):
+    for rshape in MARCH_RAGGED_SHAPES + ((RENDER_CHUNK, shape[1]), truck_shape):
         d, mask = march_inputs(gen, rshape)
         res = march.march_forward(d, mask, shift, interval)
         torch.cuda.synchronize()
@@ -595,10 +743,35 @@ def make_profiler():
                                   acc_events=True)
 
 
-def phase_train(cfg, steps: int, views: int, profile: bool, exp_dir: str, card: str,
+def phase_scene(tmp: pathlib.Path, views: int):
+    """Write the synthetic scene in the Mip-NeRF-360 layout and load it as the
+    command line does. Returns (the config file, the data_dict)."""
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+
+    t0 = time.time()
+    data = synthetic.orbit_scene(views, H, W, seed=0, cam_radius=CAM_RADIUS,
+                                 sphere_radius=SPHERE_RADIUS)
+    t1 = time.time()
+    scene = synthetic.write_llff_scene(str(tmp / "360_v2_bicycle"), data, factor=8)
+    t2 = time.time()
+    cfg_file = write_config(tmp / "bicycle_cli.py", CONFIG, scene, tmp / "logs", CLI_STEPS)
+    data = common.load_everything(loader.load_config(cfg_file))
+    t3 = time.time()
+    log(f"[4] scene of {views} views of {H}x{W}: made in {t1 - t0:.2f} s, written as PNG in "
+        f"{t2 - t1:.2f} s ({dir_gb(os.path.join(scene, 'images_8')) * 1e3:.1f} MB), loaded by "
+        f"load_everything in {t3 - t2:.2f} s ({len(data['i_train'])} training views, test "
+        f"views {list(data['i_test'])}; near_clip {data['near_clip']:.4f}, far "
+        f"{data['far']:.4f}; sphere radius {sphere_radius_of(data):.4f} in the loaded frame)")
+    if list(data["i_test"]) != list(range(0, views, 8)):  # llffhold=8
+        raise AssertionError(f"held-out views {list(data['i_test'])}")
+    return cfg_file, data
+
+
+def phase_train(cfg, steps: int, data, profile: bool, exp_dir: str, card: str,
                 tv_shapes: dict):
-    """Returns (launch counts of the train run, the scene's data_dict).
-    ``tv_shapes`` holds the full-width grid shapes the run must end at."""
+    """Returns the launch counts of the train run. ``tv_shapes`` holds the
+    full-width grid shapes the run must end at."""
     import numpy as np
     import torch
 
@@ -621,18 +794,15 @@ def phase_train(cfg, steps: int, views: int, profile: bool, exp_dir: str, card: 
         f"{ft.weight_tv_k0}, rand_bkgd {cfg.data.rand_bkgd}, pg_scale {ft.pg_scale} (the "
         f"config's own boundaries compressed), decay_after_scale {ft.decay_after_scale}")
 
-    t0 = time.time()
-    data = synthetic.orbit_scene(views, H, W, seed=0, n_test=RENDER_VIEWS)
     xyz_min, xyz_max = bbox_mod.compute_bbox_by_cam_frustrm(cfg, data, "FourierGrid",
                                                             device="cuda")
-    seed_fn = synthetic.occupancy_seed((xyz_min + xyz_max) / 2, (xyz_max - xyz_min) / 2)
-    log(f"[4] scene: {views} training and {RENDER_VIEWS} held-out views of {H}x{W} in "
-        f"{time.time() - t0:.1f} s")
+    seed_fn = synthetic.occupancy_seed((xyz_min + xyz_max) / 2, (xyz_max - xyz_min) / 2,
+                                       sphere_radius=sphere_radius_of(data))
 
     # a fixed evaluation batch, composited on grey (the mean of rand_bkgd's
     # uniform draw): the model at init and after the steps
     store = loop.gather_training_rays(cfg, data, "cpu")
-    idx = torch.from_numpy(np.random.default_rng(1).integers(0, views * H * W, 4096))
+    idx = torch.from_numpy(np.random.default_rng(1).integers(0, store["rgb"].shape[0], 4096))
     ev_rays = [store[k][idx] for k in ("rays_o", "rays_d", "viewdirs", "rgb")]
     del store
 
@@ -772,7 +942,7 @@ def phase_train(cfg, steps: int, views: int, profile: bool, exp_dir: str, card: 
         if got.shape != ref.shape:
             raise AssertionError(f"{field}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
         check(f"trained forward {field} (card vs CPU plain path)", got.cpu(), ref, 1e-4, 1e-5)
-    return counts, data
+    return counts
 
 
 def phase_boundary(cfg, card: str) -> None:
@@ -916,64 +1086,8 @@ def phase_boundary(cfg, card: str) -> None:
                              "the threshold differs between card and CPU")
 
 
-def phase_deferred_budget(cfg, data, card: str) -> None:
-    """Phase 4c: the train loop on the card without an occupancy seed, as a
-    ``*_single`` recipe runs it: three steps of bicycle_single's fine stage
-    with one boundary at step 2 (158^3 -> 199^3). The cache starts all true,
-    so the loop holds the sample budget at 0 (step 1 marches every sample of
-    a ray) and switches it on at the boundary, whose refresh is the first to
-    read trained density; the config handed back carries the budget."""
-    import numpy as np
-    import torch
-
-    from unboundednerfpytorch_tpu_torch.ops.cuda import build
-    from unboundednerfpytorch_tpu_torch.train import loop
-
-    steps, boundary = 3, 2
-    fm = cfg.fine_model_and_render
-    cfg = dataclasses.replace(cfg, fine_train=dataclasses.replace(
-        cfg.fine_train, pg_scale=(boundary,), N_iters=steps))
-    seen, stamps, peaks = {}, [], []
-
-    def callback(step, metrics):
-        loss = float(metrics["loss"])  # synchronises the step
-        stamps.append(time.perf_counter())
-        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
-        torch.cuda.reset_peak_memory_stats()
-        if not np.isfinite(loss):
-            raise AssertionError(f"step {step}: loss {loss}")
-        seen[step] = metrics.get("pg_scale")
-
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
-    t_start = time.perf_counter()
-    _, mcfg, params, _ = loop.run_train(cfg, data, seed=0, device="cuda",
-                                        log_fn=lambda m: log(f"[4c] {m}"), log_every=steps,
-                                        callback=callback)
-    counts = dict(build.LAUNCHES)
-    dts = np.diff([t_start] + stamps) * 1e3
-    rec = seen[boundary]
-    if sorted(seen) != [1, 2, 3] or rec is None or seen[1] is not None or seen[3] is not None:
-        raise AssertionError(f"boundaries seen: {seen}")
-    log(f"[4c] no seed, on {card}: sample_budget {rec['sample_budget_before']} -> "
-        f"{rec['sample_budget']} at step {boundary}, occupancy {rec['occupancy_carried']:.4f} -> "
-        f"{rec['occupancy']:.4f}; ms/step {[round(float(t), 1) for t in dts]}, peak memory by "
-        f"step {[round(p, 2) for p in peaks]} GB; launches {counts}")
-    if (rec["sample_budget_before"], rec["sample_budget"]) != (0, fm.sample_budget):
-        raise AssertionError("the deferred budget did not come on at the boundary")
-    if mcfg.sample_budget != fm.sample_budget or mcfg.num_voxels_density != fm.num_voxels_density:
-        raise AssertionError(f"final config: budget {mcfg.sample_budget}")
-    if rec["occupancy_carried"] != 1.0 or not 0.0 < rec["occupancy"] <= 1.0:
-        raise AssertionError(f"occupancy {rec['occupancy_carried']} -> {rec['occupancy']}")
-    if abs(float(params.mask_cache.mask.float().mean()) - rec["occupancy"]) > 1e-6:
-        raise AssertionError("the final mask is not the boundary's")
-    want = {"tv_add_grad": 2 * steps, "march_forward": steps, "march_backward": steps}
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != {want}")
-
-
-def phase_render(cfg, data, exp_dir: str, profile: bool) -> dict:
-    """Phase 5; returns the launch counts of the ``run_render`` run."""
+def phase_render(cfg, data, exp_dir: str, cfg_file: str, profile: bool) -> dict:
+    """Phase 5; returns the launch counts of the command line's render."""
     import numpy as np
     import torch
 
@@ -993,48 +1107,56 @@ def phase_render(cfg, data, exp_dir: str, profile: bool) -> dict:
 
     path = f"{exp_dir}/fine_last"
     t0 = time.time()
-    family, mcfg, params, step, _ = ckpt.load_model(path, device="cuda")
+    family, mcfg, params, step, _ = ckpt.load_model(path, device="cuda", with_opt_state=False)
     params.requires_grad_(False)
-    synthetic.imprint_scene(params, mcfg.scene_center, mcfg.scene_radius, seed=0)
+    synthetic.imprint_scene(params, mcfg.scene_center, mcfg.scene_radius, seed=0,
+                            sphere_radius=sphere_radius_of(data))
     final_thres = normalize_fast_color_thres(cfg.fine_model_and_render)[1][-1][1]
     mcfg = dataclasses.replace(mcfg, fast_color_thres=final_thres)
     ckpt.save_model(path, family, mcfg, params, global_step=step)
     log(f"[5] checkpoint of step {step} loaded, scene imprinted, fast_color_thres "
         f"{final_thres:g}, saved again in {time.time() - t0:.1f} s")
 
-    # ---- the run_render path, as a user runs it
+    # ---- the command line's render program, as a user runs it
+    n_views = len(data["i_test"])
     n_chunks = -(-H * W // RENDER_CHUNK)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     t0 = time.time()
-    out = render.run_render(types.SimpleNamespace(render_test=True, chunk=RENDER_CHUNK), cfg,
-                            data, exp_dir, log_fn=lambda m: log(f"[5] {m}"))["test"]
+    with Spy(render, "run_render") as spy:
+        run_cli(["--config", cfg_file, "--program", "render", "--render_test", "--ft_path",
+                 path])
     total_s = time.time() - t0
+    out = spy.calls[0].result["test"]
     counts = dict(build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {"march_forward": RENDER_VIEWS * n_chunks}
+    want = {"march_forward": n_views * n_chunks}
     if counts != want:
         raise AssertionError(f"render launch counts {counts} != {want}")
     for name in ("rgbs", "depths", "bgmaps"):
         arr = out[name]
-        if arr.shape[:3] != (RENDER_VIEWS, H, W) or not np.isfinite(arr).all():
+        if arr.shape[:3] != (n_views, H, W) or not np.isfinite(arr).all():
             raise AssertionError(f"rendered {name}: shape {arr.shape} or non-finite values")
     view_ms = float(np.median(out["seconds"][1:])) * 1e3
-    log(f"[5] run_render: {RENDER_VIEWS} views of {H}x{W} in {n_chunks} chunks of "
-        f"{RENDER_CHUNK}, {total_s:.1f} s with load and cache build; ms/view "
+    log(f"[5] --program render: {n_views} views of {H}x{W} in {n_chunks} chunks of "
+        f"{RENDER_CHUNK}, {total_s:.1f} s with the scene's load, the checkpoint's and the "
+        f"cache build (run_render {spy.calls[0].seconds:.1f} s); ms/view "
         f"{[round(t * 1e3, 1) for t in out['seconds']]}, median after the warm-up view "
         f"{view_ms:.1f} ms = {H * W / view_ms * 1e3:.0f} rays/s; peak memory {peak_gb:.2f} GB; "
         f"psnr {np.mean(out['psnrs']):.3f} ssim {np.mean(out['ssims']):.4f} against ground "
         f"truth; launches {counts}")
 
-    # ---- the cached forwards against each other, on view 0
-    idx = int(np.asarray(data["i_test"])[0])
-    ro, rd, vd = ray_ops.get_rays_of_a_view(
-        H, W, torch.as_tensor(data["Ks"][idx], device="cuda"),
-        torch.as_tensor(data["poses"][idx][:3, :4], device="cuda"),
-        inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x, flip_y=cfg.data.flip_y)
-    ro, rd, vd = (x.reshape(-1, 3) for x in (ro, rd, vd))
+    # ---- the cached forwards against each other, view by view over the test
+    # views until 1000 rays that end on the ball stay within color_budget (a
+    # ray that enters the scene box through the imprinted haze overflows it)
+    def view_rays(idx):
+        ro, rd, vd = ray_ops.get_rays_of_a_view(
+            H, W, torch.as_tensor(data["Ks"][idx], device="cuda"),
+            torch.as_tensor(data["poses"][idx][:3, :4], device="cuda"),
+            inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x, flip_y=cfg.data.flip_y)
+        return [x.reshape(-1, 3) for x in (ro, rd, vd)]
+
     render_kwargs = {"bg": 1.0, "stepsize": cfg.fine_model_and_render.stepsize}
     fwd = loop.make_forward(mcfg, render_kwargs)
     baked = fg.build_render_cache(params, mcfg, log_fn=lambda m: log(f"[5] {m}"))
@@ -1044,27 +1166,37 @@ def phase_render(cfg, data, exp_dir: str, profile: bool) -> dict:
         raise AssertionError(f"cache branches: {baked.branch} / {exact.branch}")
     cb = mcfg.color_budget
     rgb = {"baked": [], "exact": [], "single": []}
-    over_ray, over_chunk, hit = [], [], []
+    over_ray, over_chunk, hit, views = [], [], [], []
     with torch.no_grad():
-        for a in range(0, H * W, RENDER_CHUNK):
-            sl = slice(a, a + RENDER_CHUNK)
-            r_exact = fwd(params, ro[sl], rd[sl], vd[sl], None, cache=exact)
-            r_baked = fwd(params, ro[sl], rd[sl], vd[sl], None, cache=baked)
-            r_single = fwd(params, ro[sl], rd[sl], vd[sl], None, cache=None)
-            if not (r_exact.rgb_compacted and r_baked.rgb_compacted) or r_single.rgb_compacted:
-                raise AssertionError("a forward took another branch than asked for")
-            rgb["exact"].append(r_exact.rgb_marched)
-            rgb["baked"].append(r_baked.rgb_marched)
-            rgb["single"].append(r_single.rgb_marched)
-            over_ray.append(r_exact.mask.sum(-1) > cb)
-            over_chunk.append((float(r_exact.color_overflow_frac),
-                               float(r_baked.color_overflow_frac)))
-            hit.append(r_exact.alphainv_last < 0.01)
+        for idx in np.asarray(data["i_test"]).tolist():
+            views.append(idx)
+            n0 = len(hit)
+            ro, rd, vd = view_rays(idx)
+            for a in range(0, H * W, RENDER_CHUNK):
+                sl = slice(a, a + RENDER_CHUNK)
+                r_exact = fwd(params, ro[sl], rd[sl], vd[sl], None, cache=exact)
+                r_baked = fwd(params, ro[sl], rd[sl], vd[sl], None, cache=baked)
+                r_single = fwd(params, ro[sl], rd[sl], vd[sl], None, cache=None)
+                if not (r_exact.rgb_compacted and r_baked.rgb_compacted) or \
+                        r_single.rgb_compacted:
+                    raise AssertionError("a forward took another branch than asked for")
+                rgb["exact"].append(r_exact.rgb_marched)
+                rgb["baked"].append(r_baked.rgb_marched)
+                rgb["single"].append(r_single.rgb_marched)
+                over_ray.append(r_exact.mask.sum(-1) > cb)
+                over_chunk.append((float(r_exact.color_overflow_frac),
+                                   float(r_baked.color_overflow_frac)))
+                hit.append(r_exact.alphainv_last < 0.01)
+            n_hit_keep = int((torch.cat(hit) & ~torch.cat(over_ray)).sum())
+            log(f"[5] view {idx}: {int(torch.cat(hit[n0:]).sum())} rays end on the ball; "
+                f"of the views so far, {n_hit_keep} such rays within color_budget")
+            if n_hit_keep >= 1000:
+                break
     rgb = {k: torch.cat(v) for k, v in rgb.items()}
     over_ray, hit = torch.cat(over_ray), torch.cat(hit)
     keep = ~over_ray
-    log(f"[5] view 0: {int(hit.sum())} of {H * W} rays end on the ball; color_overflow_frac "
-        f"(share of rays with more than {cb} survivors) exact "
+    log(f"[5] views {views}: {int(hit.sum())} of {len(views) * H * W} rays end on the ball; "
+        f"color_overflow_frac (share of rays with more than {cb} survivors) exact "
         f"{np.mean([c[0] for c in over_chunk]):.4f} baked "
         f"{np.mean([c[1] for c in over_chunk]):.4f}; chunks with any overflow "
         f"{sum(c[0] > 0 for c in over_chunk)} of {len(over_chunk)}")
@@ -1073,10 +1205,12 @@ def phase_render(cfg, data, exp_dir: str, profile: bool) -> dict:
     check(f"two-stage exact cache vs uncached single stage, {int(keep.sum())} rays without "
           "overflow", rgb["exact"][keep], rgb["single"][keep], 1e-4, 1e-6)
     psnr_baked = M.psnr(rgb["baked"].cpu().numpy(), rgb["exact"].cpu().numpy())
-    log(f"[5] baked density ({baked.branch}) against the exact two-stage render, view 0: "
+    log(f"[5] baked density ({baked.branch}) against the exact two-stage render, views {views}: "
         f"psnr {psnr_baked:.2f} dB (floor {BAKED_MIN_PSNR})")
     if not psnr_baked > BAKED_MIN_PSNR:
         raise AssertionError(f"baked render psnr {psnr_baked} <= {BAKED_MIN_PSNR}")
+    idx = views[0]
+    ro, rd, vd = view_rays(idx)
     del exact, rgb
 
     # ---- the main path's forward on the card against the same path on the CPU
@@ -1156,6 +1290,239 @@ def phase_render(cfg, data, exp_dir: str, profile: bool) -> dict:
     return counts
 
 
+def train_counts_of(total: dict, render_counts: dict) -> dict:
+    out = {k: v - render_counts.get(k, 0) for k, v in total.items()}
+    return {k: v for k, v in out.items() if v}
+
+
+def check_cli_run(tag: str, total: dict, render_spy: Spy, steps: int, n_views: int,
+                  hw: tuple) -> list:
+    """The launches of a command-line ``train`` (the steps, then the render
+    of the test views that follows): ``tv_add_grad`` 2 a step, both march
+    kernels 1 a step, ``march_forward`` once per render chunk and nothing
+    else. Returns [train counts, render counts]."""
+    import numpy as np
+
+    render = render_spy.calls[-1]
+    out = render.result["test"]
+    if out["rgbs"].shape[:3] != (n_views, *hw) or not np.isfinite(out["rgbs"]).all():
+        raise AssertionError(f"{tag}: rendered {out['rgbs'].shape} or non-finite values")
+    train = train_counts_of(total, render.launches)
+    want = {"tv_add_grad": 2 * steps, "march_forward": steps, "march_backward": steps}
+    want_render = {"march_forward": n_views * -(-hw[0] * hw[1] // RENDER_CHUNK)}
+    if train != want or render.launches != want_render:
+        raise AssertionError(f"{tag}: launches train {train} (want {want}), render "
+                             f"{render.launches} (want {want_render})")
+    log(f"{tag} launches: train {train}, render {render.launches}; render "
+        f"{[round(t * 1e3, 1) for t in out['seconds']]} ms/view, psnr "
+        f"{np.mean(out['psnrs']):.3f}")
+    return [train, render.launches]
+
+
+def render_spy():
+    """A spy on ``render.run_render`` that keeps the launches of each call
+    and the peak memory before it (the training's, where training ran)."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch import render
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+
+    held = {}
+
+    def before(args, kwargs):
+        held["launches"] = dict(build.LAUNCHES)
+        held["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    def after(call):
+        call.launches = launches_since(held["launches"])
+        call.peak_before_gb = held["peak_gb"]
+
+    return Spy(render, "run_render", before, after)
+
+
+def phase_cli_360(cfg_file: str, card: str, n_test: int) -> list:
+    """Phase 6a: bicycle_single through the command line, saved and resumed.
+    Returns the launch counts of its runs."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.optim import factory
+    from unboundednerfpytorch_tpu_torch.optim.masked_adam import MaskedAdam
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = loader.load_config(cfg_file)
+    fm, ft = cfg.fine_model_and_render, cfg.fine_train
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    full = fg.config_from(fm, (-1.0,) * 3, (1.0,) * 3, fm.num_voxels_density, fm.num_voxels_rgb)
+    saved = {}
+
+    def on_save(call):
+        step, opt = call.kwargs["global_step"], call.kwargs.get("opt_state")
+        params = call.args[3]
+        call.gb = dir_gb(call.args[0])
+        call.world_size = tuple(params.k0.grid.shape[1:4])
+        call.occupancy = float(params.mask_cache.mask.float().mean())
+        if step == CLI_STEPS and opt is not None:  # what run 2 must restore
+            saved["step"] = opt["step"]
+            saved["moments"] = {k: {n: [m.clone() for m in ms] for n, ms in opt[k].items()}
+                                for k in ("exp_avg", "exp_avg_sq")}
+
+    # ---- run 1: CLI_STEPS steps, unseeded, a periodic save at CLI_SAVE_EVERY
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    with Spy(ckpt, "save_model", after=on_save) as saves, render_spy() as renders:
+        run_cli(["--config", cfg_file, "--i_weights", str(CLI_SAVE_EVERY), "--i_print", "1"])
+    counts = check_cli_run("[6a] run 1", dict(build.LAUNCHES), renders, CLI_STEPS, n_test,
+                           (H, W))
+    records = read_records(exp_dir)
+    bounds = {r["step"]: r["pg_scale"] for r in records if "pg_scale" in r}
+    steps = [r for r in records if "loss" in r]
+    if sorted(bounds) != list(CLI_PG_SCALE) or [r["step"] for r in steps] != [1, 2, 3, 4]:
+        raise AssertionError(f"run 1 records: boundaries {sorted(bounds)}, steps "
+                             f"{[r['step'] for r in steps]}")
+    if not all(np.isfinite(r["loss"]) for r in steps):
+        raise AssertionError("run 1: a loss is not finite")
+    first, last = (bounds[b] for b in CLI_PG_SCALE)
+    # the loop holds the budget at 0 on an all-true cache (no seed) until the
+    # first boundary has refreshed it from trained density, and switches it on
+    if (first["sample_budget_before"], first["sample_budget"]) != (0, fm.sample_budget):
+        raise AssertionError(f"the deferred budget: {first['sample_budget_before']} -> "
+                             f"{first['sample_budget']} at step {CLI_PG_SCALE[0]}")
+    if first["occupancy_carried"] != 1.0 or not 0.0 < first["occupancy"] <= 1.0:
+        raise AssertionError(f"occupancy {first['occupancy_carried']} -> {first['occupancy']}")
+    if tuple(last["world_size_density"]) != full.world_size_density or \
+            last["sample_budget"] != fm.sample_budget:
+        raise AssertionError(f"last boundary: grids {last['world_size_density']}")
+    got = [(c.kwargs["global_step"], c.kwargs.get("opt_state") is not None) for c in saves.calls]
+    if got != [(CLI_SAVE_EVERY, True), (CLI_STEPS, True)]:
+        raise AssertionError(f"saves (step, with optimizer state): {got}")
+    meta = json.load(open(os.path.join(exp_dir, "fine_last", "meta.json")))
+    mk = meta["model_kwargs"]
+    if (meta["global_step"], meta["has_opt_state"], mk["sample_budget"],
+            mk["num_voxels_density"]) != (CLI_STEPS, True, fm.sample_budget,
+                                          fm.num_voxels_density):
+        raise AssertionError(f"fine_last: {meta['global_step']} {meta['has_opt_state']} "
+                             f"{mk['sample_budget']} {mk['num_voxels_density']}")
+    if abs(saves.calls[-1].occupancy - last["occupancy"]) > 1e-6:
+        raise AssertionError("the saved mask is not the last boundary's")
+    dts = np.diff([0.0] + [r["elapsed_s"] for r in steps]) * 1e3
+    periodic = saves.calls[0]
+    log(f"[6a] run 1 on {card}: budget {first['sample_budget_before']} -> "
+        f"{first['sample_budget']} at step {CLI_PG_SCALE[0]} (occupancy "
+        f"{first['occupancy_carried']:.4f} -> {first['occupancy']:.4f}), grids "
+        f"{last['world_size_density']} from step {CLI_PG_SCALE[1]}; ms/step by the loop's clock "
+        f"{[round(float(t), 1) for t in dts]}; peak memory of the training "
+        f"{renders.calls[-1].peak_before_gb:.2f} GB; full-width save at step "
+        f"{CLI_SAVE_EVERY}: {periodic.gb:.3f} GB in {periodic.seconds:.2f} s (grids "
+        f"{periodic.world_size}, with the optimizer's state); final save "
+        f"{saves.calls[1].gb:.3f} GB in {saves.calls[1].seconds:.2f} s")
+
+    # ---- run 2: the same command, two steps more: the resume
+    write_config(pathlib.Path(cfg_file), CONFIG, cfg.data.datadir, cfg.basedir, CLI_STEPS + 2)
+    restored = {}
+
+    def on_restore(call):
+        opt = call.args[0]
+        restored["step"] = opt.step_count
+        restored["equal"] = all(
+            torch.equal(a, b) for k in ("exp_avg", "exp_avg_sq")
+            for n, ms in opt.state_dict()[k].items() for a, b in zip(ms, saved["moments"][k][n]))
+
+    build.reset_launch_counts()
+    with Spy(ckpt, "load_model") as loads, Spy(MaskedAdam, "load_state_dict",
+                                                 after=on_restore), render_spy() as renders:
+        lines = run_cli(["--config", cfg_file, "--i_weights", str(CLI_SAVE_EVERY),
+                         "--i_print", "1"])
+    counts += check_cli_run("[6a] run 2", dict(build.LAUNCHES), renders, 2, n_test, (H, W))
+    del saved["moments"]
+    said = f"fine: resumed from {exp_dir}/fine_last at step {CLI_STEPS} (with the optimizer's"
+    if not any(line.startswith(said) for line in lines):
+        raise AssertionError(f"run 2 did not log the resume: {said}")
+    if restored != {"step": saved["step"], "equal": True} or saved["step"] < 1:
+        raise AssertionError(f"Adam restored {restored}, saved step {saved['step']}")
+    records = read_records(exp_dir)[len(records):]
+    steps = [r for r in records if "loss" in r]
+    if [r["step"] for r in steps] != [CLI_STEPS + 1, CLI_STEPS + 2] or any(
+            "pg_scale" in r for r in records):
+        raise AssertionError(f"run 2 records {records}")
+    anchor = CLI_PG_SCALE[-1]  # the lr decays from the last boundary, as uninterrupted
+    want = [factory.lr_decay_scale(float(r["step"] - anchor), ft.lrate_decay) for r in steps]
+    if [r["lr_scale"] for r in steps] != want:
+        raise AssertionError(f"lr_scale {[r['lr_scale'] for r in steps]}, want {want}")
+    load = loads.calls[0]
+    if load.result[3] != CLI_STEPS or tuple(load.result[2].k0.grid.shape[1:4]) != \
+            full.world_size_rgb:
+        raise AssertionError("run 2 loaded another checkpoint")
+    log(f"[6a] run 2 on {card}: resumed at step {CLI_STEPS}, Adam step {restored['step']} and "
+        f"both moments bit-equal to the saved ones, lr_scale {want} (anchored at step "
+        f"{anchor}); full-width load with the optimizer's state {load.seconds:.2f} s "
+        f"({dir_gb(os.path.join(exp_dir, 'fine_last')):.3f} GB); ms/step by the loop's clock "
+        f"{[round(1e3 * float(r['elapsed_s']), 1) for r in steps]} (from the resume)")
+    return counts
+
+
+def phase_cli_truck(tmp: pathlib.Path, card: str) -> list:
+    """Phase 6b: truck_single through the command line on a NeRF++ scene.
+    Returns the launch counts of the run."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
+    t0 = time.time()
+    data = synthetic.orbit_scene(TRUCK_VIEWS, TRUCK_H, TRUCK_W, seed=1, n_test=TRUCK_TEST,
+                                 cam_radius=CAM_RADIUS, sphere_radius=SPHERE_RADIUS)
+    scene = synthetic.write_nerfpp_scene(str(tmp / "tat_training_Truck"), data)
+    cfg_file = write_config(tmp / "truck_cli.py", TRUCK_CONFIG, scene, tmp / "logs", TRUCK_STEPS)
+    cfg = loader.load_config(cfg_file)
+    fm, ft = cfg.fine_model_and_render, cfg.fine_train
+    full = fg.config_from(fm, (-1.0,) * 3, (1.0,) * 3, fm.num_voxels_density, fm.num_voxels_rgb)
+    log(f"[6b] config {TRUCK_CONFIG.relative_to(ROOT)}: {2 * fm.fourier_freq_num + 1} banks, "
+        f"N_rand {ft.N_rand}, inverse_y {cfg.data.inverse_y}, pg_scale {ft.pg_scale}; scene of "
+        f"{TRUCK_VIEWS} + {TRUCK_TEST} views of {TRUCK_H}x{TRUCK_W} made and written in "
+        f"{time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.time()
+    with Spy(ckpt, "save_model") as saves, Spy(common, "load_everything") as loads, \
+            render_spy() as renders:
+        run_cli(["--config", cfg_file, "--i_print", "1"])
+    total_s = time.time() - t0
+    counts = check_cli_run("[6b]", dict(build.LAUNCHES), renders, TRUCK_STEPS, TRUCK_TEST,
+                           (TRUCK_H, TRUCK_W))
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    records = read_records(exp_dir)
+    bounds = {r["step"]: r["pg_scale"] for r in records if "pg_scale" in r}
+    steps = {r["step"]: r for r in records if "loss" in r}
+    if sorted(bounds) != list(CLI_PG_SCALE) or sorted(steps) != list(range(1, TRUCK_STEPS + 1)):
+        raise AssertionError(f"truck records: boundaries {sorted(bounds)}, steps {sorted(steps)}")
+    first = bounds[CLI_PG_SCALE[0]]
+    if (first["sample_budget_before"], first["sample_budget"]) != (0, fm.sample_budget):
+        raise AssertionError("truck: the deferred budget did not come on at the first boundary")
+    params = saves.calls[-1].args[3]
+    want = (2 * fm.fourier_freq_num + 1, *full.world_size_rgb, full.k0_dim)
+    if tuple(params.k0.grid.shape) != want or params.k0.grid.dtype != torch.bfloat16:
+        raise AssertionError(f"truck k0 grid {tuple(params.k0.grid.shape)}, want {want} bf16")
+    ms = [1e3 * (steps[s]["elapsed_s"] - steps[s - 1]["elapsed_s"])
+          for s in range(CLI_PG_SCALE[-1] + 1 + WARMUP_STEPS, TRUCK_STEPS + 1)]
+    log(f"[6b] truck_single on {card}: load_everything {loads.calls[0].seconds:.2f} s; grids "
+        f"{tuple(params.k0.grid.shape)} bf16 from step {CLI_PG_SCALE[-1]}; ms/step at full "
+        f"width (steps {CLI_PG_SCALE[-1] + 1 + WARMUP_STEPS} to {TRUCK_STEPS}, the loop's "
+        f"clock) {[round(t, 1) for t in ms]}, median {float(np.median(ms)):.1f}; peak memory of "
+        f"the training {renders.calls[-1].peak_before_gb:.2f} GB, of the whole run "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; final save "
+        f"{saves.calls[-1].seconds:.2f} s; the command {total_s:.1f} s")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=16)
@@ -1171,6 +1538,9 @@ def main(argv=None) -> int:
     if args.steps < least:
         ap.error(f"--steps must be at least {least}: the last boundary is at step "
                  f"{PG_SCALE[-1]}, and full-width steps are timed after it")
+    if args.views < 9:
+        ap.error("--views must be at least 9: every 8th view is held out, and a render is "
+                 "timed after a warm-up view")
 
     import torch
 
@@ -1185,18 +1555,21 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from unboundednerfpytorch_tpu_torch.configs import loader
     from unboundednerfpytorch_tpu_torch.probes.timing import MANY_LAUNCHES, launch_floor_ms
 
+    t_start = time.time()
     card = phase_device()
     phase_build()
     cfg = slice_config(args.steps)
     tv_shapes, march_shape, shift, interval = slice_shapes(cfg)
+    truck_tv, truck_march, *_ = slice_shapes(loader.load_config(str(TRUCK_CONFIG)))
     gen = torch.Generator(device="cuda").manual_seed(0)
     floor = launch_floor_ms()
     log(f"[3] launch floor: an empty <<<1, 32>>> kernel takes {floor:.5f} ms a launch "
         f"({MANY_LAUNCHES} launches in one CUDA graph between one pair of events)")
-    kernels = [phase_tv(gen, tv_shapes, floor)]
-    kernels += phase_march(gen, march_shape, shift, interval, floor)
+    kernels = [phase_tv(gen, tv_shapes, floor, truck_tv)]
+    kernels += phase_march(gen, march_shape, shift, interval, floor, truck_march)
     probe_kernels, probe_counts = phase_probes(floor)
     kernels += probe_kernels
     torch.cuda.empty_cache()
@@ -1204,24 +1577,38 @@ def main(argv=None) -> int:
         log(f"card: {card}")
         log(json.dumps({"kernels": kernels}))
         return 0
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as exp_dir:
-        train_counts, data = phase_train(cfg, args.steps, args.views, args.profile, exp_dir,
-                                         card, tv_shapes)
+    seconds = {"1-3": time.time() - t_start}
+
+    def timed(phase, fn, *fn_args):
+        t0 = time.time()
+        out = fn(*fn_args)
         torch.cuda.empty_cache()
-        phase_boundary(cfg, card)
-        torch.cuda.empty_cache()
-        phase_deferred_budget(cfg, data, card)
-        torch.cuda.empty_cache()
-        render_counts = phase_render(cfg, data, exp_dir, args.profile)
+        seconds[phase] = time.time() - t0
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = pathlib.Path(tmp)
+        log(f"[4] temporary directory {tmp}: "
+            f"{os.statvfs(tmp).f_bavail * os.statvfs(tmp).f_frsize / 1e9:.1f} GB free")
+        cfg_file, data = timed("4 scene", phase_scene, tmp, args.views)
+        exp_dir = str(tmp / "api")
+        path_counts = [timed("4", phase_train, cfg, args.steps, data, args.profile, exp_dir,
+                             card, tv_shapes)]
+        timed("4b", phase_boundary, cfg, card)
+        path_counts.append(timed("5", phase_render, cfg, data, exp_dir, cfg_file, args.profile))
+        path_counts += timed("6a", phase_cli_360, cfg_file, card, len(data["i_test"]))
+        path_counts += timed("6b", phase_cli_truck, tmp, card)
+    log(f"seconds by phase: { {k: round(v, 1) for k, v in seconds.items()} }, in all "
+        f"{time.time() - t_start:.1f}")
     # a kernel's launches: those of every path that ran it, each path counted
     # from 0 just before it was driven to just after
     for k in kernels:
-        k["launches"] = sum(c.get(k["name"], 0)
-                            for c in (train_counts, render_counts, probe_counts))
+        k["launches"] = sum(c.get(k["name"], 0) for c in path_counts + [probe_counts])
         if k["launches"] < 1:
             raise AssertionError(f"no path launched {k['name']}")
-    log(f"launches by path: train {train_counts}, render {render_counts}, probes "
-        f"{probe_counts}")
+    log(f"launches by path: train {path_counts[0]}, render {path_counts[1]}, 6a run 1 train "
+        f"and render {path_counts[2:4]}, run 2 {path_counts[4:6]}, 6b {path_counts[6:8]}, "
+        f"probes {probe_counts}")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

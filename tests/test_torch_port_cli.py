@@ -1,0 +1,151 @@
+"""The port's command line on the CPU (``cli.main.main([...], device="cpu")``).
+
+A small on-disk scene in the Mip-NeRF-360 layout (the port's writer, 10
+views of 12x16) and a config whose ``_base_`` is the repository's
+``configs/nerf_unbounded/bicycle_single.py``, cut to 24^3 voxels and two
+``pg_scale`` boundaries: ``train`` (periodic saves, then the render the
+command line runs after training), ``train`` again with more steps (the implicit
+resume), ``--render_only``, ``export_bbox`` (its ``cam.npz`` against the
+JAX command line's on the same config), ``export_baked`` and a render of its
+output, and ``gen_trace``. Every program and option the port refuses raises
+``NotImplementedError`` naming its ROADMAP item; without a GPU the command
+line raises unless the CPU is asked for.
+"""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from unboundednerfpytorch_tpu_torch.cli import main as cli
+from unboundednerfpytorch_tpu_torch.data import png, synthetic
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _write_config(path, scene, logs, n_iters):
+    path.write_text(f"""
+_base_ = {str(ROOT / 'configs' / 'nerf_unbounded' / 'bicycle_single.py')!r}
+expname = 'tiny'
+basedir = {str(logs)!r}
+data = dict(datadir={str(scene)!r})
+fine_train = dict(N_iters={n_iters}, N_rand=256, pg_scale=[2, 4])
+fine_model_and_render = dict(num_voxels_density=24**3, num_voxels_base_density=24**3,
+    num_voxels_rgb=24**3, num_voxels_base_rgb=24**3, sample_budget=16, color_budget=6)
+""")
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """(config path, experiment directory) of the small scene."""
+    root = tmp_path_factory.mktemp("cli")
+    synthetic.write_llff_scene(str(root / "scene"), synthetic.orbit_scene(10, 12, 16, seed=3))
+    cfg = _write_config(root / "cfg.py", root / "scene", root / "logs", 5)
+    return cfg, root / "logs" / "tiny"
+
+
+def test_train_saves_resumes_and_renders(trained, capsys):
+    cfg, exp_dir = trained
+    assert cli.main(["--config", cfg, "--i_weights", "2", "--i_print", "1",
+                     "--save_train_imgs"], device="cpu") == 0
+    out = capsys.readouterr().out
+    assert "train finished" in out and "test: psnr" in out  # the render after training
+    meta = json.load(open(exp_dir / "fine_last" / "meta.json"))
+    assert (meta["global_step"], meta["has_opt_state"]) == (5, True)
+    args = (exp_dir / "args.txt").read_text()
+    assert "i_weights = 2" in args and "program = train" in args
+    assert len(list((exp_dir / "train_imgs").iterdir())) == 8  # views 0 and 8 are held out
+    assert png.read_png(str(exp_dir / "train_imgs" / "0001.png")).shape == (12, 16, 3)
+    records = [json.loads(line) for line in open(exp_dir / "fine_metrics.jsonl")]
+    assert [r["step"] for r in records if "loss" in r] == [1, 2, 3, 4, 5]
+    budget = {r["step"]: r["pg_scale"]["sample_budget"] for r in records if "pg_scale" in r}
+    assert budget == {2: 16, 4: 16}
+    # the same command with two more steps resumes where the first ended
+    _write_config(pathlib.Path(cfg), exp_dir.parent.parent / "scene", exp_dir.parent, 7)
+    cli.main(["--config", cfg, "--i_print", "1"], device="cpu")
+    out = capsys.readouterr().out
+    assert f"fine: resumed from {exp_dir / 'fine_last'} at step 5" in out
+    assert "fine iter      6" in out and "fine iter      5" not in out
+    assert json.load(open(exp_dir / "fine_last" / "meta.json"))["global_step"] == 7
+
+
+def test_render_export_and_trace_programs(trained, capsys, monkeypatch):
+    cfg, exp_dir = trained
+    if not (exp_dir / "fine_last").exists():
+        cli.main(["--config", cfg], device="cpu")
+    cli.main(["--config", cfg, "--render_only", "--render_test", "--dump_images"], device="cpu")
+    rendered = sorted(p.name for p in (exp_dir / "render_test").iterdir())
+    assert rendered == ["000.png", "000_depth.png", "001.png", "001_depth.png"]
+    assert png.read_png(str(exp_dir / "render_test" / "001.png")).shape == (12, 16, 3)
+
+    cli.main(["--config", cfg, "--program", "export_bbox"], device="cpu")
+    monkeypatch.setenv("UNBNERF_COMPILE_CACHE", "off")
+    from unboundednerfpytorch_tpu.cli import main as jax_cli
+
+    jax_out = str(exp_dir / "jax_cam.npz")
+    jax_cli.main(["--config", cfg, "--program", "export_bbox",
+                  "--export_bbox_and_cams_only", jax_out])
+    with np.load(exp_dir / "cam.npz") as got, np.load(jax_out) as want:
+        assert sorted(got.files) == sorted(want.files) == ["poses", "xyz_max", "xyz_min"]
+        np.testing.assert_array_equal(got["poses"], want["poses"])
+        for k in ("xyz_min", "xyz_max"):  # float32 corner points, another summation order
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6)
+
+    cli.main(["--config", cfg, "--program", "export_baked"], device="cpu")
+    meta = json.load(open(exp_dir / "baked_last" / "meta.json"))
+    assert meta["model_kwargs"]["fourier_freq_num"] == 0 and not meta["has_opt_state"]
+    capsys.readouterr()
+    cli.main(["--config", cfg, "--program", "render", "--ft_path", str(exp_dir / "baked_last")],
+             device="cpu")
+    assert "test: psnr" in capsys.readouterr().out
+
+    cli.main(["--config", cfg, "--program", "gen_trace"], device="cpu")
+    with np.load(exp_dir / "cam_paths" / "rot_cam.npz") as rot:
+        assert rot["cam_lst"].shape[1:] == (5, 3)
+    assert np.asarray(json.load(open(exp_dir / "render_poses.json"))).shape == (120, 3, 4)
+
+
+@pytest.mark.parametrize("program", sorted(cli.REFUSED_PROGRAMS))
+def test_programs_not_ported_are_refused(program):
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        cli.main(["--config", "unused.py", "--program", program], device="cpu")
+
+
+@pytest.mark.parametrize("option", [["--num_per_block", "4"], ["--block_parallel"],
+                                    ["--grid_parallel", "2"], ["--diffuse"]],
+                         ids=lambda o: o[0])
+def test_options_not_ported_are_refused(option):
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        cli.main(["--config", "unused.py", *option], device="cpu")
+
+
+def test_every_flag_of_the_jax_command_line_parses():
+    from unboundednerfpytorch_tpu.cli import main as jax_cli
+
+    def flags(parser):
+        return {(a.dest, tuple(a.option_strings), a.default) for a in parser._actions}
+
+    assert flags(cli.build_parser()) == flags(jax_cli.build_parser())
+
+
+def test_the_command_line_needs_a_gpu_unless_the_cpu_is_asked_for(trained, monkeypatch):
+    cfg, _ = trained
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--config", cfg, "--program", "export_bbox"])
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(ROOT)}
+    for module in ("unboundednerfpytorch_tpu_torch", "unboundednerfpytorch_tpu_torch.cli.main"):
+        done = subprocess.run([sys.executable, "-m", module, "--config", cfg, "--program",
+                               "export_bbox"], capture_output=True, text=True, env=env,
+                              cwd=str(ROOT), timeout=120)
+        assert done.returncode != 0 and "no CUDA device" in done.stderr, module
+    done = subprocess.run([sys.executable, "-m", "unboundednerfpytorch_tpu_torch", "--help"],
+                          capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=120)
+    assert done.returncode == 0 and "--program" in done.stdout

@@ -387,24 +387,116 @@ def test_depth_to_vis_and_metrics_match_jax():
 # checkpoints and convert
 
 
+def _save_format_1(path, cfg, params, global_step):
+    """A checkpoint as the port wrote it before format 2: bfloat16 grids as
+    float32 values, act_shift as float32, no ``stored_dtypes``."""
+    os.makedirs(path)
+    meta = {"global_step": global_step, "family": "FourierGrid",
+            "model_kwargs": convert.config_to_dict(cfg), "has_opt_state": False,
+            "format_version": 1}
+    json.dump(meta, open(os.path.join(path, "meta.json"), "w"))
+    np.savez(os.path.join(path, "params.npz"),
+             **ckpt._flatten(convert.fourier_grid_params_to_numpy(params)))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_checkpoint_round_trip_is_bit_equal(tmp_path, dtype):
+    """Format 2 (bfloat16 grids as their 16-bit patterns) as written now, and
+    format 1 (as float32 values) as written before it: both load bit-equal."""
     _, _, tcfg, tp = make_pair(seed=24, grid_dtype=dtype, **TWO_STAGE)
     tp.mask_cache.mask[2:5] = False
-    path = str(tmp_path / "fine_last")
-    ckpt.save_model(path, "FourierGrid", tcfg, tp, global_step=7)
-    assert sorted(os.listdir(path)) == ["meta.json", "params.npz"]
-    meta = json.load(open(os.path.join(path, "meta.json")))
-    assert set(meta) == {"global_step", "family", "model_kwargs", "has_opt_state",
-                         "format_version"}
-    family, cfg2, p2, step, opt = ckpt.load_model(path)
-    assert (family, step, opt) == ("FourierGrid", 7, None) and cfg2 == tcfg
-    assert p2.k0.grid.dtype == tp.k0.grid.dtype and p2.act_shift == pytest.approx(tp.act_shift)
-    for (na, a), (nb, b) in zip(sorted(tp.state_dict().items()), sorted(p2.state_dict().items())):
-        assert na == nb and torch.equal(a, b), na
-    assert p2.density.xyz_min == tp.density.xyz_min and p2.k0.num_freqs == tp.k0.num_freqs
+    tp.act_shift = float(tp.act_shift) + 1e-9  # a float64 value
+    for fmt in (1, 2):
+        path = str(tmp_path / f"format_{fmt}")
+        if fmt == 1:
+            _save_format_1(path, tcfg, tp, 7)
+        else:
+            ckpt.save_model(path, "FourierGrid", tcfg, tp, global_step=7)
+            assert sorted(os.listdir(path)) == ["meta.json", "params.npz"]
+            meta = json.load(open(os.path.join(path, "meta.json")))
+            assert set(meta) == {"global_step", "family", "model_kwargs", "has_opt_state",
+                                 "format_version", "stored_dtypes"}
+            assert meta["format_version"] == 2 and not meta["has_opt_state"]
+            assert meta["stored_dtypes"] == ({"density/grid": "bfloat16", "k0/grid": "bfloat16"}
+                                             if dtype == "bfloat16" else {})
+            with np.load(os.path.join(path, "params.npz")) as npz:  # 2 bytes an element
+                assert npz["k0/grid"].dtype == (np.uint16 if dtype == "bfloat16" else np.float32)
+        family, cfg2, p2, step, opt = ckpt.load_model(path)
+        assert (family, step, opt) == ("FourierGrid", 7, None) and cfg2 == tcfg
+        assert p2.k0.grid.dtype == tp.k0.grid.dtype
+        if fmt == 2:
+            assert p2.act_shift == tp.act_shift
+        else:
+            assert p2.act_shift == pytest.approx(tp.act_shift)
+        for (na, a), (nb, b) in zip(sorted(tp.state_dict().items()),
+                                    sorted(p2.state_dict().items())):
+            assert na == nb and torch.equal(a, b), na
+        assert p2.density.xyz_min == tp.density.xyz_min and p2.k0.num_freqs == tp.k0.num_freqs
     with pytest.raises(NotImplementedError):
         ckpt.save_model(path, "dvgo", tcfg, tp)
+
+
+def test_checkpoint_archives_are_numpy_archives(tmp_path):
+    """The port writes each member in one piece and reads it from its offset:
+    ``np.load`` reads what it writes, and it reads what ``np.savez`` writes
+    (format 1), every dtype and shape the checkpoints hold."""
+    rng = np.random.default_rng(0)
+    arrays = {"density/grid": rng.random((3, 4, 5, 2)).astype(np.float32),
+              "rgbnet/weights/0": rng.random((4, 6)).T, "k0/grid": np.arange(10, dtype=np.uint16),
+              "act_shift": np.float64(-4.5), "mask_cache/mask": rng.random((5, 5)) > 0.5,
+              "step": np.int32(7), "empty": np.zeros((0, 3), np.float32)}
+    ours, theirs = str(tmp_path / "ours.npz"), str(tmp_path / "theirs.npz")
+    ckpt._write_npz(ours, arrays)
+    np.savez(theirs, **arrays)
+    with np.load(ours) as npz:
+        read_by_numpy = {k: npz[k] for k in npz.files}
+    for got in (read_by_numpy, ckpt._read_npz(ours), ckpt._read_npz(theirs)):
+        assert sorted(got) == sorted(arrays)
+        for k, want in arrays.items():
+            assert got[k].dtype == np.asarray(want).dtype and got[k].shape == np.shape(want), k
+            np.testing.assert_array_equal(got[k], want)
+    np.savez_compressed(theirs, **arrays)
+    with pytest.raises(ValueError, match="compressed"):
+        ckpt._read_npz(theirs)
+
+
+def test_checkpoint_io_probe_runs_on_the_cpu(capsys):
+    from unboundednerfpytorch_tpu_torch.probes import checkpoint_io
+
+    rec = checkpoint_io.main("cpu", shape=(2, 3, 4, 5, 2))
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == json.loads(
+        json.dumps(rec))
+    assert {"to_host_s", "np_savez_s", "port_write_s", "np_load_s", "port_read_s",
+            "to_device_s"} <= set(rec) and rec["gb"] == 2 * 3 * 4 * 5 * 2 * (4 + 4 + 2) / 1e9
+
+
+def test_checkpoint_keeps_the_optimizer_state(tmp_path):
+    """``opt_state.npz`` beside the parameters: the step count and both
+    moments come back bit-equal; saving again without them drops the file,
+    and ``with_opt_state=False`` skips reading them."""
+    _, _, tcfg, tp = make_pair(seed=26, grid_dtype="bfloat16", **TWO_STAGE)
+    state = loop.create_train_state(tp, dataclasses.replace(_tiny_bicycle().fine_train))
+    gen = torch.Generator().manual_seed(0)
+    for moments in (state.optimizer.exp_avg, state.optimizer.exp_avg_sq):
+        for m in moments.values():
+            m.copy_(torch.randn(m.shape, generator=gen))
+    state.optimizer.step_count = 5
+    path = str(tmp_path / "fine_last")
+    ckpt.save_model(path, "FourierGrid", tcfg, tp, global_step=9,
+                    opt_state=state.optimizer.state_dict())
+    assert json.load(open(os.path.join(path, "meta.json")))["has_opt_state"]
+    *_, step, opt = ckpt.load_model(path)
+    assert step == 9 and opt["step"] == 5
+    want = state.optimizer.state_dict()
+    for key in ("exp_avg", "exp_avg_sq"):
+        assert sorted(opt[key]) == ["density", "k0", "rgbnet"]
+        for name, ms in want[key].items():
+            assert len(opt[key][name]) == len(ms)
+            for got, m in zip(opt[key][name], ms):
+                assert torch.equal(torch.from_numpy(got), m)
+    assert ckpt.load_model(path, with_opt_state=False)[4] is None
+    ckpt.save_model(path, "FourierGrid", tcfg, tp, global_step=9)
+    assert sorted(os.listdir(path)) == ["meta.json", "params.npz"]
 
 
 def test_config_dict_round_trip_and_jax_meta():

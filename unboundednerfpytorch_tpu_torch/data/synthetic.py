@@ -6,9 +6,13 @@ disk. Cameras orbit the origin at alternating elevations (the 360-capture
 pattern of the Mip-NeRF-360 scenes). The scene is a textured sphere at the
 origin inside a far sky: each pixel's colour is found in closed form
 (ray-sphere intersection), so full-resolution views cost seconds.
+:func:`write_llff_scene` and :func:`write_nerfpp_scene` put such a scene on
+disk in the layouts the loaders read.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -154,3 +158,60 @@ def imprint_scene(params, scene_center, scene_radius, *, seed: int = 0,
     for b in range(kgrid.shape[0]):
         kgrid[b] += (0.5 * torch.randn(kgrid.shape[1:], generator=gen, device=dev)).to(
             kgrid.dtype)
+
+
+def write_llff_scene(basedir: str, data: dict, factor: int = 8, bounds=(0.5, 100.0)) -> str:
+    """Write a data_dict of :func:`orbit_scene` (every view, in order) in the
+    on-disk layout of a Mip-NeRF-360 capture: ``poses_bounds.npy`` in the
+    LLFF storage convention and the views as ``images_{factor}/*.png``.
+
+    A row of ``poses_bounds.npy`` is a [3, 5] matrix, flattened, and the
+    view's near and far bounds: its columns are [-up, right, back] of the
+    camera, its position, and (H, W, focal) at the full resolution, ``factor``
+    times the stored images'. ``data.llff`` turns the columns back to
+    [right, up, back] and then changes the gauge (``bd_factor`` scale,
+    recentering, spherification), which keeps each pose and its image
+    consistent. The full-resolution ``images/`` is not written: the loader
+    reads ``images_{factor}/`` as it is."""
+    from unboundednerfpytorch_tpu_torch.data.png import write_png
+
+    outdir = os.path.join(basedir, f"images_{factor}")
+    os.makedirs(outdir, exist_ok=True)
+    rows = []
+    for i, (img, c2w, K, hw) in enumerate(zip(data["images"], data["poses"], data["Ks"],
+                                              data["HW"])):
+        write_png(os.path.join(outdir, f"img_{i:03d}.png"),
+                  (np.clip(img, 0.0, 1.0) * 255 + 0.5).astype(np.uint8))
+        c2w = np.asarray(c2w, np.float64)[:3]
+        hwf = np.array([[hw[0] * factor], [hw[1] * factor], [K[0][0] * factor]], np.float64)
+        stored = np.concatenate([-c2w[:, 1:2], c2w[:, 0:1], c2w[:, 2:4], hwf], axis=1)
+        rows.append(np.concatenate([stored.reshape(-1), bounds]))
+    np.save(os.path.join(basedir, "poses_bounds.npy"), np.stack(rows))
+    return basedir
+
+
+def write_nerfpp_scene(basedir: str, data: dict) -> str:
+    """Write a data_dict of :func:`orbit_scene` in the NeRF++ layout of the
+    Tanks & Temples scenes: ``train/`` (the ``i_train`` views) and ``test/``
+    (``i_test``), each with ``intrinsics/``, ``pose/`` (4x4 matrices as text,
+    one a view) and ``rgb/`` (PNG). The poses are written in the OpenCV
+    convention of those scenes (camera x right, y down, looking along +z;
+    the configs set ``inverse_y``)."""
+    from unboundednerfpytorch_tpu_torch.data.png import write_png
+
+    to_cv = np.diag([1.0, -1.0, -1.0, 1.0])
+    for split, ids in (("train", data["i_train"]), ("test", data["i_test"])):
+        for sub in ("intrinsics", "pose", "rgb"):
+            os.makedirs(os.path.join(basedir, split, sub), exist_ok=True)
+        for n, i in enumerate(np.asarray(ids)):
+            K4 = np.eye(4)
+            K4[:3, :3] = data["Ks"][i]
+            np.savetxt(os.path.join(basedir, split, "intrinsics", f"{n:06d}.txt"),
+                       K4.reshape(1, -1))
+            c2w = np.eye(4)
+            c2w[:3] = np.asarray(data["poses"][i], np.float64)[:3]
+            np.savetxt(os.path.join(basedir, split, "pose", f"{n:06d}.txt"),
+                       (c2w @ to_cv).reshape(1, -1))
+            write_png(os.path.join(basedir, split, "rgb", f"{n:06d}.png"),
+                      (np.clip(data["images"][i], 0.0, 1.0) * 255 + 0.5).astype(np.uint8))
+    return basedir

@@ -10,6 +10,12 @@ runs in the moment dtype and the parameter is cast back to its own.
 The update is in place (parameters and moments are overwritten) to bound
 memory at full width; the JAX version is functional. Per-element learning
 rates (``pervoxel_lr``) are not ported yet.
+
+:meth:`MaskedAdam.state_dict` holds what the JAX ``MaskedAdamState`` holds,
+the step count and both moments, keyed by group name and by the position of
+a parameter in its group (``convert.opt_state_to_numpy`` gives it the JAX
+layout), so it outlives the parameter tensors: a checkpoint restores it into
+an optimizer built on other tensors of the same shapes.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -40,6 +47,40 @@ class MaskedAdam:
                 dt = torch.promote_types(p.dtype, torch.float32)
                 self.exp_avg[p] = torch.zeros(p.shape, dtype=dt, device=p.device)
                 self.exp_avg_sq[p] = torch.zeros(p.shape, dtype=dt, device=p.device)
+
+    def state_dict(self) -> dict:
+        """``{"step": updates since the optimizer was built, "exp_avg":
+        {group: [moment of each parameter, in the group's order]},
+        "exp_avg_sq": ...}``. The tensors are the optimizer's own."""
+        out = {"step": self.step_count}
+        for key in ("exp_avg", "exp_avg_sq"):
+            moments = getattr(self, key)
+            out[key] = {g.name: [moments[p] for p in g.params] for g in self.groups}
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` (its moments as tensors or numpy arrays,
+        on any device) into this optimizer's moments. Groups, counts and
+        shapes must match."""
+        for key in ("exp_avg", "exp_avg_sq"):
+            moments = getattr(self, key)
+            if sorted(state[key]) != sorted(g.name for g in self.groups):
+                raise ValueError(f"{key}: groups {sorted(state[key])}, want "
+                                 f"{sorted(g.name for g in self.groups)}")
+            for g in self.groups:
+                src = state[key][g.name]
+                if len(src) != len(g.params):
+                    raise ValueError(f"{key}/{g.name}: {len(src)} moments for "
+                                     f"{len(g.params)} parameters")
+                for p, s in zip(g.params, src):
+                    if isinstance(s, np.ndarray):  # torch wants a writable array
+                        s = torch.from_numpy(np.require(s, requirements="W"))
+                    if s.shape != moments[p].shape:
+                        raise ValueError(f"{key}/{g.name}: shape {tuple(s.shape)}, want "
+                                         f"{tuple(moments[p].shape)}")
+                    moments[p].copy_(s)
+        self.step_count = int(state["step"])
 
     @torch.no_grad()
     def step(self, lr_scale: float = 1.0) -> None:

@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 
+from unboundednerfpytorch_tpu_torch.data.png import write_png
 from unboundednerfpytorch_tpu_torch.render.renderer import (
     DEFAULT_CHUNK, depth_to_vis, render_image, render_viewpoints,
 )
@@ -17,21 +18,21 @@ from unboundednerfpytorch_tpu_torch.render.renderer import (
 
 def write_video(path: str, frames, fps: int = 30) -> str:
     """mp4 via imageio-ffmpeg, falling back to a directory of PNG frames when
-    no video backend is available (a long render must never die at the final
-    write). Returns the path actually written."""
-    import imageio.v2 as imageio
-
+    imageio or its video backend is missing (a long render must never die at
+    the final write). Returns the path actually written."""
     frames = np.asarray(frames)
     try:
+        import imageio.v2 as imageio
+
         imageio.mimwrite(path, frames, fps=fps, quality=8)
         return path
-    except Exception as e:  # noqa: BLE001: a missing ffmpeg/pyav backend
+    except Exception as e:  # noqa: BLE001: no imageio, or no ffmpeg/pyav backend
         if os.path.exists(path):
             os.remove(path)  # a mid-write failure leaves a corrupt container
         outdir = os.path.splitext(path)[0] + "_frames"
         os.makedirs(outdir, exist_ok=True)
         for i, f in enumerate(frames):
-            imageio.imwrite(os.path.join(outdir, f"{i:04d}.png"), f)
+            write_png(os.path.join(outdir, f"{i:04d}.png"), f)
         print(f"video backend unavailable ({type(e).__name__}); wrote "
               f"{len(frames)} frames to {outdir} instead of {path}")
         return outdir
@@ -42,8 +43,8 @@ def write_video(path: str, frames, fps: int = 30) -> str:
 _NOT_PORTED = {
     "auto_budget": "suggest_budgets and the hierarchical probe (ROADMAP A16)",
     "constant_baked": "no counterpart: tables as compile-time constants are an XLA "
-                      "device (ROADMAP A18 records the decision)",
-    "style_root": "ARF stylization (ROADMAP A18)",
+                      "device (ROADMAP A18b records the decision)",
+    "style_root": "ARF stylization (ROADMAP A18b)",
 }
 
 
@@ -81,7 +82,7 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
         raise NotImplementedError(
             "block checkpoints (run_render_blocks, merge_blocks) are not ported "
             "(ROADMAP A14)")
-    family, mcfg, params, _, _ = ckpt.load_model(path, device=dev)
+    family, mcfg, params, _, _ = ckpt.load_model(path, device=dev, with_opt_state=False)
     params.requires_grad_(False)
     render_kwargs = {
         "near": float(data_dict["near"]),
@@ -145,14 +146,12 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
         results[name] = out
         rgbs = out["rgbs"]
         if getattr(args, "dump_images", False):
-            import imageio.v2 as imageio
-
             outdir = os.path.join(exp_dir, f"render_{name}")
             os.makedirs(outdir, exist_ok=True)
             for i, rgb in enumerate(rgbs):
-                imageio.imwrite(os.path.join(outdir, f"{i:03d}.png"), M.to8b(rgb))
-                imageio.imwrite(os.path.join(outdir, f"{i:03d}_depth.png"),
-                                depth_to_vis(out["depths"][i]))
+                write_png(os.path.join(outdir, f"{i:03d}.png"), M.to8b(rgb))
+                write_png(os.path.join(outdir, f"{i:03d}_depth.png"),
+                          depth_to_vis(out["depths"][i]))
         if is_video and len(rgbs):
             write_video(os.path.join(exp_dir, "render_video.mp4"), M.to8b(rgbs))
             write_video(os.path.join(exp_dir, "render_video_depth.mp4"),
@@ -167,7 +166,7 @@ def run_render_blocks(args, cfg, data_dict, exp_dir: str) -> None:
 
 
 def export_coarse_geometry(cfg, exp_dir: str, out_path: str = "") -> None:
-    raise NotImplementedError("the coarse-geometry export is not ported (ROADMAP A14: "
+    raise NotImplementedError("the coarse-geometry export is not ported (ROADMAP A18a: "
                               "it needs the coarse stage)")
 
 

@@ -10,19 +10,23 @@ re-anchored), and ``run_train`` with the coarse stage at ``N_iters=0`` (the
 ``*_single`` configs).
 
 With ``exp_dir`` the stage ends by writing ``<exp_dir>/fine_last`` through
-the port's ``utils.checkpoint.save_model``, which ``render.run_render``
-loads.
+the port's ``utils.checkpoint.save_model``, with the optimizer's state;
+``save_every`` saves it there every so many steps too, and a run started
+again with the same ``exp_dir`` resumes from it (``ft_path`` names another
+checkpoint, ``no_reload`` starts afresh). ``<exp_dir>/fine_metrics.jsonl``
+gets a record of every scalar the step emits at each logged step, and the
+record of each ``pg_scale`` boundary. ``render.run_render`` loads
+``fine_last``.
 
 Not ported yet, and refused rather than skipped: a coarse stage, samplers
 other than ``flatten``, per-voxel lr, ``maskout_near_cam_vox``, the two-stage
-training forward (``train_survivor_budget``), resuming from a checkpoint and
-periodic saves (the optimizer state is not saved), and the other model
-families.
+training forward (``train_survivor_budget``), and the other model families.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from typing import Callable
@@ -41,6 +45,7 @@ from unboundednerfpytorch_tpu_torch.train import bbox as bbox_mod
 from unboundednerfpytorch_tpu_torch.train.step import (
     FlattenSampler, TrainState, create_train_state, make_train_step,
 )
+from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 
 
 def model_family_name(cfg: ExpConfig) -> str:
@@ -159,6 +164,14 @@ def pg_scale_boundary(state: TrainState, mcfg: fg.FourierGridConfig,
     return state, mcfg, record
 
 
+def _jsonable(x):
+    if isinstance(x, dict):
+        return {k: _jsonable(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return [_jsonable(v) for v in x]
+    return float(x) if isinstance(x, (torch.Tensor, np.generic)) else x
+
+
 def scene_rep_reconstruction(
     cfg: ExpConfig,
     cfg_model: ModelRenderConfig,
@@ -174,9 +187,24 @@ def scene_rep_reconstruction(
     callback: Callable[[int, dict], None] | None = None,
     coarse_mask_fn=None,
     exp_dir: str | None = None,
+    no_reload: bool = False,
+    no_reload_optimizer: bool = False,
+    save_every: int = 0,
+    ft_path: str = "",
 ):
     """One training stage; returns (family, model config, params, psnr).
-    With ``exp_dir`` the trained model is saved as ``<exp_dir>/<stage>_last``.
+
+    With ``exp_dir`` the trained model is saved as ``<exp_dir>/<stage>_last``
+    with the optimizer's state, every ``save_every`` steps (0: at the end
+    only) and at the end; a ``<stage>_last`` found there is resumed from,
+    unless ``no_reload``. ``ft_path`` names the checkpoint to resume from
+    instead. A resume loads the model and its config from the checkpoint
+    (no new model, no seed mask), the optimizer's step count and moments
+    unless ``no_reload_optimizer``, and continues from the checkpoint's step
+    as the uninterrupted run would: boundaries at or before it are passed, the
+    lr decay is anchored at the last of them, the sampler and the background
+    draws stand where that run's stand, and the sample budget is on where
+    the first boundary has passed.
 
     ``coarse_mask_fn(world_size, xyz_min, xyz_max) -> bool [X, Y, Z]`` seeds
     the occupancy cache (in the full recipe, from the coarse stage); with it
@@ -204,39 +232,64 @@ def scene_rep_reconstruction(
         xyz_min = xyz_min - shift
         xyz_max = xyz_max + shift
 
-    # CPU generator for the model init (device-independent values); a
-    # device generator for the per-step draws (ray permutation, backgrounds)
-    gen_init = torch.Generator().manual_seed(seed)
-    gen_step = torch.Generator(device=device).manual_seed(seed + 1)
-
-    family, mcfg, params = build_model(
-        cfg, cfg_model, cfg_train, xyz_min, xyz_max, gen_init, device,
-        n_train=len(np.asarray(data_dict["i_train"])))
-    if coarse_mask_fn is not None:
-        ws = params.mask_cache.mask.shape
-        params.mask_cache.mask = torch.as_tensor(
-            coarse_mask_fn(ws, mcfg.xyz_min, mcfg.xyz_max), dtype=torch.bool, device=device)
+    # implicit resume from the stage's last checkpoint; ft_path wins over it
+    reload_path = None
+    if exp_dir:
+        os.makedirs(exp_dir, exist_ok=True)
+        cand = os.path.join(exp_dir, f"{stage}_last")
+        if os.path.exists(os.path.join(cand, "meta.json")):
+            reload_path = cand
+    if ft_path:
+        reload_path = ft_path
+    if no_reload:
+        reload_path = None
+    start_step, opt_state = 0, None
+    if reload_path is not None:
+        t0 = time.perf_counter()
+        family, mcfg, params, start_step, opt_state = ckpt.load_model(
+            reload_path, device=device, with_opt_state=not no_reload_optimizer)
+        log_fn(f"{stage}: resumed from {reload_path} at step {start_step} "
+               f"({'with' if opt_state else 'without'} the optimizer's state, "
+               f"{time.perf_counter() - t0:.2f} s)")
+    else:
+        # CPU generator for the model init (device-independent values)
+        family, mcfg, params = build_model(
+            cfg, cfg_model, cfg_train, xyz_min, xyz_max, torch.Generator().manual_seed(seed),
+            device, n_train=len(np.asarray(data_dict["i_train"])))
+        if coarse_mask_fn is not None:
+            ws = params.mask_cache.mask.shape
+            params.mask_cache.mask = torch.as_tensor(
+                coarse_mask_fn(ws, mcfg.xyz_min, mcfg.xyz_max), dtype=torch.bool, device=device)
 
     render_kwargs = {
+        "near": float(data_dict["near"]),
+        "far": float(data_dict["far"]),
         "bg": 1.0 if cfg.data.white_bkgd else 0.0,
         "rand_bkgd": cfg.data.rand_bkgd,
         "stepsize": cfg_model.stepsize,
     }
     store = gather_training_rays(cfg, data_dict, device)
-    state = create_train_state(params, cfg_train)
+    state = create_train_state(params, cfg_train, start_step=start_step, opt_state=opt_state)
 
     near_thres = 0.0
     if cfg_train.weight_nearclip > 0 and data_dict.get("near_clip"):
         near_thres = float(data_dict["near_clip"]) / float(mcfg.scene_radius[0])
 
     lr_decay_enabled = not (cfg.model == "FourierGrid" and cfg.data.dataset_type == "tankstemple")
-    sampler = FlattenSampler(store["rgb"].shape[0], cfg_train.N_rand, gen_step, device)
+    # a device generator for the per-step draws (ray permutation, backgrounds)
+    sampler = FlattenSampler(store["rgb"].shape[0], cfg_train.N_rand,
+                             torch.Generator(device=device).manual_seed(seed + 1), device,
+                             rand_bkgd=render_kwargs["rand_bkgd"])
+    sampler.fast_forward(start_step)
 
     # the occupancy cache is all-true at init, where a sample budget would cut
     # every ray to its first `budget` samples: hold the budget off until the
-    # cache holds geometry (a coarse seed, or the first pg_scale refresh)
+    # cache holds geometry (a coarse seed, or the first pg_scale refresh, which
+    # a resumed run may have passed already)
+    pg_scale = [int(b) for b in cfg_train.pg_scale]
     deferred_budget = 0
-    if mcfg.sample_budget > 0 and coarse_mask_fn is None:
+    cache_trusted = coarse_mask_fn is not None or (bool(pg_scale) and start_step >= min(pg_scale))
+    if mcfg.sample_budget > 0 and not cache_trusted:
         deferred_budget = mcfg.sample_budget
         mcfg = dataclasses.replace(mcfg, sample_budget=0)
 
@@ -246,15 +299,27 @@ def scene_rep_reconstruction(
             world_size_max=float(max(mcfg_now.world_size)), near_thres=near_thres,
             lr_anchor=lr_anchor_now, lr_decay_enabled=lr_decay_enabled)
 
+    def save(step: int) -> None:
+        # never persist a deferral-zeroed budget: a resume must re-enter the
+        # deferral with the configured one
+        save_cfg = mcfg
+        if deferred_budget:
+            save_cfg = dataclasses.replace(mcfg, sample_budget=deferred_budget)
+        ckpt.save_model(os.path.join(exp_dir, f"{stage}_last"), family, save_cfg, state.params,
+                        global_step=step, opt_state=state.optimizer.state_dict())
+
+    def record(rec: dict) -> None:
+        with open(os.path.join(exp_dir, f"{stage}_metrics.jsonl"), "a") as f:
+            f.write(json.dumps(_jsonable(rec)) + "\n")
+
     # the lr decays after each update and returns to the base lr wherever the
     # optimizer is rebuilt: the decay is anchored at the last boundary
-    lr_anchor = 1
+    lr_anchor = max([1] + [b for b in pg_scale if b <= start_step])
     step_fn = compile_step(mcfg, lr_anchor)
-    pg_scale = [int(b) for b in cfg_train.pg_scale]
     thres_schedule = dict(normalize_fast_color_thres(cfg_model)[1])
     last_psnr = 0.0
     t0 = time.time()
-    for global_step in range(1, n_iters + 1):
+    for global_step in range(start_step + 1, n_iters + 1):
         if global_step in thres_schedule:
             new_thres = float(thres_schedule[global_step])
             if new_thres != mcfg.fast_color_thres:
@@ -271,50 +336,59 @@ def scene_rep_reconstruction(
             log_fn(f"{stage} iter {global_step:6d} / pg_scale: grids "
                    f"{boundary['world_size_density']}, occupancy "
                    f"{boundary['occupancy_carried']:.4f} -> {boundary['occupancy']:.4f}, "
-                   f"sample_budget {boundary['sample_budget']}, resize {sec['resize']:.3f}s "
+                   f"sample_budget {boundary['sample_budget_before']} -> "
+                   f"{boundary['sample_budget']}, resize {sec['resize']:.3f}s "
                    f"refresh {sec['refresh']:.3f}s rebuild {sec['rebuild']:.3f}s")
+            if exp_dir is not None:
+                record({"step": global_step, "pg_scale": boundary})
         with record_function("train_loop/batch"):
-            idx = sampler.next_indices()
+            idx, bg_color = sampler.next_batch()
             batch = {k: v[idx] for k, v in store.items()}
-            bg_color = None
-            if render_kwargs["rand_bkgd"]:
-                bg_color = torch.rand((idx.shape[0], 3), generator=gen_step, device=device)
         metrics = step_fn(state, batch, bg_color)
         if boundary is not None:
             metrics["pg_scale"] = boundary
         if global_step % log_every == 0 or global_step == n_iters:
             last_psnr = float(metrics["psnr"])
+            elapsed = time.time() - t0
             log_fn(f"{stage} iter {global_step:6d} / loss {float(metrics['loss']):.6f} / "
-                   f"psnr {last_psnr:5.2f} / {time.time() - t0:6.1f}s")
+                   f"psnr {last_psnr:5.2f} / {elapsed:6.1f}s")
+            if exp_dir is not None:
+                record({"step": global_step, "elapsed_s": elapsed,
+                        **{k: v for k, v in metrics.items() if k != "pg_scale"}})
+        if save_every and exp_dir is not None and global_step % save_every == 0 \
+                and global_step < n_iters:
+            save(global_step)
         if callback is not None:
             callback(global_step, metrics)
-    if deferred_budget:  # never hand on (or persist) a deferral-zeroed budget
+    if exp_dir is not None and n_iters > start_step:
+        save(n_iters)
+    if deferred_budget:  # never hand on a deferral-zeroed budget
         mcfg = dataclasses.replace(mcfg, sample_budget=deferred_budget)
-    if exp_dir is not None:
-        from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt_mod
-
-        ckpt_mod.save_model(os.path.join(exp_dir, f"{stage}_last"), family, mcfg,
-                            state.params, global_step=n_iters)
     return family, mcfg, state.params, last_psnr
 
 
 def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,
               device=None, log_every: int = 500, callback=None, coarse_mask_fn=None,
-              exp_dir: str | None = None):
+              exp_dir: str | None = None, no_reload: bool = False,
+              no_reload_optimizer: bool = False, save_every: int = 0, ft_path: str = ""):
     """The fine stage of a ``*_single`` recipe (coarse ``N_iters=0``).
     Returns (family, model config, params, last logged psnr).
 
     ``device``: ``None`` -> ``cuda`` (raises without a GPU); pass ``"cpu"``
     for the plain PyTorch path. ``coarse_mask_fn``: optional occupancy seed,
-    standing in for the coarse stage's (see scene_rep_reconstruction).
-    ``exp_dir``: where ``fine_last`` is written at the end (not at all if None).
+    standing in for the coarse stage's. ``exp_dir``, ``no_reload``,
+    ``no_reload_optimizer``, ``save_every``, ``ft_path``: checkpoints and
+    resume (see scene_rep_reconstruction); nothing is saved where ``exp_dir``
+    is None.
     """
     dev = resolve_device(device)
     if cfg.coarse_train.N_iters > 0:
-        raise NotImplementedError("a coarse stage (coarse_train.N_iters > 0) is not ported yet")
+        raise NotImplementedError("a coarse stage (coarse_train.N_iters > 0) is not ported yet "
+                                  "(ROADMAP A18a)")
     xyz_min, xyz_max = bbox_mod.compute_bbox_by_cam_frustrm(
         cfg, data_dict, model_family_name(cfg), device=dev)
     return scene_rep_reconstruction(
         cfg, cfg.fine_model_and_render, cfg.fine_train, xyz_min, xyz_max, data_dict,
         stage="fine", device=dev, seed=seed, log_every=log_every, log_fn=log_fn,
-        callback=callback, coarse_mask_fn=coarse_mask_fn, exp_dir=exp_dir)
+        callback=callback, coarse_mask_fn=coarse_mask_fn, exp_dir=exp_dir, no_reload=no_reload,
+        no_reload_optimizer=no_reload_optimizer, save_every=save_every, ft_path=ft_path)

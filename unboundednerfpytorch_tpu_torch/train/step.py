@@ -38,9 +38,14 @@ class TrainState:
 
 
 def create_train_state(params: nn.Module, train_cfg: TrainStageConfig,
-                       start_step: int = 0) -> TrainState:
-    return TrainState(params=params, optimizer=factory.make_optimizer(params, train_cfg),
-                      step=start_step)
+                       start_step: int = 0, opt_state: dict | None = None) -> TrainState:
+    """A fresh optimizer on ``params``; with ``opt_state`` (a
+    ``MaskedAdam.state_dict()``, e.g. a checkpoint's) its step count and
+    moments are restored."""
+    optimizer = factory.make_optimizer(params, train_cfg)
+    if opt_state is not None:
+        optimizer.load_state_dict(opt_state)
+    return TrainState(params=params, optimizer=optimizer, step=start_step)
 
 
 def make_train_step(
@@ -139,21 +144,35 @@ def make_train_step(
 class FlattenSampler:
     """Epoch-permutation ray sampler ('flatten'): a shuffled index buffer
     walked sequentially and reshuffled when the next batch would run past
-    its end, so every ray is visited once per epoch."""
+    its end, so every ray is visited once per epoch. With ``rand_bkgd`` each
+    batch also gets a random background colour per ray, drawn from the same
+    generator just after its indices.
+
+    Every draw comes from ``generator``, in an order fixed by the step, so
+    :meth:`fast_forward` (the draws of ``n`` batches, thrown away) stands the
+    sampler where an uninterrupted run stands after ``n`` steps."""
 
     def __init__(self, n_total: int, n_rand: int, generator: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, rand_bkgd: bool = False):
         self.n_total, self.n_rand = int(n_total), int(n_rand)
-        self.generator, self.device = generator, device
+        self.generator, self.device, self.rand_bkgd = generator, device, rand_bkgd
         self._shuffle()
 
     def _shuffle(self) -> None:
         self.perm = torch.randperm(self.n_total, generator=self.generator, device=self.device)
         self.cursor = 0
 
-    def next_indices(self) -> torch.Tensor:
+    def next_batch(self) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """(ray indices [n_rand], background colours [n_rand, 3] or None)."""
         if self.cursor + self.n_rand > self.n_total:
             self._shuffle()
         idx = self.perm[self.cursor:self.cursor + self.n_rand]
         self.cursor += self.n_rand
-        return idx
+        bg = None
+        if self.rand_bkgd:
+            bg = torch.rand((idx.shape[0], 3), generator=self.generator, device=self.device)
+        return idx, bg
+
+    def fast_forward(self, n: int) -> None:
+        for _ in range(n):
+            self.next_batch()

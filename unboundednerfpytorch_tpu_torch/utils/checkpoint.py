@@ -1,32 +1,38 @@
-"""Checkpoints of the port: a directory with ``meta.json`` and ``params.npz``.
+"""Checkpoints of the port: a directory with ``meta.json``, ``params.npz``
+and, where the optimizer's state is kept, ``opt_state.npz``.
 
 Counterpart of ``unboundednerfpytorch_tpu/utils/checkpoint.py`` for the
 FourierGrid family: the same directory layout and the same ``meta.json``
 keys (global_step, family, model_kwargs, has_opt_state, format_version), so
 the model can be re-instantiated from the files alone. The JAX package
-writes its parameters as ``params.msgpack`` through flax; the port imports
-neither, and writes ``params.npz`` holding the numpy dict of
-``convert.fourier_grid_params_to_numpy`` (nested keys joined by ``/``;
-bfloat16 grids as the float32 values that hold them exactly, cast back to
-``grid_dtype`` at load). ``convert.py`` says how a JAX checkpoint is carried
-over.
+writes flax msgpack; the port imports neither, and writes numpy archives of
+the JAX layouts (nested keys joined by ``/``): ``params.npz`` the dict of
+``convert.fourier_grid_params_to_numpy``, ``opt_state.npz`` that of
+``convert.opt_state_to_numpy`` (step count and both Adam moments).
+``convert.py`` says how a JAX checkpoint is carried over.
 
-Not ported yet: optimizer state (``has_opt_state`` is always false),
-``merge_blocks`` and the import of reference ``.tar`` files.
+Format 2 stores a bfloat16 grid as its 16-bit patterns (uint16), named with
+its dtype in ``meta.json``'s ``stored_dtypes``, and ``act_shift`` as float64;
+format 1 (the port's first) stored bfloat16 grids as float32 values, cast
+back to ``grid_dtype`` at load. Both load. Each file is written under a
+temporary name and renamed, ``meta.json`` last.
+
+Not ported yet: ``merge_blocks`` and the import of reference ``.tar`` files.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import zipfile
 
 import numpy as np
-import torch
 
 from unboundednerfpytorch_tpu_torch import convert
 from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
 
 FAMILY = "FourierGrid"
+FORMAT_VERSION = 2
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -43,6 +49,7 @@ def _flatten(tree, prefix: str = "") -> dict:
 
 
 def _unflatten(flat: dict) -> dict:
+    """Nested dicts from ``/``-joined keys; a level keyed 0..n-1 is a list."""
     tree: dict = {}
     for name, val in flat.items():
         node = tree
@@ -50,34 +57,96 @@ def _unflatten(flat: dict) -> dict:
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = val
-    mlp = tree["rgbnet"]
-    for key in ("weights", "biases"):
-        mlp[key] = [mlp[key][str(i)] for i in range(len(mlp[key]))]
-    return tree
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+def _write_npz(path: str, arrays: dict) -> None:
+    """``np.savez``'s archive (stored members, one ``.npy`` each), each
+    member written in one piece: ``np.savez`` copies and checksums 16 MB at
+    a time, half again as slow at full width."""
+    with zipfile.ZipFile(path + ".tmp", "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for name, arr in arrays.items():
+            arr = np.require(arr, requirements="C")  # keeps a 0-d array 0-d
+            with zf.open(name + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array_header_1_0(
+                    f, np.lib.format.header_data_from_array_1_0(arr))
+                f.write(memoryview(arr.reshape(-1)).cast("B"))
+    os.replace(path + ".tmp", path)
+
+
+def _read_npz(path: str) -> dict:
+    """The arrays of an ``np.savez`` archive, each read straight from its
+    offset in the file: ``np.load`` reads a member 256 KB at a time through
+    ``zipfile``, four to five times as slow at full width."""
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as raw:
+        for info in zf.infolist():
+            name = info.filename[:-len(".npy")]
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise ValueError(f"{path}: member {info.filename} is compressed")
+            with zf.open(info) as f:
+                version = np.lib.format.read_magic(f)
+                read_header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                               else np.lib.format.read_array_header_2_0)
+                shape, fortran, dtype = read_header(f)
+                header_len = f.tell()
+            raw.seek(info.header_offset)
+            local = raw.read(30)  # the local file header, then its name and extra field
+            raw.seek(info.header_offset + 30 + int.from_bytes(local[26:28], "little")
+                     + int.from_bytes(local[28:30], "little") + header_len)
+            count = int(np.prod(shape))
+            arr = np.fromfile(raw, dtype=dtype, count=count)
+            if arr.size != count:
+                raise ValueError(f"{path}: member {info.filename} is truncated")
+            out[name] = arr.reshape(shape, order="F" if fortran else "C")
+    return out
 
 
 def save_model(path: str, family: str, cfg: fg.FourierGridConfig, params,
-               global_step: int = 0) -> None:
+               global_step: int = 0, opt_state: dict | None = None) -> None:
+    """``opt_state``: a ``MaskedAdam.state_dict()``, saved beside the
+    parameters (``has_opt_state``); without it a stale ``opt_state.npz`` of
+    an earlier save to ``path`` is removed."""
     if family != FAMILY:
         raise NotImplementedError(f"only {FAMILY} checkpoints are ported, got {family!r}")
     os.makedirs(path, exist_ok=True)
+    flat = _flatten(convert.fourier_grid_params_to_numpy(params, bf16_bits=True))
+    flat["act_shift"] = np.float64(params.act_shift)
+    stored = {f"{name}/grid": "bfloat16" for name in ("density", "k0")
+              if flat[f"{name}/grid"].dtype == np.uint16}
+    _write_npz(os.path.join(path, "params.npz"), flat)
+    opt_path = os.path.join(path, "opt_state.npz")
+    if opt_state is not None:
+        _write_npz(opt_path, _flatten(convert.opt_state_to_numpy(opt_state)))
+    elif os.path.exists(opt_path):
+        os.remove(opt_path)
     meta = {
         "global_step": int(global_step),
         "family": family,
         "model_kwargs": convert.config_to_dict(cfg),
-        "has_opt_state": False,
-        "format_version": 1,
+        "has_opt_state": opt_state is not None,
+        "format_version": FORMAT_VERSION,
+        "stored_dtypes": stored,
     }
-    with open(os.path.join(path, "meta.json"), "w") as f:
+    with open(os.path.join(path, "meta.json.tmp"), "w") as f:
         json.dump(meta, f, indent=2)
-    np.savez(os.path.join(path, "params.npz"),
-             **_flatten(convert.fourier_grid_params_to_numpy(params)))
+    os.replace(os.path.join(path, "meta.json.tmp"), os.path.join(path, "meta.json"))
 
 
-def load_model(path: str, device="cpu"):
+def load_model(path: str, device="cpu", with_opt_state: bool = True):
     """Re-instantiate from the checkpoint alone, on ``device``. Returns
-    (family, cfg, params, global_step, None); the last is the optimizer
-    state's place in the JAX package's tuple."""
+    (family, cfg, params, global_step, opt_state), as the JAX package does;
+    ``opt_state`` is None where the checkpoint holds none or
+    ``with_opt_state`` is false (a render needs none), else a state for
+    ``MaskedAdam.load_state_dict`` whose moments are numpy arrays."""
     if os.path.isfile(path) and path.endswith(".tar"):
         raise NotImplementedError("importing a reference .tar checkpoint is not ported yet")
     with open(os.path.join(path, "meta.json")) as f:
@@ -85,12 +154,21 @@ def load_model(path: str, device="cpu"):
     family = meta["family"]
     if family != FAMILY:
         raise NotImplementedError(f"only {FAMILY} checkpoints are ported, got {family!r}")
+    version = meta.get("format_version", 1)
+    if version not in (1, FORMAT_VERSION):
+        raise ValueError(f"{path}: checkpoint format {version} is unknown")
     cfg = convert.config_from_dict(meta["model_kwargs"])
-    with np.load(os.path.join(path, "params.npz")) as npz:
-        tree = _unflatten({k: npz[k] for k in npz.files})
-    params = convert.fourier_grid_params_from_numpy(tree, device)
+    stored = meta.get("stored_dtypes", {})
+    flat = _read_npz(os.path.join(path, "params.npz"))
+    flat = {k: convert.bf16_from_bits(v) if stored.get(k) == "bfloat16" else v
+            for k, v in flat.items()}
+    params = convert.fourier_grid_params_from_numpy(_unflatten(flat), device)
     dt = fg._DTYPES[cfg.grid_dtype]
     for name in ("density", "k0"):
         grid = getattr(params, name).grid
         grid.data = grid.data.to(dt)
-    return family, cfg, params, int(meta["global_step"]), None
+    opt_state = None
+    if with_opt_state and meta.get("has_opt_state"):
+        opt_state = convert.opt_state_from_numpy(
+            _unflatten(_read_npz(os.path.join(path, "opt_state.npz"))))
+    return family, cfg, params, int(meta["global_step"]), opt_state
