@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps 16] [--views 20] [--profile] [--kernels-only]
+    python3 chip_smoke.py [--steps 10] [--views 20] [--profile] [--kernels-only]
 
 Phases, each reported on its own line:
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
@@ -26,7 +26,14 @@ Phases, each reported on its own line:
      the plain version: such samples are counted and bounded, not absorbed in
      the tolerance; the backward sums in another order than the plain version,
      which its tolerance allows for element by element
-     (``march_backward_tolerance``). The four gather-probe kernels are driven through their entry
+     (``march_backward_tolerance``). The same checks and times run at this
+     slice's shapes: TV on DCVGO's one-bank bicycle grids (bf16), on DMPIGO's
+     fern grids (f32, x and y weighed otherwise than z) and on Truck.py's seven
+     banks of ~319^3 (2.7 G elements, held bank by bank); both march kernels
+     at DCVGO's [4096, 1064] and DMPIGO's [4096, 255] and at a render chunk of
+     each. ``cumdist_thres`` (DCVGO's oversample skip) must give the plain
+     version's flags exactly, on DCVGO's own step distances at the train step's
+     and a render chunk's shape and at ragged shapes. The four gather-probe kernels are driven through their entry
      point (``probes.gather.main``), which holds each against its plain
      version at every one of its shapes (indexed copies bit-equal, ``box_sum``
      within 1e-3 relative) and times it; that one run, counted from 0, also
@@ -39,11 +46,11 @@ Phases, each reported on its own line:
      (spherify, every 8th view held out: 17 training views, 3 test views).
      Then the FourierGrid fine stage of that config, through ``run_train``,
      with its ``pg_scale`` boundaries, the schedule compressed to
-     ``PG_SCALE`` = (4, 8): the grids start at 200^3 / 4 voxels, are
-     upsampled at steps 4 and 8 (occupancy refreshed, optimizer rebuilt, lr
+     ``PG_SCALE`` = (3, 6): the grids start at 200^3 / 4 voxels, are
+     upsampled at steps 3 and 6 (occupancy refreshed, optimizer rebuilt, lr
      back at its base), and every step from the last boundary on runs at the
      config's full width (7 banks of 199^3, k0 12 channels, bf16), where the
-     step is timed. 16 steps by default; the analytic occupancy seed stands
+     step is timed. 10 steps by default; the analytic occupancy seed stands
      in for the coarse stage. Checked: the grid shapes after each boundary,
      the occupancy, the budget, ``lr_scale``, ``act_shift`` and the launch
      counts (``tv_add_grad`` 2 a step, both march kernels 1). It saves
@@ -90,13 +97,29 @@ Phases, each reported on its own line:
      of 199^3, ``N_rand`` 4096); ms/step at full width and peak memory.
      Every command-line run is checked for its launches: ``tv_add_grad`` 2 a
      step, both march kernels 1 a step, ``march_forward`` once per chunk of
-     the render that follows training.
+     the render that follows training;
+  7. the other families and the host ray store, each at its config's full
+     width, its boundaries compressed to ``CLI_PG_SCALE`` and
+     ``FAMILY_STEPS`` steps: 7a ``configs/nerf_unbounded/bicycle.py`` (DCVGO,
+     319^3 one-bank grids, k0 12 channels bf16, 1064 samples a ray) through
+     the command line on an 8-view capture at images_4 (822x1237), ending with
+     the render of its one test view (``cumdist_thres`` too once a step and a
+     chunk); then, on the checkpoint with the scene imprinted, the cached
+     render's forward against the uncached one on a chunk and the card against
+     the CPU on ``CPU_RAYS`` rays, threshold flips counted; 7b
+     ``configs/llff/fern.py`` (DMPIGO, NDC rays, 256^3 voxels as [X, Y, 128],
+     f32, rgbnet 9/64) through the command line on a 20-view forward-facing
+     capture of 756x1008 in the LLFF layout, and the render of its test views;
+     7c ``configs/tankstemple_unbounded/Truck.py`` (FourierGrid, seven banks of
+     ~319^3, ``load2gpu_on_the_fly``) through ``run_train`` without a
+     checkpoint, the rays in host memory: ms/step, peak memory (under the
+     card's) and the host batch's share of a step.
 
 ``--profile`` also traces the last train steps and one rendered view with
 ``torch.profiler`` and prints the device time by range and by kernel.
 ``--kernels-only`` stops after phase 3 and prints the kernel table without
 launch counts and without the last line (a quick check of a changed kernel).
-The kernel table's launches are those of phases 4 to 6 and of the probe run.
+The kernel table's launches are those of phases 4 to 7 and of the probe run.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -126,7 +149,7 @@ PROFILED_STEPS = 4
 # bicycle_single's eight pg_scale boundaries (steps 2000 to 16000) compressed
 # to two: the grids start at 200^3 / 4 voxels, double at each boundary, and
 # every step from the last boundary on runs at the config's full width
-PG_SCALE = (4, 8)
+PG_SCALE = (3, 6)
 WARMUP_STEPS = 2  # after a boundary, before a step is timed
 H, W = 411, 618  # bicycle at factor=8
 RENDER_CHUNK = 8192  # the command line's chunk (render.renderer.DEFAULT_CHUNK)
@@ -147,6 +170,26 @@ BAKED_MIN_PSNR = 30.0
 # card against CPU: the share of a chunk's samples that may pass
 # ``fast_color_thres`` on one device only (7 of a chunk's 786,432)
 MAX_FLIPPED_SHARE = 1e-5
+# phase 7: the DCVGO and DMPIGO families and the host ray store
+DCVGO_CONFIG = ROOT / "configs" / "nerf_unbounded" / "bicycle.py"
+FERN_CONFIG = ROOT / "configs" / "llff" / "fern.py"
+TRUCK_HOST_CONFIG = ROOT / "configs" / "tankstemple_unbounded" / "Truck.py"
+# 7a: bicycle at factor 4 (images_4), 8 views: 7 training views and one held
+# out (llffhold=8), which the command line renders after training
+BIKE4_H, BIKE4_W, BIKE4_VIEWS = 822, 1237, 8
+# 7b: fern at factor 4, 20 views (views 0, 8 and 16 held out); the depths the
+# capture stores as every view's bounds: the ball lies at 3 to 5, the wall at 8
+FERN_H, FERN_W, FERN_VIEWS = 756, 1008, 20
+FERN_BOUNDS = (2.5, 9.0)
+# 7a-7c: steps, the boundaries compressed to CLI_PG_SCALE; the steps after the
+# last boundary and WARMUP_STEPS are timed
+FAMILY_STEPS = 7
+# 7a: the card against the CPU on this many rays (1064 samples each)
+CPU_RAYS = 512
+# kernel launches of a train step and of a render chunk, by family
+TRAIN_PER_STEP = {"tv_add_grad": 2, "march_forward": 1, "march_backward": 1}
+DCVGO_PER_STEP = {**TRAIN_PER_STEP, "cumdist_thres": 1}
+DCVGO_PER_CHUNK = ("march_forward", "cumdist_thres")
 
 
 def log(msg: str) -> None:
@@ -776,7 +819,7 @@ def phase_train(cfg, steps: int, data, profile: bool, exp_dir: str, card: str,
     import torch
 
     from unboundednerfpytorch_tpu_torch.convert import (
-        fourier_grid_params_from_numpy, fourier_grid_params_to_numpy,
+        fourier_grid_params_from_numpy, params_to_numpy,
     )
     from unboundednerfpytorch_tpu_torch.data import synthetic
     from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
@@ -929,7 +972,7 @@ def phase_train(cfg, steps: int, data, profile: bool, exp_dir: str, card: str,
     # the trained model on the card against the plain path on the CPU. Both
     # take an all-true occupancy cache: the nearest-voxel lookup may round a
     # point differently on the two devices, which would select other samples
-    cpu_params = fourier_grid_params_from_numpy(fourier_grid_params_to_numpy(params), "cpu")
+    cpu_params = fourier_grid_params_from_numpy(params_to_numpy(params), "cpu")
     for name in ("density", "k0"):
         grid = getattr(cpu_params, name).grid
         grid.data = grid.data.to(getattr(params, name).grid.dtype)
@@ -967,7 +1010,7 @@ def phase_boundary(cfg, card: str) -> None:
     import torch
 
     from unboundednerfpytorch_tpu_torch.convert import (
-        fourier_grid_params_from_numpy, fourier_grid_params_to_numpy,
+        fourier_grid_params_from_numpy, params_to_numpy,
     )
     from unboundednerfpytorch_tpu_torch.data import synthetic
     from unboundednerfpytorch_tpu_torch.fields.grids import MaskGrid
@@ -992,7 +1035,7 @@ def phase_boundary(cfg, card: str) -> None:
     seed_fn = synthetic.occupancy_seed(np.zeros(3), np.ones(3))
     params.mask_cache.mask = torch.as_tensor(
         seed_fn(params.mask_cache.mask.shape, mcfg.xyz_min, mcfg.xyz_max), device="cuda")
-    cpu_params = fourier_grid_params_from_numpy(fourier_grid_params_to_numpy(params), "cpu")
+    cpu_params = fourier_grid_params_from_numpy(params_to_numpy(params), "cpu")
     for name in ("density", "k0"):
         grid = getattr(cpu_params, name).grid
         grid.data = grid.data.to(getattr(params, name).grid.dtype)
@@ -1094,7 +1137,7 @@ def phase_render(cfg, data, exp_dir: str, cfg_file: str, profile: bool) -> dict:
     from unboundednerfpytorch_tpu_torch import render
     from unboundednerfpytorch_tpu_torch.configs.schema import normalize_fast_color_thres
     from unboundednerfpytorch_tpu_torch.convert import (
-        fourier_grid_params_from_numpy, fourier_grid_params_to_numpy,
+        fourier_grid_params_from_numpy, params_to_numpy,
     )
     from unboundednerfpytorch_tpu_torch.data import synthetic
     from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
@@ -1217,7 +1260,7 @@ def phase_render(cfg, data, exp_dir: str, cfg_file: str, profile: bool) -> dict:
     t0 = time.time()
     mid = (n_chunks // 2) * RENDER_CHUNK + RENDER_CHUNK // 4  # rows through the ball
     sl = slice(mid, mid + RENDER_CHUNK)
-    cpu_params = fourier_grid_params_from_numpy(fourier_grid_params_to_numpy(params), "cpu")
+    cpu_params = fourier_grid_params_from_numpy(params_to_numpy(params), "cpu")
     for name in ("density", "k0"):
         grid = getattr(cpu_params, name).grid
         grid.data = grid.data.to(getattr(params, name).grid.dtype)
@@ -1296,11 +1339,12 @@ def train_counts_of(total: dict, render_counts: dict) -> dict:
 
 
 def check_cli_run(tag: str, total: dict, render_spy: Spy, steps: int, n_views: int,
-                  hw: tuple) -> list:
+                  hw: tuple, per_step=TRAIN_PER_STEP, per_chunk=("march_forward",)) -> list:
     """The launches of a command-line ``train`` (the steps, then the render
-    of the test views that follows): ``tv_add_grad`` 2 a step, both march
-    kernels 1 a step, ``march_forward`` once per render chunk and nothing
-    else. Returns [train counts, render counts]."""
+    of the test views that follows): ``per_step`` a step (``tv_add_grad`` 2,
+    both march kernels 1; DCVGO adds ``cumdist_thres``), each kernel of
+    ``per_chunk`` once per render chunk, and nothing else. Returns [train
+    counts, render counts]."""
     import numpy as np
 
     render = render_spy.calls[-1]
@@ -1308,8 +1352,8 @@ def check_cli_run(tag: str, total: dict, render_spy: Spy, steps: int, n_views: i
     if out["rgbs"].shape[:3] != (n_views, *hw) or not np.isfinite(out["rgbs"]).all():
         raise AssertionError(f"{tag}: rendered {out['rgbs'].shape} or non-finite values")
     train = train_counts_of(total, render.launches)
-    want = {"tv_add_grad": 2 * steps, "march_forward": steps, "march_backward": steps}
-    want_render = {"march_forward": n_views * -(-hw[0] * hw[1] // RENDER_CHUNK)}
+    want = {k: v * steps for k, v in per_step.items()}
+    want_render = {k: n_views * -(-hw[0] * hw[1] // RENDER_CHUNK) for k in per_chunk}
     if train != want or render.launches != want_render:
         raise AssertionError(f"{tag}: launches train {train} (want {want}), render "
                              f"{render.launches} (want {want_render})")
@@ -1523,9 +1567,571 @@ def phase_cli_truck(tmp: pathlib.Path, card: str) -> list:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the DCVGO and DMPIGO families and the host ray store (phases 3 and 7)
+
+
+def fern_scene(tmp: pathlib.Path):
+    """7b's capture, written first because phase 3 holds the kernels at the
+    grid it gives: ``FERN_VIEWS`` forward-facing views of ``FERN_H`` x
+    ``FERN_W`` in the LLFF layout at factor 4, loaded as the command line
+    loads it. Returns (the config file, the scene box in NDC)."""
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.train import bbox as bbox_mod
+
+    t0 = time.time()
+    data = synthetic.forward_facing_scene(FERN_VIEWS, FERN_H, FERN_W, seed=4)
+    scene = synthetic.write_llff_scene(str(tmp / "nerf_llff_data_fern"), data, factor=4,
+                                       bounds=FERN_BOUNDS)
+    cfg_file = write_config(tmp / "fern_cli.py", FERN_CONFIG, scene, tmp / "logs", FAMILY_STEPS)
+    cfg = loader.load_config(cfg_file)
+    data = common.load_everything(cfg)
+    box = bbox_mod.compute_bbox_by_cam_frustrm(cfg, data, "dmpigo", device="cuda")
+    log(f"[7b] scene of {FERN_VIEWS} forward-facing views of {FERN_H}x{FERN_W} (LLFF layout, "
+        f"images_4) made, written and loaded in {time.time() - t0:.1f} s; test views "
+        f"{list(data['i_test'])}; NDC box {box[0].round(4).tolist()} .. "
+        f"{box[1].round(4).tolist()}")
+    return cfg_file, box
+
+
+def family_shapes(fern_box) -> dict:
+    """The shapes this slice's paths hand the kernels: TV on DCVGO's one-bank
+    bicycle grids (bf16), on DMPIGO's fern grids (f32, the x and y axes
+    weighed otherwise than z, in the train step's ratio) and on Truck.py's
+    seven banks; the march at DCVGO's [N_rand, 1064] and DMPIGO's [N_rand,
+    255], each with its own shift and interval; ``cumdist_thres`` at DCVGO's
+    [N_rand, 1063]."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.models import dcvgo, dmpigo
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.train import loop
+
+    bike = loader.load_config(str(DCVGO_CONFIG))
+    bfm = bike.fine_model_and_render
+    dc = dcvgo.config_from(bfm, (-1.0,) * 3, (1.0,) * 3, bfm.num_voxels_rgb)
+    fern = loader.load_config(str(FERN_CONFIG))
+    ffm = fern.fine_model_and_render
+    dm = dmpigo.config_from(ffm, *fern_box, ffm.num_voxels_rgb)
+    truck = loader.load_config(str(TRUCK_HOST_CONFIG)).fine_model_and_render
+    tr = fg.config_from(truck, (-1.0,) * 3, (1.0,) * 3, truck.num_voxels_density,
+                        truck.num_voxels_rgb)
+    banks = 2 * tr.fourier_freq_num + 1
+    sx, sy, sz = loop.tv_axis_scale("dmpigo", dm)
+    w3, wd = (0.3, 0.2, 0.1), (0.2 * sx, 0.2 * sy, 0.2 * sz)
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    tv = [("dcvgo density", (1, *dc.world_size, 1), dt[dc.grid_dtype], w3),
+          ("dcvgo k0", (1, *dc.world_size, dc.k0_dim), dt[dc.grid_dtype], w3),
+          ("dmpigo density", (1, *dm.world_size, 1), torch.float32, wd),
+          ("dmpigo k0", (1, *dm.world_size, dm.k0_dim), torch.float32, wd),
+          ("Truck.py density", (banks, *tr.world_size_density, 1), dt[tr.grid_dtype], w3),
+          ("Truck.py k0", (banks, *tr.world_size_rgb, tr.k0_dim), dt[tr.grid_dtype], w3)]
+    march = [("dcvgo", (bike.fine_train.N_rand, 2 * dc.n_inner), dc.act_shift,
+              dc.stepsize * dc.voxel_size_ratio),
+             ("dmpigo", (fern.fine_train.N_rand, dm.n_samples(dm.stepsize)), 0.0,
+              dm.stepsize * dm.voxel_size_ratio)]
+    return {"tv": tv, "march": march, "dcvgo": dc}
+
+
+# a grid over this many elements is held against the plain version a bank at
+# a time (the plain version's f32 temporaries of Truck.py's 2.7 G elements
+# would not fit beside it)
+WHOLE_CHECK_MAX = 1 << 30
+
+
+def tv_by_bank_case(gen, label, shape, dtype, w) -> float:
+    """``tv_add_grad`` on the whole grid, sparse and dense, out of place and
+    in place, each bank against the plain version on that bank alone (TV
+    does not reach across banks). Returns the max error."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import tv
+
+    p = torch.empty(shape, dtype=dtype, device="cuda")
+    g = torch.empty(shape, dtype=dtype, device="cuda")
+    for b in range(shape[0]):  # a bank at a time: no grid-sized f32 temporary
+        p[b] = torch.randn(shape[1:], generator=gen, device="cuda")
+        g[b] = torch.randn(shape[1:], generator=gen, device="cuda") * (
+            torch.rand(shape[1:], generator=gen, device="cuda") > 0.4)
+    err = 0.0
+    for dense in (False, True):
+        got = tv.tv_add_grad(p, g, *w, 1.0, dense)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for b in range(shape[0]):
+            ref = tv.tv_add_grad_plain(p[b:b + 1].float(), g[b:b + 1].float(), *w, 1.0, dense)
+            diff = (got[b:b + 1].float() - ref).abs()
+            tol = 1e-6 + 1e-5 * ref.abs()
+            if dtype == torch.bfloat16:
+                tol += torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 9)
+            if not bool(torch.isfinite(got[b]).all()):
+                raise AssertionError(f"tv {label}: non-finite kernel output in bank {b}")
+            err = max(err, float(diff.max()))
+            worst = max(worst, float((diff / tol).max()))
+            del ref, diff, tol
+        log(f"  tv {label} {tuple(shape)} {str(dtype)[6:]} dense={dense}, bank by bank: "
+            f"max_abs_err {err:.3e}, worst error / its element's tolerance {worst:.3f}")
+        if not worst <= 1.0:
+            raise AssertionError(f"tv {label}: an element exceeds its tolerance ({worst} x)")
+        g2 = g.clone()
+        tv.tv_add_grad(p, g2, *w, 1.0, dense, out=g2)
+        torch.cuda.synchronize()
+        if not torch.equal(g2, got):
+            raise AssertionError(f"tv {label} dense={dense}: in place differs from out of place")
+        del got, g2
+        torch.cuda.empty_cache()
+    return err
+
+
+def phase_tv_families(gen, shapes: dict, floor: float):
+    """TV at this slice's shapes: checked (whole, or bank by bank over
+    ``WHOLE_CHECK_MAX`` elements), then timed as the train step calls it, in
+    place and dense, with the shape's own weights. Returns (max error, shape
+    lines)."""
+    import math
+
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import tv
+    from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms, time_ms
+
+    err, lines = 0.0, []
+    for label, shape, dtype, w in shapes["tv"]:
+        n = math.prod(shape)
+        if n > WHOLE_CHECK_MAX:
+            err = max(err, tv_by_bank_case(gen, label, shape, dtype, w))
+        else:
+            err = max(err, tv_case(gen, label, shape, dtype, w))
+        torch.cuda.empty_cache()
+        p = torch.empty(shape, dtype=dtype, device="cuda")
+        g = torch.empty(shape, dtype=dtype, device="cuda")
+        for b in range(shape[0]):
+            p[b] = torch.randn(shape[1:], generator=gen, device="cuda")
+            g[b] = torch.randn(shape[1:], generator=gen, device="cuda")
+        ms, call_ms = kernel_ms(lambda: tv.tv_add_grad(p, g, *w, 1.0, True, out=g))
+        if n > WHOLE_CHECK_MAX:  # the plain version a bank at a time, the banks summed
+            plain = sum(time_ms(lambda: tv.tv_add_grad_plain(p[b:b + 1], g[b:b + 1], *w, 1.0,
+                                                             True), iters=3, warmup=1)
+                        for b in range(shape[0]))
+        else:
+            plain = time_ms(lambda: tv.tv_add_grad_plain(p, g, *w, 1.0, True), iters=5)
+        bnd = bound_ms(3 * n * p.element_size(), 25 * n)[0]
+        line = shape_line(f"tv_add_grad {label} {tuple(shape)} {str(dtype)[6:]} in place, "
+                          f"weights {tuple(round(x, 4) for x in w)}", ms, call_ms, bnd, floor)
+        line["plain_ms"] = plain
+        log(f"[3]   plain version {plain:.3f} ms")
+        lines.append(line)
+        del p, g
+        torch.cuda.empty_cache()
+    return err, lines
+
+
+def phase_march_families(gen, shapes: dict, floor: float):
+    """Both march kernels at DCVGO's and DMPIGO's train shapes (with their
+    own shift and interval) and at a render chunk of each: the forward
+    against the plain version, the no-grad forward against the one that
+    keeps residuals, the backward against the plain version within
+    ``march_backward_tolerance``; then timed. Returns (forward error,
+    backward error, forward shape lines, backward shape lines)."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import march
+    from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms
+
+    err_f = err_b = 0.0
+    f_lines, b_lines = [], []
+    for label, (N, S), shift, interval in shapes["march"]:
+        for shape in ((N, S), (RENDER_CHUNK, S)):
+            d, mask = march_inputs(gen, shape)
+            res = march.march_forward(d, mask, shift, interval)
+            torch.cuda.synchronize()
+            err_f = max(err_f, check_march_forward(f"march_forward {label} {list(shape)}", res,
+                                                   d, mask, shift, interval))
+            with torch.no_grad():
+                lean = march.fused_alpha2weights(d, mask, shift, interval)
+            torch.cuda.synchronize()
+            for a, b in zip(lean, res[:3]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"march_forward {label} {list(shape)}: the no-grad "
+                                         "forward differs from the one that keeps residuals")
+            w, ai, alpha, t_excl = res
+            gw = torch.randn(shape, generator=gen, device="cuda")
+            gl = torch.randn(shape[:1], generator=gen, device="cuda")
+            args = (alpha, t_excl, ai, gw, gl, shift, interval, d, mask)
+            gd = march.march_backward(*args)
+            torch.cuda.synchronize()
+            err_b = max(err_b, check_within(f"march_backward {label} {list(shape)}", gd,
+                                            march.march_backward_plain(*args),
+                                            march.march_backward_tolerance(*args)))
+            n, ns = shape[0], shape[0] * shape[1]
+            if shape == (N, S):  # the train step: the forward keeps residuals
+                ms, call = kernel_ms(lambda: march.march_forward(d, mask, shift, interval))
+                bnd = bound_ms(ns * (4 + 1 + 3 * 4) + n * 4, 25 * ns)[0]
+                f_lines.append(shape_line(f"march_forward {label} at the train step's "
+                                          f"{list(shape)}, residuals kept", ms, call, bnd, floor))
+                ms, call = kernel_ms(lambda: march.march_backward(*args))
+                bnd = bound_ms(ns * (4 * 4 + 1 + 4) + 2 * n * 4, 30 * ns)[0]
+                b_lines.append(shape_line(f"march_backward {label} {list(shape)}", ms, call, bnd,
+                                          floor))
+            else:  # a render chunk: no gradient
+                def lean_call():
+                    with torch.no_grad():
+                        return march.fused_alpha2weights(d, mask, shift, interval)
+
+                ms, call = kernel_ms(lean_call)
+                bnd = bound_ms(ns * (4 + 1 + 2 * 4) + n * 4, 25 * ns)[0]
+                f_lines.append(shape_line(f"march_forward {label} at a render chunk's "
+                                          f"{list(shape)}, no gradient", ms, call, bnd, floor))
+            del d, mask, res, lean, gw, gl, args, gd
+            torch.cuda.empty_cache()
+    return err_f, err_b, f_lines, b_lines
+
+
+def cumdist_inputs(gen, n: int, dc):
+    """The step distances of DCVGO's contracted samples on ``n`` seeded rays
+    from around the scene box, looking roughly at it, and the threshold: as
+    ``dcvgo.oversample_mask`` hands them to the kernel."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.models import dcvgo
+
+    ro = torch.randn((n, 3), generator=gen, device="cuda") * 1.5
+    rd = torch.randn((n, 3), generator=gen, device="cuda") * 0.5 - ro
+    pts, _, _ = dcvgo.sample_ray(dc, ro, rd)
+    diff = pts[:, 1:] - pts[:, :-1]
+    dist = torch.sqrt((diff * diff).sum(-1))
+    return dist, (2 + 2 * dc.bg_len) / dc.world_len * dc.stepsize * 0.95
+
+
+def phase_cumdist(gen, shapes: dict, floor: float) -> dict:
+    """``cumdist_thres`` against its plain version (the loop over samples of
+    ``ops/sampling.py``, on the card): the flags must be equal, at DCVGO's
+    train and render shapes and at ragged ones (a ray, no ray, S of 1 and
+    around a tile of 32); then timed."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops import sampling
+    from unboundednerfpytorch_tpu_torch.ops.cuda.ub360 import cumdist_thres
+    from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms, time_ms
+
+    dc = shapes["dcvgo"]
+    n_train = shapes["march"][0][1][0]
+    cases = []
+    for n, s in ((37, 33), (33, 95), (1, 1), (0, 5), (70, 200), (5, 31)):
+        dist = torch.rand((n, s), generator=gen, device="cuda") * 0.01
+        dist[::5, s // 3:] = 0.0
+        cases.append((f"ragged {[n, s]}", dist, 0.0061))
+    for what, n in (("train step", n_train), ("render chunk", RENDER_CHUNK)):
+        dist, thres = cumdist_inputs(gen, n, dc)
+        cases.append((f"{what} {list(dist.shape)}", dist, thres))
+    for name, dist, thres in cases:
+        got = cumdist_thres(dist, thres)
+        want = sampling.cumdist_thres_plain(dist, thres)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != torch.bool or not torch.equal(got, want):
+            raise AssertionError(f"cumdist_thres {name}: the flags differ from the plain "
+                                 f"version's on {int((got != want).sum())} samples")
+        log(f"  cumdist_thres {name}: equal to the plain version ({int(want.sum())} of "
+            f"{want.numel()} flags set)")
+    lines, total = [], {"ms": 0.0, "plain": 0.0, "bound": 0.0}
+    for name, dist, thres in cases[-2:]:
+        ms, call = kernel_ms(lambda: cumdist_thres(dist, thres))
+        plain = time_ms(lambda: sampling.cumdist_thres_plain(dist, thres), iters=3, warmup=1)
+        bnd, by = bound_ms(dist.numel() * (4 + 1), 3 * dist.numel())
+        lines.append(shape_line(f"cumdist_thres {name}", ms, call, bnd, floor))
+        log(f"[3]   plain version {plain:.3f} ms")
+        total["ms"] += ms
+        total["plain"] += plain
+        total["bound"] += bnd
+    return {"name": "cumdist_thres", "route": "cuda",
+            "source": "unboundednerfpytorch_tpu_torch/csrc/ub360.cu",
+            "replaces": "unboundednerfpytorch_tpu/ops/sampling.py:202", "max_abs_err": 0.0,
+            "ms": total["ms"], "plain_ms": total["plain"], "bound_ms": total["bound"],
+            "bound_by": by, "library_ms": None, "floor_ms": floor, "shapes": lines}
+
+
+def full_width_ms(records, first: int, last: int) -> list:
+    """ms of steps first..last by the loop's clock (``elapsed_s``)."""
+    steps = {r["step"]: r for r in records if "loss" in r}
+    return [1e3 * (steps[s]["elapsed_s"] - steps[s - 1]["elapsed_s"])
+            for s in range(first, last + 1)]
+
+
+def check_family_records(tag: str, exp_dir: str, family: str, world_size: tuple) -> list:
+    """The loop's records and the checkpoint of a family's command-line
+    run: both boundaries crossed, every step logged with a finite loss, the
+    grids at ``world_size`` after the last boundary and in ``fine_last``.
+    Returns the records."""
+    import numpy as np
+
+    records = read_records(exp_dir)
+    bounds = {r["step"]: r["pg_scale"] for r in records if "pg_scale" in r}
+    steps = [r for r in records if "loss" in r]
+    if sorted(bounds) != list(CLI_PG_SCALE) or [r["step"] for r in steps] != list(
+            range(1, FAMILY_STEPS + 1)):
+        raise AssertionError(f"{tag} records: boundaries {sorted(bounds)}, steps "
+                             f"{[r['step'] for r in steps]}")
+    if not all(np.isfinite(r["loss"]) for r in steps):
+        raise AssertionError(f"{tag}: a loss is not finite")
+    last = bounds[CLI_PG_SCALE[-1]]
+    if tuple(last["world_size_density"]) != tuple(world_size) or \
+            tuple(last["world_size_rgb"]) != tuple(world_size):
+        raise AssertionError(f"{tag}: grids {last['world_size_rgb']} after the last boundary, "
+                             f"want {world_size}")
+    meta = json.load(open(os.path.join(exp_dir, "fine_last", "meta.json")))
+    if (meta["family"], meta["global_step"]) != (family, FAMILY_STEPS):
+        raise AssertionError(f"{tag}: fine_last holds {meta['family']} at step "
+                             f"{meta['global_step']}")
+    return records
+
+
+def phase_cli_dcvgo(tmp: pathlib.Path, card: str) -> list:
+    """Phase 7a: bicycle.py (DCVGO) through the command line on a capture at
+    images_4, then its render's forward held: cached against uncached and
+    the card against the CPU. Returns the launch counts of the run."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.configs.schema import normalize_fast_color_thres
+    from unboundednerfpytorch_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.models import dcvgo
+    from unboundednerfpytorch_tpu_torch.ops import rays as ray_ops
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
+    t0 = time.time()
+    data = synthetic.orbit_scene(BIKE4_VIEWS, BIKE4_H, BIKE4_W, seed=2, cam_radius=CAM_RADIUS,
+                                 sphere_radius=SPHERE_RADIUS)
+    scene = synthetic.write_llff_scene(str(tmp / "360_v2_bicycle_4"), data, factor=4)
+    cfg_file = write_config(tmp / "dcvgo_cli.py", DCVGO_CONFIG, scene, tmp / "logs",
+                            FAMILY_STEPS)
+    cfg = loader.load_config(cfg_file)
+    fm, ft = cfg.fine_model_and_render, cfg.fine_train
+    full = dcvgo.config_from(fm, (-1.0,) * 3, (1.0,) * 3, fm.num_voxels_rgb)
+    log(f"[7a] config {DCVGO_CONFIG.relative_to(ROOT)} (DCVGO): {full.world_size} voxels, "
+        f"k0 {full.k0_dim} channels {full.grid_dtype}, rgbnet {fm.rgbnet_dim}/{fm.rgbnet_width}, "
+        f"N_rand {ft.N_rand}, {2 * full.n_inner} samples a ray, pg_scale {ft.pg_scale}; scene "
+        f"of {BIKE4_VIEWS} views of {BIKE4_H}x{BIKE4_W} made and written in "
+        f"{time.time() - t0:.1f} s")
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.time()
+    with render_spy() as renders:
+        run_cli(["--config", cfg_file, "--i_print", "1", "--render_test"])
+    total_s = time.time() - t0
+    counts = check_cli_run("[7a]", dict(build.LAUNCHES), renders, FAMILY_STEPS, 1,
+                           (BIKE4_H, BIKE4_W), per_step=DCVGO_PER_STEP, per_chunk=DCVGO_PER_CHUNK)
+    records = check_family_records("[7a]", exp_dir, "dcvgo", full.world_size)
+    ms = full_width_ms(records, CLI_PG_SCALE[-1] + 1 + WARMUP_STEPS, FAMILY_STEPS)
+    log(f"[7a] bicycle.py on {card}: grids {full.world_size} from step {CLI_PG_SCALE[-1]}; "
+        f"ms/step by the loop's clock {[round(t, 1) for t in full_width_ms(records, 2, FAMILY_STEPS)]}"
+        f" (steps 2 on), at full width median {float(np.median(ms)):.1f}; peak memory of the "
+        f"training {renders.calls[-1].peak_before_gb:.2f} GB, of the whole run "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; the command {total_s:.1f} s")
+
+    # ---- the render's forward on an imprinted scene: cached against the
+    # grids, and the card against the CPU
+    loaded = common.load_everything(cfg)
+    family, mcfg, params, _, _ = ckpt.load_model(os.path.join(exp_dir, "fine_last"),
+                                                  device="cuda", with_opt_state=False)
+    params.requires_grad_(False)
+    synthetic.imprint_scene(params, mcfg.scene_center, mcfg.scene_radius, seed=0,
+                            sphere_radius=sphere_radius_of(loaded))
+    mcfg = dataclasses.replace(mcfg, fast_color_thres=normalize_fast_color_thres(fm)[1][-1][1])
+    fwd = loop.make_forward(mcfg, {"near": float(loaded["near"]), "bg": 1.0,
+                                   "stepsize": fm.stepsize})
+    cache = dcvgo.build_render_cache(params, mcfg, log_fn=lambda m: log(f"[7a] {m}"))
+    idx = int(loaded["i_test"][0])
+    ro, rd, vd = (x.reshape(-1, 3) for x in ray_ops.get_rays_of_a_view(
+        BIKE4_H, BIKE4_W, torch.as_tensor(loaded["Ks"][idx], device="cuda"),
+        torch.as_tensor(loaded["poses"][idx][:3, :4], device="cuda")))
+    mid = (BIKE4_H // 2) * BIKE4_W  # rows through the ball
+    sl = slice(mid, mid + RENDER_CHUNK)
+    fields = ("rgb_marched", "depth", "alphainv_last", "weights")
+
+    def held(tag, got, ref, thres):
+        """Samples that pass ``thres`` on one side only are counted and
+        bounded; their rays get two thresholds' worth, the others 1e-5 +
+        1e-4 relative."""
+        flipped = got.mask.cpu() != ref.mask.cpu()
+        n_flipped = int(flipped.sum())
+        log(f"[7a] {tag}: {n_flipped} of {flipped.numel()} samples pass fast_color_thres "
+            f"{thres:g} on one side only, on {int(flipped.any(-1).sum())} rays; "
+            f"{int((ref.alphainv_last < 0.01).sum())} of {flipped.shape[0]} rays end on the ball")
+        if n_flipped > max(1, MAX_FLIPPED_SHARE * flipped.numel()):
+            raise AssertionError(f"{tag}: {n_flipped} samples differ in the threshold mask")
+        same = ~flipped.any(-1)
+        for f in fields:
+            g, r = getattr(got, f).cpu(), getattr(ref, f).cpu()
+            check(f"{tag} {f}, rays of equal masks", g[same], r[same], 1e-4, 1e-5)
+            if n_flipped:
+                check(f"{tag} {f}, rays of a flipped sample", g[~same], r[~same], 1e-4,
+                      2 * thres)
+
+    with torch.no_grad():
+        build.reset_launch_counts()
+        cached = fwd(params, ro[sl], rd[sl], vd[sl], None, cache=cache)
+        if dict(build.LAUNCHES) != {"march_forward": 1, "cumdist_thres": 1}:
+            raise AssertionError(f"a render chunk launched {dict(build.LAUNCHES)}")
+        held(f"cached vs uncached render, a chunk of {RENDER_CHUNK} rays of view {idx}", cached,
+             fwd(params, ro[sl], rd[sl], vd[sl], None, cache=None), mcfg.fast_color_thres)
+        t0 = time.time()
+        cpu_params = params_from_numpy("dcvgo", params_to_numpy(params), "cpu")
+        for name in ("density", "k0"):
+            grid = getattr(cpu_params, name).grid
+            grid.data = grid.data.to(getattr(params, name).grid.dtype)
+        cpu_params.requires_grad_(False)
+        cpu_cache = cache.cpu()
+        cs = slice(mid + BIKE4_W // 2 - CPU_RAYS // 2, mid + BIKE4_W // 2 + CPU_RAYS // 2)
+        for occupancy in ("the scene's occupancy", "all-true occupancy"):
+            if occupancy.startswith("all"):
+                for p_ in (params, cpu_params):
+                    p_.mask_cache.mask = torch.ones_like(p_.mask_cache.mask)
+            got = fwd(params, ro[cs], rd[cs], vd[cs], None, cache=cache)
+            ref = fwd(cpu_params, ro[cs].cpu(), rd[cs].cpu(), vd[cs].cpu(), None,
+                      cache=cpu_cache)
+            held(f"cached render, card vs CPU, {CPU_RAYS} rays, {occupancy}", got, ref,
+                 mcfg.fast_color_thres)
+    log(f"[7a] card-vs-CPU comparison took {time.time() - t0:.1f} s")
+    return counts
+
+
+def phase_cli_fern(cfg_file: str, card: str) -> list:
+    """Phase 7b: fern.py (DMPIGO, NDC rays) through the command line on the
+    forward-facing capture, then the render of its test views. Returns the
+    launch counts of the run."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = loader.load_config(cfg_file)
+    fm, ft = cfg.fine_model_and_render, cfg.fine_train
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.time()
+    with render_spy() as renders, Spy(ckpt, "save_model") as saves:
+        run_cli(["--config", cfg_file, "--i_print", "1", "--render_test"])
+    total_s = time.time() - t0
+    n_test = len(renders.calls[-1].result["test"]["psnrs"])
+    counts = check_cli_run("[7b]", dict(build.LAUNCHES), renders, FAMILY_STEPS, n_test,
+                           (FERN_H, FERN_W))
+    mcfg = saves.calls[-1].args[2]
+    params = saves.calls[-1].args[3]
+    ws = mcfg.world_size
+    records = check_family_records("[7b]", exp_dir, "dmpigo", ws)
+    if ws[2] != fm.mpi_depth or tuple(params.k0.grid.shape) != (1, *ws, fm.rgbnet_dim) or \
+            params.k0.grid.dtype != torch.float32:
+        raise AssertionError(f"[7b] k0 grid {tuple(params.k0.grid.shape)} "
+                             f"{params.k0.grid.dtype}, want [1, X, Y, {fm.mpi_depth}, "
+                             f"{fm.rgbnet_dim}] f32")
+    sx, sy, sz = loop.tv_axis_scale("dmpigo", mcfg)
+    if not sx == sy != sz:
+        raise AssertionError(f"[7b] TV axis scales {(sx, sy, sz)}")
+    ms = full_width_ms(records, CLI_PG_SCALE[-1] + 1 + WARMUP_STEPS, FAMILY_STEPS)
+    log(f"[7b] fern.py on {card}: grids {ws}, k0 {fm.rgbnet_dim} channels f32, "
+        f"{mcfg.n_samples(mcfg.stepsize)} samples a ray, TV scales x y z "
+        f"{(round(sx, 4), round(sy, 4), round(sz, 4))}; ms/step by the loop's clock "
+        f"{[round(t, 1) for t in full_width_ms(records, 2, FAMILY_STEPS)]} (steps 2 on), at full "
+        f"width median {float(np.median(ms)):.1f}; peak memory of the training "
+        f"{renders.calls[-1].peak_before_gb:.2f} GB, of the whole run "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; the command {total_s:.1f} s")
+    return counts
+
+
+def phase_host_store(tmp: pathlib.Path, card: str) -> list:
+    """Phase 7c: Truck.py (FourierGrid, seven banks of ~319^3) through
+    ``run_train`` on a NeRF++-layout capture with the rays in host memory
+    (``load2gpu_on_the_fly``), its boundaries compressed so that the last
+    steps run at full width. Returns [the launch counts of the run]."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.train import step as step_mod
+
+    t0 = time.time()
+    data = synthetic.orbit_scene(TRUCK_VIEWS, TRUCK_H, TRUCK_W, seed=3, n_test=TRUCK_TEST,
+                                 cam_radius=CAM_RADIUS, sphere_radius=SPHERE_RADIUS)
+    scene = synthetic.write_nerfpp_scene(str(tmp / "tat_training_Truck_store"), data)
+    cfg_file = write_config(tmp / "truck_store.py", TRUCK_HOST_CONFIG, scene, tmp / "logs",
+                            FAMILY_STEPS)
+    cfg = loader.load_config(cfg_file)
+    data = common.load_everything(cfg)
+    fm, ft = cfg.fine_model_and_render, cfg.fine_train
+    full = fg.config_from(fm, (-1.0,) * 3, (1.0,) * 3, fm.num_voxels_density, fm.num_voxels_rgb)
+    banks = 2 * full.fourier_freq_num + 1
+    if not cfg.data.load2gpu_on_the_fly:
+        raise AssertionError("Truck.py does not ask for the host store")
+    log(f"[7c] config {TRUCK_HOST_CONFIG.relative_to(ROOT)}: {banks} banks of "
+        f"{full.world_size_rgb}, k0 {full.k0_dim} channels {full.grid_dtype} "
+        f"({banks * np.prod(full.world_size_rgb) * (full.k0_dim + 1) / 1e9:.2f} G grid "
+        f"elements), N_rand {ft.N_rand}, load2gpu_on_the_fly, pg_scale {ft.pg_scale}; scene of "
+        f"{TRUCK_VIEWS} + {TRUCK_TEST} views of {TRUCK_H}x{TRUCK_W} made, written and loaded "
+        f"in {time.time() - t0:.1f} s")
+    stamps, peaks = [], []
+
+    def callback(step, metrics):
+        if not np.isfinite(float(metrics["loss"])):  # synchronises the step
+            raise AssertionError(f"[7c] step {step}: loss {float(metrics['loss'])}")
+        stamps.append(time.perf_counter())
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t_start = time.perf_counter()
+    with Spy(step_mod.HostRayStoreSampler, "next_batch") as batches, \
+            Spy(step_mod.FlattenSampler, "next_batch") as device_batches:
+        _, mcfg, params, _ = loop.run_train(cfg, data, seed=0, device="cuda", log_fn=log,
+                                            log_every=1, callback=callback)
+    counts = dict(build.LAUNCHES)
+    want = {k: v * FAMILY_STEPS for k, v in TRAIN_PER_STEP.items()}
+    if counts != want:
+        raise AssertionError(f"[7c] launch counts {counts} != {want}")
+    if len(batches.calls) != FAMILY_STEPS or device_batches.calls:
+        raise AssertionError(f"[7c] {len(batches.calls)} host batches, "
+                             f"{len(device_batches.calls)} from a device store")
+    want_shape = (banks, *full.world_size_rgb, full.k0_dim)
+    if tuple(params.k0.grid.shape) != want_shape or params.k0.grid.dtype != torch.bfloat16:
+        raise AssertionError(f"[7c] k0 grid {tuple(params.k0.grid.shape)}, want {want_shape}")
+    dts = np.diff([t_start] + stamps) * 1e3
+    first = CLI_PG_SCALE[-1] + 1 + WARMUP_STEPS
+    step_ms = float(np.median(dts[first - 1:]))
+    batch_ms = float(np.median([c.seconds for c in batches.calls][first - 1:])) * 1e3
+    peak = max(peaks)
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    log(f"[7c] Truck.py on {card}: grids {want_shape} bf16 from step {CLI_PG_SCALE[-1]}; "
+        f"ms/step {[round(float(t), 1) for t in dts]}, at full width (steps {first} to "
+        f"{FAMILY_STEPS}) median {step_ms:.1f}; the host batch (gather into the pinned stage and "
+        f"the copy's launch) {batch_ms:.2f} ms, {100 * batch_ms / step_ms:.2f}% of a step; peak "
+        f"memory by step {[round(x, 2) for x in peaks]} GB, the most {peak:.2f} GB of the "
+        f"card's {card_gb:.1f} GB; launches {counts}")
+    if peak >= card_gb:
+        raise AssertionError(f"[7c] peak {peak} GB")
+    return [counts]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--views", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
                     help=f"trace the last {PROFILED_STEPS} train steps and one rendered view "
@@ -1568,16 +2174,7 @@ def main(argv=None) -> int:
     floor = launch_floor_ms()
     log(f"[3] launch floor: an empty <<<1, 32>>> kernel takes {floor:.5f} ms a launch "
         f"({MANY_LAUNCHES} launches in one CUDA graph between one pair of events)")
-    kernels = [phase_tv(gen, tv_shapes, floor, truck_tv)]
-    kernels += phase_march(gen, march_shape, shift, interval, floor, truck_march)
-    probe_kernels, probe_counts = phase_probes(floor)
-    kernels += probe_kernels
-    torch.cuda.empty_cache()
-    if args.kernels_only:
-        log(f"card: {card}")
-        log(json.dumps({"kernels": kernels}))
-        return 0
-    seconds = {"1-3": time.time() - t_start}
+    seconds = {}
 
     def timed(phase, fn, *fn_args):
         t0 = time.time()
@@ -1586,10 +2183,34 @@ def main(argv=None) -> int:
         seconds[phase] = time.time() - t0
         return out
 
+    seconds["1-2"] = time.time() - t_start
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = pathlib.Path(tmp)
-        log(f"[4] temporary directory {tmp}: "
+        log(f"[3] temporary directory {tmp}: "
             f"{os.statvfs(tmp).f_bavail * os.statvfs(tmp).f_frsize / 1e9:.1f} GB free")
+        # 7b's capture gives the DMPIGO grid that phase 3 holds the kernels at
+        fern_file, fern_box = timed("7b scene", fern_scene, tmp)
+        fam = family_shapes(fern_box)
+        t0 = time.time()
+        kernels = [phase_tv(gen, tv_shapes, floor, truck_tv)]
+        kernels += phase_march(gen, march_shape, shift, interval, floor, truck_march)
+        err, lines = phase_tv_families(gen, fam, floor)
+        kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err)
+        kernels[0]["shapes"] += lines
+        err_f, err_b, f_lines, b_lines = phase_march_families(gen, fam, floor)
+        for k, err, lines in ((kernels[1], err_f, f_lines), (kernels[2], err_b, b_lines)):
+            k["max_abs_err"] = max(k["max_abs_err"], err)
+            k["shapes"] += lines
+        kernels.append(phase_cumdist(gen, fam, floor))
+        probe_kernels, probe_counts = phase_probes(floor)
+        kernels += probe_kernels
+        torch.cuda.empty_cache()
+        seconds["3"] = time.time() - t0
+        if args.kernels_only:
+            log(f"card: {card}")
+            log(json.dumps({"kernels": kernels}))
+            return 0
+
         cfg_file, data = timed("4 scene", phase_scene, tmp, args.views)
         exp_dir = str(tmp / "api")
         path_counts = [timed("4", phase_train, cfg, args.steps, data, args.profile, exp_dir,
@@ -1598,6 +2219,9 @@ def main(argv=None) -> int:
         path_counts.append(timed("5", phase_render, cfg, data, exp_dir, cfg_file, args.profile))
         path_counts += timed("6a", phase_cli_360, cfg_file, card, len(data["i_test"]))
         path_counts += timed("6b", phase_cli_truck, tmp, card)
+        path_counts += timed("7a", phase_cli_dcvgo, tmp, card)
+        path_counts += timed("7b", phase_cli_fern, fern_file, card)
+        path_counts += timed("7c", phase_host_store, tmp, card)
     log(f"seconds by phase: { {k: round(v, 1) for k, v in seconds.items()} }, in all "
         f"{time.time() - t_start:.1f}")
     # a kernel's launches: those of every path that ran it, each path counted
@@ -1608,7 +2232,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"no path launched {k['name']}")
     log(f"launches by path: train {path_counts[0]}, render {path_counts[1]}, 6a run 1 train "
         f"and render {path_counts[2:4]}, run 2 {path_counts[4:6]}, 6b {path_counts[6:8]}, "
-        f"probes {probe_counts}")
+        f"7a DCVGO train and render {path_counts[8:10]}, 7b DMPIGO {path_counts[10:12]}, "
+        f"7c host store train {path_counts[12]}, probes {probe_counts}")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

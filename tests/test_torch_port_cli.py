@@ -10,6 +10,12 @@ JAX command line's on the same config), ``export_baked`` and a render of its
 output, and ``gen_trace``. Every program and option the port refuses raises
 ``NotImplementedError`` naming its ROADMAP item; without a GPU the command
 line raises unless the CPU is asked for.
+
+The other families through the same command line: ``train`` then the render
+of the test views for ``nerf_unbounded/bicycle.py`` (DCVGO, 24^3 voxels) and
+``llff/fern.py`` (DMPIGO on NDC rays, 20^3 voxels, ``mpi_depth`` 16) on
+written scenes. A checkpoint save killed at any point leaves the previous
+checkpoint whole, and a non-zero ``fine_train.i_panel`` is refused.
 """
 
 import json
@@ -24,6 +30,7 @@ import torch
 
 from unboundednerfpytorch_tpu_torch.cli import main as cli
 from unboundednerfpytorch_tpu_torch.data import png, synthetic
+from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -149,3 +156,121 @@ def test_the_command_line_needs_a_gpu_unless_the_cpu_is_asked_for(trained, monke
     done = subprocess.run([sys.executable, "-m", "unboundednerfpytorch_tpu_torch", "--help"],
                           capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=120)
     assert done.returncode == 0 and "--program" in done.stdout
+
+
+def _family_config(path, base, scene, logs, vox, extra=""):
+    path.write_text(f"""
+_base_ = {str(ROOT / 'configs' / base)!r}
+expname = 'tiny'
+basedir = {str(logs)!r}
+data = dict(datadir={str(scene)!r})
+fine_train = dict(N_iters=4, N_rand=128, pg_scale=[2, 3])
+fine_model_and_render = dict(num_voxels_density={vox}, num_voxels_base_density={vox},
+    num_voxels_rgb={vox}, num_voxels_base_rgb={vox}{extra})
+""")
+    return str(path)
+
+
+@pytest.mark.parametrize("base,family", [("nerf_unbounded/bicycle.py", "dcvgo"),
+                                         ("llff/fern.py", "dmpigo")])
+def test_other_families_train_and_render(tmp_path, capsys, base, family):
+    if family == "dcvgo":
+        data = synthetic.orbit_scene(9, 12, 16, seed=0)
+        scene = synthetic.write_llff_scene(str(tmp_path / "scene"), data, factor=4)
+        cfg = _family_config(tmp_path / "cfg.py", base, scene, tmp_path / "logs", 24**3)
+    else:
+        data = synthetic.forward_facing_scene(9, 12, 16, seed=0)
+        scene = synthetic.write_llff_scene(str(tmp_path / "scene"), data, factor=4,
+                                           bounds=(2.5, 9.0))
+        cfg = _family_config(tmp_path / "cfg.py", base, scene, tmp_path / "logs", 20**3,
+                             ", mpi_depth=16")
+    assert cli.main(["--config", cfg, "--i_print", "1"], device="cpu") == 0
+    out = capsys.readouterr().out
+    assert "train finished" in out and "render cache: packed density+k0" in out
+    psnr = [float(line.split()[-1]) for line in out.splitlines() if line.startswith("test: psnr")]
+    assert len(psnr) == 1 and np.isfinite(psnr[0])
+    meta = json.load(open(tmp_path / "logs" / "tiny" / "fine_last" / "meta.json"))
+    assert (meta["family"], meta["global_step"]) == (family, 4)
+    if family == "dmpigo":
+        assert meta["model_kwargs"]["mpi_depth"] == 16
+
+
+def _save(path, step, value):
+    """A small FourierGrid model (bicycle_single's, at 6^3 voxels) whose
+    density is ``value`` everywhere, saved with an optimizer state at
+    ``step``."""
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.optim.masked_adam import MaskedAdam, ParamGroup
+
+    fm = loader.load_config(str(ROOT / "configs" / "nerf_unbounded" /
+                                "bicycle_single.py")).fine_model_and_render
+    cfg = fg.config_from(fm, (-1.0,) * 3, (1.0,) * 3, 6**3, 6**3)
+    params = fg.create(cfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        params.density.grid.fill_(value)
+    opt = MaskedAdam([ParamGroup("density", [params.density.grid], 0.1, True)])
+    opt.step_count = step
+    ckpt.save_model(str(path), "FourierGrid", cfg, params, global_step=step,
+                    opt_state=opt.state_dict())
+
+
+@pytest.mark.parametrize("kill", ["params", "opt_state", "meta"])
+def test_a_killed_save_leaves_the_previous_checkpoint_whole(tmp_path, monkeypatch, kill):
+    """A save that dies while writing the parameters, between the members, or
+    just before ``meta.json`` is renamed into place: the directory still
+    loads as the previous checkpoint, parameters and optimizer state alike;
+    the next save succeeds and leaves only its own members."""
+    path = tmp_path / "fine_last"
+    _save(path, 3, 1.0)
+    write_npz, replace = ckpt._write_npz, os.replace
+
+    def dying_write(target, arrays):
+        if os.path.basename(target).startswith(kill):
+            with open(target + ".tmp", "wb") as f:  # a member cut short
+                f.write(b"PK\x03\x04")
+            raise KeyboardInterrupt
+        write_npz(target, arrays)
+
+    def dying_replace(src, dst):
+        if kill == "meta" and os.path.basename(dst) == "meta.json":
+            raise KeyboardInterrupt
+        replace(src, dst)
+
+    monkeypatch.setattr(ckpt, "_write_npz", dying_write)
+    monkeypatch.setattr(ckpt.os, "replace", dying_replace)
+    with pytest.raises(KeyboardInterrupt):
+        _save(path, 5, 2.0)
+    monkeypatch.undo()
+    family, _, params, step, opt = ckpt.load_model(str(path))
+    assert (family, step, opt["step"]) == ("FourierGrid", 3, 3)
+    assert torch.equal(params.density.grid, torch.ones_like(params.density.grid))
+    _save(path, 5, 2.0)
+    *_, params, step, opt = ckpt.load_model(str(path))
+    assert (step, opt["step"]) == (5, 5) and float(params.density.grid.detach().max()) == 2.0
+    assert sorted(p.name for p in path.iterdir()) == ["meta.json", "opt_state-5.npz",
+                                                      "params-5.npz"]
+
+
+def test_the_last_format_still_loads(tmp_path):
+    """A directory of the port's format 2 (``params.npz``, ``opt_state.npz``,
+    no member list in ``meta.json``) loads as it did."""
+    path = tmp_path / "fine_last"
+    _save(path, 3, 1.0)
+    meta = json.load(open(path / "meta.json"))
+    for kind in ("params", "opt_state"):
+        os.rename(path / meta["members"][kind], path / f"{kind}.npz")
+    del meta["members"]
+    meta["format_version"] = 2
+    json.dump(meta, open(path / "meta.json", "w"))
+    _, _, params, step, opt = ckpt.load_model(str(path))
+    assert step == opt["step"] == 3 and float(params.density.grid.detach().min()) == 1.0
+
+
+def test_i_panel_is_refused(trained, tmp_path):
+    cfg, _ = trained
+    text = pathlib.Path(cfg).read_text() + (
+        "fine_train = dict(N_iters=2, N_rand=64, pg_scale=[], i_panel=100)\n")
+    (tmp_path / "panel.py").write_text(text.replace("expname = 'tiny'", "expname = 'panel'"))
+    with pytest.raises(NotImplementedError, match="i_panel.*A17"):
+        cli.main(["--config", str(tmp_path / "panel.py")], device="cpu")

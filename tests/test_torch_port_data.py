@@ -1,8 +1,9 @@
 """The port's data loaders against the JAX package's, on the CPU.
 
-The PNG reader (``data/png.py``) against imageio, on files written by
+The image reader (``data/png.py``) against imageio, on files written by
 imageio, by PIL and by the port's own writer with each of the five row
-filters. ``load_everything`` of both packages on a Mip-NeRF-360 layout
+filters: JPEG and every PNG go through PIL, the numpy PNG decoder is the
+last resort. ``load_everything`` of both packages on a Mip-NeRF-360 layout
 written by the JAX ``write_fake_360_scene`` (spherify, ``llffhold=8``,
 factor 8) and on a NeRF++ layout: images and split indices equal, poses,
 ``render_poses``, ``Ks``, ``near``, ``far`` and ``near_clip`` within 1e-6
@@ -81,6 +82,35 @@ def test_png_rows_of_each_filter_type(tmp_path, filters, channels):
     np.testing.assert_array_equal(imageio.imread(path), img)
 
 
+@pytest.mark.parametrize("kind", ["jpeg", "paeth_png", "palette_png"])
+def test_imread_goes_through_pil_and_equals_imageio(tmp_path, monkeypatch, kind):
+    """JPEG (which a machine without imageio could not read before) and
+    Paeth-filtered PNG (which the numpy decoder undoes pixel by pixel) are
+    read by PIL, neither by imageio nor by the numpy decoder, and equal what
+    ``imageio.v2.imread`` gives."""
+    import imageio.v2 as imageio
+    from PIL import Image
+
+    img = _image(np.random.default_rng(7), 3, h=40, w=56)
+    path = str(tmp_path / ("a.jpg" if kind == "jpeg" else "a.png"))
+    if kind == "jpeg":
+        Image.fromarray(img).save(path, quality=90)
+    elif kind == "paeth_png":
+        png.write_png(path, img, filters=4)
+    else:
+        Image.fromarray(img).convert("P").save(path)
+    want = imageio.imread(path)
+
+    def not_here(*args, **kwargs):
+        raise AssertionError("imread must not get here")
+
+    monkeypatch.setattr(png, "read_png", not_here)
+    monkeypatch.setattr(imageio, "imread", not_here)
+    got = png.imread(path)
+    assert got.dtype == want.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
 def test_imread_names_imageio_where_it_is_needed(tmp_path, monkeypatch):
     from PIL import Image
 
@@ -95,6 +125,15 @@ def test_imread_names_imageio_where_it_is_needed(tmp_path, monkeypatch):
         return real_import(name, *args, **kwargs)
 
     monkeypatch.setattr(builtins, "__import__", no_imageio)
+    for name in ("a.jpg", "p.png"):  # PIL reads them without imageio
+        assert png.imread(str(tmp_path / name)).shape == (13, 17, 3)
+
+    def neither(name, *args, **kwargs):
+        if name.startswith("PIL"):
+            raise ImportError(name)
+        return no_imageio(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", neither)
     for name in ("a.jpg", "p.png"):
         with pytest.raises(RuntimeError, match="imageio"):
             png.imread(str(tmp_path / name))
@@ -253,6 +292,30 @@ def test_written_llff_scene_loads_alike_and_keeps_the_orbit(tmp_path):
     back = got["poses"][:, :3, 2]  # the camera looks along -back, at the origin
     np.testing.assert_allclose(-back, -pos / np.linalg.norm(pos, axis=-1, keepdims=True),
                                atol=1e-4)
+
+
+def test_written_forward_facing_scene_loads_alike_with_ndc(tmp_path):
+    """The forward-facing writer (cameras on a small plane, all looking down
+    -z; LLFF layout, no spherify, ``ndc``) is read alike by both loaders, its
+    views held out every 8th, and its NDC training rays equal the JAX
+    package's (the ray origins all on the near plane, z = -1)."""
+    data = synthetic.forward_facing_scene(9, 12, 16, seed=3)
+    synthetic.write_llff_scene(str(tmp_path), data, factor=4, bounds=(2.5, 9.0))
+    cfg = {"data": dict(dataset_type="llff", datadir=str(tmp_path), factor=4, ndc=True)}
+    got = common.load_everything(port_cfg(cfg))
+    _assert_same_data(got, jcommon.load_everything(jax_cfg(cfg)))
+    assert list(got["i_test"]) == [0, 8] and (got["near"], got["far"]) == (0.0, 1.0)
+    np.testing.assert_array_equal(got["images"], np.round(data["images"] * 255) / np.float32(255))
+    i_train = np.asarray(got["i_train"])
+    images, poses, Ks = (np.asarray(got[k])[i_train].astype(np.float32)
+                         for k in ("images", "poses", "Ks"))
+    mine = rays.get_training_rays_flatten(torch.from_numpy(images), torch.from_numpy(poses[:, :3]),
+                                          12, 16, torch.from_numpy(Ks), ndc=True)
+    theirs = jrays.get_training_rays_flatten(jnp.asarray(images), jnp.asarray(poses[:, :3]), 12,
+                                             16, jnp.asarray(Ks), ndc=True)
+    for name, g, w in zip(("rgb", "rays_o", "rays_d", "viewdirs", "img_index"), mine, theirs):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-6, err_msg=name)
+    np.testing.assert_allclose(mine[1][:, 2].numpy(), -1.0, atol=1e-6)
 
 
 def test_written_nerfpp_scene_gives_the_scenes_own_rays(tmp_path):

@@ -394,3 +394,24 @@ def test_march_backward_takes_an_expanded_cotangent(cuda):
     want = march.march_backward_plain(*args)
     tol = march.march_backward_tolerance(*args)
     assert float(((d.grad - want).abs() / tol).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(0, 5), (1, 1), (37, 33), (33, 95), (4096, 1063), (70, 200)])
+def test_cumdist_thres_kernel_matches_plain(cuda, n, s):
+    """The DCVGO oversample skip: the kernel walks each ray's distances in the
+    plain version's order with the plain version's float operations, so the
+    flags are equal, not close."""
+    from unboundednerfpytorch_tpu_torch.ops import sampling
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.ops.cuda.ub360 import cumdist_thres
+
+    rng = np.random.RandomState(n + s)
+    dist = (rng.rand(n, s) * 0.01).astype(np.float32)
+    dist[::5, s // 3:] = 0.0  # rays that stop moving
+    want = sampling.cumdist_thres_plain(torch.from_numpy(dist), 0.0061)
+    build.reset_launch_counts()
+    got = cumdist_thres(torch.from_numpy(dist).cuda(), 0.0061)
+    assert got.dtype == torch.bool and got.shape == (n, s) and got.is_cuda
+    assert torch.equal(got.cpu(), want)
+    assert build.LAUNCHES["cumdist_thres"] == (1 if n else 0)  # no launch for no ray

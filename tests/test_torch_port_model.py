@@ -86,7 +86,7 @@ def test_converter_round_trip():
     _, jp, _, tp = make_pair(grid_dtype="bfloat16")
     assert tp.density.grid.dtype == torch.bfloat16
     assert tuple(tp.rgbnet.layers[0].weight.shape) == tuple(jp.rgbnet.weights[0].shape[::-1])
-    back = convert.fourier_grid_params_to_numpy(tp)
+    back = convert.params_to_numpy(tp)
     want = jax_params_to_numpy(jp)
     for name in ("density", "k0"):
         np.testing.assert_array_equal(back[name]["grid"], np.asarray(want[name]["grid"], np.float32))

@@ -396,35 +396,43 @@ def _save_format_1(path, cfg, params, global_step):
             "format_version": 1}
     json.dump(meta, open(os.path.join(path, "meta.json"), "w"))
     np.savez(os.path.join(path, "params.npz"),
-             **ckpt._flatten(convert.fourier_grid_params_to_numpy(params)))
+             **ckpt._flatten(convert.params_to_numpy(params)))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_checkpoint_round_trip_is_bit_equal(tmp_path, dtype):
-    """Format 2 (bfloat16 grids as their 16-bit patterns) as written now, and
-    format 1 (as float32 values) as written before it: both load bit-equal."""
+    """Format 3 (members named by step and listed in ``meta.json``, bfloat16
+    grids as their 16-bit patterns) as written now, format 2 (the same
+    archives as ``params.npz``) and format 1 (bfloat16 grids as float32
+    values) as written before it: all load bit-equal."""
     _, _, tcfg, tp = make_pair(seed=24, grid_dtype=dtype, **TWO_STAGE)
     tp.mask_cache.mask[2:5] = False
     tp.act_shift = float(tp.act_shift) + 1e-9  # a float64 value
-    for fmt in (1, 2):
+    for fmt in (1, 2, 3):
         path = str(tmp_path / f"format_{fmt}")
         if fmt == 1:
             _save_format_1(path, tcfg, tp, 7)
         else:
             ckpt.save_model(path, "FourierGrid", tcfg, tp, global_step=7)
-            assert sorted(os.listdir(path)) == ["meta.json", "params.npz"]
+            assert sorted(os.listdir(path)) == ["meta.json", "params-7.npz"]
             meta = json.load(open(os.path.join(path, "meta.json")))
             assert set(meta) == {"global_step", "family", "model_kwargs", "has_opt_state",
-                                 "format_version", "stored_dtypes"}
-            assert meta["format_version"] == 2 and not meta["has_opt_state"]
+                                 "format_version", "stored_dtypes", "members"}
+            assert meta["format_version"] == 3 and not meta["has_opt_state"]
+            assert meta["members"] == {"params": "params-7.npz", "opt_state": None}
             assert meta["stored_dtypes"] == ({"density/grid": "bfloat16", "k0/grid": "bfloat16"}
                                              if dtype == "bfloat16" else {})
-            with np.load(os.path.join(path, "params.npz")) as npz:  # 2 bytes an element
+            with np.load(os.path.join(path, "params-7.npz")) as npz:  # 2 bytes an element
                 assert npz["k0/grid"].dtype == (np.uint16 if dtype == "bfloat16" else np.float32)
+            if fmt == 2:  # as the port wrote it before format 3
+                os.rename(os.path.join(path, "params-7.npz"), os.path.join(path, "params.npz"))
+                del meta["members"]
+                meta["format_version"] = 2
+                json.dump(meta, open(os.path.join(path, "meta.json"), "w"))
         family, cfg2, p2, step, opt = ckpt.load_model(path)
         assert (family, step, opt) == ("FourierGrid", 7, None) and cfg2 == tcfg
         assert p2.k0.grid.dtype == tp.k0.grid.dtype
-        if fmt == 2:
+        if fmt >= 2:
             assert p2.act_shift == tp.act_shift
         else:
             assert p2.act_shift == pytest.approx(tp.act_shift)
@@ -471,9 +479,11 @@ def test_checkpoint_io_probe_runs_on_the_cpu(capsys):
 
 
 def test_checkpoint_keeps_the_optimizer_state(tmp_path):
-    """``opt_state.npz`` beside the parameters: the step count and both
-    moments come back bit-equal; saving again without them drops the file,
-    and ``with_opt_state=False`` skips reading them."""
+    """The optimizer's state beside the parameters: the step count and both
+    moments come back bit-equal; saving again without them drops its member
+    (and a second save of one step does not overwrite the members that the
+    current ``meta.json`` names), and ``with_opt_state=False`` skips reading
+    them."""
     _, _, tcfg, tp = make_pair(seed=26, grid_dtype="bfloat16", **TWO_STAGE)
     state = loop.create_train_state(tp, dataclasses.replace(_tiny_bicycle().fine_train))
     gen = torch.Generator().manual_seed(0)
@@ -485,6 +495,7 @@ def test_checkpoint_keeps_the_optimizer_state(tmp_path):
     ckpt.save_model(path, "FourierGrid", tcfg, tp, global_step=9,
                     opt_state=state.optimizer.state_dict())
     assert json.load(open(os.path.join(path, "meta.json")))["has_opt_state"]
+    assert sorted(os.listdir(path)) == ["meta.json", "opt_state-9.npz", "params-9.npz"]
     *_, step, opt = ckpt.load_model(path)
     assert step == 9 and opt["step"] == 5
     want = state.optimizer.state_dict()
@@ -496,7 +507,8 @@ def test_checkpoint_keeps_the_optimizer_state(tmp_path):
                 assert torch.equal(torch.from_numpy(got), m)
     assert ckpt.load_model(path, with_opt_state=False)[4] is None
     ckpt.save_model(path, "FourierGrid", tcfg, tp, global_step=9)
-    assert sorted(os.listdir(path)) == ["meta.json", "params.npz"]
+    assert sorted(os.listdir(path)) == ["meta.json", "params-9.1.npz"]
+    assert ckpt.load_model(path)[3:] == (9, None)
 
 
 def test_config_dict_round_trip_and_jax_meta():
@@ -537,7 +549,7 @@ def test_jax_checkpoint_carried_over_renders_the_same_image(tmp_path):
                                 aux=(tp, fg.build_render_cache(tp, tcfg)), device="cpu")
     np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
     # and back: the port's tree is what the JAX params take
-    back = convert.fourier_grid_params_to_numpy(tp)
+    back = convert.params_to_numpy(tp)
     np.testing.assert_array_equal(back["k0"]["grid"],
                                   np.asarray(jp.k0.grid.astype(jnp.float32)))
 

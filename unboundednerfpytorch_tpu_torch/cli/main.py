@@ -233,7 +233,7 @@ def main(argv=None, device=None) -> int:
 
         family, mcfg, params, step, _ = ckpt.load_model(
             os.path.join(exp_dir, "fine_last"), device=dev, with_opt_state=False)
-        if mcfg.fourier_freq_num <= 0:
+        if family != "FourierGrid" or mcfg.fourier_freq_num <= 0:
             raise SystemExit("export_baked needs a trained FourierGrid model with Fourier banks")
         params.requires_grad_(False)
         pb, cb = fg.bake_for_rendering(params, mcfg, scale=args.bake_scale)

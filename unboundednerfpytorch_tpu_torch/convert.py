@@ -1,4 +1,5 @@
-"""Carry FourierGrid weights between the JAX package and the port.
+"""Carry model weights (FourierGrid, DCVGO, DMPIGO) between the JAX package
+and the port.
 
 The JAX ``FourierGridParams`` is handed over as a nested dict of numpy
 arrays keyed by its field names, so this module needs nothing of JAX:
@@ -10,6 +11,14 @@ arrays keyed by its field names, so this module needs nothing of JAX:
      "act_shift": scalar,
      "mask_cache": {"mask": bool [X, Y, Z], "xyz_min": ..., "xyz_max": ...}}
 
+The JAX ``DCVGOParams`` and ``DMPIGOParams`` have the same keys, their grids
+``DenseGrid`` s without ``num_freqs`` and with a grid ``[X, Y, Z, C]`` (the
+port's is ``[1, X, Y, Z, C]``), ``rgbnet`` None where the model has no MLP,
+and DMPIGO's ``act_shift`` a ``[mpi_depth]`` array. :func:`params_to_numpy`,
+:func:`params_from_numpy`, :func:`config_from_dict` and the optimizer-state
+functions take the family (``"FourierGrid"``, ``"dcvgo"``, ``"dmpigo"``, the
+names of the JAX package's checkpoints).
+
 ``nn.Linear`` keeps its weight as ``[out, in]``, so the MLP kernels are
 transposed on the way in and back on the way out. The view-direction grid
 and appearance embeddings are not part of the ported model; a tree that
@@ -20,7 +29,7 @@ JAX package's ``load_model`` gives (config, params); :func:`tree_from_params_obj
 turns the params into the dict above (it reads attributes and imports no
 JAX), :func:`config_from_dict` turns ``dataclasses.asdict(config)`` into the
 port's config, and the port's ``utils.checkpoint.save_model`` writes them.
-The other way, :func:`config_to_dict` and :func:`fourier_grid_params_to_numpy`
+The other way, :func:`config_to_dict` and :func:`params_to_numpy`
 give what the JAX package's config class and ``params.replace`` take.
 
 The optimizer's state travels the same way, in the layout of the JAX
@@ -48,11 +57,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from unboundednerfpytorch_tpu_torch.fields.grids import FourierGrid, MaskGrid
+from unboundednerfpytorch_tpu_torch.fields.grids import DenseGrid, FourierGrid, MaskGrid
 from unboundednerfpytorch_tpu_torch.fields.mlp import MLP
+from unboundednerfpytorch_tpu_torch.models import dcvgo, dmpigo
 from unboundednerfpytorch_tpu_torch.models.fourier_grid import (
     FourierGridConfig, FourierGridParams,
 )
+
+CONFIGS = {"FourierGrid": FourierGridConfig, "dcvgo": dcvgo.DCVGOConfig,
+           "dmpigo": dmpigo.DMPIGOConfig}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -73,48 +86,89 @@ def _grid_from(sub: dict, device) -> FourierGrid:
                        num_freqs=int(sub["num_freqs"]), grid=grid)
 
 
-def fourier_grid_params_from_numpy(tree: dict, device) -> FourierGridParams:
-    """The port's parameters from the JAX ``FourierGridParams`` as numpy."""
-    for extra in ("vd", "img_embeddings"):
-        if tree.get(extra) is not None:
-            raise NotImplementedError(f"{extra} is not part of the ported model")
-    weights = [np.asarray(w) for w in tree["rgbnet"]["weights"]]
-    biases = [np.asarray(b) for b in tree["rgbnet"]["biases"]]
+def _mlp_from(sub: dict | None, device) -> MLP | None:
+    if sub is None:
+        return None
+    weights = [np.asarray(w) for w in sub["weights"]]
+    biases = [np.asarray(b) for b in sub["biases"]]
     dims = [weights[0].shape[0]] + [w.shape[1] for w in weights]
     rgbnet = MLP(dims[0], dims[1], dims[-1], len(weights), device=device)
     with torch.no_grad():
         for lin, w, b in zip(rgbnet.layers, weights, biases):
             lin.weight.copy_(torch.tensor(w.T))
             lin.bias.copy_(torch.tensor(b))
-    mc = tree["mask_cache"]
+    return rgbnet
+
+
+def _mask_from(mc: dict, device) -> MaskGrid:
     mask = _tensor(mc["mask"], device)
-    mask_cache = MaskGrid(mask.shape, mc["xyz_min"], mc["xyz_max"], mask=mask)
+    return MaskGrid(mask.shape, mc["xyz_min"], mc["xyz_max"], mask=mask)
+
+
+def fourier_grid_params_from_numpy(tree: dict, device) -> FourierGridParams:
+    """The port's parameters from the JAX ``FourierGridParams`` as numpy."""
+    for extra in ("vd", "img_embeddings"):
+        if tree.get(extra) is not None:
+            raise NotImplementedError(f"{extra} is not part of the ported model")
     return FourierGridParams(_grid_from(tree["density"], device), _grid_from(tree["k0"], device),
-                             rgbnet, float(np.asarray(tree["act_shift"])), mask_cache)
+                             _mlp_from(tree["rgbnet"], device),
+                             float(np.asarray(tree["act_shift"])),
+                             _mask_from(tree["mask_cache"], device))
 
 
-def fourier_grid_params_to_numpy(params: FourierGridParams, bf16_bits: bool = False) -> dict:
-    """Inverse of :func:`fourier_grid_params_from_numpy`. A bfloat16 grid
-    comes as float32 values, or with ``bf16_bits`` as the uint16 array of its
-    bit patterns (half the bytes; ``bf16_from_bits`` undoes it)."""
+def _dense_from(sub: dict, device) -> DenseGrid:
+    grid = _tensor(sub["grid"], device)  # [X, Y, Z, C]
+    return DenseGrid(grid.shape[-1], grid.shape[:3], sub["xyz_min"], sub["xyz_max"],
+                     grid=grid[None])
 
-    def grid(g: FourierGrid) -> dict:
-        t = g.grid.detach()
-        if bf16_bits and t.dtype == torch.bfloat16:
-            arr = t.cpu().view(torch.int16).numpy().view(np.uint16)
-        else:
-            arr = t.float().cpu().numpy()
-        return {"grid": arr, "xyz_min": g.xyz_min, "xyz_max": g.xyz_max,
-                "num_freqs": g.num_freqs}
 
-    return {
-        "density": grid(params.density),
-        "k0": grid(params.k0),
-        "rgbnet": {
+def params_from_numpy(family: str, tree: dict, device):
+    """The port's parameters of ``family`` from the JAX params as numpy."""
+    if family == "FourierGrid":
+        return fourier_grid_params_from_numpy(tree, device)
+    parts = (_dense_from(tree["density"], device), _dense_from(tree["k0"], device),
+             _mlp_from(tree.get("rgbnet"), device))
+    mask = _mask_from(tree["mask_cache"], device)
+    if family == "dcvgo":
+        return dcvgo.DCVGOParams(*parts, float(np.asarray(tree["act_shift"])), mask)
+    if family == "dmpigo":
+        shift = torch.tensor(np.asarray(tree["act_shift"], np.float32), device=device)
+        return dmpigo.DMPIGOParams(*parts, shift, mask)
+    raise NotImplementedError(f"the {family} family is not ported yet")
+
+
+def _grid_to_numpy(g, bf16_bits: bool) -> dict:
+    t = g.grid.detach()
+    if isinstance(g, DenseGrid):
+        t = t[0]
+    if bf16_bits and t.dtype == torch.bfloat16:
+        arr = t.cpu().view(torch.int16).numpy().view(np.uint16)
+    else:
+        arr = t.float().cpu().numpy()
+    out = {"grid": arr, "xyz_min": g.xyz_min, "xyz_max": g.xyz_max}
+    if not isinstance(g, DenseGrid):
+        out["num_freqs"] = g.num_freqs
+    return out
+
+
+def params_to_numpy(params, bf16_bits: bool = False) -> dict:
+    """Inverse of :func:`params_from_numpy` (the family read off the params).
+    A bfloat16 grid comes as float32 values, or with ``bf16_bits`` as the
+    uint16 array of its bit patterns (half the bytes; ``bf16_from_bits``
+    undoes it)."""
+    rgbnet = None
+    if params.rgbnet is not None:
+        rgbnet = {
             "weights": [lin.weight.detach().cpu().numpy().T for lin in params.rgbnet.layers],
             "biases": [lin.bias.detach().cpu().numpy() for lin in params.rgbnet.layers],
-        },
-        "act_shift": np.float32(params.act_shift),
+        }
+    shift = params.act_shift
+    return {
+        "density": _grid_to_numpy(params.density, bf16_bits),
+        "k0": _grid_to_numpy(params.k0, bf16_bits),
+        "rgbnet": rgbnet,
+        "act_shift": (shift.detach().cpu().numpy() if isinstance(shift, torch.Tensor)
+                      else np.float32(shift)),
         "mask_cache": {"mask": params.mask_cache.mask.cpu().numpy(),
                        "xyz_min": params.mask_cache.xyz_min,
                        "xyz_max": params.mask_cache.xyz_max},
@@ -128,18 +182,23 @@ def bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
 
 def tree_from_params_object(p) -> dict:
     """The nested numpy dict from any object shaped like the JAX
-    ``FourierGridParams`` (attributes ``density``, ``k0``, ``rgbnet``,
-    ``act_shift``, ``mask_cache``, optionally ``vd`` / ``img_embeddings``)."""
+    ``FourierGridParams``, ``DCVGOParams`` or ``DMPIGOParams`` (attributes
+    ``density``, ``k0``, ``rgbnet``, ``act_shift``, ``mask_cache``, optionally
+    ``vd`` / ``img_embeddings``)."""
 
     def grid(g) -> dict:
-        return {"grid": np.asarray(g.grid), "xyz_min": tuple(g.xyz_min),
-                "xyz_max": tuple(g.xyz_max), "num_freqs": int(g.num_freqs)}
+        out = {"grid": np.asarray(g.grid), "xyz_min": tuple(g.xyz_min),
+               "xyz_max": tuple(g.xyz_max)}
+        if hasattr(g, "num_freqs"):
+            out["num_freqs"] = int(g.num_freqs)
+        return out
 
     return {
         "density": grid(p.density),
         "k0": grid(p.k0),
-        "rgbnet": {"weights": [np.asarray(w) for w in p.rgbnet.weights],
-                   "biases": [np.asarray(b) for b in p.rgbnet.biases]},
+        "rgbnet": None if p.rgbnet is None else {
+            "weights": [np.asarray(w) for w in p.rgbnet.weights],
+            "biases": [np.asarray(b) for b in p.rgbnet.biases]},
         "act_shift": np.asarray(p.act_shift),
         "mask_cache": {"mask": np.asarray(p.mask_cache.mask),
                        "xyz_min": tuple(p.mask_cache.xyz_min),
@@ -149,51 +208,55 @@ def tree_from_params_object(p) -> dict:
     }
 
 
-def config_to_dict(cfg: FourierGridConfig) -> dict:
+def config_to_dict(cfg) -> dict:
     """``model_kwargs`` of a checkpoint's ``meta.json``: every field of the
     config, tuples as lists once through JSON."""
     return dataclasses.asdict(cfg)
 
 
-def config_from_dict(d: dict) -> FourierGridConfig:
-    """The port's config from ``model_kwargs`` (the port's own or the JAX
-    package's, whose extra fields name features outside the port and are
-    dropped when they hold their defaults' meaning; a checkpoint that needs
-    one of them is refused by ``create``/``forward``'s own checks)."""
-    names = {f.name for f in dataclasses.fields(FourierGridConfig)}
+def config_from_dict(d: dict, family: str = "FourierGrid"):
+    """The port's config of ``family`` from ``model_kwargs`` (the port's own
+    or the JAX package's, whose extra fields name features outside the port
+    and are dropped when they hold their defaults' meaning; a checkpoint that
+    needs one of them is refused by ``create``/``forward``'s own checks)."""
+    cls = CONFIGS[family]
+    names = {f.name for f in dataclasses.fields(cls)}
     fix = lambda v: tuple(v) if isinstance(v, list) else v
-    return FourierGridConfig(**{k: fix(v) for k, v in d.items() if k in names})
+    return cls(**{k: fix(v) for k, v in d.items() if k in names})
 
 
-def _moments_to_numpy(name: str, moments) -> dict:
+def _moments_to_numpy(name: str, moments, dense: bool) -> dict:
     arrays = [m.detach().cpu().numpy() for m in moments]
     if name == "rgbnet":  # the port's order: weight [out, in], bias, per layer
         return {"weights": [w.T for w in arrays[0::2]], "biases": arrays[1::2]}
     (grid,) = arrays
-    return {"grid": grid}
+    return {"grid": grid[0] if dense else grid}
 
 
-def _moments_from_numpy(name: str, sub: dict) -> list:
+def _moments_from_numpy(name: str, sub: dict, dense: bool) -> list:
     if name == "rgbnet":
         return [a for w, b in zip(sub["weights"], sub["biases"])
                 for a in (np.asarray(w).T, np.asarray(b))]
-    return [np.asarray(sub["grid"])]
+    grid = np.asarray(sub["grid"])
+    return [grid[None] if dense else grid]
 
 
-def opt_state_to_numpy(state: dict) -> dict:
+def opt_state_to_numpy(state: dict, family: str = "FourierGrid") -> dict:
     """The port's ``MaskedAdam.state_dict()`` in the JAX layout (above)."""
     out = {"step": np.int32(state["step"])}
+    dense = family != "FourierGrid"
     for key in ("exp_avg", "exp_avg_sq"):
-        out[key] = {name: _moments_to_numpy(name, ms) for name, ms in state[key].items()}
+        out[key] = {name: _moments_to_numpy(name, ms, dense) for name, ms in state[key].items()}
     return out
 
 
-def opt_state_from_numpy(tree: dict) -> dict:
+def opt_state_from_numpy(tree: dict, family: str = "FourierGrid") -> dict:
     """Inverse of :func:`opt_state_to_numpy`: a state for
     ``MaskedAdam.load_state_dict``, its moments numpy arrays."""
     out = {"step": int(np.asarray(tree["step"]))}
+    dense = family != "FourierGrid"
     for key in ("exp_avg", "exp_avg_sq"):
-        out[key] = {name: _moments_from_numpy(name, sub) for name, sub in tree[key].items()}
+        out[key] = {name: _moments_from_numpy(name, sub, dense) for name, sub in tree[key].items()}
     return out
 
 

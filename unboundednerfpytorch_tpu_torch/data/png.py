@@ -1,13 +1,18 @@
-"""PNG files read and written with the standard library and numpy.
+"""Image files read through PIL, and PNG read and written with the standard
+library and numpy.
 
-The loaders read images through :func:`imread`. An 8-bit PNG without a
+The loaders read images through :func:`imread`. It opens a file with PIL
+(Pillow), which decodes JPEG and every kind of PNG in native code and is what
+``imageio.v2`` itself reads these formats with, so the arrays are the ones the
+JAX package's loaders get. Where PIL is not installed, an 8-bit PNG without a
 palette and without interlacing (grey, grey + alpha, RGB, RGBA) is decoded
 here: ``zlib`` inflates the image data and numpy undoes the five row filters
 of the PNG specification (None, Sub and Up over whole rows; Average and
-Paeth, whose predictor reads the pixel just decoded, pixel by pixel). Every
-other file goes to ``imageio``, imported when one is met; without it the
-error names it. :func:`write_png` writes what :func:`read_png` reads, each
-row with a chosen filter.
+Paeth, whose predictor reads the pixel just decoded, pixel by pixel, which
+takes about half a second for a 411x618 view). Every other file then goes to
+``imageio``, imported when one is met; without it the error names it.
+:func:`write_png` writes what :func:`read_png` reads, each row with a chosen
+filter.
 """
 
 from __future__ import annotations
@@ -25,6 +30,12 @@ CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
 def imread(path: str) -> np.ndarray:
     """An image file as a uint8 array: [H, W] for grey, else [H, W, C]."""
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        return _pil_read(Image, path)
     if path.lower().endswith(".png"):
         try:
             return read_png(path)
@@ -34,9 +45,28 @@ def imread(path: str) -> np.ndarray:
         import imageio.v2 as imageio
     except ImportError as e:
         raise RuntimeError(
-            f"{path}: without the imageio package only 8-bit PNG files without a palette "
-            "or interlacing can be read; install imageio for this file") from e
+            f"{path}: without PIL or imageio only 8-bit PNG files without a palette "
+            "or interlacing can be read; install Pillow for this file") from e
     return np.asarray(imageio.imread(path))
+
+
+# PIL modes whose pixels numpy takes as they are; the others are converted as
+# imageio converts them: a palette to RGB (RGBA where it has a transparent
+# entry), bilevel to grey, the remaining colour spaces to RGB or RGBA
+_PIL_AS_IS = ("L", "LA", "RGB", "RGBA", "I", "I;16", "F")
+
+
+def _pil_read(Image, path: str) -> np.ndarray:
+    with Image.open(path) as im:
+        if im.mode in _PIL_AS_IS:
+            return np.asarray(im)
+        if im.mode == "1":
+            target = "L"
+        elif im.mode == "P":
+            target = "RGBA" if "transparency" in im.info else "RGB"
+        else:
+            target = "RGBA" if "A" in im.mode or "a" in im.mode else "RGB"
+        return np.asarray(im.convert(target))
 
 
 def _chunks(data: bytes):

@@ -6,8 +6,11 @@ disk. Cameras orbit the origin at alternating elevations (the 360-capture
 pattern of the Mip-NeRF-360 scenes). The scene is a textured sphere at the
 origin inside a far sky: each pixel's colour is found in closed form
 (ray-sphere intersection), so full-resolution views cost seconds.
-:func:`write_llff_scene` and :func:`write_nerfpp_scene` put such a scene on
-disk in the layouts the loaders read.
+:func:`forward_facing_scene` is the forward-facing counterpart (the LLFF
+captures of ``configs/llff``): cameras on a small plane, all looking down
+-z at a ball before a textured wall. :func:`write_llff_scene` and
+:func:`write_nerfpp_scene` put such scenes on disk in the layouts the
+loaders read.
 """
 
 from __future__ import annotations
@@ -103,6 +106,52 @@ def orbit_scene(n_views: int = 20, H: int = 411, W: int = 618, *, seed: int = 0,
     }
 
 
+def forward_facing_scene(n_views: int = 20, H: int = 756, W: int = 1008, *, seed: int = 0,
+                         ball_depth: float = 4.0, ball_radius: float = 1.0,
+                         wall_depth: float = 8.0) -> dict:
+    """A reference-shaped data_dict (numpy) of a forward-facing capture:
+    ``n_views`` cameras at seeded points of a 1.0 x 0.6 patch of the plane
+    z = 0, every one looking down -z (no rotation), at a textured ball of
+    ``ball_radius`` centred ``ball_depth`` in front of the patch and a
+    textured wall at ``wall_depth``. Every view is a training view
+    (``i_train``); the loader holds views out by ``llffhold``."""
+    rng = np.random.default_rng(seed)
+    phase = rng.uniform(0.0, 2.0 * np.pi, 3)
+    focal = 0.8 * W
+    K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]], dtype=np.float32)
+    i, j = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5, indexing="xy")
+    d = np.stack([(i - W / 2) / focal, -(j - H / 2) / focal, -np.ones_like(i)], -1)
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).reshape(-1, 3)
+    center = np.array([0.0, 0.0, -ball_depth])
+    poses, images = [], []
+    for xy in rng.uniform(-1.0, 1.0, (n_views, 2)) * np.array([0.5, 0.3]):
+        pos = np.array([xy[0], xy[1], 0.0])
+        t_wall = (wall_depth + pos[2]) / -d[:, 2]
+        rgb = _sky_color(0.15 * (pos + t_wall[:, None] * d), phase)
+        oc = pos - center
+        b = d @ oc
+        disc = b * b - (oc @ oc - ball_radius**2)
+        hit = disc > 0
+        t = -b - np.sqrt(np.maximum(disc, 0.0))
+        rgb[hit] = _sphere_color(pos + t[hit, None] * d[hit] - center, phase)
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, 3] = pos
+        poses.append(c2w)
+        images.append(np.clip(rgb, 0.0, 1.0).reshape(H, W, 3).astype(np.float32))
+    return {
+        "HW": np.array([[H, W]] * n_views),
+        "Ks": np.stack([K] * n_views),
+        "near": 0.0,
+        "far": 1.0,
+        "i_train": np.arange(n_views),
+        "i_val": np.arange(0),
+        "i_test": np.arange(0),
+        "poses": np.stack(poses),
+        "images": np.stack(images),
+        "irregular_shape": False,
+    }
+
+
 def occupancy_seed(scene_center, scene_radius, sphere_radius: float = 0.8,
                    margin: float = 1.5):
     """``coarse_mask_fn(world_size, xyz_min, xyz_max)`` for the trainer: the
@@ -161,9 +210,11 @@ def imprint_scene(params, scene_center, scene_radius, *, seed: int = 0,
 
 
 def write_llff_scene(basedir: str, data: dict, factor: int = 8, bounds=(0.5, 100.0)) -> str:
-    """Write a data_dict of :func:`orbit_scene` (every view, in order) in the
-    on-disk layout of a Mip-NeRF-360 capture: ``poses_bounds.npy`` in the
-    LLFF storage convention and the views as ``images_{factor}/*.png``.
+    """Write a data_dict of :func:`orbit_scene` or :func:`forward_facing_scene`
+    (every view, in order) in the on-disk layout of a Mip-NeRF-360 or LLFF
+    capture: ``poses_bounds.npy`` in the LLFF storage convention and the views
+    as ``images_{factor}/*.png``. ``bounds`` are every view's near and far
+    depths (an NDC scene takes its near plane and scale from them).
 
     A row of ``poses_bounds.npy`` is a [3, 5] matrix, flattened, and the
     view's near and far bounds: its columns are [-up, right, back] of the

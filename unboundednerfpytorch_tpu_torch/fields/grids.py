@@ -1,9 +1,12 @@
-"""Field primitives: the Fourier-embedded multi-bank grid and the occupancy
-mask.
+"""Field primitives: the Fourier-embedded multi-bank grid, the dense grid
+and the occupancy mask.
 
-Counterpart of ``FourierGrid`` (with ``scale_volume_grid``), ``MaskGrid`` and
-``nerf_pos_embed_coords`` of ``unboundednerfpytorch_tpu/fields/grids.py``.
-Grids are channel-last ``[B, X, Y, Z, C]`` parameters (B = 2K+1 banks).
+Counterpart of ``FourierGrid`` (with ``scale_volume_grid``), ``DenseGrid``,
+``MaskGrid`` and ``nerf_pos_embed_coords`` of
+``unboundednerfpytorch_tpu/fields/grids.py``. Grids are channel-last
+``[B, X, Y, Z, C]`` parameters (B = 2K+1 banks; one for a dense grid, whose
+JAX counterpart is ``[X, Y, Z, C]``), so that the TV kernel, the resize and
+the index-add backward serve both.
 """
 
 from __future__ import annotations
@@ -69,6 +72,24 @@ class FourierGrid(nn.Module):
         for b in range(old.shape[0]):
             new[b] = interp.resize_grid_3d(old[b], size)
         self.grid = nn.Parameter(new, requires_grad=self.grid.requires_grad)
+
+
+class DenseGrid(FourierGrid):
+    """One plain bank ``[1, X, Y, Z, C]``, queried at the normalized
+    coordinate itself (as the JAX ``DenseGrid``, without the round trip
+    through [-1, 1] that a one-bank FourierGrid takes)."""
+
+    def __init__(self, channels: int, world_size, xyz_min, xyz_max, dtype=torch.float32,
+                 device=None, grid: torch.Tensor | None = None):
+        super().__init__(channels, world_size, xyz_min, xyz_max, num_freqs=0, dtype=dtype,
+                         device=device, grid=grid)
+
+    def forward(self, xyz: torch.Tensor) -> torch.Tensor:
+        return interp.grid_sample_3d(self.grid[0], _norm01(xyz, self.xyz_min, self.xyz_max))
+
+    def get_dense_grid(self) -> torch.Tensor:
+        """The values at the lattice's nodes, [X, Y, Z, C]."""
+        return self.grid[0]
 
 
 class MaskGrid(nn.Module):

@@ -1,5 +1,6 @@
 """Shared model pieces: the render result, view-direction embedding,
-compositing and the act_shift initialiser.
+compositing, the act_shift initialiser, and the march and color head that
+the FourierGrid, DCVGO and DMPIGO forwards share.
 
 Counterpart of ``unboundednerfpytorch_tpu/models/common.py``.
 """
@@ -10,6 +11,9 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
+from unboundednerfpytorch_tpu_torch.ops.cuda.march import fused_alpha2weights
 
 
 class RenderResult(NamedTuple):
@@ -34,6 +38,9 @@ class RenderResult(NamedTuple):
     # and pairs with the compacted weights, not with the full [N, S]
     # ``weights``; training losses (rgbper) must not consume it.
     rgb_compacted: bool = False
+    # DCVGO only: per ray, the weight of the samples inside the unit
+    # (uncontracted) region. None elsewhere.
+    wsum_mid: torch.Tensor | None = None
 
 
 def act_shift_from_alpha_init(alpha_init: float) -> float:
@@ -53,3 +60,31 @@ def composite(weights: torch.Tensor, rgb: torch.Tensor, alphainv_last: torch.Ten
     """rgb_marched = sum_s w * rgb + T_last * bg (bg a scalar or [N, 3])."""
     acc = torch.einsum("ns,nsc->nc", weights, rgb)
     return acc + alphainv_last[:, None] * bg
+
+
+def march(density: torch.Tensor, mask: torch.Tensor, shift: float, interval: float,
+          thres: float):
+    """alpha -> threshold mask -> fused scan -> weights threshold: (raw alpha,
+    weights, alphainv_last, mask). The ``alpha > thres`` mask that the JAX
+    forwards build before the scan is computed here without grad and handed
+    to the fused CUDA march (:mod:`..ops.cuda.march`)."""
+    with torch.no_grad():
+        alpha = alpha_ops.raw2alpha(density, shift, interval)
+        if thres > 0:
+            mask = mask & (alpha > thres)
+    weights, alphainv_last, _ = fused_alpha2weights(density, mask, shift, interval)
+    if thres > 0:
+        mask = mask & (weights > thres)
+        weights = weights * mask.to(weights.dtype)
+    return alpha, weights, alphainv_last, mask
+
+
+def rgb_head(rgbnet, k0: torch.Tensor, viewdirs: torch.Tensor, viewbase_pe: int):
+    """Sample colours [N, S, 3]: the rgb MLP on k0 and the view-direction
+    embedding, or, without an MLP, the sigmoid of k0's first three channels."""
+    if rgbnet is None:
+        return torch.sigmoid(k0[..., :3])
+    N, S = k0.shape[:2]
+    vemb = viewdir_embedding(viewdirs, viewbase_pe)
+    feats = torch.cat([k0, vemb[:, None, :].expand(N, S, vemb.shape[-1])], dim=-1)
+    return torch.sigmoid(rgbnet(feats))

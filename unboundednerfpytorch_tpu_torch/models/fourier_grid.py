@@ -3,8 +3,9 @@ cached render forwards.
 
 Counterpart of ``unboundednerfpytorch_tpu/models/fourier_grid.py``:
 ``FourierGridConfig``, ``config_from``, ``create``, ``sample_ray``,
-``budget_select`` (flat strided probe), ``forward`` with ``_rgb_head`` and
-``_bank_coords01``, and the render half: ``RenderCache``,
+``budget_select`` (flat strided probe), ``forward`` with ``_bank_coords01``
+(the march and the colour head are :mod:`.common`'s, which DCVGO and DMPIGO
+share), and the render half: ``RenderCache``,
 ``build_render_cache``, the two-stage cached forward
 (``_forward_two_stage``), the single-stage cache branch,
 ``_eval_field_on_lattice`` and ``bake_for_rendering``; and the ``pg_scale``
@@ -45,7 +46,6 @@ from unboundednerfpytorch_tpu_torch.models import common
 from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
 from unboundednerfpytorch_tpu_torch.ops import packed as packed_ops
-from unboundednerfpytorch_tpu_torch.ops.cuda.march import fused_alpha2weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,13 +271,6 @@ def _bank_coords01(cfg: FourierGridConfig, pts: torch.Tensor,
     return (nerf_pos_embed_coords(coords, freqs) + 1.0) * 0.5
 
 
-def _rgb_head(params: FourierGridParams, cfg: FourierGridConfig, k0, viewdirs):
-    N, S = k0.shape[:2]
-    vemb = common.viewdir_embedding(viewdirs, cfg.viewbase_pe)
-    feats = torch.cat([k0, vemb[:, None, :].expand(N, S, vemb.shape[-1])], dim=-1)
-    return torch.sigmoid(params.rgbnet(feats))
-
-
 def _query(params: FourierGridParams, cfg: FourierGridConfig, pts: torch.Tensor):
     """(density [N, S], k0 [N, S, k0_dim]) in f32 from the grids themselves.
     When both grids share bank structure and resolution (the fine config),
@@ -459,21 +452,6 @@ def _cache_density(cfg: FourierGridConfig, cache: RenderCache, pts, fallback_dim
     return density[..., 0] / len(cache.density_tables)
 
 
-def _march(params, density, mask, interval, thres):
-    """alpha -> threshold mask -> fused scan -> weights threshold: (raw alpha,
-    weights, alphainv_last, mask)."""
-    shift = params.act_shift
-    with torch.no_grad():
-        alpha = alpha_ops.raw2alpha(density, shift, interval)
-        if thres > 0:
-            mask = mask & (alpha > thres)
-    weights, alphainv_last, _ = fused_alpha2weights(density, mask, shift, interval)
-    if thres > 0:
-        mask = mask & (weights > thres)
-        weights = weights * mask.to(weights.dtype)
-    return alpha, weights, alphainv_last, mask
-
-
 def _forward_two_stage(params, cfg, cache, pts, t2, mask, viewdirs, interval, thres,
                        bg, n_max):
     """Two-stage cached render: narrow density rows -> alpha -> weights ->
@@ -489,7 +467,8 @@ def _forward_two_stage(params, cfg, cache, pts, t2, mask, viewdirs, interval, th
     with record_function("forward/density"):
         density = _cache_density(cfg, cache, pts, dims)
     with record_function("forward/march"):
-        alpha, weights, alphainv_last, mask = _march(params, density, mask, interval, thres)
+        alpha, weights, alphainv_last, mask = common.march(
+            density, mask, params.act_shift, interval, thres)
 
     # stage 2: color only for each ray's survivors
     with record_function("forward/compact"):
@@ -504,7 +483,7 @@ def _forward_two_stage(params, cfg, cache, pts, t2, mask, viewdirs, interval, th
         c01c = _bank_coords01(cfg, pts_c)
         k0 = _packed_bank_sum(cache.k0_tables, c01c, dims, cfg.k0_dim) / len(cache.k0_tables)
     with record_function("forward/rgb"):
-        rgb = _rgb_head(params, cfg, k0, viewdirs)
+        rgb = common.rgb_head(params.rgbnet, k0, viewdirs, cfg.viewbase_pe)
         rgb_marched = common.composite(w_c, rgb, alphainv_last, bg)
 
     s = 1.0 - 1.0 / (1.0 + t2)
@@ -575,9 +554,10 @@ def forward(
         else:
             density, k0 = _query(params, cfg, pts)
     with record_function("forward/march"):
-        alpha, weights, alphainv_last, mask = _march(params, density, mask, interval, thres)
+        alpha, weights, alphainv_last, mask = common.march(
+            density, mask, params.act_shift, interval, thres)
     with record_function("forward/rgb"):
-        rgb = _rgb_head(params, cfg, k0, viewdirs)
+        rgb = common.rgb_head(params.rgbnet, k0, viewdirs, cfg.viewbase_pe)
         rgb_marched = common.composite(weights, rgb, alphainv_last,
                                        bg if bg_color is None else bg_color)
     s = 1.0 - 1.0 / (1.0 + t2)

@@ -35,6 +35,7 @@ SOURCES = {
     "tv": CSRC_DIR / "tv.cu",
     "march": CSRC_DIR / "march.cu",
     "gather_probe": CSRC_DIR / "gather_probe.cu",
+    "ub360": CSRC_DIR / "ub360.cu",
 }
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -46,7 +47,7 @@ NVCC_FLAGS = (
 )
 
 # every kernel wrapper by name (the key it counts its launches under)
-KERNELS = ("tv_add_grad", "march_forward", "march_backward",
+KERNELS = ("tv_add_grad", "march_forward", "march_backward", "cumdist_thres",
            "gather_rows", "gather_tile_rows", "box_gather8", "box_sum")
 LAUNCHES: collections.Counter = collections.Counter()
 

@@ -1,14 +1,14 @@
 """Camera-ray generation.
 
 Counterpart of ``unboundednerfpytorch_tpu/ops/rays.py`` (``get_rays``,
-``get_rays_of_a_view``, ``get_training_rays_flatten``) for the
-'lefttop' / 'center' pixel conventions and the ``inverse_y`` / ``flip_x`` /
-``flip_y`` intrinsic modes. NDC projection (forward-facing scenes) is not
-part of the FourierGrid slice and raises.
+``ndc_rays``, ``get_rays_of_a_view``, ``get_training_rays_flatten``) for the
+'lefttop' / 'center' pixel conventions, the ``inverse_y`` / ``flip_x`` /
+``flip_y`` intrinsic modes and the NDC projection of forward-facing scenes.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -40,15 +40,37 @@ def get_rays(H: int, W: int, K: torch.Tensor, c2w: torch.Tensor, inverse_y: bool
     return rays_o, rays_d
 
 
+def ndc_rays(H: int, W: int, focal, near: float, rays_o: torch.Tensor,
+             rays_d: torch.Tensor):
+    """Rays moved to the near plane and projected into normalized device
+    coordinates (forward-facing LLFF scenes): (rays_o, rays_d). The scales
+    -1 / (W / 2f) are computed in float32 from ``focal`` (a number or a 0-d
+    tensor) with numpy, as XLA computes them (torch divides a number by a
+    tensor through its reciprocal, an ulp away)."""
+    focal = np.float32(float(focal))
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+    sx = float(np.float32(-1.0) / (np.float32(W) / (np.float32(2.0) * focal)))
+    sy = float(np.float32(-1.0) / (np.float32(H) / (np.float32(2.0) * focal)))
+    o0 = sx * rays_o[..., 0] / rays_o[..., 2]
+    o1 = sy * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+    d0 = sx * (rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2])
+    d1 = sy * (rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2])
+    d2 = -2.0 * near / rays_o[..., 2]
+    return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)
+
+
 def get_rays_of_a_view(H: int, W: int, K: torch.Tensor, c2w: torch.Tensor, ndc: bool = False,
                        inverse_y: bool = False, flip_x: bool = False, flip_y: bool = False,
                        mode: str = "center"):
-    """Rays plus unit view directions for one view."""
-    if ndc:
-        raise NotImplementedError("NDC rays are not ported yet")
+    """Rays plus unit view directions for one view; with ``ndc`` the rays are
+    projected into NDC (the view directions stay the world's)."""
     rays_o, rays_d = get_rays(H, W, K, c2w, inverse_y=inverse_y, flip_x=flip_x,
                               flip_y=flip_y, mode=mode)
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    if ndc:
+        rays_o, rays_d = ndc_rays(H, W, K[0][0], 1.0, rays_o, rays_d)
     return rays_o, rays_d, viewdirs
 
 

@@ -1,8 +1,11 @@
-"""Contracted ray sampling and fixed-budget sample compaction.
+"""Ray sampling: contracted and NDC sampling, the oversample skip and
+fixed-budget sample compaction.
 
 Counterpart of the parts of ``unboundednerfpytorch_tpu/ops/sampling.py``
-that the FourierGrid train step runs. Everything is fixed shape
-``[N_rays, N_samples, ...]`` with validity masks.
+that the FourierGrid, DCVGO and DMPIGO forwards run. Everything is fixed
+shape ``[N_rays, N_samples, ...]`` with validity masks.
+:func:`cumdist_thres_plain` is the plain version of the CUDA kernel behind
+:func:`..ops.cuda.ub360.cumdist_thres`.
 """
 
 from __future__ import annotations
@@ -49,6 +52,33 @@ def contract(
     safe_norm = torch.clamp_min(norm, 1e-10)
     contracted = torch.where(inner, pts, pts / safe_norm * (B - A / (safe_norm**order)))
     return contracted, inner[..., 0]
+
+
+def sample_ndc_pts_on_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, xyz_min, xyz_max,
+                           n_samples: int):
+    """Equidistant NDC sampling of the multiplane model: (pts [N, S, 3] at
+    o + d * i / (S - 1), in-bbox mask [N, S], t [N, S] = i / (S - 1))."""
+    dist = torch.arange(n_samples, dtype=rays_o.dtype, device=rays_o.device) / (n_samples - 1)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * dist[None, :, None]
+    mn = torch.tensor(xyz_min, dtype=pts.dtype, device=pts.device)
+    mx = torch.tensor(xyz_max, dtype=pts.dtype, device=pts.device)
+    in_bbox = ((pts >= mn) & (pts <= mx)).all(dim=-1)
+    return pts, in_bbox, dist.expand(in_bbox.shape)
+
+
+def cumdist_thres_plain(dist: torch.Tensor, thres: float) -> torch.Tensor:
+    """Per ray, a running sum of the step distances ``dist`` [N, S] that
+    emits True and restarts from 0 wherever it exceeds ``thres``: bool [N, S].
+    The JAX package's ``lax.scan``, as a loop over samples vectorised over
+    rays (the reference's ``ub360_utils_kernel.cu:12-32``)."""
+    cum = torch.zeros(dist.shape[0], dtype=dist.dtype, device=dist.device)
+    out = torch.empty(dist.shape, dtype=torch.bool, device=dist.device)
+    for i in range(dist.shape[1]):
+        cum = cum + dist[:, i]
+        over = cum > thres
+        cum = cum * (1.0 - over.to(dist.dtype))
+        out[:, i] = over
+    return out
 
 
 def compact_samples(mask: torch.Tensor, budget: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,7 +1,7 @@
 """Rendering and evaluation: ``run_render`` and the video writer.
 
 Counterpart of ``unboundednerfpytorch_tpu/render/__init__.py`` for the
-FourierGrid family.
+FourierGrid, DCVGO and DMPIGO families.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
     """
     from unboundednerfpytorch_tpu_torch.device import resolve_device
     from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
-    from unboundednerfpytorch_tpu_torch.train.loop import make_forward
+    from unboundednerfpytorch_tpu_torch.train.loop import FAMILIES, make_forward
     from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
     from unboundednerfpytorch_tpu_torch.utils import metrics as M
 
@@ -90,12 +90,14 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
         "bg": 1.0 if cfg.data.white_bkgd else 0.0,
         "stepsize": cfg.fine_model_and_render.stepsize,
     }
-    if getattr(args, "bake_render", False) and mcfg.fourier_freq_num > 0:
+    if (getattr(args, "bake_render", False) and family == "FourierGrid"
+            and mcfg.fourier_freq_num > 0):
         # single-bank bake: ~(2K+1)x fewer gather rows, approximate
         params, mcfg = fg.bake_for_rendering(params, mcfg,
                                              scale=getattr(args, "bake_scale", 1.26))
         log_fn(f"baked render grids: {mcfg.world_size_density} single-bank")
-    cache = fg.build_render_cache(params, mcfg, log_fn=log_fn)
+    # each family's packed-table cache, as the JAX package picks it
+    cache = FAMILIES[family].build_render_cache(params, mcfg, log_fn=log_fn)
     if cache is None:
         log_fn("render cache: none (packed tables off or over the memory guard); "
                "rendering from the grids")

@@ -1,9 +1,12 @@
 """Scene bounds from the camera frusta.
 
-Counterpart of ``compute_bbox_by_cam_frustrm`` of
-``unboundednerfpytorch_tpu/train/bbox.py`` for the FourierGrid family: a
-cube around the near-clip points of every training ray, scaled by
-``unbounded_inner_r``.
+Counterpart of ``bbox_unbounded``, ``bbox_bounded`` and
+``compute_bbox_by_cam_frustrm`` of ``unboundednerfpytorch_tpu/train/bbox.py``:
+a cube around the near-clip points of every training ray, scaled by
+``unbounded_inner_r`` (unbounded inward scenes: the FourierGrid and DCVGO
+families), or the box swept by every ray between ``near`` and ``far``
+(bounded and forward-facing NDC scenes: DMPIGO). The waymo and mega bounds
+wait for their loaders (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -14,39 +17,68 @@ import torch
 from unboundednerfpytorch_tpu_torch.ops import rays as ray_ops
 
 
-def bbox_unbounded(HW, Ks, poses, near_clip: float, unbounded_inner_r: float, *,
-                   inverse_y=False, flip_x=False, flip_y=False, device=None):
-    """(xyz_min, xyz_max) numpy [3] of the cube around the near-clip points."""
+def _view_rays(HW, Ks, poses, ndc, inverse_y, flip_x, flip_y, device):
+    """(rays_o, rays_d, viewdirs) of each view in turn, [H, W, 3] each."""
     H, W = int(HW[0][0]), int(HW[0][1])
-    lo = hi = None
     for K, c2w in zip(Ks, poses):
-        ro, rd, _ = ray_ops.get_rays_of_a_view(
+        yield ray_ops.get_rays_of_a_view(
             H, W, torch.as_tensor(np.asarray(K), dtype=torch.float32, device=device),
             torch.as_tensor(np.asarray(c2w)[:3, :4], dtype=torch.float32, device=device),
-            inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y)
-        pts = (ro + rd * near_clip).reshape(-1, 3)
+            ndc=ndc, inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y)
+
+
+def _extent(points):
+    """Elementwise min and max over an iterable of [..., 3] point sets."""
+    lo = hi = None
+    for pts in points:
+        pts = pts.reshape(-1, 3)
         vmin, vmax = pts.amin(0), pts.amax(0)
         lo = vmin if lo is None else torch.minimum(lo, vmin)
         hi = vmax if hi is None else torch.maximum(hi, vmax)
+    return lo, hi
+
+
+def bbox_unbounded(HW, Ks, poses, near_clip: float, unbounded_inner_r: float, *, ndc=False,
+                   inverse_y=False, flip_x=False, flip_y=False, device=None):
+    """(xyz_min, xyz_max) numpy [3] of the cube around the near-clip points."""
+    lo, hi = _extent(ro + rd * near_clip for ro, rd, _ in
+                     _view_rays(HW, Ks, poses, ndc, inverse_y, flip_x, flip_y, device))
     center = (lo + hi) * 0.5
     radius = (center - lo).max() * unbounded_inner_r
     return (center - radius).cpu().numpy(), (center + radius).cpu().numpy()
 
 
+def bbox_bounded(HW, Ks, poses, near: float, far: float, *, ndc=False, inverse_y=False,
+                 flip_x=False, flip_y=False, device=None):
+    """(xyz_min, xyz_max) numpy [3] of the points at ``near`` and ``far`` on
+    every ray (along the NDC direction with ``ndc``, the unit view direction
+    otherwise)."""
+
+    def ends():
+        for ro, rd, vd in _view_rays(HW, Ks, poses, ndc, inverse_y, flip_x, flip_y, device):
+            d = rd if ndc else vd
+            yield ro + d * near
+            yield ro + d * far
+
+    lo, hi = _extent(ends())
+    return lo.cpu().numpy(), hi.cpu().numpy()
+
+
 def compute_bbox_by_cam_frustrm(cfg, data_dict: dict, model_name: str | None = None,
                                 device=None):
-    """Bounds for the FourierGrid / unbounded-inward families; the other
-    dataset types (waymo, mega, bounded scenes) are not ported yet."""
+    """The JAX package's dispatch: unbounded inward scenes (and every
+    FourierGrid or NeRF++ one) get the near-clip cube, the others the
+    near/far sweep."""
     d = cfg.data
-    if d.dataset_type in ("waymo", "mega") or not (
-            d.dataset_type == "nerfpp" or model_name == "FourierGrid" or d.unbounded_inward):
+    if d.dataset_type in ("waymo", "mega"):
         raise NotImplementedError(
-            f"bbox for dataset_type={d.dataset_type!r} / model {model_name!r} is not ported yet")
-    if d.ndc:
-        raise NotImplementedError("NDC scenes are not ported yet")
+            f"bbox for dataset_type={d.dataset_type!r} is not ported yet (ROADMAP A15)")
     i_train = np.asarray(data_dict["i_train"])
-    return bbox_unbounded(
-        np.asarray(data_dict["HW"])[i_train], np.asarray(data_dict["Ks"])[i_train],
-        np.asarray(data_dict["poses"])[i_train],
-        data_dict.get("near_clip") or data_dict["near"], d.unbounded_inner_r,
-        inverse_y=d.inverse_y, flip_x=d.flip_x, flip_y=d.flip_y, device=device)
+    HW = np.asarray(data_dict["HW"])[i_train]
+    Ks = np.asarray(data_dict["Ks"])[i_train]
+    poses = np.asarray(data_dict["poses"])[i_train]
+    kw = dict(ndc=d.ndc, inverse_y=d.inverse_y, flip_x=d.flip_x, flip_y=d.flip_y, device=device)
+    if d.dataset_type == "nerfpp" or model_name == "FourierGrid" or d.unbounded_inward:
+        return bbox_unbounded(HW, Ks, poses, data_dict.get("near_clip") or data_dict["near"],
+                              d.unbounded_inner_r, **kw)
+    return bbox_bounded(HW, Ks, poses, data_dict["near"], data_dict["far"], **kw)

@@ -1,13 +1,16 @@
-"""Training orchestration: the FourierGrid fine stage.
+"""Training orchestration: the fine stage of the FourierGrid, DCVGO and
+DMPIGO families.
 
-Counterpart of ``unboundednerfpytorch_tpu/train/loop.py``: ``build_model``,
-``gather_training_rays``, ``make_forward``, the stage loop with the
-step-keyed ``fast_color_thres`` schedule and the ``pg_scale`` boundaries
-(:func:`pg_scale_boundary`: both grids upsampled, the occupancy cache
-refreshed from the trained density, ``act_shift`` lowered, a deferred
-``sample_budget`` switched on, the optimizer rebuilt and the lr decay
-re-anchored), and ``run_train`` with the coarse stage at ``N_iters=0`` (the
-``*_single`` configs).
+Counterpart of ``unboundednerfpytorch_tpu/train/loop.py``:
+``model_family_name``, ``build_model``, ``gather_training_rays`` (on the
+device, or in host memory for ``load2gpu_on_the_fly``), ``make_forward``,
+``scale_model``, the stage loop with the step-keyed ``fast_color_thres``
+schedule and the ``pg_scale`` boundaries (:func:`pg_scale_boundary`: both
+grids upsampled, the occupancy cache refreshed from the trained density,
+``act_shift`` lowered, a deferred ``sample_budget`` switched on, the
+optimizer rebuilt and the lr decay re-anchored), and ``run_train`` with the
+coarse stage at ``N_iters=0`` (the ``*_single``, ``nerf_unbounded/<scene>``,
+``tankstemple_unbounded/<scene>`` and ``llff/*`` configs).
 
 With ``exp_dir`` the stage ends by writing ``<exp_dir>/fine_last`` through
 the port's ``utils.checkpoint.save_model``, with the optimizer's state;
@@ -20,7 +23,8 @@ record of each ``pg_scale`` boundary. ``render.run_render`` loads
 
 Not ported yet, and refused rather than skipped: a coarse stage, samplers
 other than ``flatten``, per-voxel lr, ``maskout_near_cam_vox``, the two-stage
-training forward (``train_survivor_budget``), and the other model families.
+training forward (``train_survivor_budget``), the held-out panels of
+``i_panel``, and the DVGO family.
 """
 
 from __future__ import annotations
@@ -35,86 +39,148 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from unboundednerfpytorch_tpu_torch import convert
 from unboundednerfpytorch_tpu_torch.configs.schema import (
     ExpConfig, ModelRenderConfig, TrainStageConfig, normalize_fast_color_thres,
 )
 from unboundednerfpytorch_tpu_torch.device import resolve_device, seconds_since
+from unboundednerfpytorch_tpu_torch.models import dcvgo, dmpigo
 from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
 from unboundednerfpytorch_tpu_torch.ops import rays as ray_ops
 from unboundednerfpytorch_tpu_torch.train import bbox as bbox_mod
 from unboundednerfpytorch_tpu_torch.train.step import (
-    FlattenSampler, TrainState, create_train_state, make_train_step,
+    FlattenSampler, HostRayStoreSampler, TrainState, create_train_state, make_train_step,
 )
 from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 
 
+# the model module of each ported family
+FAMILIES = {"FourierGrid": fg, "dcvgo": dcvgo, "dmpigo": dmpigo}
+
+
 def model_family_name(cfg: ExpConfig) -> str:
+    """The JAX package's dispatch: FourierGrid for the waymo, mega and nerfpp
+    datasets and where the config names it, else DMPIGO for NDC scenes,
+    DCVGO for unbounded inward ones and DVGO for the rest (not ported yet)."""
     if cfg.data.dataset_type in ("waymo", "mega", "nerfpp") or cfg.model == "FourierGrid":
         return "FourierGrid"
-    raise NotImplementedError("only the FourierGrid family is ported yet")
+    if cfg.data.ndc:
+        return "dmpigo"
+    if cfg.data.unbounded_inward:
+        return "dcvgo"
+    raise NotImplementedError("the DVGO family is not ported yet (ROADMAP A18a)")
+
+
+_CONFIG_FAMILY = {cls: name for name, cls in convert.CONFIGS.items()}
+
+
+def family_of(mcfg) -> str:
+    """The family of a model config."""
+    if type(mcfg) not in _CONFIG_FAMILY:
+        raise TypeError(f"no ported family has the config {type(mcfg).__name__}")
+    return _CONFIG_FAMILY[type(mcfg)]
 
 
 def build_model(cfg: ExpConfig, cfg_model: ModelRenderConfig, cfg_train: TrainStageConfig,
                 xyz_min, xyz_max, generator: torch.Generator, device, n_train: int = -1):
     """(family, model config, params). pg_scale shrinks the initial voxel
-    count by 2^len(pg_scale)."""
+    count by 2^len(pg_scale); DCVGO and DMPIGO size both grids by
+    ``num_voxels_rgb``."""
     nvd = cfg_model.num_voxels_density
     nvr = cfg_model.num_voxels_rgb
     if cfg_train.pg_scale:
         nvd = int(nvd / (2 ** len(cfg_train.pg_scale)))
         nvr = int(nvr / (2 ** len(cfg_train.pg_scale)))
-    model_family_name(cfg)
-    mcfg = fg.config_from(cfg_model, xyz_min, xyz_max, nvd, nvr, sample_num=n_train)
-    return "FourierGrid", mcfg, fg.create(mcfg, generator, device=device)
+    family = model_family_name(cfg)
+    mod = FAMILIES[family]
+    if family == "FourierGrid":
+        mcfg = fg.config_from(cfg_model, xyz_min, xyz_max, nvd, nvr, sample_num=n_train)
+    else:
+        mcfg = mod.config_from(cfg_model, xyz_min, xyz_max, nvr)
+    return family, mcfg, mod.create(mcfg, generator, device=device)
 
 
-def gather_training_rays(cfg: ExpConfig, data_dict: dict, device) -> dict:
-    """The flattened ray store on ``device``: rgb, rays_o, rays_d, viewdirs
-    ([N*H*W, 3] each) and img_index."""
+def gather_training_rays(cfg: ExpConfig, data_dict: dict, device, host: bool = False) -> dict:
+    """The flattened ray store: rgb, rays_o, rays_d, viewdirs ([N*H*W, 3]
+    each) and img_index. On ``device``, or with ``host`` (the
+    ``load2gpu_on_the_fly`` mode) as numpy arrays in host memory, the rays
+    made on ``device`` a view at a time."""
     i_train = np.asarray(data_dict["i_train"])
     HW = np.asarray(data_dict["HW"])
     H, W = int(HW[i_train[0]][0]), int(HW[i_train[0]][1])
     if not (HW[i_train] == (H, W)).all():
         raise ValueError("mixed per-view image sizes in one training stage are unsupported")
     as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+    images = np.asarray(data_dict["images"])[i_train]
+    poses = np.asarray(data_dict["poses"])[i_train][:, :3, :4]
+    Ks = np.asarray(data_dict["Ks"])[i_train]
+    flags = dict(ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
+                 flip_y=cfg.data.flip_y)
+    if host:
+        views = [[t.reshape(-1, 3).cpu().numpy() for t in ray_ops.get_rays_of_a_view(
+                 H, W, as_t(K), as_t(c2w), **flags)] for c2w, K in zip(poses, Ks)]
+        return {"rgb": images.reshape(-1, 3).astype(np.float32),
+                **{k: np.concatenate([v[i] for v in views])
+                   for i, k in enumerate(("rays_o", "rays_d", "viewdirs"))},
+                "img_index": np.repeat(np.arange(len(poses), dtype=np.int32), H * W)}
     rgb, rays_o, rays_d, viewdirs, img_index = ray_ops.get_training_rays_flatten(
-        as_t(np.asarray(data_dict["images"])[i_train]),
-        as_t(np.asarray(data_dict["poses"])[i_train][:, :3, :4]), H, W,
-        as_t(np.asarray(data_dict["Ks"])[i_train]),
-        ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y,
-        flip_x=cfg.data.flip_x, flip_y=cfg.data.flip_y,
-    )
+        as_t(images), as_t(poses), H, W, as_t(Ks), **flags)
     return {"rgb": rgb, "rays_o": rays_o, "rays_d": rays_d, "viewdirs": viewdirs,
             "img_index": img_index}
 
 
-def make_forward(mcfg: fg.FourierGridConfig, render_kwargs: dict, cache=None) -> Callable:
-    """(params, rays_o, rays_d, viewdirs, bg_color, cache=...) -> RenderResult.
+def make_forward(mcfg, render_kwargs: dict, cache=None) -> Callable:
+    """(params, rays_o, rays_d, viewdirs, bg_color, cache=...) -> RenderResult,
+    for the family of ``mcfg``.
 
-    As the JAX package's FourierGrid branch: ``render_kwargs["stepsize"]``
-    reaches the forward and ``render_kwargs["bg"]`` does NOT, so without a
-    random background the forward composites on its default ``bg=0.0``
-    (reproduced from the reference package, where it looks like an oversight;
-    see ROADMAP queue C). ``cache`` is a ``RenderCache`` for rendering with
-    frozen params; it may also be given per call."""
+    As the JAX package's branches: ``render_kwargs["stepsize"]`` reaches
+    every forward; ``render_kwargs["bg"]`` reaches DCVGO's and DMPIGO's
+    (``near`` too, which DCVGO ignores) but NOT FourierGrid's, so without a
+    random background a FourierGrid forward composites on its default
+    ``bg=0.0`` (reproduced from the reference package, where it looks like an
+    oversight; see ROADMAP queue C). ``cache`` is a render cache for
+    rendering with frozen params; it may also be given per call."""
+    family = family_of(mcfg)
 
     def fwd(params, ro, rd, vd, bg_color=None, cache=cache):
-        return fg.forward(params, mcfg, ro, rd, vd, stepsize=render_kwargs["stepsize"],
-                          bg_color=bg_color, cache=cache)
+        kw = dict(stepsize=render_kwargs["stepsize"], bg_color=bg_color, cache=cache)
+        if family == "FourierGrid":
+            return fg.forward(params, mcfg, ro, rd, vd, **kw)
+        if family == "dcvgo":
+            kw["near"] = render_kwargs["near"]
+        return FAMILIES[family].forward(params, mcfg, ro, rd, vd, bg=render_kwargs["bg"], **kw)
 
     return fwd
 
 
-def pg_scale_boundary(state: TrainState, mcfg: fg.FourierGridConfig,
-                      cfg_model: ModelRenderConfig, cfg_train: TrainStageConfig,
-                      global_step: int, deferred_budget: int = 0, report: dict | None = None):
+def scale_model(family: str, params, mcfg, num_voxels_density: int, num_voxels_rgb: int,
+                report: dict | None = None):
+    """The family's ``scale_volume_grid``: (params, new config)."""
+    if family == "FourierGrid":
+        return fg.scale_volume_grid(params, mcfg, num_voxels_density, num_voxels_rgb,
+                                    report=report)
+    return FAMILIES[family].scale_volume_grid(params, mcfg, num_voxels_rgb, report=report)
+
+
+def tv_axis_scale(family: str, mcfg) -> tuple | None:
+    """DMPIGO weighs the TV of x and y by the plane's resolution and that of
+    z by its depth (over 128); the others by the largest world size."""
+    if family != "dmpigo":
+        return None
+    wxy = float(max(mcfg.world_size[:2])) / 128.0
+    return (wxy, wxy, float(mcfg.mpi_depth) / 128.0)
+
+
+def pg_scale_boundary(state: TrainState, mcfg, cfg_model: ModelRenderConfig,
+                      cfg_train: TrainStageConfig, global_step: int, deferred_budget: int = 0,
+                      report: dict | None = None):
     """The work of the ``pg_scale`` boundary at ``global_step``, which must be
     one of ``cfg_train.pg_scale``. Returns (new train state, new model config,
     record).
 
     The voxel count becomes the final one over 2^(boundaries left); both grids
     are resampled to it and the occupancy cache is refreshed from the density
-    as trained so far (``fourier_grid.scale_volume_grid``); ``act_shift``
+    as trained so far (the family's ``scale_volume_grid``); ``act_shift``
     falls by ``decay_after_scale``; a ``deferred_budget`` becomes the config's
     ``sample_budget`` (the cache now holds geometry); and the optimizer is
     built anew, so its moments and its step count restart and, with
@@ -127,9 +193,9 @@ def pg_scale_boundary(state: TrainState, mcfg: fg.FourierGridConfig,
     step, the new world sizes, the share of the new lattice that the old cache
     holds (``occupancy_carried``) and that the refreshed one keeps
     (``occupancy``), the budget in force before and after, and the seconds of
-    resize, refresh and rebuild. ``report``, if given, receives what
-    ``fourier_grid.scale_volume_grid`` reports, the pooled alpha of the
-    refresh included."""
+    resize, refresh and rebuild. ``report``, if given, receives what the
+    family's ``scale_volume_grid`` reports (FourierGrid's pooled alpha of the
+    refresh included)."""
     pg_scale = [int(b) for b in cfg_train.pg_scale]
     n_rest = len(pg_scale) - pg_scale.index(global_step) - 1
     cur_vox_density = int(cfg_model.num_voxels_density / (2**n_rest))
@@ -140,8 +206,9 @@ def pg_scale_boundary(state: TrainState, mcfg: fg.FourierGridConfig,
     for p in params.parameters():
         p.grad = None
     report = {} if report is None else report
-    budget_before = mcfg.sample_budget
-    _, mcfg = fg.scale_volume_grid(params, mcfg, cur_vox_density, cur_vox_rgb, report=report)
+    budget_before = getattr(mcfg, "sample_budget", 0)
+    _, mcfg = scale_model(family_of(mcfg), params, mcfg, cur_vox_density, cur_vox_rgb,
+                          report=report)
     seconds = {part: report[part] for part in ("resize", "refresh")}
     params.act_shift -= cfg_train.decay_after_scale
     if deferred_budget:
@@ -158,7 +225,7 @@ def pg_scale_boundary(state: TrainState, mcfg: fg.FourierGridConfig,
         "occupancy_carried": report["carried"],
         "occupancy": float(params.mask_cache.mask.float().mean()),
         "sample_budget_before": budget_before,
-        "sample_budget": mcfg.sample_budget,
+        "sample_budget": getattr(mcfg, "sample_budget", 0),
         "seconds": seconds,
     }
     return state, mcfg, record
@@ -220,8 +287,9 @@ def scene_rep_reconstruction(
         raise NotImplementedError(f"ray_sampler={cfg_train.ray_sampler!r} is not ported yet")
     if cfg_train.pervoxel_lr:
         raise NotImplementedError("pervoxel_lr is not ported yet")
-    if cfg.data.load2gpu_on_the_fly:
-        raise NotImplementedError("load2gpu_on_the_fly is not ported yet")
+    if cfg_train.i_panel:
+        raise NotImplementedError("fine_train.i_panel (held-out panels during training) is "
+                                  "not ported yet (ROADMAP A17)")
     if cfg_model.maskout_near_cam_vox:
         raise NotImplementedError("maskout_near_cam_vox is not ported yet")
 
@@ -268,18 +336,32 @@ def scene_rep_reconstruction(
         "rand_bkgd": cfg.data.rand_bkgd,
         "stepsize": cfg_model.stepsize,
     }
-    store = gather_training_rays(cfg, data_dict, device)
     state = create_train_state(params, cfg_train, start_step=start_step, opt_state=opt_state)
 
     near_thres = 0.0
-    if cfg_train.weight_nearclip > 0 and data_dict.get("near_clip"):
-        near_thres = float(data_dict["near_clip"]) / float(mcfg.scene_radius[0])
+    radius = getattr(mcfg, "scene_radius", None)  # DMPIGO has none
+    if cfg_train.weight_nearclip > 0 and data_dict.get("near_clip") and radius is not None:
+        near_thres = float(data_dict["near_clip"]) / float(radius[0])
 
     lr_decay_enabled = not (cfg.model == "FourierGrid" and cfg.data.dataset_type == "tankstemple")
-    # a device generator for the per-step draws (ray permutation, backgrounds)
-    sampler = FlattenSampler(store["rgb"].shape[0], cfg_train.N_rand,
-                             torch.Generator(device=device).manual_seed(seed + 1), device,
-                             rand_bkgd=render_kwargs["rand_bkgd"])
+    # a device generator for the per-step draws (ray permutation or
+    # backgrounds); the host store draws its permutation with numpy, as the
+    # JAX package's does
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    if cfg.data.load2gpu_on_the_fly:
+        sampler = HostRayStoreSampler(
+            gather_training_rays(cfg, data_dict, device, host=True), cfg_train.N_rand, seed,
+            device, bg_generator=gen if render_kwargs["rand_bkgd"] else None)
+        next_batch = sampler.next_batch
+    else:
+        store = gather_training_rays(cfg, data_dict, device)
+        sampler = FlattenSampler(store["rgb"].shape[0], cfg_train.N_rand, gen, device,
+                                 rand_bkgd=render_kwargs["rand_bkgd"])
+
+        def next_batch():
+            idx, bg = sampler.next_batch()
+            return {k: v[idx] for k, v in store.items()}, bg
+
     sampler.fast_forward(start_step)
 
     # the occupancy cache is all-true at init, where a sample budget would cut
@@ -289,7 +371,7 @@ def scene_rep_reconstruction(
     pg_scale = [int(b) for b in cfg_train.pg_scale]
     deferred_budget = 0
     cache_trusted = coarse_mask_fn is not None or (bool(pg_scale) and start_step >= min(pg_scale))
-    if mcfg.sample_budget > 0 and not cache_trusted:
+    if getattr(mcfg, "sample_budget", 0) > 0 and not cache_trusted:
         deferred_budget = mcfg.sample_budget
         mcfg = dataclasses.replace(mcfg, sample_budget=0)
 
@@ -297,7 +379,8 @@ def scene_rep_reconstruction(
         return make_train_step(
             make_forward(mcfg_now, render_kwargs), cfg_train,
             world_size_max=float(max(mcfg_now.world_size)), near_thres=near_thres,
-            lr_anchor=lr_anchor_now, lr_decay_enabled=lr_decay_enabled)
+            tv_axis_scale=tv_axis_scale(family, mcfg_now), lr_anchor=lr_anchor_now,
+            lr_decay_enabled=lr_decay_enabled)
 
     def save(step: int) -> None:
         # never persist a deferral-zeroed budget: a resume must re-enter the
@@ -342,8 +425,7 @@ def scene_rep_reconstruction(
             if exp_dir is not None:
                 record({"step": global_step, "pg_scale": boundary})
         with record_function("train_loop/batch"):
-            idx, bg_color = sampler.next_batch()
-            batch = {k: v[idx] for k, v in store.items()}
+            batch, bg_color = next_batch()
         metrics = step_fn(state, batch, bg_color)
         if boundary is not None:
             metrics["pg_scale"] = boundary
@@ -371,8 +453,8 @@ def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,
               device=None, log_every: int = 500, callback=None, coarse_mask_fn=None,
               exp_dir: str | None = None, no_reload: bool = False,
               no_reload_optimizer: bool = False, save_every: int = 0, ft_path: str = ""):
-    """The fine stage of a ``*_single`` recipe (coarse ``N_iters=0``).
-    Returns (family, model config, params, last logged psnr).
+    """The fine stage of a recipe without a coarse stage (coarse
+    ``N_iters=0``). Returns (family, model config, params, last logged psnr).
 
     ``device``: ``None`` -> ``cuda`` (raises without a GPU); pass ``"cpu"``
     for the plain PyTorch path. ``coarse_mask_fn``: optional occupancy seed,

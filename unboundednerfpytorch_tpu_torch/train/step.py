@@ -1,7 +1,8 @@
 """The train step: forward, losses, backward, TV injection, masked Adam.
 
-Counterpart of ``unboundednerfpytorch_tpu/train/step.py::make_train_step``
-and its ``flatten`` sampler. PyTorch runs eagerly, so the TV schedule gates
+Counterpart of ``unboundednerfpytorch_tpu/train/step.py::make_train_step``,
+its ``flatten`` sampler and its ``HostRayStoreSampler`` (the
+``load2gpu_on_the_fly`` mode). PyTorch runs eagerly, so the TV schedule gates
 (tv_every / tv_after / tv_before) and the dense/sparse TV mode are host
 booleans per step. TV goes into ``param.grad`` after ``backward()`` and
 before the optimizer, through the fused CUDA kernel
@@ -18,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
@@ -54,6 +56,7 @@ def make_train_step(
     *,
     world_size_max: float = 128.0,
     near_thres: float = 0.0,
+    tv_axis_scale: tuple | None = None,
     lr_anchor: int = 1,
     lr_decay_enabled: bool = True,
 ):
@@ -61,7 +64,9 @@ def make_train_step(
 
     ``forward_fn(params, rays_o, rays_d, viewdirs, bg_color)`` returns a
     RenderResult. ``world_size_max`` scales the TV weights
-    (``weight * world_size.max() / 128``); ``near_thres`` is the near-clip
+    (``weight * world_size.max() / 128``) of all three axes, unless
+    ``tv_axis_scale`` gives one scale an axis (DMPIGO's ``(max(X, Y),
+    max(X, Y), mpi_depth) / 128``); ``near_thres`` is the near-clip
     threshold in contracted units (0 disables); ``lr_anchor`` is the step at
     which the lr equals the base lr. Metrics are detached device scalars, so
     a step forces no host sync.
@@ -105,7 +110,7 @@ def make_train_step(
         if not gate:
             return  # gate 0 leaves the grad as it is
         dense = step < train_cfg.tv_dense_before
-        s = world_size_max / 128.0
+        sx, sy, sz = tv_axis_scale or (world_size_max / 128.0,) * 3
         for name, weight in (("density", train_cfg.weight_tv_density),
                              ("k0", train_cfg.weight_tv_k0)):
             sub = getattr(params, name, None)
@@ -114,8 +119,9 @@ def make_train_step(
             grid = sub.grid
             if grid.grad is None:
                 grid.grad = torch.zeros_like(grid)
-            w = weight / n_rays * s
-            tv_add_grad(grid.detach(), grid.grad, w, w, w, 1.0, dense, out=grid.grad)
+            w = weight / n_rays
+            tv_add_grad(grid.detach(), grid.grad, w * sx, w * sy, w * sz, 1.0, dense,
+                        out=grid.grad)
 
     def train_step(state: TrainState, batch: dict, bg_color: torch.Tensor | None = None):
         step = state.step + 1
@@ -176,3 +182,70 @@ class FlattenSampler:
     def fast_forward(self, n: int) -> None:
         for _ in range(n):
             self.next_batch()
+
+
+class HostRayStoreSampler:
+    """The ``load2gpu_on_the_fly`` sampler: the flattened ray store stays in
+    host memory (numpy) and only each step's batch crosses to the device, so
+    the scene is bounded by host memory, not by the card's.
+
+    The indices are the JAX ``HostRayStoreSampler``'s ('flatten' mode) for
+    the same seed: an epoch permutation from ``np.random.default_rng(seed)``,
+    walked in order and drawn anew when the next batch would run past its
+    end. The batch's rows are gathered into a pinned staging buffer (on a
+    CUDA device) that every step reuses, and copied to the device in one
+    asynchronous copy; the next gather waits for that copy to have left the
+    buffer. Given ``bg_generator`` (the ``rand_bkgd`` configs) each batch
+    also gets a random background per ray, drawn on the device from it (as
+    :class:`FlattenSampler` draws it), so :meth:`fast_forward` replays both
+    streams and a resumed run draws what the uninterrupted one draws."""
+
+    COLUMNS = {"rgb": (0, 3), "rays_o": (3, 6), "rays_d": (6, 9), "viewdirs": (9, 12)}
+
+    def __init__(self, store: dict, n_rand: int, seed: int, device: torch.device,
+                 bg_generator: torch.Generator | None = None):
+        self.store = {k: np.asarray(store[k], np.float32) for k in self.COLUMNS}
+        self.n_total = int(self.store["rgb"].shape[0])
+        self.n_rand = int(n_rand)
+        self.device = torch.device(device)
+        self.bg_generator = bg_generator
+        self._rng = np.random.default_rng(seed)
+        self._perm = None
+        self._cursor = 0
+        pinned = self.device.type == "cuda"
+        self._stage = torch.empty((self.n_rand, 12), dtype=torch.float32, pin_memory=pinned)
+        self._copied = None  # event recorded after the last copy out of the stage
+
+    def next_indices(self) -> np.ndarray:
+        if self._perm is None or self._cursor + self.n_rand > self.n_total:
+            self._perm = self._rng.permutation(self.n_total)
+            self._cursor = 0
+        idx = self._perm[self._cursor:self._cursor + self.n_rand]
+        self._cursor += self.n_rand
+        return idx
+
+    def _next_bg(self) -> torch.Tensor | None:
+        if self.bg_generator is None:
+            return None
+        return torch.rand((self.n_rand, 3), generator=self.bg_generator, device=self.device)
+
+    def next_batch(self) -> tuple[dict, torch.Tensor | None]:
+        """(batch of rgb, rays_o, rays_d, viewdirs [n_rand, 3] on the device,
+        background colours [n_rand, 3] or None)."""
+        idx = self.next_indices()
+        if self._copied is not None:
+            self._copied.synchronize()
+        stage = self._stage.numpy()
+        for key, (a, b) in self.COLUMNS.items():
+            stage[:, a:b] = self.store[key][idx]
+        rows = self._stage.to(self.device, non_blocking=True, copy=True)
+        if self.device.type == "cuda":
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+        batch = {key: rows[:, a:b] for key, (a, b) in self.COLUMNS.items()}
+        return batch, self._next_bg()
+
+    def fast_forward(self, n: int) -> None:
+        for _ in range(n):
+            self.next_indices()
+            self._next_bg()

@@ -1,21 +1,28 @@
-"""Checkpoints of the port: a directory with ``meta.json``, ``params.npz``
-and, where the optimizer's state is kept, ``opt_state.npz``.
+"""Checkpoints of the port: a directory with ``meta.json`` and the numpy
+archives it names: the parameters and, where the optimizer's state is kept,
+the optimizer's state.
 
 Counterpart of ``unboundednerfpytorch_tpu/utils/checkpoint.py`` for the
-FourierGrid family: the same directory layout and the same ``meta.json``
-keys (global_step, family, model_kwargs, has_opt_state, format_version), so
-the model can be re-instantiated from the files alone. The JAX package
-writes flax msgpack; the port imports neither, and writes numpy archives of
-the JAX layouts (nested keys joined by ``/``): ``params.npz`` the dict of
-``convert.fourier_grid_params_to_numpy``, ``opt_state.npz`` that of
+FourierGrid, DCVGO and DMPIGO families: the same ``meta.json`` keys
+(global_step, family, model_kwargs, has_opt_state, format_version), so the
+model can be re-instantiated from the files alone. The JAX package writes
+flax msgpack; the port imports neither, and writes numpy archives of the JAX
+layouts (nested keys joined by ``/``): the parameters as
+``convert.params_to_numpy`` gives them, the optimizer's state as
 ``convert.opt_state_to_numpy`` (step count and both Adam moments).
 ``convert.py`` says how a JAX checkpoint is carried over.
 
-Format 2 stores a bfloat16 grid as its 16-bit patterns (uint16), named with
-its dtype in ``meta.json``'s ``stored_dtypes``, and ``act_shift`` as float64;
-format 1 (the port's first) stored bfloat16 grids as float32 values, cast
-back to ``grid_dtype`` at load. Both load. Each file is written under a
-temporary name and renamed, ``meta.json`` last.
+Format 3 names its members by step (``params-<step>.npz``,
+``opt_state-<step>.npz``) and lists them in ``meta.json``. A save writes the
+new members beside the old ones, then ``meta.json`` by an atomic rename, and
+only then removes the members that the previous ``meta.json`` named. A
+process killed at any point of a save thus leaves a whole checkpoint: the
+previous one until the rename, the new one after it. While a save runs, both
+lie on disk (for a 320^3 seven-bank model with its moments, twice some 30 GB).
+Formats 2 (``params.npz`` and ``opt_state.npz``, the port's last) and 1 (bf16
+grids stored as float32 values) still load. Since format 2 a bfloat16 grid is
+stored as its 16-bit patterns (uint16), named with its dtype in
+``meta.json``'s ``stored_dtypes``, and a float ``act_shift`` as float64.
 
 Not ported yet: ``merge_blocks`` and the import of reference ``.tar`` files.
 """
@@ -27,18 +34,21 @@ import os
 import zipfile
 
 import numpy as np
+import torch
 
 from unboundednerfpytorch_tpu_torch import convert
-from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
 
-FAMILY = "FourierGrid"
-FORMAT_VERSION = 2
+FAMILIES = tuple(convert.CONFIGS)
+FORMAT_VERSION = 3
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _flatten(tree, prefix: str = "") -> dict:
     out = {}
     for key, val in tree.items():
         name = f"{prefix}{key}"
+        if val is None:  # a model without an rgb MLP
+            continue
         if isinstance(val, dict):
             out.update(_flatten(val, name + "/"))
         elif isinstance(val, (list, tuple)) and val and isinstance(val[0], np.ndarray):
@@ -110,24 +120,50 @@ def _read_npz(path: str) -> dict:
     return out
 
 
-def save_model(path: str, family: str, cfg: fg.FourierGridConfig, params,
-               global_step: int = 0, opt_state: dict | None = None) -> None:
+def _current_members(path: str) -> set:
+    """The file names that ``path``'s meta.json names (none without one)."""
+    try:
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+    except FileNotFoundError:
+        return set()
+    members = meta.get("members") or {"params": "params.npz", "opt_state": "opt_state.npz"}
+    return {m for m in members.values() if m}
+
+
+def _member(kind: str, step: int, taken: set) -> str:
+    """A file name for a new member that the current checkpoint does not use
+    (a second save of one step must not overwrite what meta.json names)."""
+    name, k = f"{kind}-{step}.npz", 1
+    while name in taken:
+        name, k = f"{kind}-{step}.{k}.npz", k + 1
+    return name
+
+
+def _check_family(family: str) -> None:
+    if family not in FAMILIES:
+        raise NotImplementedError(f"{family!r} checkpoints are not ported yet; the port "
+                                  f"writes and reads {FAMILIES}")
+
+
+def save_model(path: str, family: str, cfg, params, global_step: int = 0,
+               opt_state: dict | None = None) -> None:
     """``opt_state``: a ``MaskedAdam.state_dict()``, saved beside the
-    parameters (``has_opt_state``); without it a stale ``opt_state.npz`` of
-    an earlier save to ``path`` is removed."""
-    if family != FAMILY:
-        raise NotImplementedError(f"only {FAMILY} checkpoints are ported, got {family!r}")
+    parameters (``has_opt_state``)."""
+    _check_family(family)
     os.makedirs(path, exist_ok=True)
-    flat = _flatten(convert.fourier_grid_params_to_numpy(params, bf16_bits=True))
-    flat["act_shift"] = np.float64(params.act_shift)
+    flat = _flatten(convert.params_to_numpy(params, bf16_bits=True))
+    if np.ndim(flat["act_shift"]) == 0:
+        flat["act_shift"] = np.float64(params.act_shift)
     stored = {f"{name}/grid": "bfloat16" for name in ("density", "k0")
               if flat[f"{name}/grid"].dtype == np.uint16}
-    _write_npz(os.path.join(path, "params.npz"), flat)
-    opt_path = os.path.join(path, "opt_state.npz")
+    taken = _current_members(path)
+    members = {"params": _member("params", global_step, taken), "opt_state": None}
+    _write_npz(os.path.join(path, members["params"]), flat)
     if opt_state is not None:
-        _write_npz(opt_path, _flatten(convert.opt_state_to_numpy(opt_state)))
-    elif os.path.exists(opt_path):
-        os.remove(opt_path)
+        members["opt_state"] = _member("opt_state", global_step, taken)
+        _write_npz(os.path.join(path, members["opt_state"]),
+                   _flatten(convert.opt_state_to_numpy(opt_state, family)))
     meta = {
         "global_step": int(global_step),
         "family": family,
@@ -135,10 +171,16 @@ def save_model(path: str, family: str, cfg: fg.FourierGridConfig, params,
         "has_opt_state": opt_state is not None,
         "format_version": FORMAT_VERSION,
         "stored_dtypes": stored,
+        "members": members,
     }
     with open(os.path.join(path, "meta.json.tmp"), "w") as f:
         json.dump(meta, f, indent=2)
     os.replace(os.path.join(path, "meta.json.tmp"), os.path.join(path, "meta.json"))
+    # the new checkpoint is whole: what no longer belongs to it goes
+    keep = {m for m in members.values() if m}
+    for old in os.listdir(path):
+        if old.startswith(("params", "opt_state")) and ".npz" in old and old not in keep:
+            os.remove(os.path.join(path, old))
 
 
 def load_model(path: str, device="cpu", with_opt_state: bool = True):
@@ -152,23 +194,23 @@ def load_model(path: str, device="cpu", with_opt_state: bool = True):
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     family = meta["family"]
-    if family != FAMILY:
-        raise NotImplementedError(f"only {FAMILY} checkpoints are ported, got {family!r}")
+    _check_family(family)
     version = meta.get("format_version", 1)
-    if version not in (1, FORMAT_VERSION):
+    if version not in (1, 2, FORMAT_VERSION):
         raise ValueError(f"{path}: checkpoint format {version} is unknown")
-    cfg = convert.config_from_dict(meta["model_kwargs"])
+    members = meta.get("members") or {"params": "params.npz", "opt_state": "opt_state.npz"}
+    cfg = convert.config_from_dict(meta["model_kwargs"], family)
     stored = meta.get("stored_dtypes", {})
-    flat = _read_npz(os.path.join(path, "params.npz"))
+    flat = _read_npz(os.path.join(path, members["params"]))
     flat = {k: convert.bf16_from_bits(v) if stored.get(k) == "bfloat16" else v
             for k, v in flat.items()}
-    params = convert.fourier_grid_params_from_numpy(_unflatten(flat), device)
-    dt = fg._DTYPES[cfg.grid_dtype]
+    params = convert.params_from_numpy(family, _unflatten(flat), device)
+    dt = getattr(cfg, "grid_dtype", "float32")
     for name in ("density", "k0"):
         grid = getattr(params, name).grid
-        grid.data = grid.data.to(dt)
+        grid.data = grid.data.to(_DTYPES[dt])
     opt_state = None
     if with_opt_state and meta.get("has_opt_state"):
         opt_state = convert.opt_state_from_numpy(
-            _unflatten(_read_npz(os.path.join(path, "opt_state.npz"))))
+            _unflatten(_read_npz(os.path.join(path, members["opt_state"]))), family)
     return family, cfg, params, int(meta["global_step"]), opt_state
