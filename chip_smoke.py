@@ -33,7 +33,13 @@ Phases, each reported on its own line:
      at DCVGO's [4096, 1064] and DMPIGO's [4096, 255] and at a render chunk of
      each. ``cumdist_thres`` (DCVGO's oversample skip) must give the plain
      version's flags exactly, on DCVGO's own step distances at the train step's
-     and a render chunk's shape and at ragged shapes. The four gather-probe kernels are driven through their entry
+     and a render chunk's shape, at ragged shapes and on adversarial distances
+     (sums across its pieces and blocks, zero tails, distances exactly at and
+     at half the threshold, a view 4 bytes into its storage). ``masked_adam``
+     must give the plain version's p, m and v to the bit at every parameter
+     shape of phases 4 to 7 (Truck.py's 2.73 G-element k0 bank by bank),
+     without a grad (with and without the skip), at ragged sizes and on views
+     that start inside a vector. The four gather-probe kernels are driven through their entry
      point (``probes.gather.main``), which holds each against its plain
      version at every one of its shapes (indexed copies bit-equal, ``box_sum``
      within 1e-3 relative) and times it; that one run, counted from 0, also
@@ -53,7 +59,10 @@ Phases, each reported on its own line:
      step is timed. 10 steps by default; the analytic occupancy seed stands
      in for the coarse stage. Checked: the grid shapes after each boundary,
      the occupancy, the budget, ``lr_scale``, ``act_shift`` and the launch
-     counts (``tv_add_grad`` 2 a step, both march kernels 1). It saves
+     counts (``tv_add_grad`` 2 a step, both march kernels 1, ``masked_adam``
+     as often as the optimizer should launch it: a spy on ``MaskedAdam.step``
+     counts one a parameter, less a skip group's parameters without a grad;
+     every train step of phases 4 to 7 is checked so). It saves
      ``fine_last``, then compares a forward on the card with the plain path
      on the CPU;
   4b. one boundary on the card against the same boundary on the CPU from one
@@ -199,12 +208,14 @@ def log(msg: str) -> None:
 class Spy:
     """For a ``with`` block, ``owner.name`` runs through a wrapper that calls
     the real function and records each call in ``calls`` as a namespace of
-    ``args``, ``kwargs``, ``result`` and ``seconds``; ``before(args, kwargs)``
-    and ``after(call)`` run around it. It reads what the command line's
-    modules do without changing what they do."""
+    ``args``, ``kwargs``, ``result`` and ``seconds`` (unless ``keep`` is
+    False: the record holds the call's arguments alive); ``before(args,
+    kwargs)`` and ``after(call)`` run around it. It reads what the command
+    line's modules do without changing what they do."""
 
-    def __init__(self, owner, name: str, before=None, after=None):
+    def __init__(self, owner, name: str, before=None, after=None, keep: bool = True):
         self.owner, self.name, self.before, self.after = owner, name, before, after
+        self.keep = keep
         self.calls = []
 
     def __enter__(self):
@@ -217,7 +228,8 @@ class Spy:
             result = real(*args, **kwargs)
             call = argparse.Namespace(args=args, kwargs=kwargs, result=result,
                                       seconds=time.perf_counter() - t0)
-            self.calls.append(call)
+            if self.keep:
+                self.calls.append(call)
             if self.after is not None:
                 self.after(call)
             return result
@@ -245,6 +257,42 @@ class Tee(io.TextIOBase):
     @property
     def lines(self):
         return "".join(self.text).splitlines()
+
+
+class AdamWanted:
+    """A spy's ``before`` for ``MaskedAdam.step``: counts in ``n`` the
+    launches of ``masked_adam`` that each step should make, one per parameter
+    tensor of the optimizer's groups, less the empty ones and a skip group's
+    tensors without a grad (nothing of those changes, so nothing is
+    launched for them)."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __call__(self, args, kwargs):
+        opt = args[0]
+        self.n += sum(1 for g in opt.groups for p in g.params
+                      if p.numel() and not (g.skip_zero_grad and p.grad is None))
+
+
+ADAM_WANTED = AdamWanted()
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count, and the optimizer's wanted launches, to 0."""
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+
+    build.reset_launch_counts()
+    ADAM_WANTED.n = 0
+
+
+def adam_wanted(tag: str, steps: int) -> int:
+    """The launches of ``masked_adam`` that the steps since ``reset_counts``
+    should have made: at least one a step."""
+    if ADAM_WANTED.n < steps:
+        raise AssertionError(f"{tag}: {steps} optimizer steps wanted {ADAM_WANTED.n} launches "
+                             "of masked_adam")
+    return ADAM_WANTED.n
 
 
 def run_cli(argv) -> list:
@@ -879,7 +927,7 @@ def phase_train(cfg, steps: int, data, profile: bool, exp_dir: str, card: str,
             prof.stop()
 
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
+    reset_counts()
     t_start = time.perf_counter()
     _, mcfg, params, _ = loop.run_train(cfg, data, seed=0, device="cuda", log_fn=log, log_every=5,
                                         callback=callback, coarse_mask_fn=seed_fn,
@@ -951,7 +999,8 @@ def phase_train(cfg, steps: int, data, profile: bool, exp_dir: str, card: str,
         f"after {WARMUP_STEPS} warm-up steps) {step_ms:.1f}; first step {dts[0]:.1f}; peak "
         f"memory {peak_gb:.2f} GB (step {int(np.argmax(peaks)) + 1}; a full-width step "
         f"{peaks[-1]:.2f} GB); launches {counts}")
-    want = {"tv_add_grad": 2 * steps, "march_forward": steps, "march_backward": steps}
+    want = {"tv_add_grad": 2 * steps, "march_forward": steps, "march_backward": steps,
+            "masked_adam": adam_wanted("[4]", steps)}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     if profile:
@@ -1342,7 +1391,8 @@ def check_cli_run(tag: str, total: dict, render_spy: Spy, steps: int, n_views: i
                   hw: tuple, per_step=TRAIN_PER_STEP, per_chunk=("march_forward",)) -> list:
     """The launches of a command-line ``train`` (the steps, then the render
     of the test views that follows): ``per_step`` a step (``tv_add_grad`` 2,
-    both march kernels 1; DCVGO adds ``cumdist_thres``), each kernel of
+    both march kernels 1; DCVGO adds ``cumdist_thres``), ``masked_adam`` as
+    often as the optimizer should have launched it, each kernel of
     ``per_chunk`` once per render chunk, and nothing else. Returns [train
     counts, render counts]."""
     import numpy as np
@@ -1353,6 +1403,7 @@ def check_cli_run(tag: str, total: dict, render_spy: Spy, steps: int, n_views: i
         raise AssertionError(f"{tag}: rendered {out['rgbs'].shape} or non-finite values")
     train = train_counts_of(total, render.launches)
     want = {k: v * steps for k, v in per_step.items()}
+    want["masked_adam"] = adam_wanted(tag, steps)
     want_render = {k: n_views * -(-hw[0] * hw[1] // RENDER_CHUNK) for k in per_chunk}
     if train != want or render.launches != want_render:
         raise AssertionError(f"{tag}: launches train {train} (want {want}), render "
@@ -1416,7 +1467,7 @@ def phase_cli_360(cfg_file: str, card: str, n_test: int) -> list:
 
     # ---- run 1: CLI_STEPS steps, unseeded, a periodic save at CLI_SAVE_EVERY
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
+    reset_counts()
     with Spy(ckpt, "save_model", after=on_save) as saves, render_spy() as renders:
         run_cli(["--config", cfg_file, "--i_weights", str(CLI_SAVE_EVERY), "--i_print", "1"])
     counts = check_cli_run("[6a] run 1", dict(build.LAUNCHES), renders, CLI_STEPS, n_test,
@@ -1475,7 +1526,7 @@ def phase_cli_360(cfg_file: str, card: str, n_test: int) -> list:
             torch.equal(a, b) for k in ("exp_avg", "exp_avg_sq")
             for n, ms in opt.state_dict()[k].items() for a, b in zip(ms, saved["moments"][k][n]))
 
-    build.reset_launch_counts()
+    reset_counts()
     with Spy(ckpt, "load_model") as loads, Spy(MaskedAdam, "load_state_dict",
                                                  after=on_restore), render_spy() as renders:
         lines = run_cli(["--config", cfg_file, "--i_weights", str(CLI_SAVE_EVERY),
@@ -1534,7 +1585,7 @@ def phase_cli_truck(tmp: pathlib.Path, card: str) -> list:
         f"{time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
+    reset_counts()
     t0 = time.time()
     with Spy(ckpt, "save_model") as saves, Spy(common, "load_everything") as loads, \
             render_spy() as renders:
@@ -1808,8 +1859,8 @@ def cumdist_inputs(gen, n: int, dc):
 def phase_cumdist(gen, shapes: dict, floor: float) -> dict:
     """``cumdist_thres`` against its plain version (the loop over samples of
     ``ops/sampling.py``, on the card): the flags must be equal, at DCVGO's
-    train and render shapes and at ragged ones (a ray, no ray, S of 1 and
-    around a tile of 32); then timed."""
+    train and render shapes, at ragged ones (a ray, no ray, S of 1 and
+    around a warp of 32) and on adversarial distances; then timed."""
     import torch
 
     from unboundednerfpytorch_tpu_torch.ops import sampling
@@ -1823,6 +1874,22 @@ def phase_cumdist(gen, shapes: dict, floor: float) -> dict:
         dist = torch.rand((n, s), generator=gen, device="cuda") * 0.01
         dist[::5, s // 3:] = 0.0
         cases.append((f"ragged {[n, s]}", dist, 0.0061))
+    # adversarial: sums that run across the kernel's pieces of 128 samples and
+    # its blocks of 32 rays before they pass the threshold, tails of zeros,
+    # distances exactly at the threshold (never over it alone) and at half
+    # of it, and a tensor that starts 4 bytes past a 16-byte boundary
+    thres = 0.0061
+    at = float(torch.tensor(thres, dtype=torch.float32))
+    long_runs = torch.rand((65, 1063), generator=gen, device="cuda") * (thres / 60)
+    cases.append(("runs across pieces and blocks [65, 1063]", long_runs, thres))
+    tail = torch.rand((33, 1063), generator=gen, device="cuda") * 0.01
+    tail[:, 517:] = 0.0
+    cases.append(("zero tails [33, 1063]", tail, thres))
+    exact = torch.full((37, 300), at, device="cuda")
+    exact[1::2] = at / 2
+    cases.append(("distances at and at half the threshold [37, 300]", exact, thres))
+    store = torch.rand((33 * 257 + 1,), generator=gen, device="cuda") * 0.01
+    cases.append(("a view 4 bytes into its storage [33, 257]", store[1:].view(33, 257), thres))
     for what, n in (("train step", n_train), ("render chunk", RENDER_CHUNK)):
         dist, thres = cumdist_inputs(gen, n, dc)
         cases.append((f"{what} {list(dist.shape)}", dist, thres))
@@ -1850,6 +1917,156 @@ def phase_cumdist(gen, shapes: dict, floor: float) -> dict:
             "replaces": "unboundednerfpytorch_tpu/ops/sampling.py:202", "max_abs_err": 0.0,
             "ms": total["ms"], "plain_ms": total["plain"], "bound_ms": total["bound"],
             "bound_by": by, "library_ms": None, "floor_ms": floor, "shapes": lines}
+
+
+# ---------------------------------------------------------------------------
+# masked Adam (phase 3)
+
+# element counts that leave a scalar tail after the 16-byte vectors (8 bf16
+# or 4 f32 a vector), a tensor smaller than a vector, one element
+ADAM_RAGGED_SIZES = (1, 7, 8 * 1000 - 1, 8 * 1000 + 1, 4 * 1000 + 3)
+ADAM_SLICE = 1 << 26  # the plain version's slice on the card (its temporaries)
+
+
+def adam_bank_inputs(seed: int, shape, dtype, sparse: bool):
+    """(p, g, m, v) of one bank, made from ``seed``: p and g in ``dtype``,
+    g zero at 40% of the elements where ``sparse``, moments f32 (v >= 0)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda")
+    if sparse:
+        g *= torch.rand(shape, generator=gen, device="cuda") > 0.4
+    m = torch.randn(shape, generator=gen, device="cuda") * 0.1
+    v = torch.rand(shape, generator=gen, device="cuda") * 0.01
+    return p, g.to(dtype), m, v
+
+
+def bits(x):
+    import torch
+
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def adam_case(label: str, shape, dtype, skip: bool, grad: bool = True,
+              offsets=(0, 0, 0, 0)) -> int:
+    """``masked_adam`` over a whole tensor of ``shape`` (its leading axis a
+    bank), then each bank held bit-equal to the plain version on that bank,
+    made again from its seed (a bank at a time: the plain version's copy of
+    a 2.7 G-element state would not fit beside it). ``offsets``: p, g, m and
+    v are views that start that many elements into their storage. Returns
+    the kernel's launches (0 for a skip group without a grad)."""
+    import math
+
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import adam, build
+
+    banks, bank = shape[0], tuple(shape[1:])
+    n = math.prod(shape)
+
+    def alloc(dt, offset):
+        return torch.empty(n + offset, dtype=dt, device="cuda")[offset:].view(shape)
+
+    p, g, m, v = (alloc(dt, o) for dt, o in zip((dtype, dtype, torch.float32, torch.float32),
+                                                  offsets))
+    for b in range(banks):
+        for dst, src in zip((p, g, m, v), adam_bank_inputs(1000 + b, bank, dtype, skip)):
+            dst[b] = src
+    before = build.LAUNCHES["masked_adam"]
+    step_size = 0.1 * 0.7 * (0.1 / 0.01)  # lr 0.1, lr_scale 0.7, the bias correction of step 1
+    adam.masked_adam(p, m, v, g if grad else None, step_size, 0.9, 0.99, 1e-8, skip)
+    torch.cuda.synchronize()
+    launched = build.LAUNCHES["masked_adam"] - before
+    for b in range(banks):
+        p0, g0, m0, v0 = adam_bank_inputs(1000 + b, bank, dtype, skip)
+        adam.masked_adam_plain(p0, m0, v0, g0 if grad else None, step_size, 0.9, 0.99, 1e-8,
+                               skip, ADAM_SLICE)
+        for what, got, want in (("p", p[b], p0), ("m", m[b], m0), ("v", v[b], v0)):
+            if not torch.equal(bits(got), bits(want)):
+                raise AssertionError(
+                    f"masked_adam {label} bank {b}: {what} differs from the plain version on "
+                    f"{int((bits(got) != bits(want)).sum())} of {want.numel()} elements")
+        del p0, g0, m0, v0
+    log(f"  masked_adam {label} {tuple(shape)} {str(dtype)[6:]} skip={skip} grad={grad}"
+        f"{f' offsets {offsets}' if any(offsets) else ''}: p, m and v bit-equal to the plain version"
+        f"{' bank by bank' if banks > 1 else ''} ({launched} launch)")
+    del p, g, m, v
+    torch.cuda.empty_cache()
+    return launched
+
+
+def adam_shapes(tv_shapes: dict, fam: dict) -> list:
+    """(label, shape, dtype, skip) of the parameters the train steps update:
+    bicycle_single's, bicycle.py's (DCVGO), fern.py's (DMPIGO, f32) and
+    Truck.py's grids, and an f32 MLP weight, as phases 4 to 7 hand them to the
+    optimizer."""
+    import torch
+
+    out = [(f"bicycle_single {k}", s, torch.bfloat16, True) for k, s in tv_shapes.items()]
+    out += [(label, shape, dtype, True) for label, shape, dtype, _ in fam["tv"]]
+    out.append(("rgbnet weight", (1, 128, 128), torch.float32, False))
+    return out
+
+
+def phase_adam(gen, tv_shapes: dict, fam: dict, floor: float) -> dict:
+    """``masked_adam`` against its plain version, bit for bit (p, m and v),
+    at every parameter shape of phases 4 to 7, without a grad, and at ragged
+    sizes and an unaligned start; then timed at each of those shapes."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import adam
+    from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms, time_ms
+
+    shapes = adam_shapes(tv_shapes, fam)
+    for label, shape, dtype, skip in shapes:
+        adam_case(label, shape, dtype, skip)
+    for skip in (True, False):
+        if adam_case("no grad", (1, 1000, 3), torch.float32, skip, grad=False) != (not skip):
+            raise AssertionError("masked_adam: a parameter without a grad launched "
+                                 f"{'a kernel' if skip else 'no kernel'} with skip={skip}")
+    for n in ADAM_RAGGED_SIZES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for skip in (True, False):
+                adam_case("ragged", (1, n), dtype, skip)
+    # views that start inside a vector: p, g, m and v at the same element
+    # (a scalar head, then vectors), or not (one element a thread throughout)
+    for offsets in ((1, 1, 1, 1), (3, 3, 3, 3), (1, 0, 0, 0), (0, 0, 2, 0)):
+        for dtype in (torch.bfloat16, torch.float32):
+            adam_case("unaligned", (1, 8 * 1000 + 5), dtype, True, offsets=offsets)
+    lines, total = [], {"ms": 0.0, "plain": 0.0, "bound": 0.0}
+    for label, shape, dtype, skip in shapes:
+        banks, bank = shape[0], tuple(shape[1:])
+        p, g, m, v = (torch.empty(shape, dtype=dt, device="cuda")
+                      for dt in (dtype, dtype, torch.float32, torch.float32))
+        for b in range(banks):
+            for dst, src in zip((p, g, m, v), adam_bank_inputs(2000 + b, bank, dtype, skip)):
+                dst[b] = src
+        n, es = p.numel(), p.element_size()
+        # a skip group reads g in full and p, m and v where g is not 0
+        live = int((g != 0).sum()) if skip else n
+        n_bytes = n * es + live * (2 * es + 16)
+        ms, call = kernel_ms(lambda: adam.masked_adam(p, m, v, g, 1e-3, 0.9, 0.99, 1e-8, skip))
+        plain = time_ms(lambda: adam.masked_adam_plain(p, m, v, g, 1e-3, 0.9, 0.99, 1e-8, skip,
+                                                        ADAM_SLICE), iters=3, warmup=1)
+        bnd, by = bound_ms(n_bytes, 10 * live)
+        lines.append(shape_line(f"masked_adam {label} {tuple(shape)} {str(dtype)[6:]} "
+                                f"skip={skip}, {100 * live / n:.0f}% of g non-zero", ms, call,
+                                bnd, floor))
+        log(f"[3]   plain version {plain:.3f} ms; the kernel moves the bound's bytes at "
+            f"{n_bytes / ms / 1e6:.0f} GB/s")
+        lines[-1]["plain_ms"] = plain
+        total["ms"] += ms
+        total["plain"] += plain
+        total["bound"] += bnd
+        del p, g, m, v
+        torch.cuda.empty_cache()
+    return {"name": "masked_adam", "route": "cuda",
+            "source": "unboundednerfpytorch_tpu_torch/csrc/adam.cu",
+            "replaces": "unboundednerfpytorch_tpu/optim/masked_adam.py:83", "max_abs_err": 0.0,
+            "ms": total["ms"], "plain_ms": total["plain"], "bound_ms": total["bound"],
+            "bound_by": "bytes", "library_ms": None, "floor_ms": floor, "shapes": lines}
 
 
 def full_width_ms(records, first: int, last: int) -> list:
@@ -1921,7 +2138,7 @@ def phase_cli_dcvgo(tmp: pathlib.Path, card: str) -> list:
     exp_dir = os.path.join(cfg.basedir, cfg.expname)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
+    reset_counts()
     t0 = time.time()
     with render_spy() as renders:
         run_cli(["--config", cfg_file, "--i_print", "1", "--render_test"])
@@ -2020,7 +2237,7 @@ def phase_cli_fern(cfg_file: str, card: str) -> list:
     exp_dir = os.path.join(cfg.basedir, cfg.expname)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
+    reset_counts()
     t0 = time.time()
     with render_spy() as renders, Spy(ckpt, "save_model") as saves:
         run_cli(["--config", cfg_file, "--i_print", "1", "--render_test"])
@@ -2096,7 +2313,7 @@ def phase_host_store(tmp: pathlib.Path, card: str) -> list:
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
+    reset_counts()
     t_start = time.perf_counter()
     with Spy(step_mod.HostRayStoreSampler, "next_batch") as batches, \
             Spy(step_mod.FlattenSampler, "next_batch") as device_batches:
@@ -2104,6 +2321,7 @@ def phase_host_store(tmp: pathlib.Path, card: str) -> list:
                                             log_every=1, callback=callback)
     counts = dict(build.LAUNCHES)
     want = {k: v * FAMILY_STEPS for k, v in TRAIN_PER_STEP.items()}
+    want["masked_adam"] = adam_wanted("[7c]", FAMILY_STEPS)
     if counts != want:
         raise AssertionError(f"[7c] launch counts {counts} != {want}")
     if len(batches.calls) != FAMILY_STEPS or device_batches.calls:
@@ -2162,6 +2380,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.optim.masked_adam import MaskedAdam
     from unboundednerfpytorch_tpu_torch.probes.timing import MANY_LAUNCHES, launch_floor_ms
 
     t_start = time.time()
@@ -2202,6 +2421,7 @@ def main(argv=None) -> int:
             k["max_abs_err"] = max(k["max_abs_err"], err)
             k["shapes"] += lines
         kernels.append(phase_cumdist(gen, fam, floor))
+        kernels.append(phase_adam(gen, tv_shapes, fam, floor))
         probe_kernels, probe_counts = phase_probes(floor)
         kernels += probe_kernels
         torch.cuda.empty_cache()
@@ -2213,15 +2433,18 @@ def main(argv=None) -> int:
 
         cfg_file, data = timed("4 scene", phase_scene, tmp, args.views)
         exp_dir = str(tmp / "api")
-        path_counts = [timed("4", phase_train, cfg, args.steps, data, args.profile, exp_dir,
-                             card, tv_shapes)]
-        timed("4b", phase_boundary, cfg, card)
-        path_counts.append(timed("5", phase_render, cfg, data, exp_dir, cfg_file, args.profile))
-        path_counts += timed("6a", phase_cli_360, cfg_file, card, len(data["i_test"]))
-        path_counts += timed("6b", phase_cli_truck, tmp, card)
-        path_counts += timed("7a", phase_cli_dcvgo, tmp, card)
-        path_counts += timed("7b", phase_cli_fern, fern_file, card)
-        path_counts += timed("7c", phase_host_store, tmp, card)
+        # every optimizer step of phases 4 to 7 counts the launches it should make
+        with Spy(MaskedAdam, "step", before=ADAM_WANTED, keep=False):
+            path_counts = [timed("4", phase_train, cfg, args.steps, data, args.profile,
+                                 exp_dir, card, tv_shapes)]
+            timed("4b", phase_boundary, cfg, card)
+            path_counts.append(timed("5", phase_render, cfg, data, exp_dir, cfg_file,
+                                     args.profile))
+            path_counts += timed("6a", phase_cli_360, cfg_file, card, len(data["i_test"]))
+            path_counts += timed("6b", phase_cli_truck, tmp, card)
+            path_counts += timed("7a", phase_cli_dcvgo, tmp, card)
+            path_counts += timed("7b", phase_cli_fern, fern_file, card)
+            path_counts += timed("7c", phase_host_store, tmp, card)
     log(f"seconds by phase: { {k: round(v, 1) for k, v in seconds.items()} }, in all "
         f"{time.time() - t_start:.1f}")
     # a kernel's launches: those of every path that ran it, each path counted

@@ -397,21 +397,36 @@ def test_march_backward_takes_an_expanded_cotangent(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,s", [(0, 5), (1, 1), (37, 33), (33, 95), (4096, 1063), (70, 200)])
+@pytest.mark.parametrize("n,s", [(0, 5), (1, 1), (37, 33), (33, 95), (4096, 1063), (70, 200),
+                                 (65, 1063), (33, 129), (31, 257)])
 def test_cumdist_thres_kernel_matches_plain(cuda, n, s):
     """The DCVGO oversample skip: the kernel walks each ray's distances in the
     plain version's order with the plain version's float operations, so the
-    flags are equal, not close."""
+    flags are equal, not close. Besides random distances with tails of
+    zeros: sums that run across the kernel's pieces of 128 samples before
+    they pass the threshold, distances exactly at it and at half of it, and a
+    tensor that starts 4 bytes past a 16-byte boundary."""
     from unboundednerfpytorch_tpu_torch.ops import sampling
     from unboundednerfpytorch_tpu_torch.ops.cuda import build
     from unboundednerfpytorch_tpu_torch.ops.cuda.ub360 import cumdist_thres
 
+    thres = 0.0061
+    at = np.float32(thres)
     rng = np.random.RandomState(n + s)
     dist = (rng.rand(n, s) * 0.01).astype(np.float32)
     dist[::5, s // 3:] = 0.0  # rays that stop moving
-    want = sampling.cumdist_thres_plain(torch.from_numpy(dist), 0.0061)
-    build.reset_launch_counts()
-    got = cumdist_thres(torch.from_numpy(dist).cuda(), 0.0061)
-    assert got.dtype == torch.bool and got.shape == (n, s) and got.is_cuda
-    assert torch.equal(got.cpu(), want)
-    assert build.LAUNCHES["cumdist_thres"] == (1 if n else 0)  # no launch for no ray
+    long_runs = (rng.rand(n, s) * (thres / 60)).astype(np.float32)
+    exact = np.full((n, s), at, np.float32)
+    exact[1::2] = at / 2
+    for i, case in enumerate((dist, long_runs, exact)):
+        want = sampling.cumdist_thres_plain(torch.from_numpy(case), thres)
+        build.reset_launch_counts()
+        got = cumdist_thres(torch.from_numpy(case).cuda(), thres)
+        assert got.dtype == torch.bool and got.shape == (n, s) and got.is_cuda
+        assert torch.equal(got.cpu(), want), i
+        assert build.LAUNCHES["cumdist_thres"] == (1 if n else 0)  # no launch for no ray
+    store = torch.zeros(n * s + 1, device="cuda")
+    view = store[1:].view(n, s)
+    view.copy_(torch.from_numpy(dist))
+    assert torch.equal(cumdist_thres(view, thres).cpu(),
+                       sampling.cumdist_thres_plain(torch.from_numpy(dist), thres))

@@ -270,13 +270,14 @@ def test_probe_records_keep_call_and_launch_time_apart():
 
 
 @pytest.mark.parametrize("make,n", [(variants.tv_variants, 5), (variants.march_variants, 8),
-                                    (variants.march_backward_variants, 13)])
+                                    (variants.march_backward_variants, 13),
+                                    (variants.cumdist_variants, 11)])
 def test_kernel_variants_still_find_their_text(make, n):
     """A variant is the committed source with one constant replaced: every
     substitution finds its text, and one variant is the source as committed."""
     made = make()
     assert len(made) == n and len(set(made.values())) == n
-    committed = {build.SOURCES["tv"].read_text(), build.SOURCES["march"].read_text()}
+    committed = {build.SOURCES[k].read_text() for k in ("tv", "march", "ub360")}
     assert sum(text in committed for text in made.values()) == 1
 
 

@@ -36,6 +36,7 @@ SOURCES = {
     "march": CSRC_DIR / "march.cu",
     "gather_probe": CSRC_DIR / "gather_probe.cu",
     "ub360": CSRC_DIR / "ub360.cu",
+    "adam": CSRC_DIR / "adam.cu",
 }
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -48,7 +49,7 @@ NVCC_FLAGS = (
 
 # every kernel wrapper by name (the key it counts its launches under)
 KERNELS = ("tv_add_grad", "march_forward", "march_backward", "cumdist_thres",
-           "gather_rows", "gather_tile_rows", "box_gather8", "box_sum")
+           "gather_rows", "gather_tile_rows", "box_gather8", "box_sum", "masked_adam")
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}

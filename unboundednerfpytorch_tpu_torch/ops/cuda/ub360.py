@@ -5,7 +5,8 @@ Counterpart of ``unboundednerfpytorch_tpu/ops/sampling.py::cumdist_thres``
 ``ub360_utils_kernel.cu:12-32``. Per ray, a running sum of the step distances
 that emits True and restarts from 0 wherever it exceeds ``thres``. A loop
 over bicycle's 1063 step distances would be thousands of launches a step, so the
-card runs ``csrc/ub360.cu``: one thread a ray walks the samples in order.
+card runs ``csrc/ub360.cu``: one thread a ray walks the samples in order,
+from pieces that bulk copies bring into shared memory.
 
 :func:`cumdist_thres` takes the plain version
 (:func:`..sampling.cumdist_thres_plain`) only for a tensor on the CPU; for a

@@ -8,14 +8,15 @@ untouched. Moments are at least f32 even for bf16 grids; the update math
 runs in the moment dtype and the parameter is cast back to its own.
 
 The update is in place (parameters and moments are overwritten) to bound
-memory at full width; the JAX version is functional. It runs over each
-parameter in slices of at most ``MaskedAdam.CHUNK`` elements, so its
-temporaries (the f32 grad, both new moments, the update and ``where``'s
-outputs) are those of one slice and not six grid-sized f32 tensors: about
-1.6 GB instead of 70 GB for the 2.96 G elements of a 320^3 seven-bank grid.
-The arithmetic of an element does not depend on the slice, so the result is
-the unsliced update's to the bit. Per-element learning rates
-(``pervoxel_lr``) are not ported yet.
+memory at full width; the JAX version is functional. It is
+:func:`..ops.cuda.adam.masked_adam`: on the card one launch of the fused
+kernel ``csrc/adam.cu`` per parameter, over the whole tensor, with no
+temporaries; on the CPU the plain version, over each parameter in slices of
+at most ``MaskedAdam.CHUNK`` elements, so its temporaries (the f32 grad,
+both new moments, the update and ``where``'s outputs) are those of one slice
+and not six grid-sized f32 tensors. The arithmetic of an element does not
+depend on the slice, so the result is the unsliced update's to the bit.
+Per-element learning rates (``pervoxel_lr``) are not ported yet.
 
 :meth:`MaskedAdam.state_dict` holds what the JAX ``MaskedAdamState`` holds,
 the step count and both moments, keyed by group name and by the position of
@@ -32,6 +33,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from unboundednerfpytorch_tpu_torch.ops.cuda import adam
+
 
 class ParamGroup(NamedTuple):
     name: str
@@ -41,7 +44,8 @@ class ParamGroup(NamedTuple):
 
 
 class MaskedAdam:
-    # elements a slice of the update (2^26: six f32 temporaries of 256 MB)
+    # elements a slice of the plain version's update on the CPU (2^26: six
+    # f32 temporaries of 256 MB); the kernel on the card takes a whole tensor
     CHUNK = 1 << 26
 
     def __init__(self, groups: list[ParamGroup], beta1: float = 0.9, beta2: float = 0.99,
@@ -102,27 +106,5 @@ class MaskedAdam:
         for g in self.groups:
             step_size = g.lr * lr_scale * bias_corr
             for p in g.params:
-                flat = [x.view(-1) for x in (p, self.exp_avg[p], self.exp_avg_sq[p])]
-                grad = None if p.grad is None else p.grad.reshape(-1)
-                for a in range(0, p.numel(), self.CHUNK):
-                    self._update(*(x[a:a + self.CHUNK] for x in flat),
-                                 None if grad is None else grad[a:a + self.CHUNK],
-                                 step_size, g.skip_zero_grad)
-
-    def _update(self, p, m, v, grad, step_size: float, skip_zero_grad: bool) -> None:
-        """Adam on one slice, in place: ``p``, ``m``, ``v`` are views."""
-        b1, b2, eps = self.beta1, self.beta2, self.eps
-        grad = torch.zeros_like(m) if grad is None else grad.to(m.dtype)
-        m1 = m * b1 + grad * (1.0 - b1)
-        v1 = v * b2 + grad * (1.0 - b2) * grad
-        upd = (p.to(m.dtype) - step_size * m1 / (torch.sqrt(v1) + eps)).to(p.dtype)
-        if skip_zero_grad:
-            keep = grad != 0
-            del grad
-            m.copy_(torch.where(keep, m1, m))
-            v.copy_(torch.where(keep, v1, v))
-            p.copy_(torch.where(keep, upd, p))
-        else:
-            m.copy_(m1)
-            v.copy_(v1)
-            p.copy_(upd)
+                adam.masked_adam(p, self.exp_avg[p], self.exp_avg_sq[p], p.grad, step_size,
+                                 b1, b2, eps, g.skip_zero_grad, chunk=self.CHUNK)

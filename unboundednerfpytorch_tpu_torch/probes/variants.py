@@ -1,6 +1,6 @@
 """Design variants of the redesigned kernels, timed against each other.
 
-    python -m unboundednerfpytorch_tpu_torch.probes.variants
+    python -m unboundednerfpytorch_tpu_torch.probes.variants [--only cumdist]
 
 Each variant is the committed source of ``csrc/tv.cu`` or ``csrc/march.cu``
 with one constant replaced (a substitution that no longer finds its text
@@ -14,15 +14,28 @@ cost, and of ``march_backward`` at the train step's shape, with what its
 ``powf`` and its scan cost, and a cheaper form of the ``powf`` with its error.
 One JSON line per variant and round; times are device times (a march launch is timed as many launches
 in one CUDA graph); a variant that claims right values carries its worst
-error over the tolerance of ``march_backward_tolerance``. Needs a GPU and
-``nvcc``.
+error over the tolerance of ``march_backward_tolerance``.
+
+``cumdist_thres`` is timed at DCVGO's train step and render chunk shapes
+([4096, 1063] and [8192, 1063], the step distances of bicycle.py's contracted
+samples on seeded rays) and on distances that are all equal (no two walks
+that start in different places ever reset together): the committed design
+(a thread a ray, pieces through shared memory by bulk copies) with other
+piece and ring sizes, against the design not taken, ``SPLIT_SOURCE``: k
+lanes a ray, each walking its share of the samples from 0 at once, then a
+fix-up that re-walks each share in order from the true incoming sum until
+the true walk and the speculative one reset at the same sample (from there
+on the two agree). Every variant's flags are held equal to the plain
+version's. Needs a GPU and ``nvcc``.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
+import sys
 
 import torch
 
@@ -32,6 +45,7 @@ from unboundednerfpytorch_tpu_torch.probes.timing import MANY_LAUNCHES, time_ms
 
 K0_SHAPE = (7, 199, 199, 199, 12)  # bicycle_single's k0 grid, bf16
 MARCH_SHAPES = ((2048, 96, True), (8192, 96, False))  # N, S, residuals kept
+CUMDIST_RAYS = (4096, 8192)  # DCVGO's train step and render chunk
 
 
 def _sub(src: str, *pairs: tuple[str, str]) -> str:
@@ -104,6 +118,89 @@ def march_backward_variants() -> dict[str, str]:
                       f"constexpr int kBwdWarpsPerBlock = {warps};"),
                 ("constexpr int kBwdChunks = 3;", f"constexpr int kBwdChunks = {chunks};"))
     return out
+
+
+def cumdist_variants() -> dict[str, str]:
+    src = build.SOURCES["ub360"].read_text()
+    piece = ("constexpr int kPiece = 128;", "constexpr int kPiece = {};")
+    slots = ("constexpr int kSlots = 4;", "constexpr int kSlots = {};")
+    out = {"as committed": src}
+    for p, k in ((64, 8), (256, 2), (128, 2), (128, 8)):
+        out[f"pieces of {p} samples, a ring of {k} slots"] = _sub(
+            src, (piece[0], piece[1].format(p)), (slots[0], slots[1].format(k)))
+    for w in (1, 2, 8):
+        out[f"{w} producer warps"] = _sub(
+            src, ("constexpr int kProducers = 4;", f"constexpr int kProducers = {w};"))
+    for g in (4, 16):
+        out[f"groups of {g} samples in registers"] = _sub(
+            src, ("constexpr int kGroup = 8;", f"constexpr int kGroup = {g};"))
+    out["no chain (a sample's flag from its own distance; wrong values)"] = _sub(
+        src, ("const float c = __fadd_rn(cum, x[k]);", "const float c = x[k];"))
+    return out
+
+
+# the design not taken for cumdist_thres: k lanes a ray (k divides 32, the
+# lanes of a ray neighbours in a warp), distances and flags straight from and
+# to device memory
+SPLIT_SOURCE = r"""
+#include <cuda_runtime.h>
+
+template <int K>
+__global__ void split_kernel(const float* __restrict__ dist, float thres, int N, int S,
+                             unsigned char* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % K;
+  const long long ray = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / K;
+  const bool live = ray < N;
+  const int L = (S + K - 1) / K;
+  const int c0 = min(S, sub * L), c1 = min(S, c0 + L);
+  const float* d = dist + ray * S;
+  unsigned char* o = out + ray * S;
+  float cum = 0.f;  // the speculative walk, from 0
+  if (live)
+    for (int j = c0; j < c1; ++j) {
+      cum = __fadd_rn(cum, d[j]);
+      const bool over = cum > thres;
+      cum = over ? __fmul_rn(cum, 0.f) : cum;
+      o[j] = over;
+    }
+  float end = cum;  // the true sum leaving this share, once known
+  for (int i = 1; i < K; ++i) {
+    const float in = __shfl_sync(0xffffffffu, end, (lane - sub) + i - 1);
+    if (sub == i && live) {
+      float c = in;
+      bool merged = false;
+      for (int j = c0; j < c1 && !merged; ++j) {
+        c = __fadd_rn(c, d[j]);
+        const bool over = c > thres;
+        c = over ? __fmul_rn(c, 0.f) : c;
+        merged = over && o[j];
+        o[j] = over;
+      }
+      if (!merged) end = c;
+    }
+  }
+}
+
+extern "C" int cumdist_split(const void* dist, float thres, int N, int S, void* out, int k,
+                             void* stream) {
+  if (N <= 0 || S <= 0) return 0;
+  const long long threads = (long long)N * k;
+  const int blocks = (int)((threads + 127) / 128);
+  auto s = (cudaStream_t)stream;
+  auto d = (const float*)dist;
+  auto o = (unsigned char*)out;
+  switch (k) {
+    case 4: split_kernel<4><<<blocks, 128, 0, s>>>(d, thres, N, S, o); break;
+    case 8: split_kernel<8><<<blocks, 128, 0, s>>>(d, thres, N, S, o); break;
+    case 16: split_kernel<16><<<blocks, 128, 0, s>>>(d, thres, N, S, o); break;
+    case 32: split_kernel<32><<<blocks, 128, 0, s>>>(d, thres, N, S, o); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+"""
+SPLIT_LANES = (4, 8, 16, 32)
 
 
 def compile_all(variants: dict[str, str], stem: str) -> dict[str, ctypes.CDLL]:
@@ -220,8 +317,83 @@ def run_march_backward(gen, emit) -> None:
             record(name, rnd, lib)
 
 
-def main() -> list:
-    """Prints one JSON line per variant and round and returns the records."""
+def cumdist_cases(gen) -> list:
+    """(label, dist, thres): bicycle.py's step distances at the train step's
+    and a render chunk's shape, as ``dcvgo.oversample_mask`` hands them to the
+    kernel, and all-equal distances at the train step's shape."""
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.models import dcvgo
+
+    fm = loader.load_config(str(build.PACKAGE_DIR.parent / "configs" / "nerf_unbounded" /
+                                "bicycle.py")).fine_model_and_render
+    dc = dcvgo.config_from(fm, (-1.0,) * 3, (1.0,) * 3, fm.num_voxels_rgb)
+    thres = (2 + 2 * dc.bg_len) / dc.world_len * dc.stepsize * 0.95
+    out = []
+    for n in CUMDIST_RAYS:
+        ro = torch.randn((n, 3), generator=gen, device="cuda") * 1.5
+        rd = torch.randn((n, 3), generator=gen, device="cuda") * 0.5 - ro
+        pts, _, _ = dcvgo.sample_ray(dc, ro, rd)
+        diff = pts[:, 1:] - pts[:, :-1]
+        out.append((f"bicycle.py distances {[n, pts.shape[1] - 1]}",
+                    torch.sqrt((diff * diff).sum(-1)).contiguous(), thres))
+    shape = out[0][1].shape
+    out.append((f"all distances 0.3 of the threshold {list(shape)}",
+                torch.full(shape, 0.3 * thres, device="cuda"), thres))
+    return out
+
+
+def run_cumdist(gen, emit) -> None:
+    from unboundednerfpytorch_tpu_torch.ops import sampling
+
+    libs = compile_all(cumdist_variants(), "ub360")
+    split = compile_all({"split": SPLIT_SOURCE}, "cumdist_split")["split"]
+    split.cumdist_split.restype = ctypes.c_int
+    split.cumdist_split.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    for lib in libs.values():
+        lib.cumdist_thres.restype = ctypes.c_int
+        lib.cumdist_thres.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    for label, dist, thres in cumdist_cases(gen):
+        N, S = dist.shape
+        want = sampling.cumdist_thres_plain(dist, thres)
+        out = torch.empty((N, S), dtype=torch.bool, device="cuda")
+        runs = {f"one thread a ray: {name}":
+                (lambda lib=lib: lib.cumdist_thres(dist.data_ptr(), thres, N, S, out.data_ptr(),
+                                                   torch.cuda.current_stream().cuda_stream))
+                for name, lib in libs.items()}
+        for k in SPLIT_LANES:
+            runs[f"{k} lanes a ray, speculative walk and fix-up"] = (
+                lambda k=k: split.cumdist_split(dist.data_ptr(), thres, N, S, out.data_ptr(), k,
+                                                torch.cuda.current_stream().cuda_stream))
+
+        def launch(fn):
+            err = fn()
+            if err != 0:
+                raise RuntimeError(f"cumdist_thres variant: CUDA error {err}")
+
+        for rnd in range(2):
+            for name, fn in runs.items():
+                out.zero_()
+                launch(fn)
+                torch.cuda.synchronize()
+                emit({"kernel": "cumdist_thres", "shape": [N, S], "inputs": label,
+                      "variant": name, "round": rnd,
+                      "equal_to_plain": bool(torch.equal(out, want)),
+                      "ms": time_ms(lambda: launch(fn), launches=MANY_LAUNCHES)})
+
+
+RUNS = {"tv": run_tv, "march": run_march, "march_backward": run_march_backward,
+        "cumdist": run_cumdist}
+
+
+def main(argv=None) -> list:
+    """Prints one JSON line per variant and round and returns the records.
+    ``--only cumdist`` (or ``tv``, ``march``, ``march_backward``) runs one
+    kernel's variants."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=sorted(RUNS), action="append")
+    args = ap.parse_args([] if argv is None else argv)
     dev = resolve_device(None)
     gen = torch.Generator(device=dev).manual_seed(0)
     records = []
@@ -231,11 +403,11 @@ def main() -> list:
         print(json.dumps(rec), flush=True)
 
     emit({"device": torch.cuda.get_device_name(dev), "torch": torch.__version__})
-    run_tv(gen, emit)
-    run_march(gen, emit)
-    run_march_backward(gen, emit)
+    for name, run in RUNS.items():
+        if not args.only or name in args.only:
+            run(gen, emit)
     return records
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
