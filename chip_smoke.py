@@ -26,22 +26,27 @@ Phases, each reported on its own line:
      the plain version: such samples are counted and bounded, not absorbed in
      the tolerance; the backward sums in another order than the plain version,
      which its tolerance allows for element by element
-     (``march_backward_tolerance``). The same checks and times run at this
-     slice's shapes: TV on DCVGO's one-bank bicycle grids (bf16), on DMPIGO's
-     fern grids (f32, x and y weighed otherwise than z) and on Truck.py's seven
-     banks of ~319^3 (2.7 G elements, held bank by bank); both march kernels
-     at DCVGO's [4096, 1064] and DMPIGO's [4096, 255] and at a render chunk of
-     each. ``cumdist_thres`` (DCVGO's oversample skip) must give the plain
+     (``march_backward_tolerance``). The same checks and times run at the
+     shapes of phases 7 and 8: TV on DCVGO's one-bank bicycle grids (bf16), on
+     DMPIGO's fern grids (f32, x and y weighed otherwise than z), on Truck.py's
+     seven banks of ~319^3 (2.7 G elements, held bank by bank), on
+     waymo_no_block.py's (seven banks of 299^3, k0 of 3 channels, bf16) and on
+     grass.py's (seven banks of 319^3, f32, bank by bank); both march kernels
+     at DCVGO's [4096, 1064], DMPIGO's [4096, 255], waymo's [2048, 96] and
+     grass.py's [4096, 1064] and at a render chunk of each. ``cumdist_thres`` (DCVGO's oversample skip) must give the plain
      version's flags exactly, on DCVGO's own step distances at the train step's
      and a render chunk's shape, at ragged shapes and on adversarial distances
      (sums across its pieces and blocks, zero tails, distances exactly at and
      at half the threshold, a view 4 bytes into its storage). ``masked_adam``
      must give the plain version's p, m and v to the bit at every parameter
-     shape of phases 4 to 7 (Truck.py's 2.73 G-element k0 bank by bank),
-     without a grad (with and without the skip), at ragged sizes and on views
-     that start inside a vector. The four gather-probe kernels are driven through their entry
-     point (``probes.gather.main``), which holds each against its plain
-     version at every one of its shapes (indexed copies bit-equal, ``box_sum``
+     shape of phases 4 to 8 (Truck.py's 2.73 G-element k0 and grass.py's
+     f32 one bank by bank), without a grad (with and without the skip), at ragged sizes and on views
+     that start inside a vector; its bound counts the 32-byte DRAM sectors
+     that hold a non-zero g (p's of 32 / element size, m's and v's of 8
+     elements), which is what the memory moves (the count by element is
+     printed beside it as ``bound_ms_elementwise``). The four gather-probe
+     kernels are driven through their entry point (``probes.gather.main``),
+     which holds each against its plain version at every one of its shapes (indexed copies bit-equal, ``box_sum``
      within 1e-3 relative) and times it; that one run, counted from 0, also
      gives these kernels' launches;
   4. the scene and the trainer: a seeded synthetic 20-view 411x618 scene (the
@@ -62,9 +67,10 @@ Phases, each reported on its own line:
      counts (``tv_add_grad`` 2 a step, both march kernels 1, ``masked_adam``
      as often as the optimizer should launch it: a spy on ``MaskedAdam.step``
      counts one a parameter, less a skip group's parameters without a grad;
-     every train step of phases 4 to 7 is checked so). It saves
-     ``fine_last``, then compares a forward on the card with the plain path
-     on the CPU;
+     every train step of phases 4 to 8 is checked so). It saves the
+     parameters as ``fine_last`` (without the optimizer's state: 6a saves
+     that), then compares a forward on the card with the plain path on the
+     CPU;
   4b. one boundary on the card against the same boundary on the CPU from one
      state (see ``phase_boundary``): there the refresh bites, a deferred
      sample budget comes on and Adam restarts;
@@ -89,16 +95,17 @@ Phases, each reported on its own line:
   6a. the command line's ``train`` on the same scene and config, unseeded, as
      a user runs it (``python -m unboundednerfpytorch_tpu_torch.cli.main
      --config ...``), the boundaries compressed to ``CLI_PG_SCALE`` = (2, 3):
-     run 1 trains 4 steps with ``--i_weights 3`` and renders the test views.
+     run 1 trains 4 steps with ``--i_weights 2`` and renders the test views.
      Checked in the loop's own records (``fine_metrics.jsonl``): the sample
      budget held at 0 until the first boundary and switched on there, the
-     cache all true before it; the periodic checkpoint at step 3 (full width)
-     and ``fine_last`` at step 4, both with the optimizer's state. Run 2 is
+     cache all true before it; the periodic checkpoint at step 2 (after the
+     first boundary, 158^3) and ``fine_last`` at step 4 (full width), both
+     with the optimizer's state. Run 2 is
      the same command with ``N_iters`` two larger: it resumes at step 4 from
      ``fine_last``, the Adam step count and both moments restored bit-equal
      to what run 1 saved, the lr anchored at the last boundary, and trains
-     two more full-width steps. The seconds and GB of a full-width save and
-     of a load are printed;
+     two more full-width steps. The seconds and GB of each save and of a
+     full-width load are printed;
   6b. ``configs/tankstemple_unbounded/truck_single.py`` through the command
      line on a NeRF++-layout scene written the same way (8 training and 2
      test views of 546x980, OpenCV poses, ``inverse_y``): 8 steps, its seven
@@ -122,13 +129,32 @@ Phases, each reported on its own line:
      7c ``configs/tankstemple_unbounded/Truck.py`` (FourierGrid, seven banks of
      ~319^3, ``load2gpu_on_the_fly``) through ``run_train`` without a
      checkpoint, the rays in host memory: ms/step, peak memory (under the
-     card's) and the host batch's share of a step.
+     card's) and the host batch's share of a step;
+  8. the Waymo and free-trajectory layouts, each config at its full width, its boundaries compressed to ``CLI_PG_SCALE``
+     and ``FAMILY_STEPS`` steps: 8a ``configs/waymo/waymo_no_block.py``
+     (seven banks of 299^3, k0 of 3 channels bf16, ``N_rand`` 2048, the
+     96-sample budget and the 32-sample colour budget, the Fourier MSE loss,
+     ``--diffuse``) through the command line on a Waymo-layout capture
+     (``metadata.json``; 8 training views of camera 73, 2 of camera 74 with
+     another focal length, which the config's ``training_ids`` drop, 2 val
+     views, 640x960), then the render of the 2 val views with PSNR and of the
+     first ``WAYMO_TRAJECTORY`` of the 200 trajectory views without (the test
+     split cut so by a spy on ``load_everything``); 8b
+     ``configs/free_dataset/grass.py`` (seven banks of 319^3 in f32,
+     ``N_rand`` 4096, every one of 1064 samples a ray: no sample or colour
+     budget) on a free-trajectory capture (``cams_meta.npy``, 8 views stored
+     at 1080x1920, 540x960 after the config's factor 2) loaded by
+     ``load_everything``, trained by ``run_train`` without a checkpoint
+     (35.4 GB with Adam's state; see the note at ``CLI_SAVE_EVERY``), then
+     its test view rendered from the trained parameters as ``run_render``
+     does: ms/step, peak memory, ms/view, the scene load's seconds and the
+     launches of each kernel.
 
 ``--profile`` also traces the last train steps and one rendered view with
 ``torch.profiler`` and prints the device time by range and by kernel.
 ``--kernels-only`` stops after phase 3 and prints the kernel table without
 launch counts and without the last line (a quick check of a changed kernel).
-The kernel table's launches are those of phases 4 to 7 and of the probe run.
+The kernel table's launches are those of phases 4 to 8 and of the probe run.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -166,9 +192,14 @@ RENDER_CHUNK = 8192  # the command line's chunk (render.renderer.DEFAULT_CHUNK)
 # orbit of this radius (data/synthetic.py::orbit_scene)
 SPHERE_RADIUS, CAM_RADIUS = 0.8, 3.0
 # the command line (phase 6): both configs' boundaries compressed to two; 6a's
-# first run saves at step 3 (full width) and ends at 4, its second at 6
+# first run saves at step 2 (after the first boundary, at 158^3) and ends at
+# 4 (full width), its second at 6
 CLI_PG_SCALE = (2, 3)
-CLI_SAVE_EVERY, CLI_STEPS = 3, 4
+# The card's machine lets one run of the script write 45 GiB to its disk,
+# deleted files included (its host counts every block written): the
+# checkpoints of phases 4 to 8a come to about 41 GiB, so phase 4 saves no
+# optimizer state, 6a saves periodically before full width and 8b saves none
+CLI_SAVE_EVERY, CLI_STEPS = 2, 4
 # truck_single on a NeRF++ scene at the Tanks & Temples image size of the
 # NeRF++ release: 8 training and 2 test views, 8 steps (6 to 8 timed)
 TRUCK_H, TRUCK_W, TRUCK_VIEWS, TRUCK_TEST, TRUCK_STEPS = 546, 980, 8, 2, 8
@@ -195,6 +226,20 @@ FERN_BOUNDS = (2.5, 9.0)
 FAMILY_STEPS = 7
 # 7a: the card against the CPU on this many rays (1064 samples each)
 CPU_RAYS = 512
+# phase 8: the Waymo layout through the command line (8a) and the
+# free-trajectory one through run_train (8b), each config at its full width,
+# its boundaries compressed to CLI_PG_SCALE and FAMILY_STEPS steps
+WAYMO_CONFIG = ROOT / "configs" / "waymo" / "waymo_no_block.py"
+FREE_CONFIG = ROOT / "configs" / "free_dataset" / "grass.py"
+# 8a: the Waymo cameras' 1920x1280 at the config's factor 2 (stored so: the
+# loader does not resize); camera 73's training views (the config's
+# training_ids keep 73_<i>), views of camera 74 (another focal length, which
+# the ids drop) and val views
+WAYMO_H, WAYMO_W, WAYMO_TRAIN, WAYMO_OTHER, WAYMO_VAL = 640, 960, 8, 2, 2
+WAYMO_TRAJECTORY = 3  # of the 200 trajectory views, rendered without ground truth
+# 8b: views stored at 1080x1920, 540x960 after grass.py's factor 2; every 8th
+# held out
+FREE_H, FREE_W, FREE_VIEWS, FREE_FACTOR = 540, 960, 8, 2
 # kernel launches of a train step and of a render chunk, by family
 TRAIN_PER_STEP = {"tv_add_grad": 2, "march_forward": 1, "march_backward": 1}
 DCVGO_PER_STEP = {**TRAIN_PER_STEP, "cumdist_thres": 1}
@@ -874,6 +919,7 @@ def phase_train(cfg, steps: int, data, profile: bool, exp_dir: str, card: str,
     from unboundednerfpytorch_tpu_torch.ops.cuda import build
     from unboundednerfpytorch_tpu_torch.train import bbox as bbox_mod
     from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 
     fm, ft = cfg.fine_model_and_render, cfg.fine_train
     log(f"[4] config {CONFIG.relative_to(ROOT)}: {fm.num_voxels_density} voxels, "
@@ -930,9 +976,12 @@ def phase_train(cfg, steps: int, data, profile: bool, exp_dir: str, card: str,
     reset_counts()
     t_start = time.perf_counter()
     _, mcfg, params, _ = loop.run_train(cfg, data, seed=0, device="cuda", log_fn=log, log_every=5,
-                                        callback=callback, coarse_mask_fn=seed_fn,
-                                        exp_dir=exp_dir)
+                                        callback=callback, coarse_mask_fn=seed_fn)
     counts = dict(build.LAUNCHES)
+    # what phase 5 renders: the parameters without the optimizer's state (the
+    # loop's own save with it is phase 6a's; see the note at CLI_SAVE_EVERY)
+    ckpt.save_model(os.path.join(exp_dir, "fine_last"), "FourierGrid", mcfg, params,
+                    global_step=steps)
     dts = np.diff([t_start] + stamps) * 1e3  # dts[i] is step i + 1
     log(f"[4] grids density {tuple(params.density.grid.shape)} k0 "
         f"{tuple(params.k0.grid.shape)} {params.k0.grid.dtype}; S={2 * mcfg.n_inner} -> "
@@ -1510,9 +1559,9 @@ def phase_cli_360(cfg_file: str, card: str, n_test: int) -> list:
         f"{first['occupancy_carried']:.4f} -> {first['occupancy']:.4f}), grids "
         f"{last['world_size_density']} from step {CLI_PG_SCALE[1]}; ms/step by the loop's clock "
         f"{[round(float(t), 1) for t in dts]}; peak memory of the training "
-        f"{renders.calls[-1].peak_before_gb:.2f} GB; full-width save at step "
+        f"{renders.calls[-1].peak_before_gb:.2f} GB; periodic save at step "
         f"{CLI_SAVE_EVERY}: {periodic.gb:.3f} GB in {periodic.seconds:.2f} s (grids "
-        f"{periodic.world_size}, with the optimizer's state); final save "
+        f"{periodic.world_size}, with the optimizer's state); final save at full width "
         f"{saves.calls[1].gb:.3f} GB in {saves.calls[1].seconds:.2f} s")
 
     # ---- run 2: the same command, two steps more: the resume
@@ -1647,12 +1696,14 @@ def fern_scene(tmp: pathlib.Path):
 
 
 def family_shapes(fern_box) -> dict:
-    """The shapes this slice's paths hand the kernels: TV on DCVGO's one-bank
+    """The shapes phases 7 and 8 hand the kernels: TV on DCVGO's one-bank
     bicycle grids (bf16), on DMPIGO's fern grids (f32, the x and y axes
-    weighed otherwise than z, in the train step's ratio) and on Truck.py's
-    seven banks; the march at DCVGO's [N_rand, 1064] and DMPIGO's [N_rand,
-    255], each with its own shift and interval; ``cumdist_thres`` at DCVGO's
-    [N_rand, 1063]."""
+    weighed otherwise than z, in the train step's ratio), on Truck.py's
+    seven banks, on waymo_no_block.py's (seven banks of 299^3, k0 of 3
+    channels, bf16) and on grass.py's (seven banks of 319^3, f32); the
+    march at DCVGO's [N_rand, 1064], DMPIGO's [N_rand, 255], waymo's
+    [2048, 96] and grass.py's [4096, 1064], each with its own shift and
+    interval; ``cumdist_thres`` at DCVGO's [N_rand, 1063]."""
     import torch
 
     from unboundednerfpytorch_tpu_torch.configs import loader
@@ -1670,6 +1721,14 @@ def family_shapes(fern_box) -> dict:
     tr = fg.config_from(truck, (-1.0,) * 3, (1.0,) * 3, truck.num_voxels_density,
                         truck.num_voxels_rgb)
     banks = 2 * tr.fourier_freq_num + 1
+    phase8 = {}  # 8a and 8b: waymo_no_block.py and grass.py at their full width
+    for tag, path in (("waymo_no_block.py", WAYMO_CONFIG), ("grass.py", FREE_CONFIG)):
+        c = loader.load_config(str(path))
+        m = fg.config_from(c.fine_model_and_render, (-1.0,) * 3, (1.0,) * 3,
+                           c.fine_model_and_render.num_voxels_density,
+                           c.fine_model_and_render.num_voxels_rgb)
+        s = m.sample_budget if 0 < m.sample_budget < 2 * m.n_inner else 2 * m.n_inner
+        phase8[tag] = (m, (c.fine_train.N_rand, s))
     sx, sy, sz = loop.tv_axis_scale("dmpigo", dm)
     w3, wd = (0.3, 0.2, 0.1), (0.2 * sx, 0.2 * sy, 0.2 * sz)
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -1679,10 +1738,16 @@ def family_shapes(fern_box) -> dict:
           ("dmpigo k0", (1, *dm.world_size, dm.k0_dim), torch.float32, wd),
           ("Truck.py density", (banks, *tr.world_size_density, 1), dt[tr.grid_dtype], w3),
           ("Truck.py k0", (banks, *tr.world_size_rgb, tr.k0_dim), dt[tr.grid_dtype], w3)]
+    for tag, (m, _) in phase8.items():
+        nb = 2 * m.fourier_freq_num + 1
+        tv += [(f"{tag} density", (nb, *m.world_size_density, 1), dt[m.grid_dtype], w3),
+               (f"{tag} k0", (nb, *m.world_size_rgb, m.k0_dim), dt[m.grid_dtype], w3)]
     march = [("dcvgo", (bike.fine_train.N_rand, 2 * dc.n_inner), dc.act_shift,
               dc.stepsize * dc.voxel_size_ratio),
              ("dmpigo", (fern.fine_train.N_rand, dm.n_samples(dm.stepsize)), 0.0,
               dm.stepsize * dm.voxel_size_ratio)]
+    march += [(tag, shape, m.act_shift, m.stepsize * m.voxel_size_ratio_density)
+              for tag, (m, shape) in phase8.items()]
     return {"tv": tv, "march": march, "dcvgo": dc}
 
 
@@ -1928,6 +1993,20 @@ ADAM_RAGGED_SIZES = (1, 7, 8 * 1000 - 1, 8 * 1000 + 1, 4 * 1000 + 3)
 ADAM_SLICE = 1 << 26  # the plain version's slice on the card (its temporaries)
 
 
+SECTOR = 32  # bytes the memory moves at a time
+
+
+def live_sectors(g, per: int, skip: bool) -> int:
+    """Sectors of ``per`` elements, aligned with the tensor's start, that
+    hold a non-zero element of ``g`` (all of them without the skip)."""
+    n = g.numel()
+    if not skip:
+        return -(-n // per)
+    nz = (g != 0).reshape(-1)
+    whole = n // per * per
+    return int(nz[:whole].view(-1, per).any(1).sum()) + int(bool(nz[whole:].any()))
+
+
 def adam_bank_inputs(seed: int, shape, dtype, sparse: bool):
     """(p, g, m, v) of one bank, made from ``seed``: p and g in ``dtype``,
     g zero at 40% of the elements where ``sparse``, moments f32 (v >= 0)."""
@@ -2000,8 +2079,8 @@ def adam_case(label: str, shape, dtype, skip: bool, grad: bool = True,
 def adam_shapes(tv_shapes: dict, fam: dict) -> list:
     """(label, shape, dtype, skip) of the parameters the train steps update:
     bicycle_single's, bicycle.py's (DCVGO), fern.py's (DMPIGO, f32) and
-    Truck.py's grids, and an f32 MLP weight, as phases 4 to 7 hand them to the
-    optimizer."""
+    Truck.py's, waymo_no_block.py's and grass.py's grids, and an f32 MLP
+    weight, as phases 4 to 8 hand them to the optimizer."""
     import torch
 
     out = [(f"bicycle_single {k}", s, torch.bfloat16, True) for k, s in tv_shapes.items()]
@@ -2012,7 +2091,7 @@ def adam_shapes(tv_shapes: dict, fam: dict) -> list:
 
 def phase_adam(gen, tv_shapes: dict, fam: dict, floor: float) -> dict:
     """``masked_adam`` against its plain version, bit for bit (p, m and v),
-    at every parameter shape of phases 4 to 7, without a grad, and at ragged
+    at every parameter shape of phases 4 to 8, without a grad, and at ragged
     sizes and an unaligned start; then timed at each of those shapes."""
     import torch
 
@@ -2035,7 +2114,7 @@ def phase_adam(gen, tv_shapes: dict, fam: dict, floor: float) -> dict:
     for offsets in ((1, 1, 1, 1), (3, 3, 3, 3), (1, 0, 0, 0), (0, 0, 2, 0)):
         for dtype in (torch.bfloat16, torch.float32):
             adam_case("unaligned", (1, 8 * 1000 + 5), dtype, True, offsets=offsets)
-    lines, total = [], {"ms": 0.0, "plain": 0.0, "bound": 0.0}
+    lines, total = [], {"ms": 0.0, "plain": 0.0, "bound": 0.0, "bound_elementwise": 0.0}
     for label, shape, dtype, skip in shapes:
         banks, bank = shape[0], tuple(shape[1:])
         p, g, m, v = (torch.empty(shape, dtype=dt, device="cuda")
@@ -2044,19 +2123,28 @@ def phase_adam(gen, tv_shapes: dict, fam: dict, floor: float) -> dict:
             for dst, src in zip((p, g, m, v), adam_bank_inputs(2000 + b, bank, dtype, skip)):
                 dst[b] = src
         n, es = p.numel(), p.element_size()
-        # a skip group reads g in full and p, m and v where g is not 0
+        # a skip group reads g in full and p, m and v where g is not 0: by
+        # element, and by the 32-byte DRAM sectors that hold a non-zero g
+        # (p's sectors hold 32 / es elements, m's and v's 8), which is what
+        # the memory moves
         live = int((g != 0).sum()) if skip else n
-        n_bytes = n * es + live * (2 * es + 16)
+        n_bytes_elementwise = n * es + live * (2 * es + 16)
+        n_bytes = SECTOR * (-(-n * es // SECTOR) + 2 * live_sectors(g, SECTOR // es, skip)
+                            + 4 * live_sectors(g, SECTOR // 4, skip))
         ms, call = kernel_ms(lambda: adam.masked_adam(p, m, v, g, 1e-3, 0.9, 0.99, 1e-8, skip))
         plain = time_ms(lambda: adam.masked_adam_plain(p, m, v, g, 1e-3, 0.9, 0.99, 1e-8, skip,
                                                         ADAM_SLICE), iters=3, warmup=1)
         bnd, by = bound_ms(n_bytes, 10 * live)
+        bnd_elementwise = bound_ms(n_bytes_elementwise, 10 * live)[0]
         lines.append(shape_line(f"masked_adam {label} {tuple(shape)} {str(dtype)[6:]} "
                                 f"skip={skip}, {100 * live / n:.0f}% of g non-zero", ms, call,
                                 bnd, floor))
-        log(f"[3]   plain version {plain:.3f} ms; the kernel moves the bound's bytes at "
+        log(f"[3]   plain version {plain:.3f} ms; bound by sectors {bnd:.4f} ms "
+            f"({n_bytes / 1e9:.3f} GB), by elements {bnd_elementwise:.4f} ms "
+            f"({n_bytes_elementwise / 1e9:.3f} GB); the kernel moves the sectors' bytes at "
             f"{n_bytes / ms / 1e6:.0f} GB/s")
-        lines[-1]["plain_ms"] = plain
+        lines[-1].update(plain_ms=plain, bound_ms_elementwise=bnd_elementwise)
+        total["bound_elementwise"] += bnd_elementwise
         total["ms"] += ms
         total["plain"] += plain
         total["bound"] += bnd
@@ -2066,7 +2154,8 @@ def phase_adam(gen, tv_shapes: dict, fam: dict, floor: float) -> dict:
             "source": "unboundednerfpytorch_tpu_torch/csrc/adam.cu",
             "replaces": "unboundednerfpytorch_tpu/optim/masked_adam.py:83", "max_abs_err": 0.0,
             "ms": total["ms"], "plain_ms": total["plain"], "bound_ms": total["bound"],
-            "bound_by": "bytes", "library_ms": None, "floor_ms": floor, "shapes": lines}
+            "bound_by": "bytes", "library_ms": None, "floor_ms": floor,
+            "bound_ms_elementwise": total["bound_elementwise"], "shapes": lines}
 
 
 def full_width_ms(records, first: int, last: int) -> list:
@@ -2347,6 +2436,220 @@ def phase_host_store(tmp: pathlib.Path, card: str) -> list:
     return [counts]
 
 
+# ---------------------------------------------------------------------------
+# the Waymo and free-trajectory layouts (phase 8)
+
+
+def cut_trajectory(call) -> None:
+    """A spy's ``after`` for ``load_everything``: the test split of a waymo
+    capture cut to its val views and the first ``WAYMO_TRAJECTORY`` of the
+    200 trajectory views (which have no images)."""
+    import numpy as np
+
+    d = call.result
+    d["i_test"] = np.concatenate([d["i_val"], d["i_test"][:WAYMO_TRAJECTORY]])
+
+
+def phase_cli_waymo(tmp: pathlib.Path, card: str) -> list:
+    """Phase 8a: waymo_no_block.py through the command line, ``--diffuse``
+    on, on a Waymo-layout capture, then the render of its val views (with
+    PSNR) and of trajectory views (without). Returns the launch counts of
+    the run."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
+    t0 = time.time()
+    kw = dict(seed=4, cam_radius=CAM_RADIUS, sphere_radius=SPHERE_RADIUS)
+    a = synthetic.orbit_scene(WAYMO_TRAIN + WAYMO_VAL, WAYMO_H, WAYMO_W, **kw)
+    b = synthetic.orbit_scene(WAYMO_OTHER, WAYMO_H, WAYMO_W, focal_scale=0.9, **kw)
+    views = {k: np.concatenate([a[k][:WAYMO_TRAIN], b[k], a[k][WAYMO_TRAIN:]])
+             for k in ("images", "poses", "Ks")}
+    cams = [73] * WAYMO_TRAIN + [74] * WAYMO_OTHER + [73] * WAYMO_VAL
+    scene = synthetic.write_waymo_scene(str(tmp / "waymo_ordered_dataset"), views, cams,
+                                        n_val=WAYMO_VAL,
+                                        diffusion={"airplane": 1.0 - a["images"][0]})
+    cfg_file = write_config(tmp / "waymo_cli.py", WAYMO_CONFIG, scene, tmp / "logs",
+                            FAMILY_STEPS)
+    cfg = loader.load_config(cfg_file)
+    fm, ft = cfg.fine_model_and_render, cfg.fine_train
+    full = fg.config_from(fm, (-1.0,) * 3, (1.0,) * 3, fm.num_voxels_density, fm.num_voxels_rgb)
+    banks = 2 * full.fourier_freq_num + 1
+    swap = dict(dict(cfg.diffusion).get("diff_replace", ()))
+    log(f"[8a] config {WAYMO_CONFIG.relative_to(ROOT)}: {banks} banks of {full.world_size_rgb}, "
+        f"k0 {full.k0_dim} channels {full.grid_dtype}, N_rand {ft.N_rand}, sample budget "
+        f"{full.sample_budget}, colour budget {full.color_budget}, weight_freq {ft.weight_freq}, "
+        f"weight_main {ft.weight_main}, pg_scale {ft.pg_scale}, --diffuse with {swap} (its "
+        f"training_ids keep 73_<i> only); capture of {WAYMO_TRAIN} + {WAYMO_OTHER} training "
+        f"views (cameras 73 and 74) and {WAYMO_VAL} val views of {WAYMO_H}x{WAYMO_W} made and "
+        f"written in {time.time() - t0:.1f} s")
+    own = loader.load_config(str(WAYMO_CONFIG)).fine_train
+    log(f"[8a] cuts: {FAMILY_STEPS} steps of the config's {own.N_iters}; its boundaries "
+        f"{list(own.pg_scale)} compressed to {list(CLI_PG_SCALE)}; {WAYMO_TRAIN + WAYMO_OTHER} "
+        f"training and {WAYMO_VAL} val views; the render's test split cut to the val views "
+        f"and {WAYMO_TRAJECTORY} of the 200 trajectory views")
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    n_render = WAYMO_VAL + WAYMO_TRAJECTORY
+    with Spy(common, "load_everything", after=cut_trajectory) as loads, \
+            Spy(ckpt, "save_model") as saves, render_spy() as renders:
+        run_cli(["--config", cfg_file, "--i_print", "1", "--diffuse"])
+    total_s = time.time() - t0
+    load = loads.calls[0]
+    data = load.result
+    if load.kwargs != {"sample_num": -1, "diffuse": True} or \
+            len(data["i_train"]) != WAYMO_TRAIN or len(data["i_val"]) != WAYMO_VAL:
+        raise AssertionError(f"[8a] load_everything {load.kwargs}: {len(data['i_train'])} "
+                             f"training and {len(data['i_val'])} val views")
+    counts = check_cli_run("[8a]", dict(build.LAUNCHES), renders, FAMILY_STEPS, n_render,
+                           (WAYMO_H, WAYMO_W))
+    out = renders.calls[-1].result["test"]
+    if len(out["psnrs"]) != WAYMO_VAL or not np.isfinite(out["psnrs"]).all():
+        raise AssertionError(f"[8a] PSNR of {len(out['psnrs'])} views, want the "
+                             f"{WAYMO_VAL} val views only")
+    records = check_family_records("[8a]", exp_dir, "FourierGrid", full.world_size_rgb)
+    freq = [r["loss_freq"] for r in records if "loss" in r]
+    if len(freq) != FAMILY_STEPS or not all(np.isfinite(f) and f > 0 for f in freq):
+        raise AssertionError(f"[8a] the Fourier loss by step {freq}")
+    params = saves.calls[-1].args[3]
+    want = (banks, *full.world_size_rgb, full.k0_dim)
+    if tuple(params.k0.grid.shape) != want or params.k0.grid.dtype != torch.bfloat16:
+        raise AssertionError(f"[8a] k0 grid {tuple(params.k0.grid.shape)}, want {want} bf16")
+    ms = full_width_ms(records, CLI_PG_SCALE[-1] + 1 + WARMUP_STEPS, FAMILY_STEPS)
+    view_ms = [round(t * 1e3, 1) for t in out["seconds"]]
+    log(f"[8a] waymo_no_block.py on {card}: load_everything {load.seconds:.2f} s; grids {want} "
+        f"bf16 from step {CLI_PG_SCALE[-1]}; ms/step by the loop's clock "
+        f"{[round(t, 1) for t in full_width_ms(records, 2, FAMILY_STEPS)]} (steps 2 on), at full "
+        f"width median {float(np.median(ms)):.1f}; Fourier loss by step "
+        f"{[round(f, 5) for f in freq]}; peak memory of the training "
+        f"{renders.calls[-1].peak_before_gb:.2f} GB, of the whole run "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; render {view_ms} ms/view ("
+        f"{WAYMO_VAL} val views with PSNR {[round(x, 3) for x in out['psnrs']]}, then "
+        f"{WAYMO_TRAJECTORY} of the 200 trajectory views without); final save "
+        f"{saves.calls[-1].seconds:.2f} s; the command {total_s:.1f} s")
+    return counts
+
+
+def phase_free(tmp: pathlib.Path, card: str) -> list:
+    """Phase 8b: grass.py (seven banks of 319^3 in f32, every one of 1064
+    samples a ray, no budget) on a free-trajectory capture loaded as the
+    command line loads it, trained through ``run_train`` without a
+    checkpoint (one with Adam's state would hold 35.4 GB, past what a run
+    may write to the machine's disk beside the other phases; see the note
+    at ``CLI_SAVE_EVERY``), then its test view
+    rendered from the trained parameters as ``run_render`` renders it.
+    Returns the launch counts of the training and of the render."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.render import renderer
+    from unboundednerfpytorch_tpu_torch.train import loop
+
+    t0 = time.time()
+    data = synthetic.orbit_scene(FREE_VIEWS, FREE_H, FREE_W, seed=5, cam_radius=CAM_RADIUS,
+                                 sphere_radius=SPHERE_RADIUS)
+    scene = synthetic.write_free_scene(str(tmp / "free_dataset_grass"), data, factor=FREE_FACTOR)
+    cfg_file = write_config(tmp / "free_cli.py", FREE_CONFIG, scene, tmp / "logs", FAMILY_STEPS)
+    cfg = loader.load_config(cfg_file)
+    t1 = time.time()
+    data = common.load_everything(cfg)
+    load_s = time.time() - t1
+    fm, ft = cfg.fine_model_and_render, cfg.fine_train
+    full = fg.config_from(fm, (-1.0,) * 3, (1.0,) * 3, fm.num_voxels_density, fm.num_voxels_rgb)
+    banks = 2 * full.fourier_freq_num + 1
+    elements = banks * int(np.prod(full.world_size_rgb)) * (full.k0_dim + 1)
+    log(f"[8b] config {FREE_CONFIG.relative_to(ROOT)}: {banks} banks of {full.world_size_rgb}, "
+        f"k0 {full.k0_dim} channels {full.grid_dtype} ({elements / 1e9:.2f} G grid elements), "
+        f"N_rand {ft.N_rand}, {2 * full.n_inner} samples a ray, sample budget "
+        f"{full.sample_budget}, colour budget {full.color_budget}, pg_scale {ft.pg_scale}; "
+        f"capture of {FREE_VIEWS} views stored at {FREE_FACTOR * FREE_H}x{FREE_FACTOR * FREE_W} "
+        f"made and written in {t1 - t0:.1f} s, loaded by load_everything in {load_s:.2f} s "
+        f"({len(data['i_train'])} training views, test views "
+        f"{[int(i) for i in data['i_test']]})")
+    own = loader.load_config(str(FREE_CONFIG)).fine_train
+    log(f"[8b] cuts: {FAMILY_STEPS} steps of the config's {own.N_iters}; its boundaries "
+        f"{list(own.pg_scale)} compressed to {list(CLI_PG_SCALE)}; {FREE_VIEWS} views; no "
+        f"checkpoint; the render of the {len(data['i_test'])} test view through "
+        "render_viewpoints")
+    stamps, peaks = [], []
+
+    def callback(step, metrics):
+        if not np.isfinite(float(metrics["loss"])):  # synchronises the step
+            raise AssertionError(f"[8b] step {step}: loss {float(metrics['loss'])}")
+        stamps.append(time.perf_counter())
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_start = time.perf_counter()
+    family, mcfg, params, _ = loop.run_train(cfg, data, seed=0, device="cuda", log_fn=log,
+                                             log_every=1, callback=callback)
+    counts = dict(build.LAUNCHES)
+    want = {k: v * FAMILY_STEPS for k, v in TRAIN_PER_STEP.items()}
+    want["masked_adam"] = adam_wanted("[8b]", FAMILY_STEPS)
+    if counts != want:
+        raise AssertionError(f"[8b] launch counts {counts} != {want}")
+    want_shape = (banks, *full.world_size_rgb, full.k0_dim)
+    if tuple(params.k0.grid.shape) != want_shape or params.k0.grid.dtype != torch.float32 or \
+            mcfg.sample_budget != 0:
+        raise AssertionError(f"[8b] k0 grid {tuple(params.k0.grid.shape)} "
+                             f"{params.k0.grid.dtype}, want {want_shape} f32 without a budget")
+    dts = np.diff([t_start] + stamps) * 1e3
+    first = CLI_PG_SCALE[-1] + 1 + WARMUP_STEPS
+    step_ms = float(np.median(dts[first - 1:]))
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    log(f"[8b] grass.py on {card}: grids {want_shape} f32 from step {CLI_PG_SCALE[-1]}; ms/step "
+        f"{[round(float(t), 1) for t in dts]}, at full width (steps {first} to {FAMILY_STEPS}) "
+        f"median {step_ms:.1f}; peak memory by step {[round(x, 2) for x in peaks]} GB, the most "
+        f"{max(peaks):.2f} GB of the card's {card_gb:.1f} GB; launches {counts}")
+    if max(peaks) >= card_gb:
+        raise AssertionError(f"[8b] peak {max(peaks)} GB")
+
+    # ---- the test view, as run_render renders it: the family's render cache
+    # (none: the packed table would pass the memory guard) and forward
+    params.requires_grad_(False)
+    cache = loop.FAMILIES[family].build_render_cache(params, mcfg,
+                                                     log_fn=lambda m: log(f"[8b] {m}"))
+    fwd_core = loop.make_forward(mcfg, {"near": float(data["near"]), "far": float(data["far"]),
+                                        "bg": 1.0 if cfg.data.white_bkgd else 0.0,
+                                        "stepsize": fm.stepsize})
+    idx = np.asarray(data["i_test"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(build.LAUNCHES)
+    out = renderer.render_viewpoints(
+        lambda aux, ro, rd, vd: fwd_core(aux[0], ro, rd, vd, None, cache=aux[1]),
+        poses=np.asarray(data["poses"])[idx], HW=np.asarray(data["HW"])[idx],
+        Ks=np.asarray(data["Ks"])[idx], gt_imgs=np.asarray(data["images"])[idx],
+        ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
+        flip_y=cfg.data.flip_y, chunk=RENDER_CHUNK, aux=(params, cache),
+        log_fn=lambda m: log(f"[8b] {m}"), device="cuda")
+    render_counts = launches_since(before)
+    n_chunks = len(idx) * -(-FREE_H * FREE_W // RENDER_CHUNK)
+    if out["rgbs"].shape != (len(idx), FREE_H, FREE_W, 3) or not np.isfinite(out["rgbs"]).all() \
+            or render_counts != {"march_forward": n_chunks}:
+        raise AssertionError(f"[8b] rendered {out['rgbs'].shape}, launches {render_counts}")
+    log(f"[8b] render of {len(idx)} test view of {FREE_H}x{FREE_W} on {card}: "
+        f"{[round(t * 1e3, 1) for t in out['seconds']]} ms/view, psnr "
+        f"{[round(x, 3) for x in out['psnrs']]}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {render_counts}")
+    return [counts, render_counts]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -2433,7 +2736,7 @@ def main(argv=None) -> int:
 
         cfg_file, data = timed("4 scene", phase_scene, tmp, args.views)
         exp_dir = str(tmp / "api")
-        # every optimizer step of phases 4 to 7 counts the launches it should make
+        # every optimizer step of phases 4 to 8 counts the launches it should make
         with Spy(MaskedAdam, "step", before=ADAM_WANTED, keep=False):
             path_counts = [timed("4", phase_train, cfg, args.steps, data, args.profile,
                                  exp_dir, card, tv_shapes)]
@@ -2445,6 +2748,8 @@ def main(argv=None) -> int:
             path_counts += timed("7a", phase_cli_dcvgo, tmp, card)
             path_counts += timed("7b", phase_cli_fern, fern_file, card)
             path_counts += timed("7c", phase_host_store, tmp, card)
+            path_counts += timed("8a", phase_cli_waymo, tmp, card)
+            path_counts += timed("8b", phase_free, tmp, card)
     log(f"seconds by phase: { {k: round(v, 1) for k, v in seconds.items()} }, in all "
         f"{time.time() - t_start:.1f}")
     # a kernel's launches: those of every path that ran it, each path counted
@@ -2456,7 +2761,8 @@ def main(argv=None) -> int:
     log(f"launches by path: train {path_counts[0]}, render {path_counts[1]}, 6a run 1 train "
         f"and render {path_counts[2:4]}, run 2 {path_counts[4:6]}, 6b {path_counts[6:8]}, "
         f"7a DCVGO train and render {path_counts[8:10]}, 7b DMPIGO {path_counts[10:12]}, "
-        f"7c host store train {path_counts[12]}, probes {probe_counts}")
+        f"7c host store train {path_counts[12]}, 8a waymo train and render "
+        f"{path_counts[13:15]}, 8b free {path_counts[15:17]}, probes {probe_counts}")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,9 +7,10 @@ experiment directory, and program dispatch. Ported programs: ``train`` (then
 ``render``, as the JAX command line does), ``render`` (or ``--render_only``),
 ``export_bbox``, ``export_baked`` and ``gen_trace``. The programs ``sfm``,
 ``tune_pose``, ``linemod_eval`` and ``export_coarse`` and the options
-``--num_per_block`` > 0, ``--block_parallel``, ``--grid_parallel`` > 1 and
-``--diffuse`` raise ``NotImplementedError`` naming the ROADMAP item they
-wait for.
+``--num_per_block`` > 0, ``--block_parallel`` and ``--grid_parallel`` > 1
+raise ``NotImplementedError`` naming the ROADMAP item they wait for.
+``--sample_num`` and ``--diffuse`` reach the waymo and mega loaders, as in
+the JAX command line.
 
 Like every entry point of the port it runs on the GPU and raises without
 one; :func:`main` takes ``device="cpu"`` from Python for the plain PyTorch
@@ -78,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--diffuse", action="store_true",
                    help="swap training images for diffusion-generated "
                         "replacements per the config's `diffusion` dict "
-                        "(waymo; refused: not ported)")
+                        "(waymo)")
     p.add_argument("--render_only", action="store_true",
                    help="do not optimize; reload weights and render "
                         "(run_FourierGrid.py:45) — alias for --program render")
@@ -135,7 +136,7 @@ def build_parser() -> argparse.ArgumentParser:
 # programs and options of the JAX command line that wait for a later slice of the
 # port, each with the ROADMAP item it waits for
 REFUSED_PROGRAMS = {
-    "sfm": "the COLMAP run, data/colmap.py (ROADMAP A15)",
+    "sfm": "the COLMAP run, data/colmap.py (ROADMAP A15.7)",
     "tune_pose": "camera-pose refinement, train/pose_tune.py (ROADMAP A17)",
     "linemod_eval": "the linemod loader and utils/pose_eval.py (ROADMAP A17)",
     "export_coarse": "the coarse stage (ROADMAP A18a)",
@@ -144,7 +145,6 @@ REFUSED_OPTIONS = {
     "num_per_block": (lambda v: v > 0, "block training and merge_blocks (ROADMAP A14)"),
     "block_parallel": (bool, "block-parallel training (ROADMAP A14)"),
     "grid_parallel": (lambda v: v > 1, "grids sharded over several devices (ROADMAP A18b)"),
-    "diffuse": (bool, "the diffusion-replaced waymo images (ROADMAP A15)"),
 }
 
 
@@ -168,7 +168,7 @@ def main(argv=None, device=None) -> int:
     dev = resolve_device(device)
     cfg = load_config(args.config, visualize_poses=args.visualize_poses)
     np.random.seed(args.seed)
-    data_dict = load_everything(cfg, sample_num=args.sample_num)
+    data_dict = load_everything(cfg, sample_num=args.sample_num, diffuse=args.diffuse)
 
     exp_dir = os.path.join(cfg.basedir, cfg.expname)
     os.makedirs(exp_dir, exist_ok=True)
@@ -176,7 +176,8 @@ def main(argv=None, device=None) -> int:
         for k in sorted(vars(args)):
             f.write(f"{k} = {getattr(args, k)}\n")
 
-    if args.save_train_imgs:
+    if args.save_train_imgs and data_dict.get("images") is not None:
+        # the training images as loaded: resized, or swapped by --diffuse
         from unboundednerfpytorch_tpu_torch.data.png import write_png
 
         outdir = os.path.join(exp_dir, "train_imgs")

@@ -1,12 +1,17 @@
 """Dataset-type dispatch to the ``data_dict`` of the trainer and renderer.
 
-The port's copy of ``unboundednerfpytorch_tpu/data/common.py`` for the two
-layouts of the ``*_single`` configs: ``llff`` (Mip-NeRF-360,
-``configs/nerf_unbounded``) and ``nerfpp`` (Tanks & Temples,
-``configs/tankstemple_unbounded``). The ``data_dict`` holds numpy arrays on
-the host, keyed HW, Ks, near, far, near_clip, i_train, i_val, i_test, poses,
-render_poses, images, irregular_shape. Every other ``dataset_type`` raises
-``NotImplementedError`` naming the ROADMAP item it waits for.
+The port's copy of ``unboundednerfpytorch_tpu/data/common.py`` for seven
+layouts: ``llff`` (Mip-NeRF-360 and LLFF, ``configs/nerf_unbounded``,
+``configs/llff``), ``nerfpp`` (``configs/tankstemple_unbounded``, ``lf``),
+``tankstemple`` (``configs/tankstemple``), ``free`` (F2-NeRF,
+``configs/free_dataset``), ``nerfstudio`` (``configs/nerf_studio``),
+``waymo`` and ``mega`` (``configs/waymo``, ``configs/mega``; routed by
+:func:`load_everything`). The ``data_dict`` holds numpy arrays on the host,
+keyed HW, Ks, near, far, near_clip, i_train, i_val, i_test, poses,
+render_poses, images, irregular_shape. For waymo and mega ``i_test`` is a
+generated trajectory without images: its indices lie past the end of
+``images``. Every other ``dataset_type`` raises ``NotImplementedError``
+naming the ROADMAP item it waits for.
 """
 
 from __future__ import annotations
@@ -15,9 +20,9 @@ import numpy as np
 
 from unboundednerfpytorch_tpu_torch.configs.schema import DataConfig, ExpConfig
 
-# dataset types of the JAX package that the port does not load yet
-NOT_PORTED = ("blender", "blendedmvs", "tankstemple", "nsvf", "deepvoxels", "free",
-              "nerfstudio", "co3d", "linemod", "waymo", "mega")
+# dataset types of the JAX package that the port does not load yet: they
+# serve the DVGO configs, which wait for the coarse stage
+NOT_PORTED = ("blender", "blendedmvs", "nsvf", "deepvoxels", "co3d", "linemod")
 
 
 def inward_nearfar_heuristic(cam_o: np.ndarray, ratio: float = 0.05):
@@ -36,13 +41,13 @@ def _composite_bkgd(images: np.ndarray, white_bkgd: bool) -> np.ndarray:
 
 def _refuse(dt) -> None:
     if dt in NOT_PORTED:
-        raise NotImplementedError(f"dataset_type {dt!r} is not ported yet (ROADMAP A15)")
+        raise NotImplementedError(f"dataset_type {dt!r} is not ported yet (ROADMAP A18a)")
     raise NotImplementedError(f"unknown dataset type {dt!r}")
 
 
 def load_common_data(data_cfg: DataConfig) -> dict:
+    from unboundednerfpytorch_tpu_torch.data import extra_loaders, loaders
     from unboundednerfpytorch_tpu_torch.data import llff as llff_mod
-    from unboundednerfpytorch_tpu_torch.data import loaders
 
     K = None
     depths = None
@@ -71,6 +76,48 @@ def load_common_data(data_cfg: DataConfig) -> dict:
         i_train = np.array(
             [i for i in np.arange(int(images.shape[0])) if i not in i_test]
         )
+        if data_cfg.ndc:
+            near, far = 0.0, 1.0
+        else:
+            near_clip = max(float(bds.min()) * 0.9, 0)
+            near = 0
+            far = inward_nearfar_heuristic(poses[i_train, :3, 3])[1]
+    elif dt == "tankstemple":
+        images, poses, render_poses, hwf, K, i_split = loaders.load_tankstemple_data(
+            data_cfg.datadir, movie_render_kwargs=dict(data_cfg.movie_render_kwargs))
+        i_train, i_val, i_test = i_split
+        near_clip, far = inward_nearfar_heuristic(poses[np.asarray(i_train), :3, 3], ratio=0.02)
+        near = 0
+        images = _composite_bkgd(images, data_cfg.white_bkgd)
+    elif dt == "free":
+        images, depths, Ks_arr, poses, bds, render_poses, i_test = extra_loaders.load_free_data(
+            data_cfg.datadir, data_cfg.factor, llffhold=data_cfg.llffhold,
+            training_ids=list(data_cfg.training_ids) or None)
+        i_val = i_test
+        i_train = np.array([i for i in np.arange(int(images.shape[0])) if i not in i_test])
+        near_clip = max(float(bds.min()) * 0.9, 0)
+        near = 0
+        far = 1.0 if data_cfg.ndc else inward_nearfar_heuristic(poses[i_train, :3, 3])[1]
+        # per-view intrinsics and no hwf: returned here, as the JAX package does
+        return dict(
+            hwf=None, HW=np.array([im.shape[:2] for im in images]), Ks=Ks_arr, near=near,
+            far=far, near_clip=near_clip, i_train=i_train, i_val=np.asarray(i_val),
+            i_test=np.asarray(i_test), poses=poses[:, :3, :4],
+            render_poses=np.asarray(render_poses)[:, :3, :4],
+            images=images.astype(np.float32), depths=depths,
+            irregular_shape=images.dtype is np.dtype("object"),
+        )
+    elif dt == "nerfstudio":
+        images, depths, poses, bds, render_poses, i_test = extra_loaders.load_nerfstudio_data(
+            data_cfg.datadir, data_cfg.factor, dvgohold=data_cfg.dvgohold)
+        hwf = poses[0, :3, -1]
+        poses = poses[:, :3, :4]
+        if not isinstance(i_test, list):
+            i_test = [i_test]
+        if data_cfg.llffhold > 0:
+            i_test = np.arange(images.shape[0])[:: data_cfg.llffhold]
+        i_val = i_test
+        i_train = np.array([i for i in np.arange(int(images.shape[0])) if i not in i_test])
         if data_cfg.ndc:
             near, far = 0.0, 1.0
         else:
@@ -119,13 +166,37 @@ def load_common_data(data_cfg: DataConfig) -> dict:
     )
 
 
-def load_everything(cfg: ExpConfig, sample_num: int = -1) -> dict:
-    """The ``data_dict`` of ``cfg.data``. ``sample_num`` truncates only the
-    waymo and mega datasets in the JAX package, neither of which the port
-    loads yet: it is accepted and has no effect here, as there on the other
-    types."""
-    del sample_num
-    data_dict = load_common_data(cfg.data)
+def load_everything(cfg: ExpConfig, sample_num: int = -1, diffuse: bool = False) -> dict:
+    """The ``data_dict`` of ``cfg.data``: waymo and mega through their own
+    loaders, the other types through :func:`load_common_data`.
+
+    ``sample_num`` > 0 keeps that many views (every ``sample_interval``-th)
+    of a waymo or mega capture and is ignored elsewhere, as in the JAX
+    package. ``diffuse`` swaps a waymo capture's training images for the
+    diffusion-made ones the config's ``diffusion`` table names
+    (``diff_replace``: {image stem: replacement stem}, read from
+    ``<datadir>/<diff_root>/``)."""
+    d = cfg.data
+    if d.dataset_type == "waymo":
+        from unboundednerfpytorch_tpu_torch.data.waymo import load_waymo_data
+
+        diffusion = dict(cfg.diffusion or ())
+        data_dict = load_waymo_data(
+            d.datadir, training_ids=list(d.training_ids) or None, sample_num=sample_num,
+            sample_cam=d.sample_cam if d.sample_cam >= 0 else None,
+            sample_interval=d.sample_interval, test_rotate_angle=d.test_rotate_angle,
+            near=d.near, far=d.far, near_clip=d.near_clip,
+            diffuse_map=dict(diffusion.get("diff_replace", ()) or ()) if diffuse else None,
+            diff_root=str(diffusion.get("diff_root", "diffusion")))
+    elif d.dataset_type == "mega":
+        from unboundednerfpytorch_tpu_torch.data.mega import load_mega_data
+
+        data_dict = load_mega_data(
+            d.datadir, sample_num=sample_num,
+            sample_cam=d.sample_cam if d.sample_cam >= 0 else None,
+            sample_interval=d.sample_interval, near=d.near, far=d.far, near_clip=d.near_clip)
+    else:
+        data_dict = load_common_data(d)
     keep = [
         "HW", "Ks", "near", "far", "near_clip", "i_train", "i_val", "i_test",
         "poses", "render_poses", "images", "irregular_shape",

@@ -30,8 +30,8 @@ def _cv2():
     try:
         import cv2
     except ImportError as e:
-        raise RuntimeError("resizing the images of an LLFF capture needs the cv2 package; "
-                           "or ship the images_<factor>/ directory with the capture") from e
+        raise RuntimeError("resizing a capture's images needs the cv2 package (an LLFF "
+                           "capture may ship its images_<factor>/ directory instead)") from e
     return cv2
 
 

@@ -1,11 +1,18 @@
-"""The NeRF++ loader (Tanks & Temples unbounded, light fields).
+"""The NeRF++ and Tanks & Temples loaders.
 
-The port's copy of the NeRF++ part of
-``unboundednerfpytorch_tpu/data/loaders.py``: ``train/`` and ``test/``
-directories, each with ``intrinsics/*.txt`` and ``pose/*.txt`` (4x4
-matrices, one a view) and ``rgb/*.png``; an optional ``camera_path/`` for the
-video poses. The other formats of that module (blender, tankstemple, nsvf,
-blendedmvs, deepvoxels) are refused by ``data.common.load_common_data``.
+The port's copy of two parts of ``unboundednerfpytorch_tpu/data/loaders.py``:
+
+- NeRF++ (Tanks & Temples unbounded, light fields): ``train/`` and ``test/``
+  directories, each with ``intrinsics/*.txt`` and ``pose/*.txt`` (4x4
+  matrices, one a view) and ``rgb/*.png``; an optional ``camera_path/`` for
+  the video poses;
+- Tanks & Temples (the DVGO release, ``configs/tankstemple``): ``pose/*.txt``
+  and ``rgb/*.png`` side by side, the first character of an image's name
+  its split (0 train, 1 test), one ``intrinsics.txt``, and a circular
+  fly-through around the cameras' centroid.
+
+The other formats of that module (blender, nsvf, blendedmvs, deepvoxels)
+are refused by ``data.common.load_common_data``.
 """
 
 from __future__ import annotations
@@ -96,4 +103,58 @@ def load_nerfpp_data(basedir: str, rerotate: bool = True, training_ids=None):
         render_poses = poses[i_split[1]]
     if rerotate:
         poses, render_poses = rerotate_poses(poses, render_poses)
+    return imgs, poses, render_poses, [H, W, focal], K, i_split
+
+
+def _normalize(x):
+    return x / np.linalg.norm(x)
+
+
+def _load_pose_rgb_pairs(basedir: str, n_splits: int):
+    """(images, poses, i_split) of ``pose/*.txt`` and ``rgb/*png`` in sorted
+    order, each view in the split its image name's first character gives."""
+    pose_paths = sorted(glob.glob(os.path.join(basedir, "pose", "*txt")))
+    rgb_paths = sorted(glob.glob(os.path.join(basedir, "rgb", "*png")))
+    all_poses, all_imgs = [], []
+    i_split = [[] for _ in range(n_splits)]
+    for i, (pp, rp) in enumerate(zip(pose_paths, rgb_paths)):
+        all_poses.append(np.loadtxt(pp).astype(np.float32))
+        all_imgs.append((_imread(rp) / 255.0).astype(np.float32))
+        i_split[int(os.path.split(rp)[-1][0])].append(i)
+    return np.stack(all_imgs), np.stack(all_poses), i_split
+
+
+def load_tankstemple_data(basedir: str, movie_render_kwargs: dict | None = None):
+    """(images, poses, render_poses, [H, W, focal], K, [i_train, i_val,
+    i_test]); the test views are the validation views, the render path 200
+    poses on a circle around the cameras' centroid, shaped by
+    ``movie_render_kwargs`` (scale_r, shift_x/y/z, pitch_deg, flip_up_vec)."""
+    mrk = dict(movie_render_kwargs or {})
+    imgs, poses, i_split = _load_pose_rgb_pairs(basedir, 2)
+    i_split.append(i_split[-1])
+    H, W = imgs[0].shape[:2]
+    K = np.loadtxt(os.path.join(basedir, "intrinsics.txt"))
+    focal = float(K[0, 0])
+
+    centroid = poses[:, :3, 3].mean(0)
+    radcircle = mrk.get("scale_r", 1.0) * np.linalg.norm(poses[:, :3, 3] - centroid, axis=-1).mean()
+    centroid[0] += mrk.get("shift_x", 0)
+    centroid[1] += mrk.get("shift_y", 0)
+    centroid[2] += mrk.get("shift_z", 0)
+    target_y = radcircle * np.tan(mrk.get("pitch_deg", 0) * np.pi / 180)
+    up = np.array([0, -1.0, 0]) if mrk.get("flip_up_vec") else np.array([0, 1.0, 0])
+
+    render_poses = []
+    for th in np.linspace(0.0, 2.0 * np.pi, 200):
+        camorigin = np.array([radcircle * np.cos(th), 0, radcircle * np.sin(th)])
+        vec2 = _normalize(camorigin)
+        vec0 = _normalize(np.cross(vec2, up))
+        lookat = -vec2
+        lookat[1] = target_y
+        vec2 = _normalize(lookat)
+        vec1 = _normalize(np.cross(vec2, vec0))
+        render_poses.append(np.stack([vec0, vec1, vec2, camorigin + centroid], 1))
+    render_poses = np.stack(render_poses, 0)
+    render_poses = np.concatenate(
+        [render_poses, np.broadcast_to(poses[0, :3, -1:], render_poses[:, :3, -1:].shape)], -1)
     return imgs, poses, render_poses, [H, W, focal], K, i_split

@@ -10,11 +10,14 @@ origin inside a far sky: each pixel's colour is found in closed form
 captures of ``configs/llff``): cameras on a small plane, all looking down
 -z at a ball before a textured wall. :func:`write_llff_scene` and
 :func:`write_nerfpp_scene` put such scenes on disk in the layouts the
-loaders read.
+loaders read; :func:`write_tankstemple_scene`, :func:`write_free_scene`,
+:func:`write_nerfstudio_scene`, :func:`write_waymo_scene` and
+:func:`write_mega_scene` in the other five.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -51,19 +54,20 @@ def _sky_color(d: np.ndarray, phase: np.ndarray) -> np.ndarray:
 
 def orbit_scene(n_views: int = 20, H: int = 411, W: int = 618, *, seed: int = 0,
                 sphere_radius: float = 0.8, cam_radius: float = 3.0,
-                near_clip: float = 0.5, n_test: int = 0) -> dict:
+                near_clip: float = 0.5, n_test: int = 0, focal_scale: float = 0.8) -> dict:
     """A reference-shaped data_dict (numpy) of ``n_views`` training views and
     ``n_test`` held-out views (``i_test``), which sit half-way between
     training cameras on the same orbit; the training views do not depend on
     ``n_test``.
 
     The seed sets the texture phases and the orbit's starting angle.
-    ``sphere_radius`` is the world radius of the object at the origin.
+    ``sphere_radius`` is the world radius of the object at the origin; the
+    focal length is ``focal_scale * W``.
     """
     rng = np.random.default_rng(seed)
     phase = rng.uniform(0.0, 2.0 * np.pi, 3)
     theta0 = rng.uniform(0.0, 2.0 * np.pi)
-    focal = 0.8 * W
+    focal = focal_scale * W
     K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]], dtype=np.float32)
     i, j = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5, indexing="xy")
     dirs_cam = np.stack([(i - W / 2) / focal, -(j - H / 2) / focal, -np.ones_like(i)], -1)
@@ -265,4 +269,163 @@ def write_nerfpp_scene(basedir: str, data: dict) -> str:
                        (c2w @ to_cv).reshape(1, -1))
             write_png(os.path.join(basedir, split, "rgb", f"{n:06d}.png"),
                       (np.clip(data["images"][i], 0.0, 1.0) * 255 + 0.5).astype(np.uint8))
+    return basedir
+
+
+# camera axes of the OpenCV convention (x right, y down, looking along +z)
+# from those of the OpenGL one the scenes are made in
+TO_OPENCV = np.diag([1.0, -1.0, -1.0, 1.0])
+
+
+def _to8(img) -> np.ndarray:
+    return (np.clip(np.asarray(img), 0.0, 1.0) * 255 + 0.5).astype(np.uint8)
+
+
+def _upsampled(img, factor: int) -> np.ndarray:
+    """The 8-bit image at ``factor`` times its size (each pixel repeated),
+    which an area resize by ``factor`` turns back into it exactly."""
+    return np.repeat(np.repeat(_to8(img), factor, 0), factor, 1)
+
+
+def _c2w(pose, opencv: bool) -> np.ndarray:
+    c2w = np.eye(4)
+    c2w[:3] = np.asarray(pose, np.float64)[:3]
+    return c2w @ TO_OPENCV if opencv else c2w
+
+
+def write_tankstemple_scene(basedir: str, data: dict) -> str:
+    """The DVGO release's Tanks & Temples layout: ``pose/`` (4x4 OpenCV
+    poses as text) and ``rgb/`` (PNG), the first character of a name the
+    view's split (0: ``i_train``, 1: ``i_test``), and ``intrinsics.txt``
+    (the first view's 3x3 K, which every view shares)."""
+    from unboundednerfpytorch_tpu_torch.data.png import write_png
+
+    for sub in ("pose", "rgb"):
+        os.makedirs(os.path.join(basedir, sub), exist_ok=True)
+    for split, ids in ((0, data["i_train"]), (1, data["i_test"])):
+        for n, i in enumerate(np.asarray(ids)):
+            name = f"{split}_{n:04d}"
+            np.savetxt(os.path.join(basedir, "pose", name + ".txt"),
+                       _c2w(data["poses"][i], True))
+            write_png(os.path.join(basedir, "rgb", name + ".png"), _to8(data["images"][i]))
+    np.savetxt(os.path.join(basedir, "intrinsics.txt"), np.asarray(data["Ks"][0], np.float64))
+    return basedir
+
+
+def write_free_scene(basedir: str, data: dict, factor: int = 2,
+                     bounds=(0.5, 100.0)) -> str:
+    """The free-trajectory (F2-NeRF) layout: ``cams_meta.npy``, a row a
+    view of its 3x4 OpenGL pose, its 3x3 K at full resolution, 4 distortion
+    terms (0) and its near and far ``bounds``, and ``images/`` at full
+    resolution (``factor`` times the data's, each pixel repeated, so the
+    loader's area resize gives the data's 8-bit images back)."""
+    from unboundednerfpytorch_tpu_torch.data.png import write_png
+
+    os.makedirs(os.path.join(basedir, "images"), exist_ok=True)
+    rows = []
+    for i, (img, pose, K) in enumerate(zip(data["images"], data["poses"], data["Ks"])):
+        write_png(os.path.join(basedir, "images", f"{i:05d}.png"), _upsampled(img, factor))
+        K_full = np.asarray(K, np.float64).copy()
+        K_full[:2, :3] *= factor
+        rows.append(np.concatenate([np.asarray(pose, np.float64)[:3, :4].reshape(-1),
+                                    K_full.reshape(-1), np.zeros(4), bounds]))
+    np.save(os.path.join(basedir, "cams_meta.npy"), np.stack(rows))
+    return basedir
+
+
+def write_nerfstudio_scene(basedir: str, data: dict, factor: int = 4) -> str:
+    """The nerfstudio layout: ``transforms.json`` (``fl_x`` at full
+    resolution, each frame's ``file_path`` and 4x4 OpenGL
+    ``transform_matrix``) and ``images/`` at full resolution (``factor``
+    times the data's, each pixel repeated). Every view shares the first
+    view's focal length, with the principal point at the centre."""
+    from unboundednerfpytorch_tpu_torch.data.png import write_png
+
+    os.makedirs(os.path.join(basedir, "images"), exist_ok=True)
+    frames = []
+    for i, (img, pose) in enumerate(zip(data["images"], data["poses"])):
+        name = f"images/frame_{i:05d}.png"
+        write_png(os.path.join(basedir, name), _upsampled(img, factor))
+        frames.append({"file_path": name, "transform_matrix": _c2w(pose, False).tolist()})
+    with open(os.path.join(basedir, "transforms.json"), "w") as f:
+        json.dump({"fl_x": float(data["Ks"][0][0][0]) * factor, "frames": frames}, f)
+    return basedir
+
+
+def _metadata_split(views) -> dict:
+    """A split of ``metadata.json`` from (file_path, c2w, K, H, W, cam_idx)
+    tuples."""
+    keys = ("file_path", "cam2world", "K", "width", "height", "position", "cam_idx",
+            "equivalent_exposure")
+    split = {k: [] for k in keys}
+    for path, c2w, K, h, w, cam in views:
+        for k, v in zip(keys, (path, c2w.tolist(), np.asarray(K, np.float64).tolist(), int(w),
+                               int(h), c2w[:3, 3].tolist(), int(cam), 1.0)):
+            split[k].append(v)
+    return split
+
+
+def _write_metadata_scene(basedir: str, data: dict, cam_idxs, n_val: int, names) -> dict:
+    """``metadata.json`` and the images of a Waymo-layout capture: the last
+    ``n_val`` views of ``data`` are the val split, the others the train
+    split, named by ``names(split, k, cam_idx)``; poses in the OpenCV
+    convention. Returns the metadata."""
+    from unboundednerfpytorch_tpu_torch.data.png import write_png
+
+    n = len(data["images"])
+    meta = {}
+    for split, ids in (("train", range(n - n_val)), ("val", range(n - n_val, n))):
+        os.makedirs(os.path.join(basedir, f"images_{split}"), exist_ok=True)
+        views = []
+        for k, i in enumerate(ids):
+            path = f"images_{split}/{names(split, k, cam_idxs[i])}.png"
+            img = _to8(data["images"][i])
+            write_png(os.path.join(basedir, path), img)
+            views.append((path, _c2w(data["poses"][i], True), data["Ks"][i], *img.shape[:2],
+                          cam_idxs[i]))
+        meta[split] = _metadata_split(views)
+    with open(os.path.join(basedir, "metadata.json"), "w") as f:
+        json.dump(meta, f)
+    return meta
+
+
+def write_waymo_scene(basedir: str, data: dict, cam_idxs, n_val: int = 2,
+                      diffusion: dict | None = None) -> str:
+    """The Waymo (Block-NeRF) layout: ``metadata.json`` with a train and a
+    val split (the last ``n_val`` views of ``data``), the views as
+    ``images_train/<cam>_<k>.png`` (the k-th training view of camera
+    ``<cam>``, the names ``training_ids`` select) and
+    ``images_val/<k>.png``. ``cam_idxs`` gives each view's camera; the
+    poses are stored in the OpenCV convention (the configs set
+    ``inverse_y``). ``diffusion`` ({name: image}) writes
+    ``diffusion/<name>.png``, the replacements ``--diffuse`` reads."""
+    from unboundednerfpytorch_tpu_torch.data.png import write_png
+
+    counts = {}
+
+    def names(split, k, cam):
+        if split == "val":
+            return f"{k}"
+        counts[cam] = counts.get(cam, -1) + 1
+        return f"{cam}_{counts[cam]}"
+
+    _write_metadata_scene(basedir, data, list(cam_idxs), n_val, names)
+    if diffusion:
+        os.makedirs(os.path.join(basedir, "diffusion"), exist_ok=True)
+        for name, img in diffusion.items():
+            write_png(os.path.join(basedir, "diffusion", f"{name}.png"), _to8(img))
+    return basedir
+
+
+def write_mega_scene(basedir: str, data: dict, n_val: int = 2, odd: dict | None = None) -> str:
+    """The Mega-NeRF layout (that of :func:`write_waymo_scene`, one camera);
+    ``odd``, a data_dict of one view of another image size, is added to the
+    train split: the loader keeps the most common size only, so it must
+    drop it."""
+    n_train = len(data["images"]) - n_val
+    if odd is not None:
+        data = {k: list(data[k][:n_train]) + list(odd[k][:1]) + list(data[k][n_train:])
+                for k in ("images", "poses", "Ks")}
+    _write_metadata_scene(basedir, data, [0] * len(data["images"]), n_val,
+                          lambda split, k, cam: f"{k:06d}")
     return basedir

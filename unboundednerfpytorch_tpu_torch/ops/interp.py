@@ -55,37 +55,61 @@ def trilerp_corners(xyz01: torch.Tensor, dims: tuple):
     return torch.stack(idx_list, -1), torch.stack(w_list, -1)
 
 
+# the gather runs over slices of samples whose [samples, K, C] f32 block
+# stays under this many bytes: an unbudgeted full-width step (7 banks of
+# 319^3, 4096 rays of 1064 samples) would otherwise hold 11.7 GB of gathered
+# rows in the forward and as many of products in the backward
+SLICE_BYTES = 1 << 30
+
+
+def _slices(n: int, k: int, c: int) -> list:
+    step = max(1, SLICE_BYTES // (4 * k * c))
+    return [slice(i, min(i + step, n)) for i in range(0, n, step)] or [slice(0, 0)]
+
+
 class GatherTrilerp(torch.autograd.Function):
     """out[m] = sum_k w[m, k] * table[idx[m, k]] in f32 (table may be bf16).
 
     table [T, C]; idx [M, K] int64; w [M, K] f32. Differentiable w.r.t.
-    ``table`` (index-add backward) and ``w``.
+    ``table`` (index-add backward) and ``w``. Both directions run over
+    slices of the M samples (``SLICE_BYTES``), each sample's sum in the same
+    order whatever the slicing.
     """
 
     @staticmethod
     def forward(ctx, table, idx, w):
-        rows = table.index_select(0, idx.reshape(-1)).reshape(*idx.shape, table.shape[-1])
+        K, C = idx.shape[-1], table.shape[-1]
         out_dtype = torch.promote_types(table.dtype, torch.float32)
-        out = None
-        for k in range(idx.shape[-1]):
-            contrib = rows[:, k].to(out_dtype) * w[:, k : k + 1].to(out_dtype)
-            out = contrib if out is None else out + contrib
+        parts = []
+        for sl in _slices(idx.shape[0], K, C):
+            rows = table.index_select(0, idx[sl].reshape(-1)).reshape(-1, K, C)
+            out = None
+            for k in range(K):
+                contrib = rows[:, k].to(out_dtype) * w[sl, k : k + 1].to(out_dtype)
+                out = contrib if out is None else out + contrib
+            parts.append(out)
         ctx.save_for_backward(table, idx, w)
-        return out
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     @staticmethod
     def backward(ctx, grad_out):
         table, idx, w = ctx.saved_tensors
+        K, C = idx.shape[-1], table.shape[-1]
+        slices = _slices(idx.shape[0], K, C)
         g_table = g_w = None
         if ctx.needs_input_grad[0]:
             acc_dtype = torch.promote_types(table.dtype, torch.float32)
             acc = torch.zeros(table.shape, dtype=acc_dtype, device=table.device)
-            contrib = grad_out.to(acc_dtype)[:, None, :] * w.to(acc_dtype)[..., None]
-            acc.index_add_(0, idx.reshape(-1), contrib.reshape(-1, table.shape[-1]))
+            for sl in slices:
+                contrib = grad_out[sl].to(acc_dtype)[:, None, :] * w[sl].to(acc_dtype)[..., None]
+                acc.index_add_(0, idx[sl].reshape(-1), contrib.reshape(-1, C))
             g_table = acc.to(table.dtype)
         if ctx.needs_input_grad[2]:
-            rows = table.index_select(0, idx.reshape(-1)).reshape(*idx.shape, table.shape[-1])
-            g_w = (rows.to(grad_out.dtype) * grad_out[:, None, :]).sum(-1).to(w.dtype)
+            parts = []
+            for sl in slices:
+                rows = table.index_select(0, idx[sl].reshape(-1)).reshape(-1, K, C)
+                parts.append((rows.to(grad_out.dtype) * grad_out[sl, None, :]).sum(-1))
+            g_w = torch.cat(parts).to(w.dtype)
         return g_table, None, g_w
 
 

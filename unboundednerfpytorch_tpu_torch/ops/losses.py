@@ -1,7 +1,7 @@
 """Training losses.
 
 Counterpart of ``unboundednerfpytorch_tpu/ops/losses.py``: photometric MSE,
-background entropy, per-point rgb loss, near-clip and the ray distortion
+the Fourier-spectrum MSE, background entropy, per-point rgb loss, near-clip and the ray distortion
 loss (prefix-sum form), over fixed-shape ``[N_rays, N_samples]`` tensors;
 autograd supplies the backward.
 """
@@ -17,6 +17,13 @@ def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 def mse2psnr(x: torch.Tensor) -> torch.Tensor:
     return -10.0 * torch.log10(x)
+
+
+def fourier_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """MSE between the real parts of the FFTs along the last axis (each
+    pixel's colour): ``torch.fft.fft``, as the JAX package takes
+    ``jnp.fft.fft``; only the real part enters the loss."""
+    return torch.mean((torch.fft.fft(pred, dim=-1).real - torch.fft.fft(target, dim=-1).real) ** 2)
 
 
 def entropy_last(alphainv_last: torch.Tensor) -> torch.Tensor:

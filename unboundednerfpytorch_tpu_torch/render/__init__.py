@@ -1,7 +1,11 @@
 """Rendering and evaluation: ``run_render`` and the video writer.
 
 Counterpart of ``unboundednerfpytorch_tpu/render/__init__.py`` for the
-FourierGrid, DCVGO and DMPIGO families.
+FourierGrid, DCVGO and DMPIGO families. One departure: a view whose index
+lies past the end of ``images`` (the generated test trajectories of the
+waymo and mega loaders) is rendered without ground truth and gets no
+metrics, where the JAX package's ``images[i_test]`` raises an
+``IndexError``; views that have an image keep their metrics.
 """
 
 from __future__ import annotations
@@ -46,6 +50,14 @@ _NOT_PORTED = {
                       "device (ROADMAP A18b records the decision)",
     "style_root": "ARF stylization (ROADMAP A18b)",
 }
+
+
+def _ground_truth(images, idx):
+    """The image of each view of ``idx``, None for a view past the end of
+    ``images``; None for no view with an image."""
+    if images is None or not (idx < len(images)).any():
+        return None
+    return [images[i] if i < len(images) else None for i in idx]
 
 
 def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) -> dict:
@@ -127,8 +139,7 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
             poses = np.asarray(data_dict["poses"])[idx]
             HW = np.asarray(data_dict["HW"])[idx]
             Ks = np.asarray(data_dict["Ks"])[idx]
-            gt = (np.asarray(data_dict["images"])[idx]
-                  if data_dict.get("images") is not None else None)
+            gt = _ground_truth(data_dict.get("images"), idx)
         is_video = name == "video"
         out = render_viewpoints(
             fwd, poses=poses, HW=HW, Ks=Ks, gt_imgs=gt,

@@ -118,8 +118,9 @@ def render_viewpoints(
 ):
     """Render a split of poses and (optionally) evaluate against ground truth.
 
-    ``render_factor``: downsample H/W/K by this factor for fast previews; GT
-    metrics are skipped (sizes differ). ``render_video_flipy`` /
+    ``gt_imgs``: one image a pose, or None for a pose without one (its view
+    gets no metrics). ``render_factor``: downsample H/W/K by this factor for
+    fast previews; GT metrics are skipped (sizes differ). ``render_video_flipy`` /
     ``render_video_rot90``: post-transforms of the rendered stack.
     ``image_fn(H, W, K, c2w)``: whole-image override.
 
@@ -152,7 +153,7 @@ def render_viewpoints(
         rgbs.append(rgb)
         depths.append(depth)
         bgmaps.append(bgw)
-        if gt_imgs is not None:
+        if gt_imgs is not None and gt_imgs[i] is not None:
             gt = np.asarray(gt_imgs[i])
             psnrs.append(M.psnr(rgb, gt))
             if eval_ssim:
@@ -174,7 +175,7 @@ def render_viewpoints(
         rgbs = [np.rot90(r, k=k, axes=(0, 1)) for r in rgbs]
         depths = [np.rot90(d, k=k, axes=(0, 1)) for d in depths]
         bgmaps = [np.rot90(b, k=k, axes=(0, 1)) for b in bgmaps]
-    if gt_imgs is not None and verbose:
+    if psnrs and verbose:
         log_fn(f"render eval: psnr {np.mean(psnrs):.2f}")
         if ssims:
             log_fn(f"render eval: ssim {np.mean(ssims):.4f}")
@@ -182,7 +183,7 @@ def render_viewpoints(
             for net in lpips_vals[0]:
                 log_fn(f"render eval: lpips/{net} "
                        f"{np.mean([v[net] for v in lpips_vals]):.4f}")
-    if gt_imgs is not None and lpips_skipped:
+    if lpips_skipped:
         log_fn("render eval: LPIPS SKIPPED (optional `lpips` package absent; the "
                "reference's tables include it: install `lpips` to restore the metric)")
     return {

@@ -1,12 +1,13 @@
-"""Scene bounds from the camera frusta.
+"""Scene bounds from the camera frusta or the camera positions.
 
-Counterpart of ``bbox_unbounded``, ``bbox_bounded`` and
-``compute_bbox_by_cam_frustrm`` of ``unboundednerfpytorch_tpu/train/bbox.py``:
-a cube around the near-clip points of every training ray, scaled by
-``unbounded_inner_r`` (unbounded inward scenes: the FourierGrid and DCVGO
-families), or the box swept by every ray between ``near`` and ``far``
-(bounded and forward-facing NDC scenes: DMPIGO). The waymo and mega bounds
-wait for their loaders (ROADMAP A15).
+Counterpart of ``bbox_unbounded``, ``bbox_bounded``, ``bbox_waymo``,
+``bbox_mega`` and ``compute_bbox_by_cam_frustrm`` of
+``unboundednerfpytorch_tpu/train/bbox.py``: a cube around the near-clip
+points of every training ray, scaled by ``unbounded_inner_r`` (unbounded
+inward scenes: the FourierGrid and DCVGO families), the box swept by every
+ray between ``near`` and ``far`` (bounded and forward-facing NDC scenes:
+DMPIGO), or, for waymo and mega captures, a cube around the training
+cameras' positions with a margin (numpy, in the JAX package's dtypes).
 """
 
 from __future__ import annotations
@@ -64,19 +65,42 @@ def bbox_bounded(HW, Ks, poses, near: float, far: float, *, ndc=False, inverse_y
     return lo.cpu().numpy(), hi.cpu().numpy()
 
 
+def _camera_cube(xyz_min, xyz_max, unbounded_inner_r: float):
+    center = (xyz_min + xyz_max) * 0.5
+    radius = (center - xyz_min).max() * unbounded_inner_r
+    return center - radius, center + radius
+
+
+def bbox_waymo(poses, unbounded_inner_r: float, x_extend: float = 0.05, y_extend: float = 0.01,
+               z_extend: float = 0.01):
+    """The cube around the camera positions, widened by fixed margins."""
+    cams = np.asarray(poses)[:, :3, 3]
+    margin = np.array([x_extend, y_extend, z_extend])
+    return _camera_cube(cams.min(0) - margin, cams.max(0) + margin, unbounded_inner_r)
+
+
+def bbox_mega(poses, unbounded_inner_r: float, boundary_ratio: float):
+    """The cube around the camera positions, widened by ``boundary_ratio``
+    of their extent on each axis."""
+    cams = np.asarray(poses)[:, :3, 3]
+    margin = boundary_ratio * np.abs(cams.max(0) - cams.min(0))
+    return _camera_cube(cams.min(0) - margin, cams.max(0) + margin, unbounded_inner_r)
+
+
 def compute_bbox_by_cam_frustrm(cfg, data_dict: dict, model_name: str | None = None,
                                 device=None):
-    """The JAX package's dispatch: unbounded inward scenes (and every
-    FourierGrid or NeRF++ one) get the near-clip cube, the others the
-    near/far sweep."""
+    """The JAX package's dispatch: waymo and mega captures get their camera
+    cubes, unbounded inward scenes (and every FourierGrid or NeRF++ one) the
+    near-clip cube, the others the near/far sweep."""
     d = cfg.data
-    if d.dataset_type in ("waymo", "mega"):
-        raise NotImplementedError(
-            f"bbox for dataset_type={d.dataset_type!r} is not ported yet (ROADMAP A15)")
     i_train = np.asarray(data_dict["i_train"])
     HW = np.asarray(data_dict["HW"])[i_train]
     Ks = np.asarray(data_dict["Ks"])[i_train]
     poses = np.asarray(data_dict["poses"])[i_train]
+    if d.dataset_type == "waymo":
+        return bbox_waymo(poses, d.unbounded_inner_r)
+    if d.dataset_type == "mega":
+        return bbox_mega(poses, d.unbounded_inner_r, d.boundary_ratio)
     kw = dict(ndc=d.ndc, inverse_y=d.inverse_y, flip_x=d.flip_x, flip_y=d.flip_y, device=device)
     if d.dataset_type == "nerfpp" or model_name == "FourierGrid" or d.unbounded_inward:
         return bbox_unbounded(HW, Ks, poses, data_dict.get("near_clip") or data_dict["near"],

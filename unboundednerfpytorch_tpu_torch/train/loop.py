@@ -10,7 +10,8 @@ grids upsampled, the occupancy cache refreshed from the trained density,
 ``act_shift`` lowered, a deferred ``sample_budget`` switched on, the
 optimizer rebuilt and the lr decay re-anchored), and ``run_train`` with the
 coarse stage at ``N_iters=0`` (the ``*_single``, ``nerf_unbounded/<scene>``,
-``tankstemple_unbounded/<scene>`` and ``llff/*`` configs).
+``tankstemple_unbounded/<scene>``, ``llff/*``, ``free_dataset/*``,
+``nerf_studio/*``, ``waymo/*`` and ``mega/*`` configs).
 
 With ``exp_dir`` the stage ends by writing ``<exp_dir>/fine_last`` through
 the port's ``utils.checkpoint.save_model``, with the optimizer's state;

@@ -81,7 +81,9 @@ def make_train_step(
         mse_loss = L.mse(res.rgb_marched, target)
         loss = train_cfg.weight_main * mse_loss
         if train_cfg.weight_freq > 0:
-            raise NotImplementedError("weight_freq (Fourier MSE) is not ported yet")
+            term = L.fourier_mse(res.rgb_marched, target)
+            loss = loss + train_cfg.weight_freq * term
+            components["loss_freq"] = term
         if train_cfg.weight_entropy_last > 0:
             term = L.entropy_last(res.alphainv_last)
             loss = loss + train_cfg.weight_entropy_last * term
