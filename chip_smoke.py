@@ -39,9 +39,11 @@ Phases, each reported on its own line:
      (sums across its pieces and blocks, zero tails, distances exactly at and
      at half the threshold, a view 4 bytes into its storage). ``masked_adam``
      must give the plain version's p, m and v to the bit at every parameter
-     shape of phases 4 to 8 (Truck.py's 2.73 G-element k0 and grass.py's
-     f32 one bank by bank), without a grad (with and without the skip), at ragged sizes and on views
-     that start inside a vector; its bound counts the 32-byte DRAM sectors
+     shape of phases 4 to 9 (Truck.py's 2.73 G-element k0 and grass.py's
+     f32 one bank by bank), without a grad (with and without the skip), at
+     ragged sizes and on views that start inside a vector, and so with a
+     per-element lr (phase 9's coarse density grid, ragged sizes, unaligned
+     views); its bound counts the 32-byte DRAM sectors
      that hold a non-zero g (p's of 32 / element size, m's and v's of 8
      elements), which is what the memory moves (the count by element is
      printed beside it as ``bound_ms_elementwise``). The four gather-probe
@@ -67,7 +69,7 @@ Phases, each reported on its own line:
      counts (``tv_add_grad`` 2 a step, both march kernels 1, ``masked_adam``
      as often as the optimizer should launch it: a spy on ``MaskedAdam.step``
      counts one a parameter, less a skip group's parameters without a grad;
-     every train step of phases 4 to 8 is checked so). It saves the
+     every train step of phases 4 to 9 is checked so). It saves the
      parameters as ``fine_last`` (without the optimizer's state: 6a saves
      that), then compares a forward on the card with the plain path on the
      CPU;
@@ -148,13 +150,37 @@ Phases, each reported on its own line:
      (35.4 GB with Adam's state; see the note at ``CLI_SAVE_EVERY``), then
      its test view rendered from the trained parameters as ``run_render``
      does: ms/step, peak memory, ms/view, the scene load's seconds and the
-     launches of each kernel.
+     launches of each kernel;
+  9. the DVGO family with its coarse stage: 9a ``configs/nerf/lego.py``
+     through the command line on a NeRF-synthetic capture (20 train, 2 val
+     and 2 test views of 800x800 RGBA, written before phase 3, which holds
+     the kernels at its shapes): ``train`` runs the coarse stage at its
+     full 100^3 (``LEGO_COARSE_STEPS`` steps of the ``random`` sampler, with
+     ``pervoxel_lr``, its per-element lr going through ``masked_adam``, and
+     ``maskout_near_cam_vox``), then the fine stage on the box of the coarse
+     geometry with its occupancy cache seeded from the coarse alpha and the
+     ``in_maskcache`` rays, its four boundaries compressed to
+     ``LEGO_PG_SCALE`` so that it ends at full width (160^3 voxels, k0 12
+     channels, the 128-wide MLP, ``N_rand`` 8192), then renders the 2 test
+     views; then ``--program export_coarse``. Checked: the launches (both
+     march kernels once a step, ``masked_adam_per_lr`` once a coarse step,
+     ``masked_adam`` as the optimizer should launch it, ``march_forward``
+     once a render chunk), that the coarse stage found the seeded sphere
+     (its last PSNR and the fine box), the fine grids at full width, the
+     exported volume. Printed: ms/step of each stage, peak memory, the
+     seconds of ``voxel_count_views`` and of the ``in_maskcache`` filter with
+     the share of rays it kept, the fine box against the frustum's, ms per
+     view. 9b ``configs/tankstemple/Truck_lg.py`` through ``run_train``
+     without a checkpoint on a Tanks & Temples capture of 8 + 2 views of
+     1920x1080 (the host ray store, ``pervoxel_lr_downrate`` 2): a few coarse
+     steps, then the fine stage's six boundaries compressed so that it ends
+     at 256^3; ms/step of each stage and peak memory.
 
 ``--profile`` also traces the last train steps and one rendered view with
 ``torch.profiler`` and prints the device time by range and by kernel.
 ``--kernels-only`` stops after phase 3 and prints the kernel table without
 launch counts and without the last line (a quick check of a changed kernel).
-The kernel table's launches are those of phases 4 to 8 and of the probe run.
+The kernel table's launches are those of phases 4 to 9 and of the probe run.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -197,8 +223,9 @@ SPHERE_RADIUS, CAM_RADIUS = 0.8, 3.0
 CLI_PG_SCALE = (2, 3)
 # The card's machine lets one run of the script write 45 GiB to its disk,
 # deleted files included (its host counts every block written): the
-# checkpoints of phases 4 to 8a come to about 41 GiB, so phase 4 saves no
-# optimizer state, 6a saves periodically before full width and 8b saves none
+# checkpoints of phases 4 to 9a come to about 42 GiB, so phase 4 saves no
+# optimizer state, 6a saves periodically before full width and 8b and 9b
+# save none
 CLI_SAVE_EVERY, CLI_STEPS = 2, 4
 # truck_single on a NeRF++ scene at the Tanks & Temples image size of the
 # NeRF++ release: 8 training and 2 test views, 8 steps (6 to 8 timed)
@@ -240,6 +267,41 @@ WAYMO_TRAJECTORY = 3  # of the 200 trajectory views, rendered without ground tru
 # 8b: views stored at 1080x1920, 540x960 after grass.py's factor 2; every 8th
 # held out
 FREE_H, FREE_W, FREE_VIEWS, FREE_FACTOR = 540, 960, 8, 2
+# phase 9: the DVGO family with its coarse stage. 9a: nerf/lego.py through
+# the command line on a NeRF-synthetic capture of 20 train, 2 val and 2 test
+# views of 800x800 RGBA (the real scene has 100/100/200); the coarse stage
+# runs LEGO_COARSE_STEPS of its 5000 steps at its full 100^3: from alpha_init
+# 1e-6 the density's gradients start under Adam's eps, and the geometry
+# forms between steps 500 and 900 (PSNR 9 at step 500, 28 at 800, 32 at 900
+# on the H100), so fewer steps leave nothing above bbox_thres and the fine
+# box and the in_maskcache filter would take everything; the fine stage
+# LEGO_FINE_STEPS of 20000 with its
+# four boundaries compressed to LEGO_PG_SCALE, so that its last steps run at
+# its full width (160^3 over the box of the coarse geometry, k0 12 channels,
+# the 128-wide rgb MLP, N_rand 8192)
+LEGO_CONFIG = ROOT / "configs" / "nerf" / "lego.py"
+LEGO_H = LEGO_W = 800
+LEGO_TRAIN, LEGO_HELD = 20, 2
+LEGO_COARSE_STEPS, LEGO_FINE_STEPS, LEGO_PG_SCALE = 1000, 9, (2, 3, 4, 5)
+LEGO_COARSE_MIN_PSNR = 25.0  # the coarse stage's last step, on the seeded sphere
+LEGO_CAM_RADIUS, LEGO_FOCAL_SCALE = 4.0, 1.3889  # the NeRF-synthetic cameras: 4 from the
+# origin, a focal length of 1111 pixels at 800 wide
+# 9b: tankstemple/Truck_lg.py through run_train without a checkpoint on a
+# Tanks & Temples capture of 8 + 2 views of 1920x1080: TRUCK_LG_COARSE_STEPS
+# coarse steps (pervoxel_lr_downrate 2, the host ray store), enough for the
+# geometry to form as in 9a, so that the fine stage runs on the coarse
+# geometry's box with live samples; then the fine stage's six boundaries
+# compressed to TRUCK_LG_PG_SCALE, ending at 256^3. Each boundary lowers
+# act_shift by decay_after_scale (1.0), which the schedule's 1000 steps
+# between boundaries let the density follow; six decays within six steps
+# leave every alpha under fast_color_thres at the last refresh (the cache
+# empties, and no sample is live at full width), so the compressed schedule
+# takes TRUCK_LG_DECAY instead
+TRUCK_LG_CONFIG = ROOT / "configs" / "tankstemple" / "Truck_lg.py"
+TRUCK_LG_H, TRUCK_LG_W, TRUCK_LG_VIEWS, TRUCK_LG_TEST = 1080, 1920, 8, 2
+TRUCK_LG_COARSE_STEPS, TRUCK_LG_FINE_STEPS = 1000, 11
+TRUCK_LG_PG_SCALE = (2, 3, 4, 5, 6, 7)
+TRUCK_LG_DECAY = 0.0
 # kernel launches of a train step and of a render chunk, by family
 TRAIN_PER_STEP = {"tv_add_grad": 2, "march_forward": 1, "march_backward": 1}
 DCVGO_PER_STEP = {**TRAIN_PER_STEP, "cumdist_thres": 1}
@@ -309,15 +371,20 @@ class AdamWanted:
     launches of ``masked_adam`` that each step should make, one per parameter
     tensor of the optimizer's groups, less the empty ones and a skip group's
     tensors without a grad (nothing of those changes, so nothing is
-    launched for them)."""
+    launched for them); a tensor with a per-element lr (``pervoxel_lr``) is
+    always updated, and counted in ``n_lr`` instead (``masked_adam_per_lr``)."""
 
     def __init__(self):
-        self.n = 0
+        self.n = self.n_lr = 0
 
     def __call__(self, args, kwargs):
         opt = args[0]
-        self.n += sum(1 for g in opt.groups for p in g.params
-                      if p.numel() and not (g.skip_zero_grad and p.grad is None))
+        for g in opt.groups:
+            for p in g.params:
+                if p in opt.per_lr:
+                    self.n_lr += 1
+                elif p.numel() and not (g.skip_zero_grad and p.grad is None):
+                    self.n += 1
 
 
 ADAM_WANTED = AdamWanted()
@@ -328,7 +395,7 @@ def reset_counts() -> None:
     from unboundednerfpytorch_tpu_torch.ops.cuda import build
 
     build.reset_launch_counts()
-    ADAM_WANTED.n = 0
+    ADAM_WANTED.n = ADAM_WANTED.n_lr = 0
 
 
 def adam_wanted(tag: str, steps: int) -> int:
@@ -1695,6 +1762,38 @@ def fern_scene(tmp: pathlib.Path):
     return cfg_file, box
 
 
+def lego_scene(tmp: pathlib.Path):
+    """9a's capture: ``LEGO_TRAIN`` + 2 x ``LEGO_HELD`` views of ``LEGO_H`` x
+    ``LEGO_W`` RGBA in the NeRF-synthetic layout, and its config (the stages
+    cut to ``LEGO_COARSE_STEPS`` and ``LEGO_FINE_STEPS``, the fine boundaries
+    to ``LEGO_PG_SCALE``). Returns the config file."""
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.train import bbox as bbox_mod
+
+    t0 = time.time()
+    data = synthetic.orbit_scene(LEGO_TRAIN, LEGO_H, LEGO_W, seed=6, n_test=2 * LEGO_HELD,
+                                 cam_radius=LEGO_CAM_RADIUS, sphere_radius=SPHERE_RADIUS,
+                                 focal_scale=LEGO_FOCAL_SCALE, alpha=True)
+    n = LEGO_TRAIN
+    data["i_val"], data["i_test"] = data["i_test"][:LEGO_HELD], data["i_test"][LEGO_HELD:]
+    scene = synthetic.write_blender_scene(str(tmp / "nerf_synthetic_lego"), data)
+    cfg_file = tmp / "lego_cli.py"
+    cfg_file.write_text(
+        f"_base_ = {str(LEGO_CONFIG)!r}\nbasedir = {str(tmp / 'logs')!r}\n"
+        f"data = dict(datadir={scene!r})\n"
+        f"coarse_train = dict(N_iters={LEGO_COARSE_STEPS})\n"
+        f"fine_train = dict(N_iters={LEGO_FINE_STEPS}, pg_scale={list(LEGO_PG_SCALE)})\n")
+    cfg = loader.load_config(str(cfg_file))
+    loaded = common.load_everything(cfg)
+    box = bbox_mod.compute_bbox_by_cam_frustrm(cfg, loaded, "dvgo", device="cuda")
+    log(f"[9a] capture of {n} train, {LEGO_HELD} val and {LEGO_HELD} test views of "
+        f"{LEGO_H}x{LEGO_W} RGBA (NeRF-synthetic layout) made, written and loaded in "
+        f"{time.time() - t0:.1f} s; camera-frustum box {box[0].round(4).tolist()} .. "
+        f"{box[1].round(4).tolist()}")
+    return str(cfg_file)
+
+
 def family_shapes(fern_box) -> dict:
     """The shapes phases 7 and 8 hand the kernels: TV on DCVGO's one-bank
     bicycle grids (bf16), on DMPIGO's fern grids (f32, the x and y axes
@@ -1703,7 +1802,9 @@ def family_shapes(fern_box) -> dict:
     channels, bf16) and on grass.py's (seven banks of 319^3, f32); the
     march at DCVGO's [N_rand, 1064], DMPIGO's [N_rand, 255], waymo's
     [2048, 96] and grass.py's [4096, 1064], each with its own shift and
-    interval; ``cumdist_thres`` at DCVGO's [N_rand, 1063]."""
+    interval; ``cumdist_thres`` at DCVGO's [N_rand, 1063]. Phase 9's DVGO
+    shapes depend on the coarse geometry its runs find: phase 9c holds the
+    kernels at the shapes those runs gave them."""
     import torch
 
     from unboundednerfpytorch_tpu_torch.configs import loader
@@ -1844,64 +1945,78 @@ def phase_tv_families(gen, shapes: dict, floor: float):
     return err, lines
 
 
-def phase_march_families(gen, shapes: dict, floor: float):
-    """Both march kernels at DCVGO's and DMPIGO's train shapes (with their
-    own shift and interval) and at a render chunk of each: the forward
-    against the plain version, the no-grad forward against the one that
-    keeps residuals, the backward against the plain version within
-    ``march_backward_tolerance``; then timed. Returns (forward error,
-    backward error, forward shape lines, backward shape lines)."""
+def march_case(gen, label: str, shape, shift: float, interval: float, floor: float,
+               train: bool):
+    """Both march kernels at ``shape`` with ``shift`` and ``interval``: the
+    forward against the plain version, the no-grad forward against the one
+    that keeps residuals, the backward against the plain version within
+    ``march_backward_tolerance``; then timed as the train step launches them
+    (``train``: the forward keeps residuals, and the backward) or as a render
+    chunk does (the no-grad forward). Returns (forward error, backward error,
+    forward shape line, backward shape line or None)."""
     import torch
 
     from unboundednerfpytorch_tpu_torch.ops.cuda import march
     from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms
 
+    d, mask = march_inputs(gen, shape)
+    res = march.march_forward(d, mask, shift, interval)
+    torch.cuda.synchronize()
+    err_f = check_march_forward(f"march_forward {label} {list(shape)}", res, d, mask, shift,
+                                interval)
+    with torch.no_grad():
+        lean = march.fused_alpha2weights(d, mask, shift, interval)
+    torch.cuda.synchronize()
+    for a, b in zip(lean, res[:3]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"march_forward {label} {list(shape)}: the no-grad "
+                                 "forward differs from the one that keeps residuals")
+    w, ai, alpha, t_excl = res
+    gw = torch.randn(shape, generator=gen, device="cuda")
+    gl = torch.randn(shape[:1], generator=gen, device="cuda")
+    args = (alpha, t_excl, ai, gw, gl, shift, interval, d, mask)
+    gd = march.march_backward(*args)
+    torch.cuda.synchronize()
+    err_b = check_within(f"march_backward {label} {list(shape)}", gd,
+                         march.march_backward_plain(*args),
+                         march.march_backward_tolerance(*args))
+    n, ns = shape[0], shape[0] * shape[1]
+    b_line = None
+    if train:  # the train step: the forward keeps residuals
+        ms, call = kernel_ms(lambda: march.march_forward(d, mask, shift, interval))
+        bnd = bound_ms(ns * (4 + 1 + 3 * 4) + n * 4, 25 * ns)[0]
+        f_line = shape_line(f"march_forward {label} at the train step's {list(shape)}, "
+                            "residuals kept", ms, call, bnd, floor)
+        ms, call = kernel_ms(lambda: march.march_backward(*args))
+        bnd = bound_ms(ns * (4 * 4 + 1 + 4) + 2 * n * 4, 30 * ns)[0]
+        b_line = shape_line(f"march_backward {label} {list(shape)}", ms, call, bnd, floor)
+    else:  # a render chunk: no gradient
+        def lean_call():
+            with torch.no_grad():
+                return march.fused_alpha2weights(d, mask, shift, interval)
+
+        ms, call = kernel_ms(lean_call)
+        bnd = bound_ms(ns * (4 + 1 + 2 * 4) + n * 4, 25 * ns)[0]
+        f_line = shape_line(f"march_forward {label} at a render chunk's {list(shape)}, no "
+                            "gradient", ms, call, bnd, floor)
+    del d, mask, res, lean, gw, gl, args, gd
+    torch.cuda.empty_cache()
+    return err_f, err_b, f_line, b_line
+
+
+def phase_march_families(gen, shapes: dict, floor: float):
+    """Both march kernels (``march_case``) at each family's train shape (with
+    its own shift and interval) and at a render chunk of it. Returns (forward
+    error, backward error, forward shape lines, backward shape lines)."""
     err_f = err_b = 0.0
     f_lines, b_lines = [], []
     for label, (N, S), shift, interval in shapes["march"]:
         for shape in ((N, S), (RENDER_CHUNK, S)):
-            d, mask = march_inputs(gen, shape)
-            res = march.march_forward(d, mask, shift, interval)
-            torch.cuda.synchronize()
-            err_f = max(err_f, check_march_forward(f"march_forward {label} {list(shape)}", res,
-                                                   d, mask, shift, interval))
-            with torch.no_grad():
-                lean = march.fused_alpha2weights(d, mask, shift, interval)
-            torch.cuda.synchronize()
-            for a, b in zip(lean, res[:3]):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"march_forward {label} {list(shape)}: the no-grad "
-                                         "forward differs from the one that keeps residuals")
-            w, ai, alpha, t_excl = res
-            gw = torch.randn(shape, generator=gen, device="cuda")
-            gl = torch.randn(shape[:1], generator=gen, device="cuda")
-            args = (alpha, t_excl, ai, gw, gl, shift, interval, d, mask)
-            gd = march.march_backward(*args)
-            torch.cuda.synchronize()
-            err_b = max(err_b, check_within(f"march_backward {label} {list(shape)}", gd,
-                                            march.march_backward_plain(*args),
-                                            march.march_backward_tolerance(*args)))
-            n, ns = shape[0], shape[0] * shape[1]
-            if shape == (N, S):  # the train step: the forward keeps residuals
-                ms, call = kernel_ms(lambda: march.march_forward(d, mask, shift, interval))
-                bnd = bound_ms(ns * (4 + 1 + 3 * 4) + n * 4, 25 * ns)[0]
-                f_lines.append(shape_line(f"march_forward {label} at the train step's "
-                                          f"{list(shape)}, residuals kept", ms, call, bnd, floor))
-                ms, call = kernel_ms(lambda: march.march_backward(*args))
-                bnd = bound_ms(ns * (4 * 4 + 1 + 4) + 2 * n * 4, 30 * ns)[0]
-                b_lines.append(shape_line(f"march_backward {label} {list(shape)}", ms, call, bnd,
-                                          floor))
-            else:  # a render chunk: no gradient
-                def lean_call():
-                    with torch.no_grad():
-                        return march.fused_alpha2weights(d, mask, shift, interval)
-
-                ms, call = kernel_ms(lean_call)
-                bnd = bound_ms(ns * (4 + 1 + 2 * 4) + n * 4, 25 * ns)[0]
-                f_lines.append(shape_line(f"march_forward {label} at a render chunk's "
-                                          f"{list(shape)}, no gradient", ms, call, bnd, floor))
-            del d, mask, res, lean, gw, gl, args, gd
-            torch.cuda.empty_cache()
+            ef, eb, f_line, b_line = march_case(gen, label, shape, shift, interval, floor,
+                                                train=shape == (N, S))
+            err_f, err_b = max(err_f, ef), max(err_b, eb)
+            f_lines.append(f_line)
+            b_lines += [b_line] if b_line else []
     return err_f, err_b, f_lines, b_lines
 
 
@@ -2028,14 +2143,52 @@ def bits(x):
     return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
 
 
+def lr_inputs(seed: int, shape):
+    """A per-element lr as ``pervoxel_lr`` makes it, from ``seed``: view
+    counts over their maximum, 0 at a fifth of the elements."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    count = torch.randint(0, 21, shape, generator=gen, device="cuda").float()
+    count *= torch.rand(shape, generator=gen, device="cuda") > 0.2
+    return count / count.max().clamp_min(1.0)
+
+
+def cold_ms(fn, iters: int = 20) -> float:
+    """Device ms of ``fn`` (one launch) with the 50 MB L2 cache flushed
+    before each call, as the train step leaves it for its one update of a
+    grid: CUDA events around each call just after a 256 MB fill, the mean
+    over ``iters`` after a warm-up. A spin of about a millisecond between
+    the fill and the first event keeps the card busy while the host makes
+    the call, so the events time the kernel and not the host's launch."""
+    import torch
+
+    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
+    total = 0.0
+    for i in range(iters + 2):
+        flush.fill_(float(i))
+        torch.cuda._sleep(2_000_000)  # cycles: about 1 ms at the H100's clock
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            total += start.elapsed_time(end)
+    del flush
+    return total / iters
+
+
 def adam_case(label: str, shape, dtype, skip: bool, grad: bool = True,
-              offsets=(0, 0, 0, 0)) -> int:
+              offsets=(0, 0, 0, 0, 0), per_lr: bool = False) -> int:
     """``masked_adam`` over a whole tensor of ``shape`` (its leading axis a
     bank), then each bank held bit-equal to the plain version on that bank,
     made again from its seed (a bank at a time: the plain version's copy of
-    a 2.7 G-element state would not fit beside it). ``offsets``: p, g, m and
-    v are views that start that many elements into their storage. Returns
-    the kernel's launches (0 for a skip group without a grad)."""
+    a 2.7 G-element state would not fit beside it). ``offsets``: p, g, m, v
+    and the per-element lr are views that start that many elements into
+    their storage. With ``per_lr`` the update takes a per-element lr (and
+    launches whatever ``skip`` and ``grad`` say). Returns the kernel's
+    launches (0 for a skip group without a grad or lr)."""
     import math
 
     import torch
@@ -2048,39 +2201,44 @@ def adam_case(label: str, shape, dtype, skip: bool, grad: bool = True,
     def alloc(dt, offset):
         return torch.empty(n + offset, dtype=dt, device="cuda")[offset:].view(shape)
 
-    p, g, m, v = (alloc(dt, o) for dt, o in zip((dtype, dtype, torch.float32, torch.float32),
-                                                  offsets))
+    offsets = tuple(offsets) + (0,) * (5 - len(offsets))
+    p, g, m, v, r = (alloc(dt, o) for dt, o in zip(
+        (dtype, dtype, torch.float32, torch.float32, torch.float32), offsets))
     for b in range(banks):
         for dst, src in zip((p, g, m, v), adam_bank_inputs(1000 + b, bank, dtype, skip)):
             dst[b] = src
-    before = build.LAUNCHES["masked_adam"]
+        r[b] = lr_inputs(3000 + b, bank)
+    key = "masked_adam_per_lr" if per_lr else "masked_adam"
+    before = build.LAUNCHES[key]
     step_size = 0.1 * 0.7 * (0.1 / 0.01)  # lr 0.1, lr_scale 0.7, the bias correction of step 1
-    adam.masked_adam(p, m, v, g if grad else None, step_size, 0.9, 0.99, 1e-8, skip)
+    adam.masked_adam(p, m, v, g if grad else None, step_size, 0.9, 0.99, 1e-8, skip,
+                     per_lr=r if per_lr else None)
     torch.cuda.synchronize()
-    launched = build.LAUNCHES["masked_adam"] - before
+    launched = build.LAUNCHES[key] - before
     for b in range(banks):
         p0, g0, m0, v0 = adam_bank_inputs(1000 + b, bank, dtype, skip)
         adam.masked_adam_plain(p0, m0, v0, g0 if grad else None, step_size, 0.9, 0.99, 1e-8,
-                               skip, ADAM_SLICE)
+                               skip, ADAM_SLICE, per_lr=lr_inputs(3000 + b, bank) if per_lr
+                               else None)
         for what, got, want in (("p", p[b], p0), ("m", m[b], m0), ("v", v[b], v0)):
             if not torch.equal(bits(got), bits(want)):
                 raise AssertionError(
                     f"masked_adam {label} bank {b}: {what} differs from the plain version on "
                     f"{int((bits(got) != bits(want)).sum())} of {want.numel()} elements")
         del p0, g0, m0, v0
-    log(f"  masked_adam {label} {tuple(shape)} {str(dtype)[6:]} skip={skip} grad={grad}"
+    log(f"  {key} {label} {tuple(shape)} {str(dtype)[6:]} skip={skip} grad={grad}"
         f"{f' offsets {offsets}' if any(offsets) else ''}: p, m and v bit-equal to the plain version"
         f"{' bank by bank' if banks > 1 else ''} ({launched} launch)")
-    del p, g, m, v
+    del p, g, m, v, r
     torch.cuda.empty_cache()
     return launched
 
 
 def adam_shapes(tv_shapes: dict, fam: dict) -> list:
-    """(label, shape, dtype, skip) of the parameters the train steps update:
-    bicycle_single's, bicycle.py's (DCVGO), fern.py's (DMPIGO, f32) and
-    Truck.py's, waymo_no_block.py's and grass.py's grids, and an f32 MLP
-    weight, as phases 4 to 8 hand them to the optimizer."""
+    """(label, shape, dtype, skip) of the parameters the train steps of
+    phases 4 to 8 update: bicycle_single's, bicycle.py's (DCVGO), fern.py's
+    (DMPIGO, f32) and Truck.py's, waymo_no_block.py's and grass.py's grids,
+    and an f32 MLP weight, as they hand them to the optimizer."""
     import torch
 
     out = [(f"bicycle_single {k}", s, torch.bfloat16, True) for k, s in tv_shapes.items()]
@@ -2089,14 +2247,91 @@ def adam_shapes(tv_shapes: dict, fam: dict) -> list:
     return out
 
 
-def phase_adam(gen, tv_shapes: dict, fam: dict, floor: float) -> dict:
-    """``masked_adam`` against its plain version, bit for bit (p, m and v),
-    at every parameter shape of phases 4 to 8, without a grad, and at ragged
-    sizes and an unaligned start; then timed at each of those shapes."""
+def adam_row(name: str, replaces: str, floor: float) -> dict:
+    """A row of the kernel table for ``masked_adam`` (or its per-element-lr
+    launches), its times summed over the shape lines ``adam_time`` adds."""
+    return {"name": name, "route": "cuda", "source": "unboundednerfpytorch_tpu_torch/csrc/adam.cu",
+            "replaces": replaces, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+            "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None, "floor_ms": floor,
+            "bound_ms_elementwise": 0.0, "shapes": []}
+
+
+def adam_time(row: dict, label: str, shape, dtype, skip: bool, per_lr: bool,
+              floor: float) -> None:
+    """Time ``masked_adam`` on seeded inputs of ``shape`` against its bound
+    and its plain version, and add the shape's line and times to ``row``.
+    The device time is one launch with the 50 MB L2 cache flushed before it
+    (``cold_ms``), as the train step, which updates a tensor once between
+    GBs of other work, leaves the cache; back-to-back launches would find a
+    tensor under about 50 MB in the cache. Where the bound lies under the
+    launch floor (a tensor of under about 1 MB), the launch and not the
+    memory sets the time, and one launch between two events would time the
+    events: such a row is timed by the many-launch method. The bound: a
+    skip group reads g in full and p, m and v where g is not 0, by element
+    and by the 32-byte DRAM sectors that hold a non-zero g (p's sectors hold
+    32 / es elements, m's and v's 8), which is what the memory moves; with a
+    per-element lr every element is read and written (p, g, m, v and the lr
+    read, p, m and v written)."""
     import torch
 
     from unboundednerfpytorch_tpu_torch.ops.cuda import adam
     from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms, time_ms
+
+    banks, bank = shape[0], tuple(shape[1:])
+    p, g, m, v = (torch.empty(shape, dtype=dt, device="cuda")
+                  for dt in (dtype, dtype, torch.float32, torch.float32))
+    for b in range(banks):
+        for dst, src in zip((p, g, m, v), adam_bank_inputs(2000 + b, bank, dtype, skip)):
+            dst[b] = src
+    r = lr_inputs(4000, shape) if per_lr else None
+    n, es = p.numel(), p.element_size()
+    if per_lr:
+        live = n
+        n_bytes = n_bytes_elementwise = n * (3 * es + 8 + 8 + 4)
+    else:
+        live = int((g != 0).sum()) if skip else n
+        n_bytes_elementwise = n * es + live * (2 * es + 16)
+        n_bytes = SECTOR * (-(-n * es // SECTOR) + 2 * live_sectors(g, SECTOR // es, skip)
+                            + 4 * live_sectors(g, SECTOR // 4, skip))
+    update = lambda: adam.masked_adam(p, m, v, g, 1e-3, 0.9, 0.99, 1e-8, skip, per_lr=r)
+    plain = time_ms(lambda: adam.masked_adam_plain(p, m, v, g, 1e-3, 0.9, 0.99, 1e-8, skip,
+                                                    ADAM_SLICE, per_lr=r), iters=3, warmup=1)
+    bnd = bound_ms(n_bytes, (11 if per_lr else 10) * live)[0]
+    bnd_elementwise = bound_ms(n_bytes_elementwise, (11 if per_lr else 10) * live)[0]
+    if bnd < floor:  # the launch bounds it, not the memory: many launches in a graph
+        ms, call = kernel_ms(update)
+        how = "launch-bound, back to back"
+    else:
+        call = time_ms(update)
+        ms = cold_ms(update)
+        how = "L2 flushed"
+    what = (f"skip={skip}, {100 * live / n:.0f}% of g non-zero" if not per_lr
+            else "per-element lr")
+    line = shape_line(f"{row['name']} {label} {tuple(shape)} {str(dtype)[6:]} {what}, {how}",
+                      ms, call, bnd, floor)
+    log(f"[3]   plain version {plain:.3f} ms; bound by sectors {bnd:.4f} ms "
+        f"({n_bytes / 1e9:.4f} GB), by elements {bnd_elementwise:.4f} ms "
+        f"({n_bytes_elementwise / 1e9:.4f} GB); the kernel moves the sectors' bytes at "
+        f"{n_bytes / ms / 1e6:.0f} GB/s")
+    line.update(plain_ms=plain, bound_ms_elementwise=bnd_elementwise)
+    row["shapes"].append(line)
+    row["ms"] += ms
+    row["plain_ms"] += plain
+    row["bound_ms"] += bnd
+    row["bound_ms_elementwise"] += bnd_elementwise
+    del p, g, m, v, r
+    torch.cuda.empty_cache()
+
+
+def phase_adam(gen, tv_shapes: dict, fam: dict, floor: float) -> list:
+    """``masked_adam`` against its plain version, bit for bit (p, m and v),
+    at every parameter shape of phases 4 to 8, without a grad, and at ragged
+    sizes and an unaligned start; then timed at each of those shapes. With a
+    per-element lr (``masked_adam_per_lr``) at ragged sizes and on unaligned
+    views; phase 9c holds both, and times them, at the shapes the DVGO runs
+    give them. Returns both rows of the kernel table (the second without
+    times until phase 9c)."""
+    import torch
 
     shapes = adam_shapes(tv_shapes, fam)
     for label, shape, dtype, skip in shapes:
@@ -2114,48 +2349,107 @@ def phase_adam(gen, tv_shapes: dict, fam: dict, floor: float) -> dict:
     for offsets in ((1, 1, 1, 1), (3, 3, 3, 3), (1, 0, 0, 0), (0, 0, 2, 0)):
         for dtype in (torch.bfloat16, torch.float32):
             adam_case("unaligned", (1, 8 * 1000 + 5), dtype, True, offsets=offsets)
-    lines, total = [], {"ms": 0.0, "plain": 0.0, "bound": 0.0, "bound_elementwise": 0.0}
+    # with a per-element lr: at ragged sizes and on unaligned views (the lr's
+    # own among them), with the skip asked for (it does not apply: every
+    # element moves) and without a grad
+    for n in ADAM_RAGGED_SIZES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for skip, grad in ((False, True), (True, True), (True, False)):
+                if adam_case("ragged", (1, n), dtype, skip, grad=grad, per_lr=True) != 1:
+                    raise AssertionError("masked_adam with per_lr: no launch")
+    for offsets in ((1, 1, 1, 1, 1), (3, 3, 3, 3, 3), (0, 0, 0, 0, 1), (2, 2, 2, 2, 0)):
+        for dtype in (torch.bfloat16, torch.float32):
+            adam_case("unaligned", (1, 8 * 1000 + 5), dtype, False, offsets=offsets,
+                      per_lr=True)
+    row = adam_row("masked_adam", "unboundednerfpytorch_tpu/optim/masked_adam.py:83", floor)
     for label, shape, dtype, skip in shapes:
-        banks, bank = shape[0], tuple(shape[1:])
-        p, g, m, v = (torch.empty(shape, dtype=dt, device="cuda")
-                      for dt in (dtype, dtype, torch.float32, torch.float32))
-        for b in range(banks):
-            for dst, src in zip((p, g, m, v), adam_bank_inputs(2000 + b, bank, dtype, skip)):
-                dst[b] = src
-        n, es = p.numel(), p.element_size()
-        # a skip group reads g in full and p, m and v where g is not 0: by
-        # element, and by the 32-byte DRAM sectors that hold a non-zero g
-        # (p's sectors hold 32 / es elements, m's and v's 8), which is what
-        # the memory moves
-        live = int((g != 0).sum()) if skip else n
-        n_bytes_elementwise = n * es + live * (2 * es + 16)
-        n_bytes = SECTOR * (-(-n * es // SECTOR) + 2 * live_sectors(g, SECTOR // es, skip)
-                            + 4 * live_sectors(g, SECTOR // 4, skip))
-        ms, call = kernel_ms(lambda: adam.masked_adam(p, m, v, g, 1e-3, 0.9, 0.99, 1e-8, skip))
-        plain = time_ms(lambda: adam.masked_adam_plain(p, m, v, g, 1e-3, 0.9, 0.99, 1e-8, skip,
-                                                        ADAM_SLICE), iters=3, warmup=1)
-        bnd, by = bound_ms(n_bytes, 10 * live)
-        bnd_elementwise = bound_ms(n_bytes_elementwise, 10 * live)[0]
-        lines.append(shape_line(f"masked_adam {label} {tuple(shape)} {str(dtype)[6:]} "
-                                f"skip={skip}, {100 * live / n:.0f}% of g non-zero", ms, call,
-                                bnd, floor))
-        log(f"[3]   plain version {plain:.3f} ms; bound by sectors {bnd:.4f} ms "
-            f"({n_bytes / 1e9:.3f} GB), by elements {bnd_elementwise:.4f} ms "
-            f"({n_bytes_elementwise / 1e9:.3f} GB); the kernel moves the sectors' bytes at "
-            f"{n_bytes / ms / 1e6:.0f} GB/s")
-        lines[-1].update(plain_ms=plain, bound_ms_elementwise=bnd_elementwise)
-        total["bound_elementwise"] += bnd_elementwise
-        total["ms"] += ms
-        total["plain"] += plain
-        total["bound"] += bnd
-        del p, g, m, v
+        adam_time(row, label, shape, dtype, skip, False, floor)
+    lr_row = adam_row("masked_adam_per_lr", "unboundednerfpytorch_tpu/optim/masked_adam.py:148",
+                      floor)
+    lr_row.update(ms=None, plain_ms=None, bound_ms=None, bound_ms_elementwise=None)
+    return [row, lr_row]
+
+
+class PathShapes:
+    """For a ``with`` block, the signatures the path hands ``march_forward``
+    (shape, shift, interval, whether it keeps residuals), ``march_backward``
+    (shape, shift, interval) and ``masked_adam`` (shape, dtype, skip, whether
+    a grad and a per-element lr came), each with its number of calls: spies
+    on the wrappers that read their arguments and hold none."""
+
+    def __init__(self):
+        self.fwd, self.bwd, self.adam = {}, {}, {}
+
+    def __enter__(self):
+        from unboundednerfpytorch_tpu_torch.ops.cuda import adam, march
+
+        def count(table, key):
+            table[key] = table.get(key, 0) + 1
+
+        def on_fwd(args, kwargs):
+            d, _, shift, interval = args[:4]
+            residuals = kwargs.get("residuals", args[4] if len(args) > 4 else True)
+            count(self.fwd, (tuple(d.shape), float(shift), float(interval), bool(residuals)))
+
+        def on_bwd(args, kwargs):
+            count(self.bwd, (tuple(args[7].shape), float(args[5]), float(args[6])))
+
+        def on_adam(args, kwargs):
+            p, grad, skip = args[0], args[3], args[8]
+            count(self.adam, (tuple(p.shape), p.dtype, bool(skip), grad is not None,
+                              kwargs.get("per_lr") is not None))
+
+        self.spies = [Spy(march, "march_forward", before=on_fwd, keep=False),
+                      Spy(march, "march_backward", before=on_bwd, keep=False),
+                      Spy(adam, "masked_adam", before=on_adam, keep=False)]
+        for spy in self.spies:
+            spy.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for spy in reversed(self.spies):
+            spy.__exit__(*exc)
+
+
+def phase_dvgo_kernels(gen, kernels: list, paths: dict, floor: float) -> None:
+    """Phase 9c: the DVGO runs' kernels at the shapes those runs gave them
+    (``paths``: tag -> ``PathShapes``), which depend on the coarse geometry
+    they found (the fine box, and the samples a ray on it): both march
+    kernels at each [N, S] with its shift and interval (``march_case``),
+    ``masked_adam`` bit for bit at each parameter's shape, dtype and skip,
+    with and without a grad where the run gave a per-element lr. Each is
+    timed, and its lines go into the rows of ``kernels``."""
+    import torch
+
+    rows = {k["name"]: k for k in kernels}
+    for tag, shapes in paths.items():
+        if not (shapes.fwd and shapes.bwd and any(k[4] for k in shapes.adam)
+                and not all(k[4] for k in shapes.adam)):
+            raise AssertionError(f"{tag}: a kernel saw no shape: march {shapes.fwd}, "
+                                 f"{shapes.bwd}, adam {shapes.adam}")
+        if not set(shapes.bwd) <= {k[:3] for k in shapes.fwd if k[3]}:
+            raise AssertionError(f"{tag}: march_backward at {shapes.bwd} without its forward")
+        log(f"[9c] {tag}: {len(shapes.fwd)} march_forward shapes, {len(shapes.bwd)} "
+            f"march_backward, {len(shapes.adam)} masked_adam")
+        for (shape, shift, interval, train), n in shapes.fwd.items():
+            ef, eb, f_line, b_line = march_case(gen, f"{tag} ({n} calls)", shape, shift,
+                                                interval, floor, train)
+            for name, err, line in (("march_forward", ef, f_line), ("march_backward", eb, b_line)):
+                if line is not None:
+                    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+                    rows[name]["shapes"].append(line)
+        for (shape, dtype, skip, grad, per_lr), n in shapes.adam.items():
+            label = f"{tag} ({n} calls)"
+            # the whole tensor as one bank: the path's shapes hold one bank
+            one = (1, *shape) if shape[0] != 1 else shape
+            for with_grad in ((True, False) if per_lr else (grad,)):
+                adam_case(label, one, dtype, skip, grad=with_grad, per_lr=per_lr)
+            if per_lr and rows["masked_adam_per_lr"]["ms"] is None:
+                rows["masked_adam_per_lr"].update(ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                                  bound_ms_elementwise=0.0)
+            adam_time(rows["masked_adam_per_lr" if per_lr else "masked_adam"], label, one,
+                      dtype, skip, per_lr, floor)
         torch.cuda.empty_cache()
-    return {"name": "masked_adam", "route": "cuda",
-            "source": "unboundednerfpytorch_tpu_torch/csrc/adam.cu",
-            "replaces": "unboundednerfpytorch_tpu/optim/masked_adam.py:83", "max_abs_err": 0.0,
-            "ms": total["ms"], "plain_ms": total["plain"], "bound_ms": total["bound"],
-            "bound_by": "bytes", "library_ms": None, "floor_ms": floor,
-            "bound_ms_elementwise": total["bound_elementwise"], "shapes": lines}
 
 
 def full_width_ms(records, first: int, last: int) -> list:
@@ -2650,6 +2944,275 @@ def phase_free(tmp: pathlib.Path, card: str) -> list:
     return [counts, render_counts]
 
 
+# ---------------------------------------------------------------------------
+# the DVGO family with its coarse stage (phase 9)
+
+
+def stage_ms(exp_dir: str, stage: str, first: int, last: int) -> list:
+    """ms of steps first..last of a stage by the loop's clock, from its own
+    record (``<stage>_metrics.jsonl``)."""
+    with open(os.path.join(exp_dir, f"{stage}_metrics.jsonl")) as f:
+        steps = {r["step"]: r for r in map(json.loads, f) if "loss" in r}
+    return [1e3 * (steps[k]["elapsed_s"] - steps[k - 1]["elapsed_s"])
+            for k in range(first, last + 1)]
+
+
+def dvgo_spies():
+    """Spies on what phase 9 reports of the recipe: the voxel counts of
+    ``pervoxel_lr``, the ``in_maskcache`` filter and the two boxes."""
+    from unboundednerfpytorch_tpu_torch.models import dvgo
+    from unboundednerfpytorch_tpu_torch.train import bbox as bbox_mod
+    from unboundednerfpytorch_tpu_torch.train import loop
+
+    return (Spy(dvgo, "voxel_count_views"), Spy(loop, "filter_in_maskcache"),
+            Spy(bbox_mod, "compute_bbox_by_cam_frustrm"),
+            Spy(bbox_mod, "compute_bbox_by_coarse_geo"))
+
+
+def report_dvgo_spies(tag: str, counts_spy, filter_spy, frustum_spy, coarse_spy) -> dict:
+    """Log the seconds of ``voxel_count_views`` and of the ``in_maskcache``
+    filter, the share of rays it kept, and the fine box against the
+    frustum's; check that each ran once. Returns the fine box."""
+    import numpy as np
+
+    if len(counts_spy.calls) != 1 or len(filter_spy.calls) != 1 or len(coarse_spy.calls) != 1:
+        raise AssertionError(f"{tag}: voxel_count_views {len(counts_spy.calls)}, in_maskcache "
+                             f"{len(filter_spy.calls)}, coarse box {len(coarse_spy.calls)} calls")
+    count = counts_spy.calls[0].result
+    rep = filter_spy.calls[0].result[1]
+    lo_c, hi_c = (np.asarray(x) for x in frustum_spy.calls[0].result)
+    lo_f, hi_f = (np.asarray(x) for x in coarse_spy.calls[0].result)
+    if not ((lo_c <= lo_f).all() and (hi_f <= hi_c).all() and (lo_f < hi_f).all()):
+        raise AssertionError(f"{tag}: fine box {lo_f} .. {hi_f} outside {lo_c} .. {hi_c}")
+    log(f"{tag} pervoxel_lr: voxel_count_views {counts_spy.calls[0].seconds:.2f} s for "
+        f"{tuple(count.shape[:3])} voxels, {int((count > 2).sum())} seen by more than 2 views, "
+        f"the most {int(count.max())}; in_maskcache filter {rep['seconds']:.2f} s, kept "
+        f"{rep['kept']} of {rep['rays']} rays ({100 * rep['kept'] / rep['rays']:.1f}%); "
+        f"frustum box {lo_c.round(4).tolist()} .. {hi_c.round(4).tolist()}, fine box from the "
+        f"coarse geometry {lo_f.round(4).tolist()} .. {hi_f.round(4).tolist()} "
+        f"({100 * float(np.prod(hi_f - lo_f) / np.prod(hi_c - lo_c)):.2f}% of its volume)")
+    return {"box": (lo_f, hi_f), "kept": rep["kept"] / rep["rays"]}
+
+
+def fine_world_size(fm, box) -> tuple:
+    """The fine grid's world size at full width on ``box`` after its
+    ``world_bound_scale``."""
+    import numpy as np
+
+    from unboundednerfpytorch_tpu_torch.models import dvgo
+
+    lo, hi = (np.asarray(x, np.float64) for x in box)
+    shift = (hi - lo) * (fm.world_bound_scale - 1) / 2
+    return dvgo.config_from(fm, lo - shift, hi + shift, fm.num_voxels_rgb).world_size
+
+
+def phase_cli_lego(cfg_file: str, card: str) -> list:
+    """Phase 9a: nerf/lego.py (DVGO) through the command line: ``train`` (the
+    coarse stage at 100^3 with ``pervoxel_lr`` and ``maskout_near_cam_vox``,
+    then the fine stage on the coarse geometry's box and the
+    ``in_maskcache`` rays, ending at full width), the render of the test
+    views that follows, then ``--program export_coarse``. Returns the launch
+    counts of the training and of the render."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+
+    cfg = loader.load_config(cfg_file)
+    cm, fm, ct, ft = (cfg.coarse_model_and_render, cfg.fine_model_and_render, cfg.coarse_train,
+                      cfg.fine_train)
+    own = loader.load_config(str(LEGO_CONFIG))
+    log(f"[9a] config {LEGO_CONFIG.relative_to(ROOT)} (DVGO): coarse {cm.num_voxels_rgb} voxels, "
+        f"k0 3 channels, no MLP, N_rand {ct.N_rand}, {ct.ray_sampler} sampler, pervoxel_lr "
+        f"{ct.pervoxel_lr}, maskout_near_cam_vox {cm.maskout_near_cam_vox}; fine "
+        f"{fm.num_voxels_rgb} voxels, k0 {fm.rgbnet_dim} channels, rgbnet "
+        f"{fm.rgbnet_depth}x{fm.rgbnet_width}, N_rand {ft.N_rand}, {ft.ray_sampler} sampler; "
+        f"cuts: {ct.N_iters} coarse steps of {own.coarse_train.N_iters}, {ft.N_iters} fine steps "
+        f"of {own.fine_train.N_iters}, boundaries {list(own.fine_train.pg_scale)} compressed to "
+        f"{list(ft.pg_scale)}; {LEGO_TRAIN} training views of the scene's 100")
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    spies = dvgo_spies()
+    with render_spy() as renders, spies[0], spies[1], spies[2], spies[3]:
+        run_cli(["--config", cfg_file, "--i_print", "1", "--render_test"])
+    total_s = time.time() - t0
+    found = report_dvgo_spies("[9a]", *spies)
+    render = renders.calls[-1]
+    out = render.result["test"]
+    n_test = LEGO_HELD
+    if out["rgbs"].shape[:3] != (n_test, LEGO_H, LEGO_W) or not np.isfinite(out["rgbs"]).all():
+        raise AssertionError(f"[9a] rendered {out['rgbs'].shape} or non-finite values")
+    steps = ct.N_iters + ft.N_iters
+    train = train_counts_of(dict(build.LAUNCHES), render.launches)
+    want = {"march_forward": steps, "march_backward": steps,
+            "masked_adam": adam_wanted("[9a]", ft.N_iters),
+            "masked_adam_per_lr": ADAM_WANTED.n_lr}
+    want_render = {"march_forward": n_test * -(-LEGO_H * LEGO_W // RENDER_CHUNK)}
+    if train != want or render.launches != want_render or ADAM_WANTED.n_lr != ct.N_iters:
+        raise AssertionError(f"[9a] launches train {train} (want {want}), render "
+                             f"{render.launches} (want {want_render})")
+    # the coarse stage found the seeded sphere: its last PSNR, and a fine box
+    # around the sphere (radius SPHERE_RADIUS at the origin), floaters allowed
+    with open(os.path.join(exp_dir, "coarse_metrics.jsonl")) as f:
+        psnr = {r["step"]: r["psnr"] for r in map(json.loads, f) if "psnr" in r}
+    log(f"[9a] coarse PSNR by step "
+        f"{[(k, round(psnr[k], 2)) for k in sorted(psnr) if k % 100 == 0]}")
+    lo, hi = found["box"]
+    if psnr[ct.N_iters] < LEGO_COARSE_MIN_PSNR or not (
+            (0.5 * SPHERE_RADIUS <= -lo).all() and (-lo <= 1.5 * SPHERE_RADIUS).all()
+            and (0.5 * SPHERE_RADIUS <= hi).all() and (hi <= 1.5 * SPHERE_RADIUS).all()) or \
+            not 0 < found["kept"] < 1:
+        raise AssertionError(f"[9a] the coarse stage did not find the sphere: PSNR "
+                             f"{psnr[ct.N_iters]:.2f}, fine box {lo} .. {hi}, in_maskcache "
+                             f"kept {found['kept']:.3f}")
+    ws = fine_world_size(fm, found["box"])
+    meta = json.load(open(os.path.join(exp_dir, "fine_last", "meta.json")))
+    with open(os.path.join(exp_dir, "fine_metrics.jsonl")) as f:
+        bounds = [r["pg_scale"] for r in map(json.loads, f) if "pg_scale" in r]
+    if tuple(bounds[-1]["world_size_rgb"]) != tuple(ws) or meta["global_step"] != ft.N_iters:
+        raise AssertionError(f"[9a] fine grids {bounds[-1]['world_size_rgb']} at the last "
+                             f"boundary, want {ws}; fine_last at step {meta['global_step']}")
+    coarse_ms = stage_ms(exp_dir, "coarse", 3, ct.N_iters)
+    first = ft.pg_scale[-1] + 1 + WARMUP_STEPS
+    fine_ms = stage_ms(exp_dir, "fine", first, ft.N_iters)
+    log(f"[9a] lego.py on {card}: coarse ms/step (steps 3 to {ct.N_iters}) median "
+        f"{float(np.median(coarse_ms)):.2f}, min {min(coarse_ms):.2f}; fine grids {tuple(ws)} "
+        f"from step {ft.pg_scale[-1]}, ms/step "
+        f"{[round(t, 1) for t in stage_ms(exp_dir, 'fine', 2, ft.N_iters)]} (steps 2 on), at "
+        f"full width (steps {first} on) median {float(np.median(fine_ms)):.1f}; "
+        f"peak memory of the training {render.peak_before_gb:.2f} GB, of the whole run "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; render "
+        f"{[round(t * 1e3, 1) for t in out['seconds']]} ms/view, psnr "
+        f"{[round(x, 3) for x in out['psnrs']]}; launches train {train}, render "
+        f"{render.launches}; the command {total_s:.1f} s")
+    # the coarse volume, as a user exports it
+    before = dict(build.LAUNCHES)
+    t0 = time.time()
+    run_cli(["--config", cfg_file, "--program", "export_coarse"])
+    coarse = json.load(open(os.path.join(exp_dir, "coarse_last", "meta.json")))
+    with np.load(os.path.join(exp_dir, "coarse_volume.npz")) as vol:
+        alpha, rgb = vol["alpha"], vol["rgb"]
+    from unboundednerfpytorch_tpu_torch.models import dvgo
+
+    cws = dvgo.DVGOConfig(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in coarse["model_kwargs"].items()}).world_size
+    if alpha.shape != tuple(cws) or rgb.shape != (*cws, 3) or not np.isfinite(alpha).all() \
+            or launches_since(before) or coarse["global_step"] != ct.N_iters:
+        raise AssertionError(f"[9a] export_coarse: alpha {alpha.shape}, rgb {rgb.shape}, want "
+                             f"{cws}; launches {launches_since(before)}")
+    log(f"[9a] export_coarse {time.time() - t0:.1f} s: alpha {alpha.shape} (max "
+        f"{float(alpha.max()):.4f}, {int((alpha > cm.bbox_thres).sum())} voxels above "
+        f"bbox_thres {fm.bbox_thres}), rgb {rgb.shape}")
+    return [train, render.launches]
+
+
+def phase_truck_lg(tmp: pathlib.Path, card: str) -> list:
+    """Phase 9b: tankstemple/Truck_lg.py (DVGO, the host ray store,
+    ``pervoxel_lr_downrate`` 2, a fine grid of 256^3) through ``run_train``
+    without a checkpoint on a Tanks & Temples capture. Returns [the launch
+    counts of the run]."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.train import step as step_mod
+
+    t0 = time.time()
+    data = synthetic.orbit_scene(TRUCK_LG_VIEWS, TRUCK_LG_H, TRUCK_LG_W, seed=7,
+                                 n_test=TRUCK_LG_TEST, cam_radius=CAM_RADIUS,
+                                 sphere_radius=SPHERE_RADIUS)
+    scene = synthetic.write_tankstemple_scene(str(tmp / "TanksAndTemple_Truck_lg"), data)
+    cfg_file = tmp / "truck_lg.py"
+    cfg_file.write_text(
+        f"_base_ = {str(TRUCK_LG_CONFIG)!r}\nbasedir = {str(tmp / 'logs')!r}\n"
+        f"data = dict(datadir={scene!r})\n"
+        f"coarse_train = dict(N_iters={TRUCK_LG_COARSE_STEPS})\n"
+        f"fine_train = dict(N_iters={TRUCK_LG_FINE_STEPS}, pg_scale={list(TRUCK_LG_PG_SCALE)}, "
+        f"decay_after_scale={TRUCK_LG_DECAY})\n")
+    cfg = loader.load_config(str(cfg_file))
+    data = common.load_everything(cfg)
+    ct, ft, fm = cfg.coarse_train, cfg.fine_train, cfg.fine_model_and_render
+    own = loader.load_config(str(TRUCK_LG_CONFIG))
+    if not cfg.data.load2gpu_on_the_fly or ct.pervoxel_lr_downrate != 2:
+        raise AssertionError("Truck_lg.py does not ask for the host store and downrate 2")
+    log(f"[9b] config {TRUCK_LG_CONFIG.relative_to(ROOT)} (DVGO, load2gpu_on_the_fly, "
+        f"pervoxel_lr_downrate {ct.pervoxel_lr_downrate}, fine {fm.num_voxels_rgb} voxels, k0 "
+        f"{fm.rgbnet_dim} channels, rgbnet {fm.rgbnet_depth}x{fm.rgbnet_width}, N_rand "
+        f"{ft.N_rand}); cuts: {ct.N_iters} coarse steps of {own.coarse_train.N_iters}, "
+        f"{ft.N_iters} fine steps of {own.fine_train.N_iters}, boundaries "
+        f"{list(own.fine_train.pg_scale)} compressed to {list(ft.pg_scale)}, decay_after_scale "
+        f"{own.fine_train.decay_after_scale} -> {ft.decay_after_scale}, no checkpoint; "
+        f"capture of {TRUCK_LG_VIEWS} + {TRUCK_LG_TEST} views of {TRUCK_LG_H}x{TRUCK_LG_W} "
+        f"made, written and loaded in {time.time() - t0:.1f} s")
+    stamps, psnr, bounds = [], [], []
+
+    def callback(step, metrics):
+        if not np.isfinite(float(metrics["loss"])):  # synchronises the step
+            raise AssertionError(f"[9b] step {step}: loss {float(metrics['loss'])}")
+        stamps.append((step, time.perf_counter(), torch.cuda.max_memory_allocated() / 1e9))
+        psnr.append(float(metrics["psnr"]))
+        bounds.append(metrics.get("pg_scale"))
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    spies = dvgo_spies()
+    t_start = time.perf_counter()
+    with Spy(step_mod.HostRayStoreSampler, "next_batch", keep=False) as batches, \
+            spies[0], spies[1], spies[2], spies[3]:
+        _, mcfg, params, _ = loop.run_train(cfg, data, seed=0, device="cuda", log_fn=log,
+                                            log_every=1, callback=callback)
+    counts = dict(build.LAUNCHES)
+    steps = ct.N_iters + ft.N_iters
+    want = {"march_forward": steps, "march_backward": steps,
+            "masked_adam": adam_wanted("[9b]", ft.N_iters), "masked_adam_per_lr": ct.N_iters}
+    if counts != want or ADAM_WANTED.n_lr != ct.N_iters or len(stamps) != steps:
+        raise AssertionError(f"[9b] launch counts {counts} != {want}, {len(stamps)} steps")
+    found = report_dvgo_spies("[9b]", *spies)
+    by_step = [(k, round(psnr[k - 1], 2)) for k in range(100, ct.N_iters + 1, 100)]
+    log(f"[9b] coarse PSNR by step {by_step}, fine {[round(x, 2) for x in psnr[ct.N_iters:]]}")
+    # the fine stage has live samples at full width: the coarse stage found
+    # geometry (the fine box under half the frustum box), the filter kept
+    # rays, and the occupancy cache holds voxels after the last boundary
+    lo_c, hi_c = (np.asarray(x) for x in spies[2].calls[0].result)
+    share = float(np.prod(found["box"][1] - found["box"][0]) / np.prod(hi_c - lo_c))
+    last = [b for b in bounds if b is not None][-1]
+    if not (share < 0.5 and found["kept"] > 0 and last["occupancy"] > 0):
+        raise AssertionError(f"[9b] no live sample at full width: fine box {share:.3f} of the "
+                             f"frustum box, in_maskcache kept {found['kept']:.3f} of the rays, "
+                             f"occupancy {last['occupancy']:.4f} after step {last['step']}")
+    log(f"[9b] occupancy cache after each fine boundary "
+        f"{[(b['step'], round(b['occupancy'], 4)) for b in bounds if b is not None]}")
+    ws = fine_world_size(fm, found["box"])
+    if tuple(params.k0.grid.shape) != (1, *ws, fm.rgbnet_dim):
+        raise AssertionError(f"[9b] k0 grid {tuple(params.k0.grid.shape)}, want {ws}")
+    dts = np.diff([t_start] + [t for _, t, _ in stamps]) * 1e3
+    peaks = [p for _, _, p in stamps]
+    coarse_ms = dts[2:ct.N_iters]
+    first = ft.pg_scale[-1] + 1 + WARMUP_STEPS
+    fine_ms = dts[ct.N_iters + first - 1:]
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    log(f"[9b] Truck_lg.py on {card}: coarse ms/step (steps 3 on) median "
+        f"{float(np.median(coarse_ms)):.2f}; fine grids {(1, *ws, fm.rgbnet_dim)} f32 from step "
+        f"{ft.pg_scale[-1]}, ms/step {[round(float(t), 1) for t in dts[ct.N_iters:]]} (the first "
+        f"with the stage's set-up: box, seed, ray store, filter), at full "
+        f"width (steps {first} on) median {float(np.median(fine_ms)):.1f}; peak memory of the "
+        f"coarse stage {max(peaks[:ct.N_iters]):.2f} GB, of the fine stage by step "
+        f"{[round(x, 2) for x in peaks[ct.N_iters:]]} GB, the most {max(peaks):.2f} GB of the "
+        f"card's {card_gb:.1f} GB; launches {counts}")
+    if max(peaks) >= card_gb:
+        raise AssertionError(f"[9b] peak {max(peaks)} GB")
+    return [counts]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -2658,8 +3221,9 @@ def main(argv=None) -> int:
                     help=f"trace the last {PROFILED_STEPS} train steps and one rendered view "
                          "with torch.profiler")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after phase 3: the kernel table without launch counts, and no "
-                         "ok line")
+                    help="stop after phase 3: the kernel table without launch counts (nor "
+                         "times of masked_adam_per_lr, which phase 9c times at the DVGO "
+                         "runs' shapes), and no ok line")
     args = ap.parse_args(argv)
     least = PG_SCALE[-1] + WARMUP_STEPS + 1 + (PROFILED_STEPS if args.profile else 0)
     if args.steps < least:
@@ -2724,7 +3288,7 @@ def main(argv=None) -> int:
             k["max_abs_err"] = max(k["max_abs_err"], err)
             k["shapes"] += lines
         kernels.append(phase_cumdist(gen, fam, floor))
-        kernels.append(phase_adam(gen, tv_shapes, fam, floor))
+        kernels += phase_adam(gen, tv_shapes, fam, floor)
         probe_kernels, probe_counts = phase_probes(floor)
         kernels += probe_kernels
         torch.cuda.empty_cache()
@@ -2736,7 +3300,7 @@ def main(argv=None) -> int:
 
         cfg_file, data = timed("4 scene", phase_scene, tmp, args.views)
         exp_dir = str(tmp / "api")
-        # every optimizer step of phases 4 to 8 counts the launches it should make
+        # every optimizer step of phases 4 to 9 counts the launches it should make
         with Spy(MaskedAdam, "step", before=ADAM_WANTED, keep=False):
             path_counts = [timed("4", phase_train, cfg, args.steps, data, args.profile,
                                  exp_dir, card, tv_shapes)]
@@ -2750,19 +3314,28 @@ def main(argv=None) -> int:
             path_counts += timed("7c", phase_host_store, tmp, card)
             path_counts += timed("8a", phase_cli_waymo, tmp, card)
             path_counts += timed("8b", phase_free, tmp, card)
+            lego_file = timed("9a scene", lego_scene, tmp)
+            # phase 9c holds the kernels at the shapes these runs give them
+            with PathShapes() as lego_shapes:
+                path_counts += timed("9a", phase_cli_lego, lego_file, card)
+            with PathShapes() as truck_lg_shapes:
+                path_counts += timed("9b", phase_truck_lg, tmp, card)
+    timed("9c", phase_dvgo_kernels, gen, kernels,
+          {"9a lego.py": lego_shapes, "9b Truck_lg.py": truck_lg_shapes}, floor)
     log(f"seconds by phase: { {k: round(v, 1) for k, v in seconds.items()} }, in all "
         f"{time.time() - t_start:.1f}")
     # a kernel's launches: those of every path that ran it, each path counted
     # from 0 just before it was driven to just after
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in path_counts + [probe_counts])
-        if k["launches"] < 1:
-            raise AssertionError(f"no path launched {k['name']}")
+        if k["launches"] < 1 or any(k[key] is None for key in ("ms", "plain_ms", "bound_ms")):
+            raise AssertionError(f"no path launched {k['name']}, or it was not timed")
     log(f"launches by path: train {path_counts[0]}, render {path_counts[1]}, 6a run 1 train "
         f"and render {path_counts[2:4]}, run 2 {path_counts[4:6]}, 6b {path_counts[6:8]}, "
         f"7a DCVGO train and render {path_counts[8:10]}, 7b DMPIGO {path_counts[10:12]}, "
         f"7c host store train {path_counts[12]}, 8a waymo train and render "
-        f"{path_counts[13:15]}, 8b free {path_counts[15:17]}, probes {probe_counts}")
+        f"{path_counts[13:15]}, 8b free {path_counts[15:17]}, 9a DVGO lego train and render "
+        f"{path_counts[17:19]}, 9b Truck_lg train {path_counts[19]}, probes {probe_counts}")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -440,8 +440,8 @@ def test_checkpoint_round_trip_is_bit_equal(tmp_path, dtype):
                                     sorted(p2.state_dict().items())):
             assert na == nb and torch.equal(a, b), na
         assert p2.density.xyz_min == tp.density.xyz_min and p2.k0.num_freqs == tp.k0.num_freqs
-    with pytest.raises(NotImplementedError):
-        ckpt.save_model(path, "dvgo", tcfg, tp)
+    with pytest.raises(NotImplementedError):  # a family the port does not have
+        ckpt.save_model(path, "tensorf", tcfg, tp)
 
 
 def test_checkpoint_archives_are_numpy_archives(tmp_path):
@@ -646,9 +646,16 @@ def test_run_render_ft_path_and_refusals(trained, tmp_path, monkeypatch):
     (tmp_path / "fine_last_0" / "meta.json").write_text("{}")
     with pytest.raises(NotImplementedError, match="block"):
         render.run_render(ns(), cfg, data, str(tmp_path), device="cpu")
-    for fn in (render.run_render_blocks, render.export_coarse_geometry):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(ns(), cfg, data, exp_dir) if fn is render.run_render_blocks else fn(cfg, exp_dir)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        render.run_render_blocks(ns(), cfg, data, exp_dir)
+    # without a coarse_last the coarse export reads fine_last
+    out = render.export_coarse_geometry(cfg, exp_dir, out_path=str(tmp_path / "vol.npz"),
+                                        device="cpu", log_fn=lambda _: None)
+    _, mcfg, params, _, _ = ckpt.load_model(os.path.join(exp_dir, "fine_last"))
+    with np.load(out) as vol:
+        assert vol["alpha"].shape == tuple(mcfg.world_size_density)
+        assert vol["rgb"].shape == (*mcfg.world_size_rgb, 3)
+        assert np.isfinite(vol["alpha"]).all() and (vol["rgb"] > 0).all()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         render.run_render(ns(), cfg, data, exp_dir)

@@ -5,8 +5,8 @@ The port's counterpart of ``unboundednerfpytorch_tpu/cli/main.py``, the
 every flag of the JAX command line), config load, data load, ``args.txt`` in the
 experiment directory, and program dispatch. Ported programs: ``train`` (then
 ``render``, as the JAX command line does), ``render`` (or ``--render_only``),
-``export_bbox``, ``export_baked`` and ``gen_trace``. The programs ``sfm``,
-``tune_pose``, ``linemod_eval`` and ``export_coarse`` and the options
+``export_bbox``, ``export_coarse``, ``export_baked`` and ``gen_trace``. The
+programs ``sfm``, ``tune_pose`` and ``linemod_eval`` and the options
 ``--num_per_block`` > 0, ``--block_parallel`` and ``--grid_parallel`` > 1
 raise ``NotImplementedError`` naming the ROADMAP item they wait for.
 ``--sample_num`` and ``--diffuse`` reach the waymo and mega loaders, as in
@@ -139,7 +139,6 @@ REFUSED_PROGRAMS = {
     "sfm": "the COLMAP run, data/colmap.py (ROADMAP A15.7)",
     "tune_pose": "camera-pose refinement, train/pose_tune.py (ROADMAP A17)",
     "linemod_eval": "the linemod loader and utils/pose_eval.py (ROADMAP A17)",
-    "export_coarse": "the coarse stage (ROADMAP A18a)",
 }
 REFUSED_OPTIONS = {
     "num_per_block": (lambda v: v > 0, "block training and merge_blocks (ROADMAP A14)"),
@@ -214,6 +213,11 @@ def main(argv=None, device=None) -> int:
         np.savez_compressed(out, xyz_min=np.asarray(xyz_min), xyz_max=np.asarray(xyz_max),
                             poses=np.asarray(data_dict["poses"]))
         print(f"exported bbox+cams to {out}")
+        return 0
+    if args.program == "export_coarse":
+        from unboundednerfpytorch_tpu_torch.render import export_coarse_geometry
+
+        export_coarse_geometry(cfg, exp_dir, out_path=args.export_coarse_only, device=dev)
         return 0
     if args.program == "gen_trace":
         from unboundednerfpytorch_tpu_torch.render import cam_paths

@@ -1,5 +1,5 @@
-"""Carry model weights (FourierGrid, DCVGO, DMPIGO) between the JAX package
-and the port.
+"""Carry model weights (FourierGrid, DVGO, DCVGO, DMPIGO) between the JAX
+package and the port.
 
 The JAX ``FourierGridParams`` is handed over as a nested dict of numpy
 arrays keyed by its field names, so this module needs nothing of JAX:
@@ -11,13 +11,14 @@ arrays keyed by its field names, so this module needs nothing of JAX:
      "act_shift": scalar,
      "mask_cache": {"mask": bool [X, Y, Z], "xyz_min": ..., "xyz_max": ...}}
 
-The JAX ``DCVGOParams`` and ``DMPIGOParams`` have the same keys, their grids
+The JAX ``DVGOParams``, ``DCVGOParams`` and ``DMPIGOParams`` have the same
+keys, their grids
 ``DenseGrid`` s without ``num_freqs`` and with a grid ``[X, Y, Z, C]`` (the
 port's is ``[1, X, Y, Z, C]``), ``rgbnet`` None where the model has no MLP,
 and DMPIGO's ``act_shift`` a ``[mpi_depth]`` array. :func:`params_to_numpy`,
 :func:`params_from_numpy`, :func:`config_from_dict` and the optimizer-state
-functions take the family (``"FourierGrid"``, ``"dcvgo"``, ``"dmpigo"``, the
-names of the JAX package's checkpoints).
+functions take the family (``"FourierGrid"``, ``"dvgo"``, ``"dcvgo"``,
+``"dmpigo"``, the names of the JAX package's checkpoints).
 
 ``nn.Linear`` keeps its weight as ``[out, in]``, so the MLP kernels are
 transposed on the way in and back on the way out. The view-direction grid
@@ -59,13 +60,13 @@ import torch
 
 from unboundednerfpytorch_tpu_torch.fields.grids import DenseGrid, FourierGrid, MaskGrid
 from unboundednerfpytorch_tpu_torch.fields.mlp import MLP
-from unboundednerfpytorch_tpu_torch.models import dcvgo, dmpigo
+from unboundednerfpytorch_tpu_torch.models import dcvgo, dmpigo, dvgo
 from unboundednerfpytorch_tpu_torch.models.fourier_grid import (
     FourierGridConfig, FourierGridParams,
 )
 
-CONFIGS = {"FourierGrid": FourierGridConfig, "dcvgo": dcvgo.DCVGOConfig,
-           "dmpigo": dmpigo.DMPIGOConfig}
+CONFIGS = {"FourierGrid": FourierGridConfig, "dvgo": dvgo.DVGOConfig,
+           "dcvgo": dcvgo.DCVGOConfig, "dmpigo": dmpigo.DMPIGOConfig}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -129,8 +130,9 @@ def params_from_numpy(family: str, tree: dict, device):
     parts = (_dense_from(tree["density"], device), _dense_from(tree["k0"], device),
              _mlp_from(tree.get("rgbnet"), device))
     mask = _mask_from(tree["mask_cache"], device)
-    if family == "dcvgo":
-        return dcvgo.DCVGOParams(*parts, float(np.asarray(tree["act_shift"])), mask)
+    if family in ("dvgo", "dcvgo"):
+        cls = dvgo.DVGOParams if family == "dvgo" else dcvgo.DCVGOParams
+        return cls(*parts, float(np.asarray(tree["act_shift"])), mask)
     if family == "dmpigo":
         shift = torch.tensor(np.asarray(tree["act_shift"], np.float32), device=device)
         return dmpigo.DMPIGOParams(*parts, shift, mask)
@@ -182,7 +184,8 @@ def bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
 
 def tree_from_params_object(p) -> dict:
     """The nested numpy dict from any object shaped like the JAX
-    ``FourierGridParams``, ``DCVGOParams`` or ``DMPIGOParams`` (attributes
+    ``FourierGridParams``, ``DVGOParams``, ``DCVGOParams`` or ``DMPIGOParams``
+    (attributes
     ``density``, ``k0``, ``rgbnet``, ``act_shift``, ``mask_cache``, optionally
     ``vd`` / ``img_embeddings``)."""
 

@@ -1,9 +1,11 @@
 """Dataset-type dispatch to the ``data_dict`` of the trainer and renderer.
 
-The port's copy of ``unboundednerfpytorch_tpu/data/common.py`` for seven
+The port's copy of ``unboundednerfpytorch_tpu/data/common.py`` for eleven
 layouts: ``llff`` (Mip-NeRF-360 and LLFF, ``configs/nerf_unbounded``,
 ``configs/llff``), ``nerfpp`` (``configs/tankstemple_unbounded``, ``lf``),
-``tankstemple`` (``configs/tankstemple``), ``free`` (F2-NeRF,
+``blender`` (NeRF-synthetic, ``configs/nerf``, ``configs/tiny``), ``nsvf``
+(``configs/nsvf``), ``blendedmvs`` (``configs/blendedmvs``), ``deepvoxels``
+(``configs/deepvoxels``), ``tankstemple`` (``configs/tankstemple``), ``free`` (F2-NeRF,
 ``configs/free_dataset``), ``nerfstudio`` (``configs/nerf_studio``),
 ``waymo`` and ``mega`` (``configs/waymo``, ``configs/mega``; routed by
 :func:`load_everything`). The ``data_dict`` holds numpy arrays on the host,
@@ -20,9 +22,8 @@ import numpy as np
 
 from unboundednerfpytorch_tpu_torch.configs.schema import DataConfig, ExpConfig
 
-# dataset types of the JAX package that the port does not load yet: they
-# serve the DVGO configs, which wait for the coarse stage
-NOT_PORTED = ("blender", "blendedmvs", "nsvf", "deepvoxels", "co3d", "linemod")
+# dataset types of the JAX package that the port does not load yet
+NOT_PORTED = ("co3d", "linemod")
 
 
 def inward_nearfar_heuristic(cam_o: np.ndarray, ratio: float = 0.05):
@@ -41,7 +42,7 @@ def _composite_bkgd(images: np.ndarray, white_bkgd: bool) -> np.ndarray:
 
 def _refuse(dt) -> None:
     if dt in NOT_PORTED:
-        raise NotImplementedError(f"dataset_type {dt!r} is not ported yet (ROADMAP A18a)")
+        raise NotImplementedError(f"dataset_type {dt!r} is not ported yet (ROADMAP A18c)")
     raise NotImplementedError(f"unknown dataset type {dt!r}")
 
 
@@ -82,6 +83,33 @@ def load_common_data(data_cfg: DataConfig) -> dict:
             near_clip = max(float(bds.min()) * 0.9, 0)
             near = 0
             far = inward_nearfar_heuristic(poses[i_train, :3, 3])[1]
+    elif dt == "blender":
+        images, poses, render_poses, hwf, i_split = loaders.load_blender_data(
+            data_cfg.datadir, data_cfg.half_res, data_cfg.testskip)
+        i_train, i_val, i_test = i_split
+        near, far = 2.0, 6.0
+        images = _composite_bkgd(images, data_cfg.white_bkgd)
+    elif dt == "blendedmvs":
+        images, poses, render_poses, hwf, K, i_split = loaders.load_blendedmvs_data(
+            data_cfg.datadir)
+        i_train, i_val, i_test = i_split
+        near, far = inward_nearfar_heuristic(poses[np.asarray(i_train), :3, 3])
+        if images.shape[-1] != 3:
+            raise ValueError(f"blendedmvs images have {images.shape[-1]} channels, want 3")
+    elif dt == "nsvf":
+        images, poses, render_poses, hwf, i_split = loaders.load_nsvf_data(data_cfg.datadir)
+        i_train, i_val, i_test = i_split
+        near, far = inward_nearfar_heuristic(poses[np.asarray(i_train), :3, 3])
+        images = _composite_bkgd(images, data_cfg.white_bkgd)
+    elif dt == "deepvoxels":
+        images, poses, render_poses, hwf, i_split = loaders.load_dv_data(
+            scene=data_cfg.sequence_name or "greek", basedir=data_cfg.datadir,
+            testskip=data_cfg.testskip)
+        i_train, i_val, i_test = i_split
+        hemi_R = np.mean(np.linalg.norm(poses[:, :3, -1], axis=-1))
+        near, far = hemi_R - 1, hemi_R + 1
+        if not data_cfg.white_bkgd:
+            raise ValueError("deepvoxels scenes are composited on white: white_bkgd must be set")
     elif dt == "tankstemple":
         images, poses, render_poses, hwf, K, i_split = loaders.load_tankstemple_data(
             data_cfg.datadir, movie_render_kwargs=dict(data_cfg.movie_render_kwargs))

@@ -12,7 +12,7 @@ The port's copy of the free and nerfstudio parts of
 
 Images are read through :func:`..data.png.imread` and area-resized with
 ``cv2`` where ``factor`` > 1, as the JAX package does. The CO3D loader of
-that module is not ported (ROADMAP A18a).
+that module is not ported (ROADMAP A18c).
 """
 
 from __future__ import annotations

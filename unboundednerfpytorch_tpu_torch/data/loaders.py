@@ -1,6 +1,7 @@
-"""The NeRF++ and Tanks & Temples loaders.
+"""The NeRF++, Tanks & Temples, NeRF-synthetic (blender), NSVF, BlendedMVS
+and DeepVoxels loaders.
 
-The port's copy of two parts of ``unboundednerfpytorch_tpu/data/loaders.py``:
+The port's copy of ``unboundednerfpytorch_tpu/data/loaders.py``:
 
 - NeRF++ (Tanks & Temples unbounded, light fields): ``train/`` and ``test/``
   directories, each with ``intrinsics/*.txt`` and ``pose/*.txt`` (4x4
@@ -9,20 +10,106 @@ The port's copy of two parts of ``unboundednerfpytorch_tpu/data/loaders.py``:
 - Tanks & Temples (the DVGO release, ``configs/tankstemple``): ``pose/*.txt``
   and ``rgb/*.png`` side by side, the first character of an image's name
   its split (0 train, 1 test), one ``intrinsics.txt``, and a circular
-  fly-through around the cameras' centroid.
-
-The other formats of that module (blender, nsvf, blendedmvs, deepvoxels)
-are refused by ``data.common.load_common_data``.
+  fly-through around the cameras' centroid;
+- NeRF-synthetic (``configs/nerf``): ``transforms_{train,val,test}.json``
+  (``camera_angle_x`` and each frame's ``file_path`` and 4x4
+  ``transform_matrix``) beside RGBA PNGs, with ``half_res`` (an area
+  resize to half size) and ``testskip``, and 160 views on a sphere
+  (:func:`pose_spherical`) as the render path;
+- NSVF and BlendedMVS (``configs/nsvf``, ``configs/blendedmvs``): the Tanks
+  & Temples layout with three splits (0 train, 1 val, 2 test) and the focal
+  length first in ``intrinsics.txt`` (NSVF), or two splits, a 3x3
+  ``intrinsics.txt`` and the render path in ``test_traj.txt`` (BlendedMVS);
+- DeepVoxels (``configs/deepvoxels``): ``train|validation|test/<scene>/``
+  each with ``pose/*.txt`` and ``rgb/*.png``, the intrinsics in
+  ``train/<scene>/intrinsics.txt``.
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import os
 
 import numpy as np
 
 from unboundednerfpytorch_tpu_torch.data.png import imread as _imread
+
+
+def _trans_t(t):
+    m = np.eye(4, dtype=np.float32)
+    m[2, 3] = t
+    return m
+
+
+def _rot_phi(phi):
+    m = np.eye(4, dtype=np.float32)
+    m[1, 1] = np.cos(phi)
+    m[1, 2] = -np.sin(phi)
+    m[2, 1] = np.sin(phi)
+    m[2, 2] = np.cos(phi)
+    return m
+
+
+def _rot_theta(th):
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0] = np.cos(th)
+    m[0, 2] = -np.sin(th)
+    m[2, 0] = np.sin(th)
+    m[2, 2] = np.cos(th)
+    return m
+
+
+def pose_spherical(theta: float, phi: float, radius: float, nsvf_axes: bool = False):
+    """The f32 c2w of a camera at ``radius`` from the origin looking at it,
+    ``theta`` degrees around the up axis and ``phi`` degrees of elevation;
+    ``nsvf_axes`` flips its y and z axes (the NSVF convention)."""
+    c2w = _trans_t(radius)
+    c2w = _rot_phi(phi / 180.0 * np.pi) @ c2w
+    c2w = _rot_theta(theta / 180.0 * np.pi) @ c2w
+    c2w = np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]],
+                   dtype=np.float32) @ c2w
+    if nsvf_axes:
+        c2w[:, [1, 2]] *= -1
+    return c2w
+
+
+def load_blender_data(basedir: str, half_res: bool = False, testskip: int = 1):
+    """(images [V, H, W, 4] f32 RGBA, poses [V, 4, 4] f32, render_poses
+    [160, 4, 4], [H, W, focal], [i_train, i_val, i_test]); the val and test
+    splits keep every ``testskip``-th frame (all where it is 0)."""
+    splits = ["train", "val", "test"]
+    metas = {}
+    for s in splits:
+        with open(os.path.join(basedir, f"transforms_{s}.json")) as fp:
+            metas[s] = json.load(fp)
+    all_imgs, all_poses, counts = [], [], [0]
+    for s in splits:
+        meta = metas[s]
+        skip = 1 if s == "train" or testskip == 0 else testskip
+        imgs, poses = [], []
+        for frame in meta["frames"][::skip]:
+            imgs.append(_imread(os.path.join(basedir, frame["file_path"] + ".png")))
+            poses.append(np.array(frame["transform_matrix"]))
+        imgs = (np.array(imgs) / 255.0).astype(np.float32)
+        poses = np.array(poses).astype(np.float32)
+        counts.append(counts[-1] + imgs.shape[0])
+        all_imgs.append(imgs)
+        all_poses.append(poses)
+    i_split = [np.arange(counts[i], counts[i + 1]) for i in range(3)]
+    imgs = np.concatenate(all_imgs, 0)
+    poses = np.concatenate(all_poses, 0)
+    H, W = imgs[0].shape[:2]
+    focal = 0.5 * W / np.tan(0.5 * float(metas["train"]["camera_angle_x"]))
+    render_poses = np.stack(
+        [pose_spherical(a, -30.0, 4.0) for a in np.linspace(-180, 180, 161)[:-1]])
+    if half_res:
+        import cv2
+
+        H, W, focal = H // 2, W // 2, focal / 2.0
+        imgs = np.stack([cv2.resize(im, (W, H), interpolation=cv2.INTER_AREA)
+                         for im in imgs]).astype(np.float32)
+    return imgs, poses, render_poses, [H, W, focal], i_split
 
 
 def _find_files(d, exts):
@@ -158,3 +245,79 @@ def load_tankstemple_data(basedir: str, movie_render_kwargs: dict | None = None)
     render_poses = np.concatenate(
         [render_poses, np.broadcast_to(poses[0, :3, -1:], render_poses[:, :3, -1:].shape)], -1)
     return imgs, poses, render_poses, [H, W, focal], K, i_split
+
+
+def load_nsvf_data(basedir: str):
+    """(images, poses, render_poses, [H, W, focal], [i_train, i_val,
+    i_test]): three splits by name, the focal length the first number of
+    ``intrinsics.txt``, 200 render poses on a sphere of the cameras' mean
+    radius, 30 degrees down, in NSVF's axes."""
+    imgs, poses, i_split = _load_pose_rgb_pairs(basedir, 3)
+    H, W = imgs[0].shape[:2]
+    with open(os.path.join(basedir, "intrinsics.txt")) as f:
+        focal = float(f.readline().split()[0])
+    R = np.sqrt((poses[..., :3, 3] ** 2).sum(-1)).mean()
+    render_poses = np.stack([pose_spherical(a, -30.0, R, nsvf_axes=True)
+                             for a in np.linspace(-180, 180, 201)[:-1]])
+    return imgs, poses, render_poses, [H, W, focal], i_split
+
+
+def load_blendedmvs_data(basedir: str):
+    """(images, poses, render_poses, [H, W, focal], K, [i_train, i_val,
+    i_test]): two splits by name (the test views are the val views), a 3x3
+    ``intrinsics.txt``, the render path the 4x4 poses of ``test_traj.txt``."""
+    imgs, poses, i_split = _load_pose_rgb_pairs(basedir, 2)
+    i_split.append(i_split[-1])
+    H, W = imgs[0].shape[:2]
+    K = np.loadtxt(os.path.join(basedir, "intrinsics.txt"))
+    focal = float(K[0, 0])
+    render_poses = np.loadtxt(os.path.join(basedir, "test_traj.txt")).reshape(-1, 4, 4).astype(
+        np.float32)
+    return imgs, poses, render_poses, [H, W, focal], K, i_split
+
+
+def load_dv_data(scene: str, basedir: str, testskip: int = 8):
+    """(images, poses, render_poses, [H, W, focal], [i_train, i_val,
+    i_test]) of a DeepVoxels scene: ``train``, ``validation`` and ``test``
+    directories of ``<scene>``, the last two thinned by ``testskip``; each
+    pose is right-multiplied by diag(1, -1, -1, 1) (the camera's y and z axes
+    flipped), the focal length and centre of ``train/<scene>/intrinsics.txt``
+    scaled to the images' height, and the test poses the render path."""
+
+    def parse_intrinsics(filepath, target_side_len):
+        with open(filepath) as f:
+            f_, cx, cy, _ = map(float, f.readline().split())
+            f.readline()
+            f.readline()
+            height, width = map(float, f.readline().split())
+        cx = cx / width * target_side_len
+        cy = cy / height * target_side_len
+        f_ = target_side_len / height * f_
+        return np.array([[f_, 0, cx], [0, f_, cy], [0, 0, 1]])
+
+    def dir_data(split_dir):
+        pose_paths = sorted(glob.glob(os.path.join(split_dir, "pose", "*txt")))
+        img_paths = sorted(glob.glob(os.path.join(split_dir, "rgb", "*png")))
+        poses = [np.loadtxt(p).reshape(4, 4) for p in pose_paths]
+        imgs = [(_imread(p) / 255.0).astype(np.float32) for p in img_paths]
+        return np.stack(imgs), np.stack(poses).astype(np.float32)
+
+    splits = {"train": os.path.join(basedir, "train", scene),
+              "val": os.path.join(basedir, "validation", scene),
+              "test": os.path.join(basedir, "test", scene)}
+    all_imgs, all_poses, counts = [], [], [0]
+    for s in ("train", "val", "test"):
+        imgs, poses = dir_data(splits[s])
+        if s != "train" and testskip > 1:
+            imgs, poses = imgs[::testskip], poses[::testskip]
+        poses = poses @ np.diag([1, -1, -1, 1]).astype(np.float32)
+        all_imgs.append(imgs)
+        all_poses.append(poses)
+        counts.append(counts[-1] + len(imgs))
+    i_split = [np.arange(counts[i], counts[i + 1]) for i in range(3)]
+    imgs = np.concatenate(all_imgs)
+    poses = np.concatenate(all_poses)
+    H, W = imgs[0].shape[:2]
+    K = parse_intrinsics(os.path.join(basedir, "train", scene, "intrinsics.txt"), H)
+    render_poses = poses[i_split[2]]
+    return imgs, poses, render_poses, [H, W, float(K[0, 0])], i_split

@@ -11,8 +11,12 @@ captures of ``configs/llff``): cameras on a small plane, all looking down
 -z at a ball before a textured wall. :func:`write_llff_scene` and
 :func:`write_nerfpp_scene` put such scenes on disk in the layouts the
 loaders read; :func:`write_tankstemple_scene`, :func:`write_free_scene`,
-:func:`write_nerfstudio_scene`, :func:`write_waymo_scene` and
-:func:`write_mega_scene` in the other five.
+:func:`write_nerfstudio_scene`, :func:`write_waymo_scene`,
+:func:`write_mega_scene`, :func:`write_blender_scene`,
+:func:`write_nsvf_scene`, :func:`write_blendedmvs_scene` and
+:func:`write_deepvoxels_scene` in the other nine. With ``alpha``,
+:func:`orbit_scene` makes RGBA views whose alpha is the sphere's coverage
+(the NeRF-synthetic and NSVF captures, composited on white by the loader).
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ def _sky_color(d: np.ndarray, phase: np.ndarray) -> np.ndarray:
 
 def orbit_scene(n_views: int = 20, H: int = 411, W: int = 618, *, seed: int = 0,
                 sphere_radius: float = 0.8, cam_radius: float = 3.0,
-                near_clip: float = 0.5, n_test: int = 0, focal_scale: float = 0.8) -> dict:
+                near_clip: float = 0.5, n_test: int = 0, focal_scale: float = 0.8,
+                alpha: bool = False) -> dict:
     """A reference-shaped data_dict (numpy) of ``n_views`` training views and
     ``n_test`` held-out views (``i_test``), which sit half-way between
     training cameras on the same orbit; the training views do not depend on
@@ -62,7 +67,8 @@ def orbit_scene(n_views: int = 20, H: int = 411, W: int = 618, *, seed: int = 0,
 
     The seed sets the texture phases and the orbit's starting angle.
     ``sphere_radius`` is the world radius of the object at the origin; the
-    focal length is ``focal_scale * W``.
+    focal length is ``focal_scale * W``. With ``alpha`` each view is RGBA,
+    its alpha 1 where the ray meets the sphere and 0 on the sky.
     """
     rng = np.random.default_rng(seed)
     phase = rng.uniform(0.0, 2.0 * np.pi, 3)
@@ -92,7 +98,9 @@ def orbit_scene(n_views: int = 20, H: int = 411, W: int = 618, *, seed: int = 0,
         p_hit = pos + t[hit, None] * d[hit]
         rgb[hit] = _sphere_color(p_hit, phase)
         poses.append(c2w.astype(np.float32))
-        images.append(np.clip(rgb, 0.0, 1.0).reshape(H, W, 3).astype(np.float32))
+        if alpha:
+            rgb = np.concatenate([rgb, hit[:, None].astype(np.float64)], -1)
+        images.append(np.clip(rgb, 0.0, 1.0).reshape(H, W, -1).astype(np.float32))
 
     n = n_views + n_test
     return {
@@ -428,4 +436,110 @@ def write_mega_scene(basedir: str, data: dict, n_val: int = 2, odd: dict | None 
                 for k in ("images", "poses", "Ks")}
     _write_metadata_scene(basedir, data, [0] * len(data["images"]), n_val,
                           lambda split, k, cam: f"{k:06d}")
+    return basedir
+
+
+def _held_out(data: dict):
+    """(val views, test views) of a data_dict: its ``i_val``, or its
+    ``i_test`` where it has no val views."""
+    i_val = np.asarray(data.get("i_val", ()), np.int64)
+    i_test = np.asarray(data["i_test"], np.int64)
+    return (i_val if i_val.size else i_test), i_test
+
+
+def write_blender_scene(basedir: str, data: dict) -> str:
+    """The NeRF-synthetic layout: ``transforms_{train,val,test}.json``
+    (``camera_angle_x`` from the first view's focal length and width, and a
+    frame a view: ``file_path`` ``./<split>/r_<n>`` and its OpenGL c2w as
+    ``transform_matrix``) beside ``<split>/r_<n>.png`` (RGBA for an RGBA
+    data_dict). The val views are ``i_val``, or ``i_test`` without them."""
+    from unboundednerfpytorch_tpu_torch.data.png import write_png
+
+    K = np.asarray(data["Ks"][0], np.float64)
+    W = np.asarray(data["images"][0]).shape[1]
+    angle = 2.0 * np.arctan(0.5 * W / K[0, 0])
+    i_val, i_test = _held_out(data)
+    for split, ids in (("train", data["i_train"]), ("val", i_val), ("test", i_test)):
+        os.makedirs(os.path.join(basedir, split), exist_ok=True)
+        frames = []
+        for n, i in enumerate(np.asarray(ids)):
+            write_png(os.path.join(basedir, split, f"r_{n}.png"), _to8(data["images"][i]))
+            frames.append({"file_path": f"./{split}/r_{n}",
+                           "transform_matrix": _c2w(data["poses"][i], False).tolist()})
+        with open(os.path.join(basedir, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": float(angle), "frames": frames}, f)
+    return basedir
+
+
+def _write_pose_rgb(basedir: str, splits) -> None:
+    """``pose/<split>_<n>.txt`` (4x4 OpenCV c2w) and ``rgb/<split>_<n>.png``
+    of each (split number, [(image, pose)])."""
+    from unboundednerfpytorch_tpu_torch.data.png import write_png
+
+    for sub in ("pose", "rgb"):
+        os.makedirs(os.path.join(basedir, sub), exist_ok=True)
+    for split, views in splits:
+        for n, (img, pose) in enumerate(views):
+            name = f"{split}_{n:04d}"
+            np.savetxt(os.path.join(basedir, "pose", name + ".txt"), _c2w(pose, True))
+            write_png(os.path.join(basedir, "rgb", name + ".png"), _to8(img))
+
+
+def _views(data: dict, ids):
+    return [(data["images"][i], data["poses"][i]) for i in np.asarray(ids)]
+
+
+def write_nsvf_scene(basedir: str, data: dict) -> str:
+    """The NSVF layout: ``pose/`` (4x4 OpenCV poses) and ``rgb/`` (PNG, RGBA
+    for an RGBA data_dict), the first character of a name the split (0
+    train, 1 val: ``i_val`` or ``i_test`` without it, 2 test), and
+    ``intrinsics.txt`` whose first line is ``focal cx cy 0``."""
+    i_val, i_test = _held_out(data)
+    _write_pose_rgb(basedir, [(0, _views(data, data["i_train"])), (1, _views(data, i_val)),
+                              (2, _views(data, i_test))])
+    f_, cx, cy = (float(v) for v in np.asarray(data["Ks"][0], np.float64)[[0, 0, 1], [0, 2, 2]])
+    with open(os.path.join(basedir, "intrinsics.txt"), "w") as f:
+        f.write(f"{f_!r} {cx!r} {cy!r} 0.\n0. 0. 0.\n1.\n")
+    return basedir
+
+
+def write_blendedmvs_scene(basedir: str, data: dict) -> str:
+    """The BlendedMVS layout of the DVGO release: ``pose/`` and ``rgb/``
+    (RGB PNG) as :func:`write_tankstemple_scene` writes them (0 train, 1
+    test), the 3x3 ``intrinsics.txt`` and ``test_traj.txt``, the test views'
+    4x4 poses a row each of four."""
+    views = [(np.asarray(img)[..., :3], pose) for img, pose in
+             zip(data["images"], data["poses"])]
+    _write_pose_rgb(basedir, [(0, [views[i] for i in np.asarray(data["i_train"])]),
+                              (1, [views[i] for i in np.asarray(data["i_test"])])])
+    np.savetxt(os.path.join(basedir, "intrinsics.txt"), np.asarray(data["Ks"][0], np.float64))
+    traj = np.concatenate([_c2w(data["poses"][i], True) for i in np.asarray(data["i_test"])])
+    np.savetxt(os.path.join(basedir, "test_traj.txt"), traj)
+    return basedir
+
+
+def write_deepvoxels_scene(basedir: str, data: dict, scene: str = "greek") -> str:
+    """The DeepVoxels layout: ``train/<scene>/``, ``validation/<scene>/``
+    (``i_val``, or ``i_test`` without it) and ``test/<scene>/``, each with
+    ``pose/<n>.txt`` (4x4 OpenCV c2w, which the loader turns back with
+    diag(1, -1, -1, 1)) and ``rgb/<n>.png`` (RGB on white), and
+    ``train/<scene>/intrinsics.txt``: ``focal cx cy 0``, two lines, then
+    ``height width``."""
+    from unboundednerfpytorch_tpu_torch.data.png import write_png
+
+    i_val, i_test = _held_out(data)
+    for split, ids in (("train", data["i_train"]), ("validation", i_val), ("test", i_test)):
+        root = os.path.join(basedir, split, scene)
+        for sub in ("pose", "rgb"):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for n, i in enumerate(np.asarray(ids)):
+            img = np.asarray(data["images"][i])
+            if img.shape[-1] == 4:
+                img = img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+            np.savetxt(os.path.join(root, "pose", f"{n:06d}.txt"), _c2w(data["poses"][i], True))
+            write_png(os.path.join(root, "rgb", f"{n:06d}.png"), _to8(img))
+    f_, cx, cy = (float(v) for v in np.asarray(data["Ks"][0], np.float64)[[0, 0, 1], [0, 2, 2]])
+    H, W = np.asarray(data["images"][0]).shape[:2]
+    with open(os.path.join(basedir, "train", scene, "intrinsics.txt"), "w") as f:
+        f.write(f"{f_!r} {cx!r} {cy!r} 0.\n0. 0. 0.\n1.\n{H} {W}\n")
     return basedir

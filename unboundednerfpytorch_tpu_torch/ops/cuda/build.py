@@ -47,9 +47,11 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
-# every kernel wrapper by name (the key it counts its launches under)
+# every kernel wrapper by name (the key it counts its launches under;
+# masked_adam's launches with a per-element lr count as masked_adam_per_lr)
 KERNELS = ("tv_add_grad", "march_forward", "march_backward", "cumdist_thres",
-           "gather_rows", "gather_tile_rows", "box_gather8", "box_sum", "masked_adam")
+           "gather_rows", "gather_tile_rows", "box_gather8", "box_sum", "masked_adam",
+           "masked_adam_per_lr")
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}

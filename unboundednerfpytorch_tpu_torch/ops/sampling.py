@@ -1,8 +1,8 @@
-"""Ray sampling: contracted and NDC sampling, the oversample skip and
-fixed-budget sample compaction.
+"""Ray sampling: bounded marching through a box, contracted and NDC
+sampling, the oversample skip and fixed-budget sample compaction.
 
 Counterpart of the parts of ``unboundednerfpytorch_tpu/ops/sampling.py``
-that the FourierGrid, DCVGO and DMPIGO forwards run. Everything is fixed
+that the FourierGrid, DVGO, DCVGO and DMPIGO forwards run. Everything is fixed
 shape ``[N_rays, N_samples, ...]`` with validity masks.
 :func:`cumdist_thres_plain` is the plain version of the CUDA kernel behind
 :func:`..ops.cuda.ub360.cumdist_thres`.
@@ -10,7 +10,58 @@ shape ``[N_rays, N_samples, ...]`` with validity masks.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def ray_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor, xyz_min, xyz_max, near: float,
+             far: float = 1e9) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slab test: per ray [t_min, t_max], each clamped to [near, far]
+    (the maximum with ``near`` first, then the minimum with ``far``). A zero
+    component of a direction counts as 1e-6."""
+    mn = torch.tensor(xyz_min, dtype=rays_o.dtype, device=rays_o.device)
+    mx = torch.tensor(xyz_max, dtype=rays_o.dtype, device=rays_o.device)
+    vec = torch.where(rays_d == 0, torch.full_like(rays_d, 1e-6), rays_d)
+    rate_a = (mx - rays_o) / vec
+    rate_b = (mn - rays_o) / vec
+    t_min = torch.clamp(torch.minimum(rate_a, rate_b).amax(-1), near, far)
+    t_max = torch.clamp(torch.maximum(rate_a, rate_b).amin(-1), near, far)
+    return t_min, t_max
+
+
+def n_samples_cap(world_size, stepsize: float) -> int:
+    """The fixed sample count of bounded marching: the lattice's diagonal in
+    steps, int(|world_size + 1| / stepsize) + 1."""
+    return int(np.linalg.norm(np.asarray(world_size, dtype=np.float64) + 1) / stepsize) + 1
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """The Euclidean norm of the last axis of 3, summed in index order."""
+    return torch.sqrt(x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] + x[..., 2] * x[..., 2])
+
+
+def sample_pts_on_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, xyz_min, xyz_max,
+                       near: float, stepdist: float, n_samples: int, far: float = 1e9):
+    """Equidistant marching through the box (DVGO): from the entry point at
+    t_min, ``n_samples`` points ``stepdist`` apart along the unit direction.
+    Returns (pts [N, S, 3], mask [N, S], t [N, S]): a sample is live where
+    its index is below the ray's step count max(ceil((t_max - t_min) |d| /
+    stepdist), 1) and it lies in the box; ``t`` is along the unnormalised
+    direction."""
+    t_min, t_max = ray_aabb(rays_o, rays_d, xyz_min, xyz_max, near, far)
+    d_norm = torch.clamp_min(_norm(rays_d), 1e-12)
+    n_steps = torch.clamp_min(torch.ceil((t_max - t_min) * d_norm / stepdist), 1.0)
+    start = rays_o + rays_d * t_min[:, None]
+    dirn = rays_d / d_norm[:, None]
+    step = torch.arange(n_samples, dtype=rays_o.dtype, device=rays_o.device)
+    dist = step * stepdist
+    pts = start[:, None, :] + dirn[:, None, :] * dist[None, :, None]
+    mn = torch.tensor(xyz_min, dtype=pts.dtype, device=pts.device)
+    mx = torch.tensor(xyz_max, dtype=pts.dtype, device=pts.device)
+    in_range = step[None, :] < n_steps[:, None]
+    in_bbox = ((pts >= mn) & (pts <= mx)).all(dim=-1)
+    t = t_min[:, None] + dist[None, :] / torch.clamp_min(d_norm[:, None], 1e-12)
+    return pts, in_range & in_bbox, t
 
 
 def contracted_t_values(

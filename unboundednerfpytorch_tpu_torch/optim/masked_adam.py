@@ -16,7 +16,13 @@ at most ``MaskedAdam.CHUNK`` elements, so its temporaries (the f32 grad,
 both new moments, the update and ``where``'s outputs) are those of one slice
 and not six grid-sized f32 tensors. The arithmetic of an element does not
 depend on the slice, so the result is the unsliced update's to the bit.
-Per-element learning rates (``pervoxel_lr``) are not ported yet.
+
+A parameter may have a per-element learning rate (``pervoxel_lr``: the
+coarse density grid's normalised view counts), set with :meth:`set_per_lr`
+from the trees :func:`make_per_lr` builds, the counterpart of the JAX
+``make_per_lr``: its step is scaled element by element, and every element is
+updated, even in a ``skip_zero_grad`` group, as the JAX update does. It is
+not part of :meth:`state_dict`: the trainer computes it anew on resume.
 
 :meth:`MaskedAdam.state_dict` holds what the JAX ``MaskedAdamState`` holds,
 the step count and both moments, keyed by group name and by the position of
@@ -43,6 +49,25 @@ class ParamGroup(NamedTuple):
     skip_zero_grad: bool
 
 
+def make_per_lr(trainable: dict, group_lrs: dict) -> dict:
+    """{group name: [per-element lr or None for each parameter of the
+    group]}: for the groups named in ``group_lrs`` (name -> [a tensor of each
+    parameter's shape], e.g. ``{"density": [count / count.max()]}``) those
+    tensors as f32, for every other group of ``trainable`` (name ->
+    submodule, ``factory.split_trainable``) None throughout."""
+    out = {}
+    for name, sub in trainable.items():
+        n = len(list(sub.parameters()))
+        lrs = group_lrs.get(name)
+        if lrs is None:
+            out[name] = [None] * n
+            continue
+        if len(lrs) != n:
+            raise ValueError(f"per_lr/{name}: {len(lrs)} tensors for {n} parameters")
+        out[name] = [None if t is None else t.to(torch.float32).contiguous() for t in lrs]
+    return out
+
+
 class MaskedAdam:
     # elements a slice of the plain version's update on the CPU (2^26: six
     # f32 temporaries of 256 MB); the kernel on the card takes a whole tensor
@@ -55,6 +80,7 @@ class MaskedAdam:
         self.step_count = 0
         self.exp_avg = {}
         self.exp_avg_sq = {}
+        self.per_lr = {}
         for g in groups:
             for p in g.params:
                 dt = torch.promote_types(p.dtype, torch.float32)
@@ -95,6 +121,19 @@ class MaskedAdam:
                     moments[p].copy_(s)
         self.step_count = int(state["step"])
 
+    def set_per_lr(self, per_lr: dict) -> None:
+        """Per-element learning rates from :func:`make_per_lr`'s tree (a
+        tensor of its parameter's shape, or None for the plain update)."""
+        for g in self.groups:
+            for p, r in zip(g.params, per_lr.get(g.name, [None] * len(g.params))):
+                if r is None:
+                    self.per_lr.pop(p, None)
+                    continue
+                if r.shape != p.shape:
+                    raise ValueError(f"per_lr/{g.name}: shape {tuple(r.shape)}, want "
+                                     f"{tuple(p.shape)}")
+                self.per_lr[p] = r.to(device=p.device, dtype=torch.float32).contiguous()
+
     @torch.no_grad()
     def step(self, lr_scale: float = 1.0) -> None:
         """One update from each parameter's ``.grad`` (a missing grad counts
@@ -107,4 +146,5 @@ class MaskedAdam:
             step_size = g.lr * lr_scale * bias_corr
             for p in g.params:
                 adam.masked_adam(p, self.exp_avg[p], self.exp_avg_sq[p], p.grad, step_size,
-                                 b1, b2, eps, g.skip_zero_grad, chunk=self.CHUNK)
+                                 b1, b2, eps, g.skip_zero_grad, chunk=self.CHUNK,
+                                 per_lr=self.per_lr.get(p))

@@ -1,7 +1,8 @@
 """Rendering and evaluation: ``run_render`` and the video writer.
 
 Counterpart of ``unboundednerfpytorch_tpu/render/__init__.py`` for the
-FourierGrid, DCVGO and DMPIGO families. One departure: a view whose index
+FourierGrid, DVGO, DCVGO and DMPIGO families, with ``export_coarse_geometry``.
+One departure: a view whose index
 lies past the end of ``images`` (the generated test trajectories of the
 waymo and mega loaders) is rendered without ground truth and gets no
 metrics, where the JAX package's ``images[i_test]`` raises an
@@ -178,9 +179,33 @@ def run_render_blocks(args, cfg, data_dict, exp_dir: str) -> None:
     raise NotImplementedError("per-block rendering is not ported (ROADMAP A14)")
 
 
-def export_coarse_geometry(cfg, exp_dir: str, out_path: str = "") -> None:
-    raise NotImplementedError("the coarse-geometry export is not ported (ROADMAP A18a: "
-                              "it needs the coarse stage)")
+def export_coarse_geometry(cfg, exp_dir: str, out_path: str = "", device=None,
+                           log_fn=print) -> str:
+    """The coarse volume of ``<exp_dir>/coarse_last`` (else ``fine_last``)
+    into ``out_path`` (default ``<exp_dir>/coarse_volume.npz``): ``alpha``
+    [X, Y, Z] (the family's activation of the density at the lattice's
+    nodes) and ``rgb`` [X, Y, Z, 3] (the sigmoid of k0's first three
+    channels), both f32, a multi-bank grid's banks averaged. Returns the
+    path written. ``device``: ``None`` -> ``cuda``."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.device import resolve_device
+    from unboundednerfpytorch_tpu_torch.train.loop import FAMILIES
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
+    dev = resolve_device(device)
+    path = os.path.join(exp_dir, "coarse_last")
+    if not os.path.exists(path):
+        path = os.path.join(exp_dir, "fine_last")
+    family, mcfg, params, _, _ = ckpt.load_model(path, device=dev, with_opt_state=False)
+    with torch.no_grad():
+        dense = params.density.grid.float().mean(0)  # [X, Y, Z, 1]: banks averaged
+        alpha = FAMILIES[family].activate_density(params, mcfg, dense[..., 0])
+        rgb = torch.sigmoid(params.k0.grid.float()).mean(0)
+    out = out_path or os.path.join(exp_dir, "coarse_volume.npz")
+    np.savez_compressed(out, alpha=alpha.cpu().numpy(), rgb=rgb[..., :3].cpu().numpy())
+    log_fn(f"exported coarse geometry to {out}")
+    return out
 
 
 __all__ = [
@@ -189,4 +214,5 @@ __all__ = [
     "depth_to_vis",
     "write_video",
     "run_render",
+    "export_coarse_geometry",
 ]

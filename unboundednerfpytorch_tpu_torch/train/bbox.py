@@ -1,13 +1,16 @@
-"""Scene bounds from the camera frusta or the camera positions.
+"""Scene bounds from the camera frusta, the camera positions or the coarse
+geometry.
 
 Counterpart of ``bbox_unbounded``, ``bbox_bounded``, ``bbox_waymo``,
-``bbox_mega`` and ``compute_bbox_by_cam_frustrm`` of
-``unboundednerfpytorch_tpu/train/bbox.py``: a cube around the near-clip
-points of every training ray, scaled by ``unbounded_inner_r`` (unbounded
-inward scenes: the FourierGrid and DCVGO families), the box swept by every
-ray between ``near`` and ``far`` (bounded and forward-facing NDC scenes:
-DMPIGO), or, for waymo and mega captures, a cube around the training
-cameras' positions with a margin (numpy, in the JAX package's dtypes).
+``bbox_mega``, ``compute_bbox_by_cam_frustrm`` and
+``compute_bbox_by_coarse_geo`` of ``unboundednerfpytorch_tpu/train/bbox.py``:
+a cube around the near-clip points of every training ray, scaled by
+``unbounded_inner_r`` (unbounded inward scenes: the FourierGrid and DCVGO
+families), the box swept by every ray between ``near`` and ``far`` (bounded
+and forward-facing NDC scenes: DVGO and DMPIGO), or, for waymo and mega
+captures, a cube around the training cameras' positions with a margin
+(numpy, in the JAX package's dtypes); and the fine stage's box, around the
+coarse model's lattice nodes whose alpha passes ``bbox_thres``.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from unboundednerfpytorch_tpu_torch.models.dvgo import density_on_lattice
+from unboundednerfpytorch_tpu_torch.models.fourier_grid import _linspace
 from unboundednerfpytorch_tpu_torch.ops import rays as ray_ops
 
 
@@ -106,3 +111,25 @@ def compute_bbox_by_cam_frustrm(cfg, data_dict: dict, model_name: str | None = N
         return bbox_unbounded(HW, Ks, poses, data_dict.get("near_clip") or data_dict["near"],
                               d.unbounded_inner_r, **kw)
     return bbox_bounded(HW, Ks, poses, data_dict["near"], data_dict["far"], **kw)
+
+
+def compute_bbox_by_coarse_geo(params, cfg, activate_fn, thres: float):
+    """(xyz_min, xyz_max) numpy f32 [3] of the coarse lattice's nodes (the
+    density grid's, ``mn * (1 - u) + mx * u`` for u = linspace(0, 1, n) an
+    axis) whose ``activate_fn(density)`` exceeds ``thres``; every node where
+    none does. The density is queried through the grid at the nodes."""
+    ws = cfg.world_size
+    dev = params.density.grid.device
+    mn = torch.tensor(cfg.xyz_min, dtype=torch.float32, device=dev)
+    mx = torch.tensor(cfg.xyz_max, dtype=torch.float32, device=dev)
+    axes = [mn[i] * (1 - u) + mx[i] * u
+            for i, u in enumerate(_linspace(0.0, 1.0, int(n), dev) for n in ws)]
+    with torch.no_grad():
+        alpha = activate_fn(density_on_lattice(params.density, axes))
+        mask = alpha > thres
+        if not bool(mask.any()):
+            mask = alpha > -1.0
+        # a node's coordinate on an axis depends on its index there alone
+        hit = [axes[i][mask.any(dim=tuple(j for j in range(3) if j != i))] for i in range(3)]
+        lo, hi = [h.min() for h in hit], [h.max() for h in hit]
+    return torch.stack(lo).cpu().numpy(), torch.stack(hi).cpu().numpy()

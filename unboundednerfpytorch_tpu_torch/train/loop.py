@@ -1,5 +1,5 @@
-"""Training orchestration: the fine stage of the FourierGrid, DCVGO and
-DMPIGO families.
+"""Training orchestration: the coarse and fine stages of the DVGO family and
+the fine stage of the FourierGrid, DCVGO and DMPIGO families.
 
 Counterpart of ``unboundednerfpytorch_tpu/train/loop.py``:
 ``model_family_name``, ``build_model``, ``gather_training_rays`` (on the
@@ -8,24 +8,34 @@ device, or in host memory for ``load2gpu_on_the_fly``), ``make_forward``,
 schedule and the ``pg_scale`` boundaries (:func:`pg_scale_boundary`: both
 grids upsampled, the occupancy cache refreshed from the trained density,
 ``act_shift`` lowered, a deferred ``sample_budget`` switched on, the
-optimizer rebuilt and the lr decay re-anchored), and ``run_train`` with the
-coarse stage at ``N_iters=0`` (the ``*_single``, ``nerf_unbounded/<scene>``,
+optimizer rebuilt and the lr decay re-anchored), the ``flatten``, ``random``
+and ``in_maskcache`` ray samplers, and ``run_train``: for a DVGO config with
+a coarse stage (``nerf/*``, ``nsvf/*``, ``deepvoxels/*``, ``blendedmvs/*``,
+``tankstemple/<Scene>.py``), the coarse stage on the camera-frustum box with
+``maskout_near_cam_vox`` and ``pervoxel_lr``, then the fine stage on the box
+of the coarse geometry, its occupancy cache seeded from the coarse alpha and
+its rays filtered to those that meet it (``in_maskcache``); else the fine
+stage alone (the ``*_single``, ``nerf_unbounded/<scene>``,
 ``tankstemple_unbounded/<scene>``, ``llff/*``, ``free_dataset/*``,
 ``nerf_studio/*``, ``waymo/*`` and ``mega/*`` configs).
 
-With ``exp_dir`` the stage ends by writing ``<exp_dir>/fine_last`` through
-the port's ``utils.checkpoint.save_model``, with the optimizer's state;
-``save_every`` saves it there every so many steps too, and a run started
-again with the same ``exp_dir`` resumes from it (``ft_path`` names another
-checkpoint, ``no_reload`` starts afresh). ``<exp_dir>/fine_metrics.jsonl``
-gets a record of every scalar the step emits at each logged step, and the
-record of each ``pg_scale`` boundary. ``render.run_render`` loads
-``fine_last``.
+With ``exp_dir`` a stage ends by writing ``<exp_dir>/<stage>_last``
+(``coarse_last``, ``fine_last``) through the port's
+``utils.checkpoint.save_model``, with the optimizer's state; ``save_every``
+saves it there every so many steps too, and a run started again with the
+same ``exp_dir`` resumes each stage from its own checkpoint (``ft_path``
+names another checkpoint, ``no_reload`` starts afresh). A stage whose
+checkpoint stands at its last step trains nothing and builds no ray store.
+``<exp_dir>/<stage>_metrics.jsonl`` gets a record of every scalar the step
+emits at each logged step, and the record of each ``pg_scale`` boundary.
+``render.run_render`` loads ``fine_last``.
 
-Not ported yet, and refused rather than skipped: a coarse stage, samplers
-other than ``flatten``, per-voxel lr, ``maskout_near_cam_vox``, the two-stage
-training forward (``train_survivor_budget``), the held-out panels of
-``i_panel``, and the DVGO family.
+Not ported yet, and refused rather than skipped: a coarse stage of another
+family than DVGO and ``maskout_near_cam_vox`` outside it (ROADMAP A18c), the
+two-stage training forward (``train_survivor_budget``) and the held-out
+panels of ``i_panel``. As in the JAX package, ``pervoxel_lr`` and the
+``in_maskcache`` filter act on the DVGO family only: elsewhere the first is
+ignored and the second samples as ``flatten`` does.
 """
 
 from __future__ import annotations
@@ -45,31 +55,36 @@ from unboundednerfpytorch_tpu_torch.configs.schema import (
     ExpConfig, ModelRenderConfig, TrainStageConfig, normalize_fast_color_thres,
 )
 from unboundednerfpytorch_tpu_torch.device import resolve_device, seconds_since
-from unboundednerfpytorch_tpu_torch.models import dcvgo, dmpigo
+from unboundednerfpytorch_tpu_torch.models import dcvgo, dmpigo, dvgo
 from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
 from unboundednerfpytorch_tpu_torch.ops import rays as ray_ops
+from unboundednerfpytorch_tpu_torch.optim import factory as opt_factory
+from unboundednerfpytorch_tpu_torch.optim.masked_adam import make_per_lr
 from unboundednerfpytorch_tpu_torch.train import bbox as bbox_mod
 from unboundednerfpytorch_tpu_torch.train.step import (
-    FlattenSampler, HostRayStoreSampler, TrainState, create_train_state, make_train_step,
+    FlattenSampler, HostRayStoreSampler, RandomSampler, TrainState, create_train_state,
+    make_train_step,
 )
 from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 
 
 # the model module of each ported family
-FAMILIES = {"FourierGrid": fg, "dcvgo": dcvgo, "dmpigo": dmpigo}
+FAMILIES = {"FourierGrid": fg, "dvgo": dvgo, "dcvgo": dcvgo, "dmpigo": dmpigo}
+# rays a call of the in_maskcache filter takes at a time
+FILTER_CHUNK = 65536
 
 
 def model_family_name(cfg: ExpConfig) -> str:
     """The JAX package's dispatch: FourierGrid for the waymo, mega and nerfpp
     datasets and where the config names it, else DMPIGO for NDC scenes,
-    DCVGO for unbounded inward ones and DVGO for the rest (not ported yet)."""
+    DCVGO for unbounded inward ones and DVGO for the rest."""
     if cfg.data.dataset_type in ("waymo", "mega", "nerfpp") or cfg.model == "FourierGrid":
         return "FourierGrid"
     if cfg.data.ndc:
         return "dmpigo"
     if cfg.data.unbounded_inward:
         return "dcvgo"
-    raise NotImplementedError("the DVGO family is not ported yet (ROADMAP A18a)")
+    return "dvgo"
 
 
 _CONFIG_FAMILY = {cls: name for name, cls in convert.CONFIGS.items()}
@@ -85,7 +100,7 @@ def family_of(mcfg) -> str:
 def build_model(cfg: ExpConfig, cfg_model: ModelRenderConfig, cfg_train: TrainStageConfig,
                 xyz_min, xyz_max, generator: torch.Generator, device, n_train: int = -1):
     """(family, model config, params). pg_scale shrinks the initial voxel
-    count by 2^len(pg_scale); DCVGO and DMPIGO size both grids by
+    count by 2^len(pg_scale); DVGO, DCVGO and DMPIGO size both grids by
     ``num_voxels_rgb``."""
     nvd = cfg_model.num_voxels_density
     nvr = cfg_model.num_voxels_rgb
@@ -135,8 +150,10 @@ def make_forward(mcfg, render_kwargs: dict, cache=None) -> Callable:
     for the family of ``mcfg``.
 
     As the JAX package's branches: ``render_kwargs["stepsize"]`` reaches
-    every forward; ``render_kwargs["bg"]`` reaches DCVGO's and DMPIGO's
-    (``near`` too, which DCVGO ignores) but NOT FourierGrid's, so without a
+    every forward; ``render_kwargs["bg"]`` reaches DVGO's, DCVGO's and
+    DMPIGO's (``near`` too, which DCVGO ignores) but NOT FourierGrid's, so
+    DVGO composites on ``bg`` whatever ``bg_color`` says (its JAX forward
+    takes no random background), and without a
     random background a FourierGrid forward composites on its default
     ``bg=0.0`` (reproduced from the reference package, where it looks like an
     oversight; see ROADMAP queue C). ``cache`` is a render cache for
@@ -147,6 +164,10 @@ def make_forward(mcfg, render_kwargs: dict, cache=None) -> Callable:
         kw = dict(stepsize=render_kwargs["stepsize"], bg_color=bg_color, cache=cache)
         if family == "FourierGrid":
             return fg.forward(params, mcfg, ro, rd, vd, **kw)
+        if family == "dvgo":
+            return dvgo.forward(params, mcfg, ro, rd, vd, near=render_kwargs["near"],
+                                stepsize=render_kwargs["stepsize"], bg=render_kwargs["bg"],
+                                cache=cache)
         if family == "dcvgo":
             kw["near"] = render_kwargs["near"]
         return FAMILIES[family].forward(params, mcfg, ro, rd, vd, bg=render_kwargs["bg"], **kw)
@@ -232,6 +253,58 @@ def pg_scale_boundary(state: TrainState, mcfg, cfg_model: ModelRenderConfig,
     return state, mcfg, record
 
 
+def filter_in_maskcache(params, mcfg, store: dict, render_kwargs: dict, device):
+    """The ``in_maskcache`` ray store: the rays whose samples meet the
+    occupancy cache (``dvgo.hit_coarse_geo``, ``FILTER_CHUNK`` rays a call
+    on ``device``), all of them where none or every ray does, as in the JAX
+    package. The store may lie on the device or in host memory (numpy); the
+    filtered one lies where it did. Returns (store, {"rays", "kept",
+    "seconds"})."""
+    t0 = time.perf_counter()
+    ro, rd = store["rays_o"], store["rays_d"]
+    n = int(ro.shape[0])
+    as_dev = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    hit = torch.cat([dvgo.hit_coarse_geo(params, mcfg, as_dev(ro[a:a + FILTER_CHUNK]),
+                                         as_dev(rd[a:a + FILTER_CHUNK]),
+                                         near=render_kwargs["near"],
+                                         stepsize=render_kwargs["stepsize"])
+                     for a in range(0, n, FILTER_CHUNK)])
+    kept = int(hit.sum())
+    if 0 < kept < n:
+        if isinstance(ro, np.ndarray):
+            idx = np.nonzero(hit.cpu().numpy())[0]
+        else:
+            idx = torch.nonzero(hit)[:, 0]
+        store = {k: v[idx] for k, v in store.items()}
+    return store, {"rays": n, "kept": kept, "seconds": seconds_since(t0, torch.device(device))}
+
+
+def apply_pervoxel_lr(state: TrainState, mcfg, cfg_train: TrainStageConfig, store: dict,
+                      data_dict: dict, render_kwargs: dict) -> dict:
+    """``pervoxel_lr`` on a DVGO stage, in place: every
+    ``pervoxel_lr_downrate``-th ray of each training view (the store read as
+    [views, H * W]) counted into the voxels by ``dvgo.voxel_count_views``;
+    ``count / max(count.max(), 1)`` becomes the density grid's per-element
+    lr, and voxels of a count of 2 or less leave the occupancy cache. Returns {"views", "seconds",
+    "occupancy"}."""
+    params = state.params
+    dev = params.density.grid.device
+    t0 = time.perf_counter()
+    n_img = len(np.asarray(data_dict["i_train"]))
+    H, W = (int(v) for v in np.asarray(data_dict["HW"])[0])
+    down = max(1, cfg_train.pervoxel_lr_downrate)
+    rays_o = store["rays_o"].reshape(n_img, H * W, 3)[:, ::down]
+    rays_d = store["rays_d"].reshape(n_img, H * W, 3)[:, ::down]
+    count = dvgo.voxel_count_views(params, mcfg, rays_o, rays_d, near=render_kwargs["near"],
+                                   stepsize=render_kwargs["stepsize"])
+    per_lr = count / torch.clamp_min(count.max(), 1.0)
+    trainable = opt_factory.split_trainable(params, cfg_train)
+    state.optimizer.set_per_lr(make_per_lr(trainable, {"density": [per_lr[None]]}))
+    params.mask_cache.mask = params.mask_cache.mask & (count[..., 0] > 2)
+    return {"views": n_img, "seconds": seconds_since(t0, dev),
+            "occupancy": float(params.mask_cache.mask.float().mean())}
+
+
 def _jsonable(x):
     if isinstance(x, dict):
         return {k: _jsonable(v) for k, v in x.items()}
@@ -274,6 +347,15 @@ def scene_rep_reconstruction(
     draws stand where that run's stand, and the sample budget is on where
     the first boundary has passed.
 
+    A DVGO stage (the JAX package's branches): at step 0 the density near
+    the training cameras is masked out (``maskout_near_cam_vox``); with the
+    ``in_maskcache`` sampler the ray store keeps the rays that meet the
+    occupancy cache (:func:`filter_in_maskcache`); with ``pervoxel_lr`` and
+    another sampler the density grid's Adam steps are scaled by its voxels'
+    normalised view counts and voxels seen by 2 views or fewer leave the
+    occupancy cache (:func:`apply_pervoxel_lr`, computed anew on resume: it
+    is not saved).
+
     ``coarse_mask_fn(world_size, xyz_min, xyz_max) -> bool [X, Y, Z]`` seeds
     the occupancy cache (in the full recipe, from the coarse stage); with it
     the cache is trusted and ``sample_budget`` is on from the first step.
@@ -284,15 +366,14 @@ def scene_rep_reconstruction(
     the record of :func:`pg_scale_boundary`.
     """
     n_iters = cfg_train.N_iters
-    if cfg_train.ray_sampler != "flatten":
-        raise NotImplementedError(f"ray_sampler={cfg_train.ray_sampler!r} is not ported yet")
-    if cfg_train.pervoxel_lr:
-        raise NotImplementedError("pervoxel_lr is not ported yet")
+    if cfg_train.ray_sampler not in ("flatten", "random", "in_maskcache"):
+        raise ValueError(f"unknown ray_sampler {cfg_train.ray_sampler!r}")
     if cfg_train.i_panel:
         raise NotImplementedError("fine_train.i_panel (held-out panels during training) is "
                                   "not ported yet (ROADMAP A17)")
-    if cfg_model.maskout_near_cam_vox:
-        raise NotImplementedError("maskout_near_cam_vox is not ported yet")
+    if cfg_model.maskout_near_cam_vox and model_family_name(cfg) != "dvgo":
+        raise NotImplementedError("maskout_near_cam_vox is ported for the DVGO family only "
+                                  "(ROADMAP A18c)")
 
     xyz_min = np.asarray(xyz_min, np.float64)
     xyz_max = np.asarray(xyz_max, np.float64)
@@ -329,6 +410,9 @@ def scene_rep_reconstruction(
             ws = params.mask_cache.mask.shape
             params.mask_cache.mask = torch.as_tensor(
                 coarse_mask_fn(ws, mcfg.xyz_min, mcfg.xyz_max), dtype=torch.bool, device=device)
+    if cfg_model.maskout_near_cam_vox and start_step == 0:  # DVGO (refused above otherwise)
+        cam_o = np.asarray(data_dict["poses"])[np.asarray(data_dict["i_train"])][:, :3, 3]
+        dvgo.maskout_near_cam_vox(params, mcfg, cam_o, float(data_dict["near"]))
 
     render_kwargs = {
         "near": float(data_dict["near"]),
@@ -338,6 +422,9 @@ def scene_rep_reconstruction(
         "stepsize": cfg_model.stepsize,
     }
     state = create_train_state(params, cfg_train, start_step=start_step, opt_state=opt_state)
+    if n_iters <= start_step:  # a finished stage: nothing to train
+        log_fn(f"{stage}: the checkpoint stands at its last step {start_step}")
+        return family, mcfg, state.params, 0.0
 
     near_thres = 0.0
     radius = getattr(mcfg, "scene_radius", None)  # DMPIGO has none
@@ -345,19 +432,29 @@ def scene_rep_reconstruction(
         near_thres = float(data_dict["near_clip"]) / float(radius[0])
 
     lr_decay_enabled = not (cfg.model == "FourierGrid" and cfg.data.dataset_type == "tankstemple")
-    # a device generator for the per-step draws (ray permutation or
-    # backgrounds); the host store draws its permutation with numpy, as the
-    # JAX package's does
+    host = bool(cfg.data.load2gpu_on_the_fly)
+    store = gather_training_rays(cfg, data_dict, device, host=host)
+    if cfg_train.ray_sampler == "in_maskcache" and family == "dvgo":
+        store, report = filter_in_maskcache(params, mcfg, store, render_kwargs, device)
+        log_fn(f"{stage}: in_maskcache kept {report['kept']} of {report['rays']} rays "
+               f"({report['seconds']:.2f} s)")
+    if cfg_train.pervoxel_lr and family == "dvgo" and cfg_train.ray_sampler != "in_maskcache":
+        report = apply_pervoxel_lr(state, mcfg, cfg_train, store, data_dict, render_kwargs)
+        log_fn(f"{stage}: pervoxel_lr from {report['views']} views, "
+               f"{report['seconds']:.2f} s; occupancy {report['occupancy']:.4f}")
+    # a device generator for the per-step draws (ray indices or backgrounds);
+    # the host store draws its indices with numpy, as the JAX package's does
     gen = torch.Generator(device=device).manual_seed(seed + 1)
-    if cfg.data.load2gpu_on_the_fly:
+    mode = "random" if cfg_train.ray_sampler == "random" else "flatten"
+    if host:
         sampler = HostRayStoreSampler(
-            gather_training_rays(cfg, data_dict, device, host=True), cfg_train.N_rand, seed,
-            device, bg_generator=gen if render_kwargs["rand_bkgd"] else None)
+            store, cfg_train.N_rand, seed, device,
+            bg_generator=gen if render_kwargs["rand_bkgd"] else None, mode=mode)
         next_batch = sampler.next_batch
     else:
-        store = gather_training_rays(cfg, data_dict, device)
-        sampler = FlattenSampler(store["rgb"].shape[0], cfg_train.N_rand, gen, device,
-                                 rand_bkgd=render_kwargs["rand_bkgd"])
+        sampler = (RandomSampler if mode == "random" else FlattenSampler)(
+            store["rgb"].shape[0], cfg_train.N_rand, gen, device,
+            rand_bkgd=render_kwargs["rand_bkgd"])
 
         def next_batch():
             idx, bg = sampler.next_batch()
@@ -454,24 +551,55 @@ def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,
               device=None, log_every: int = 500, callback=None, coarse_mask_fn=None,
               exp_dir: str | None = None, no_reload: bool = False,
               no_reload_optimizer: bool = False, save_every: int = 0, ft_path: str = ""):
-    """The fine stage of a recipe without a coarse stage (coarse
-    ``N_iters=0``). Returns (family, model config, params, last logged psnr).
+    """The recipe: the coarse stage where ``coarse_train.N_iters`` > 0 (the
+    DVGO family; another family's raises, ROADMAP A18c), then the fine
+    stage. Returns the fine stage's (family, model config, params, last
+    logged psnr).
+
+    As the JAX ``run_train``: the coarse stage trains on the camera-frustum
+    box; the fine stage, except for waymo captures, on the box of the coarse
+    lattice's nodes whose alpha passes ``bbox_thres``
+    (``bbox.compute_bbox_by_coarse_geo``), its occupancy cache seeded with
+    the pooled coarse alpha at the fine lattice ``>= mask_cache_thres``
+    (``dvgo.coarse_mask_fn``). Of the coarse model only its density grid is
+    kept for that seed: the rest, its optimizer and its ray store are freed
+    before the fine model is built.
 
     ``device``: ``None`` -> ``cuda`` (raises without a GPU); pass ``"cpu"``
-    for the plain PyTorch path. ``coarse_mask_fn``: optional occupancy seed,
-    standing in for the coarse stage's. ``exp_dir``, ``no_reload``,
+    for the plain PyTorch path. ``coarse_mask_fn``: optional occupancy seed
+    of a recipe without a coarse stage, standing in for the coarse stage's.
+    ``callback(step, metrics)`` runs after every step of either stage (the
+    step counts from 1 in each). ``exp_dir``, ``no_reload``,
     ``no_reload_optimizer``, ``save_every``, ``ft_path``: checkpoints and
-    resume (see scene_rep_reconstruction); nothing is saved where ``exp_dir``
+    resume of each stage (see scene_rep_reconstruction; ``ft_path`` reaches
+    both stages, as in the JAX package); nothing is saved where ``exp_dir``
     is None.
     """
     dev = resolve_device(device)
+    family = model_family_name(cfg)
+    xyz_min, xyz_max = bbox_mod.compute_bbox_by_cam_frustrm(cfg, data_dict, family, device=dev)
+    kw = dict(device=dev, seed=seed, log_every=log_every, log_fn=log_fn, callback=callback,
+              exp_dir=exp_dir, no_reload=no_reload, no_reload_optimizer=no_reload_optimizer,
+              save_every=save_every, ft_path=ft_path)
     if cfg.coarse_train.N_iters > 0:
-        raise NotImplementedError("a coarse stage (coarse_train.N_iters > 0) is not ported yet "
-                                  "(ROADMAP A18a)")
-    xyz_min, xyz_max = bbox_mod.compute_bbox_by_cam_frustrm(
-        cfg, data_dict, model_family_name(cfg), device=dev)
+        if family != "dvgo":
+            raise NotImplementedError(f"a coarse stage of the {family} family is not ported yet "
+                                      "(ROADMAP A18c)")
+        _, mcfg_c, params_c, _ = scene_rep_reconstruction(
+            cfg, cfg.coarse_model_and_render, cfg.coarse_train, xyz_min, xyz_max, data_dict,
+            stage="coarse", **kw)
+        if cfg.data.dataset_type != "waymo":
+            fm = cfg.fine_model_and_render
+            xyz_min, xyz_max = bbox_mod.compute_bbox_by_coarse_geo(
+                params_c, mcfg_c, lambda d: dvgo.activate_density(params_c, mcfg_c, d),
+                fm.bbox_thres)
+            log_fn(f"fine box from the coarse geometry: {np.round(xyz_min, 4).tolist()} to "
+                   f"{np.round(xyz_max, 4).tolist()}")
+            coarse_mask_fn = dvgo.coarse_mask_fn(params_c.density.requires_grad_(False),
+                                                 params_c.act_shift, mcfg_c, fm.mask_cache_thres)
+        del params_c
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     return scene_rep_reconstruction(
         cfg, cfg.fine_model_and_render, cfg.fine_train, xyz_min, xyz_max, data_dict,
-        stage="fine", device=dev, seed=seed, log_every=log_every, log_fn=log_fn,
-        callback=callback, coarse_mask_fn=coarse_mask_fn, exp_dir=exp_dir, no_reload=no_reload,
-        no_reload_optimizer=no_reload_optimizer, save_every=save_every, ft_path=ft_path)
+        stage="fine", coarse_mask_fn=coarse_mask_fn, **kw)

@@ -1,8 +1,8 @@
 """The train step: forward, losses, backward, TV injection, masked Adam.
 
 Counterpart of ``unboundednerfpytorch_tpu/train/step.py::make_train_step``,
-its ``flatten`` sampler and its ``HostRayStoreSampler`` (the
-``load2gpu_on_the_fly`` mode). PyTorch runs eagerly, so the TV schedule gates
+its ``flatten`` and ``random`` samplers and its ``HostRayStoreSampler`` (the
+``load2gpu_on_the_fly`` mode) in both modes. PyTorch runs eagerly, so the TV schedule gates
 (tv_every / tv_after / tv_before) and the dense/sparse TV mode are host
 booleans per step. TV goes into ``param.grad`` after ``backward()`` and
 before the optimizer, through the fused CUDA kernel
@@ -186,16 +186,36 @@ class FlattenSampler:
             self.next_batch()
 
 
+class RandomSampler(FlattenSampler):
+    """The ``random`` sampler: each batch ``n_rand`` indices drawn uniformly
+    with replacement (``torch.randint``), and, with ``rand_bkgd``, its
+    backgrounds after them, all from ``generator``; :meth:`fast_forward`
+    replays the draws of ``n`` batches."""
+
+    def _shuffle(self) -> None:
+        pass
+
+    def next_batch(self) -> tuple[torch.Tensor, torch.Tensor | None]:
+        idx = torch.randint(self.n_total, (self.n_rand,), generator=self.generator,
+                            device=self.device)
+        bg = None
+        if self.rand_bkgd:
+            bg = torch.rand((self.n_rand, 3), generator=self.generator, device=self.device)
+        return idx, bg
+
+
 class HostRayStoreSampler:
     """The ``load2gpu_on_the_fly`` sampler: the flattened ray store stays in
     host memory (numpy) and only each step's batch crosses to the device, so
     the scene is bounded by host memory, not by the card's.
 
-    The indices are the JAX ``HostRayStoreSampler``'s ('flatten' mode) for
-    the same seed: an epoch permutation from ``np.random.default_rng(seed)``,
-    walked in order and drawn anew when the next batch would run past its
-    end. The batch's rows are gathered into a pinned staging buffer (on a
-    CUDA device) that every step reuses, and copied to the device in one
+    The indices are the JAX ``HostRayStoreSampler``'s for the same seed and
+    ``mode``: in 'flatten' mode an epoch permutation from
+    ``np.random.default_rng(seed)``, walked in order and drawn anew when the
+    next batch would run past its end; in 'random' mode ``n_rand`` indices
+    drawn with replacement (``rng.integers``) a batch. The batch's rows are
+    gathered into a pinned staging buffer (on a CUDA device) that every step
+    reuses, and copied to the device in one
     asynchronous copy; the next gather waits for that copy to have left the
     buffer. Given ``bg_generator`` (the ``rand_bkgd`` configs) each batch
     also gets a random background per ray, drawn on the device from it (as
@@ -205,7 +225,10 @@ class HostRayStoreSampler:
     COLUMNS = {"rgb": (0, 3), "rays_o": (3, 6), "rays_d": (6, 9), "viewdirs": (9, 12)}
 
     def __init__(self, store: dict, n_rand: int, seed: int, device: torch.device,
-                 bg_generator: torch.Generator | None = None):
+                 bg_generator: torch.Generator | None = None, mode: str = "flatten"):
+        if mode not in ("flatten", "random"):
+            raise ValueError(f"unknown sampler mode {mode!r}")
+        self.mode = mode
         self.store = {k: np.asarray(store[k], np.float32) for k in self.COLUMNS}
         self.n_total = int(self.store["rgb"].shape[0])
         self.n_rand = int(n_rand)
@@ -219,6 +242,8 @@ class HostRayStoreSampler:
         self._copied = None  # event recorded after the last copy out of the stage
 
     def next_indices(self) -> np.ndarray:
+        if self.mode == "random":
+            return self._rng.integers(0, self.n_total, size=self.n_rand)
         if self._perm is None or self._cursor + self.n_rand > self.n_total:
             self._perm = self._rng.permutation(self.n_total)
             self._cursor = 0

@@ -3,7 +3,7 @@ archives it names: the parameters and, where the optimizer's state is kept,
 the optimizer's state.
 
 Counterpart of ``unboundednerfpytorch_tpu/utils/checkpoint.py`` for the
-FourierGrid, DCVGO and DMPIGO families: the same ``meta.json`` keys
+FourierGrid, DVGO, DCVGO and DMPIGO families: the same ``meta.json`` keys
 (global_step, family, model_kwargs, has_opt_state, format_version), so the
 model can be re-instantiated from the files alone. The JAX package writes
 flax msgpack; the port imports neither, and writes numpy archives of the JAX
