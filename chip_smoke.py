@@ -174,13 +174,38 @@ Phases, each reported on its own line:
      without a checkpoint on a Tanks & Temples capture of 8 + 2 views of
      1920x1080 (the host ray store, ``pervoxel_lr_downrate`` 2): a few coarse
      steps, then the fine stage's six boundaries compressed so that it ends
-     at 256^3; ms/step of each stage and peak memory.
+     at 256^3; ms/step of each stage and peak memory;
+ 10. the paths of the last configs: 10a ``configs/linemod/ape.py`` through the
+     command line on a seeded LINEMOD sequence (24 JPEG frames of 640x480,
+     cropped to 90x90): ``train`` (the fine-only DVGO at 160^3 on the host
+     store), the render of its test views, then ``--program linemod_eval``
+     in its sanity mode (every metric 1.0) and on seeded predictions 2 cm
+     off (the scores fall); 10b ``configs/co3d/teddybear.py`` through the
+     command line on a seeded CO3D capture (21 frames of 800x600 and one
+     with an empty mask): 1000 coarse steps, the fine stage to 160^3, one
+     test view; 10c ``configs/nerf/ship.tensorf.py`` through ``run_train`` on
+     9a's capture from a copy of 9a's ``coarse_last`` (the resume trains
+     nothing in the coarse stage): the TensoRF fine stage, its six
+     boundaries compressed, ending at 384^3, and one test view rendered
+     without a cache; 10d ``configs/custom/Madoka.py`` (DMPIGO, factor 2,
+     256^3 as [X, Y, 128]) through ``run_train`` on a seeded forward-facing
+     capture at images_2: the coarse stage as the JAX package runs it (no
+     maskout, no per-voxel lr, no filter), then the fine stage seeded from
+     it (the seed must drop part of the fine lattice); 10e ``--program
+     tune_pose`` on 10a's ``fine_last`` (ms per step, both march kernels
+     once a step, the first step's delta gradient against the CPU's on the
+     same pixels) and a recovery of perturbed poses on a DVGO trained on
+     four textured spheres at different depths (both errors halved). 10b-10d
+     fail unless the fine stage has live samples (the fine box inside the
+     frustum's, the cache not empty after the last boundary). 10f holds both march kernels and
+     ``masked_adam`` (with and without a per-element lr) against their plain
+     versions at every shape phase 10 gave them, and times them.
 
 ``--profile`` also traces the last train steps and one rendered view with
 ``torch.profiler`` and prints the device time by range and by kernel.
 ``--kernels-only`` stops after phase 3 and prints the kernel table without
 launch counts and without the last line (a quick check of a changed kernel).
-The kernel table's launches are those of phases 4 to 9 and of the probe run.
+The kernel table's launches are those of phases 4 to 10 and of the probe run.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -302,6 +327,47 @@ TRUCK_LG_H, TRUCK_LG_W, TRUCK_LG_VIEWS, TRUCK_LG_TEST = 1080, 1920, 8, 2
 TRUCK_LG_COARSE_STEPS, TRUCK_LG_FINE_STEPS = 1000, 11
 TRUCK_LG_PG_SCALE = (2, 3, 4, 5, 6, 7)
 TRUCK_LG_DECAY = 0.0
+# phase 10: the LINEMOD pose path, CO3D, TensoRF and the DMPIGO coarse stage.
+# Each compressed fine schedule takes COMPRESSED_DECAY for 9b's reason (a
+# decay a boundary within a step of each other empties the occupancy cache)
+LINEMOD_CONFIG = ROOT / "configs" / "linemod" / "ape.py"
+CO3D_CONFIG = ROOT / "configs" / "co3d" / "teddybear.py"
+SHIP_CONFIG = ROOT / "configs" / "nerf" / "ship.tensorf.py"
+MADOKA_CONFIG = ROOT / "configs" / "custom" / "Madoka.py"
+COMPRESSED_DECAY = 0.0
+# 10a: 24 LINEMOD frames of 640x480 (4 test), cropped to 90x90; 9 fine steps,
+# the four boundaries at steps 2-5, ending at 160^3
+LM_FRAMES, LM_TEST, LM_STEPS, LM_PG_SCALE = 24, 4, 9, (2, 3, 4, 5)
+# 10b: 20 + 1 CO3D frames of 800x600; the coarse stage as long as 9a's, for
+# the geometry to form; the fine stage as 10a's
+CO3D_FRAMES, CO3D_TEST, CO3D_H, CO3D_W = 21, 1, 800, 600
+CO3D_COARSE_STEPS, CO3D_FINE_STEPS, CO3D_PG_SCALE = 1000, 9, (2, 3, 4, 5)
+# 10c: the six boundaries at steps 2-7, ending at 384^3; one 800x800 test
+# view, uncached: every sample of a ray goes through the TensoRF fields
+SHIP_FINE_STEPS, SHIP_PG_SCALE = 11, (2, 3, 4, 5, 6, 7)
+# 10d: Madoka at factor 2: 12 views of 540x960; DMPIGO's planes start at equal
+# weight, so its coarse PSNR passes 30 within 50 steps, but the alpha of its
+# free space sinks slowly (the median of the nearest plane 0.0049 at step 300,
+# 0.0026 at 1000, over mask_cache_thres 1e-3): 1000 coarse steps, as 9a's,
+# leave an occupancy seed that drops 3.5 % of the fine lattice, 300 only 0.2 %
+MADOKA_H, MADOKA_W, MADOKA_VIEWS = 540, 960, 12
+MADOKA_COARSE_STEPS, MADOKA_FINE_STEPS, MADOKA_PG_SCALE = 1000, 9, (2, 3, 4, 5)
+# 10e: tune_pose steps through the command line; the card's first-step delta
+# gradient against the CPU's: within TUNE_GRAD_TOL[0] of its largest element
+# plus TUNE_GRAD_TOL[1] relative (as tests/test_torch_port_pose_tune.py holds
+# the port against JAX). The recovery: four textured spheres at different
+# depths (data/synthetic.py::cluster_scene, the layout of the JAX package's
+# unbounded test scene) in RECOVER_VIEWS views of RECOVER_HW^2, a fine-only
+# DVGO of RECOVER_VOXELS with the JAX pose-tuner test's MLP trained on it for
+# RECOVER_TRAIN_STEPS steps of RECOVER_RAYS rays; the perturbation (degrees,
+# share of the camera distance); RECOVER_STEPS tune steps of RECOVER_RAYS
+# pixels at the JAX test's constant lr (annealed, as the command line's
+# program runs, the sideways error stalls); the pixels the objective is read on
+TUNE_STEPS = 10
+TUNE_GRAD_TOL = (1e-3, 1e-2)
+RECOVER_VIEWS, RECOVER_HW, RECOVER_VOXELS, RECOVER_TRAIN_STEPS = 20, 96, 64**3, 600
+RECOVER_DEG, RECOVER_SHIFT = (1.0, 3.0), (0.01, 0.03)
+RECOVER_STEPS, RECOVER_LR, RECOVER_RAYS, RECOVER_PIXELS = 1000, 3e-3, 4096, 32768
 # kernel launches of a train step and of a render chunk, by family
 TRAIN_PER_STEP = {"tv_add_grad": 2, "march_forward": 1, "march_backward": 1}
 DCVGO_PER_STEP = {**TRAIN_PER_STEP, "cumdist_thres": 1}
@@ -2411,44 +2477,58 @@ class PathShapes:
             spy.__exit__(*exc)
 
 
-def phase_dvgo_kernels(gen, kernels: list, paths: dict, floor: float) -> None:
-    """Phase 9c: the DVGO runs' kernels at the shapes those runs gave them
-    (``paths``: tag -> ``PathShapes``), which depend on the coarse geometry
-    they found (the fine box, and the samples a ray on it): both march
-    kernels at each [N, S] with its shift and interval (``march_case``),
-    ``masked_adam`` bit for bit at each parameter's shape, dtype and skip,
-    with and without a grad where the run gave a per-element lr. Each is
-    timed, and its lines go into the rows of ``kernels``."""
+def phase_dvgo_kernels(gen, kernels: list, paths: dict, floor: float, per_lr: tuple = (),
+                       seen: set | None = None) -> None:
+    """Phases 9c and 10f: the kernels at the shapes the runs of phases 9 and
+    10 gave them (``paths``: tag -> ``PathShapes``), which depend on the
+    coarse geometry they found (the fine box, and the samples a ray on it):
+    both march kernels at each [N, S] with its shift and interval
+    (``march_case``), ``masked_adam`` bit for bit at each parameter's shape,
+    dtype and skip, with and without a grad where the run gave a
+    per-element lr. Every path must have launched both march kernels, and
+    each path of ``per_lr`` ``masked_adam`` with and without a per-element
+    lr. A signature in ``seen`` (shared across calls) is held and timed
+    once. Each line goes into the rows of ``kernels``."""
     import torch
 
     rows = {k["name"]: k for k in kernels}
+    seen = set() if seen is None else seen
     for tag, shapes in paths.items():
-        if not (shapes.fwd and shapes.bwd and any(k[4] for k in shapes.adam)
-                and not all(k[4] for k in shapes.adam)):
+        if not (shapes.fwd and shapes.bwd) or (tag in per_lr and not (
+                any(k[4] for k in shapes.adam) and not all(k[4] for k in shapes.adam))):
             raise AssertionError(f"{tag}: a kernel saw no shape: march {shapes.fwd}, "
                                  f"{shapes.bwd}, adam {shapes.adam}")
         if not set(shapes.bwd) <= {k[:3] for k in shapes.fwd if k[3]}:
             raise AssertionError(f"{tag}: march_backward at {shapes.bwd} without its forward")
-        log(f"[9c] {tag}: {len(shapes.fwd)} march_forward shapes, {len(shapes.bwd)} "
-            f"march_backward, {len(shapes.adam)} masked_adam")
-        for (shape, shift, interval, train), n in shapes.fwd.items():
+        log(f"[9c/10f] {tag}: {len(shapes.fwd)} march_forward shapes, {len(shapes.bwd)} "
+            f"march_backward, {len(shapes.adam)} masked_adam "
+            f"({sum(k in seen for k in (*shapes.fwd, *shapes.adam))} held already)")
+        for key, n in shapes.fwd.items():
+            if key in seen:
+                continue
+            seen.add(key)
+            shape, shift, interval, train = key
             ef, eb, f_line, b_line = march_case(gen, f"{tag} ({n} calls)", shape, shift,
                                                 interval, floor, train)
             for name, err, line in (("march_forward", ef, f_line), ("march_backward", eb, b_line)):
                 if line is not None:
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
                     rows[name]["shapes"].append(line)
-        for (shape, dtype, skip, grad, per_lr), n in shapes.adam.items():
+        for key, n in shapes.adam.items():
+            if key in seen:
+                continue
+            seen.add(key)
+            shape, dtype, skip, grad, with_lr = key
             label = f"{tag} ({n} calls)"
             # the whole tensor as one bank: the path's shapes hold one bank
             one = (1, *shape) if shape[0] != 1 else shape
-            for with_grad in ((True, False) if per_lr else (grad,)):
-                adam_case(label, one, dtype, skip, grad=with_grad, per_lr=per_lr)
-            if per_lr and rows["masked_adam_per_lr"]["ms"] is None:
+            for with_grad in ((True, False) if with_lr else (grad,)):
+                adam_case(label, one, dtype, skip, grad=with_grad, per_lr=with_lr)
+            if with_lr and rows["masked_adam_per_lr"]["ms"] is None:
                 rows["masked_adam_per_lr"].update(ms=0.0, plain_ms=0.0, bound_ms=0.0,
                                                   bound_ms_elementwise=0.0)
-            adam_time(rows["masked_adam_per_lr" if per_lr else "masked_adam"], label, one,
-                      dtype, skip, per_lr, floor)
+            adam_time(rows["masked_adam_per_lr" if with_lr else "masked_adam"], label, one,
+                      dtype, skip, with_lr, floor)
         torch.cuda.empty_cache()
 
 
@@ -3213,6 +3293,581 @@ def phase_truck_lg(tmp: pathlib.Path, card: str) -> list:
     return [counts]
 
 
+# ---------------------------------------------------------------------------
+# the LINEMOD, CO3D, TensoRF and DMPIGO-coarse paths and the pose tuner
+# (phase 10)
+
+
+def stage_records(exp_dir: str, stage: str) -> list:
+    with open(os.path.join(exp_dir, f"{stage}_metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def live_samples(tag: str, frustum_spy, coarse_spy, bounds: list, kept=None,
+                 smaller: bool = True) -> float:
+    """Fail unless the fine stage had live samples at full width: the fine box
+    inside the frustum box (and, with ``smaller``, smaller than it: the
+    coarse stage found geometry), the occupancy cache not empty after the
+    last boundary (and, where a filter ran, some rays kept). Returns the
+    fine box's share of the frustum box's volume."""
+    import numpy as np
+
+    lo_c, hi_c = (np.asarray(x) for x in frustum_spy.calls[0].result)
+    lo_f, hi_f = (np.asarray(x) for x in coarse_spy.calls[0].result)
+    share = float(np.prod(hi_f - lo_f) / np.prod(hi_c - lo_c))
+    last = bounds[-1]
+    if not ((lo_c <= lo_f).all() and (hi_f <= hi_c).all() and (share < 1.0 or not smaller)
+            and last["occupancy"] > 0 and (kept is None or kept > 0)):
+        raise AssertionError(f"{tag}: no live sample at full width: fine box {lo_f} .. {hi_f} "
+                             f"in {lo_c} .. {hi_c} ({share:.4f} of it), occupancy "
+                             f"{last['occupancy']:.4f} after step {last['step']}, kept {kept}")
+    log(f"{tag} frustum box {lo_c.round(4).tolist()} .. {hi_c.round(4).tolist()}, fine box "
+        f"{lo_f.round(4).tolist()} .. {hi_f.round(4).tolist()} ({100 * share:.2f}% of its "
+        f"volume); occupancy cache after each fine boundary "
+        f"{[(b['step'], round(b['occupancy'], 4)) for b in bounds]}")
+    return share
+
+
+def compressed(base: pathlib.Path, tmp: pathlib.Path, name: str, data: str, **stages) -> str:
+    """A config over ``base`` with the capture, the log directory and each
+    stage's cuts (a dict a stage)."""
+    path = tmp / f"{name}.py"
+    lines = [f"_base_ = {str(base)!r}", f"basedir = {str(tmp / 'logs')!r}", f"data = {data}"]
+    lines += [f"{k} = dict({', '.join(f'{a}={v!r}' for a, v in kw.items())})"
+              for k, kw in stages.items()]
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def phase_cli_linemod(tmp: pathlib.Path, card: str, paths: dict) -> list:
+    """Phase 10a: linemod/ape.py through the command line on a seeded LINEMOD
+    sequence (``LM_FRAMES`` frames of 640x480 JPEG, cropped to the config's
+    90x90 around the object): ``train`` (the fine-only DVGO at 160^3 on the
+    host ray store, ``in_maskcache``, its four boundaries compressed to
+    ``LM_PG_SCALE``), the render of the test views, then ``--program
+    linemod_eval`` in its sanity mode (every metric 1.0) and with seeded
+    perturbed predictions (the scores fall). Its kernels' shapes go into
+    ``paths``. Returns [train counts, render counts]."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+
+    t0 = time.time()
+    synthetic.write_linemod_scene(str(tmp / "linemod"), "ape", LM_FRAMES, LM_TEST, seed=8)
+    cfg_file = compressed(LINEMOD_CONFIG, tmp, "ape_cli", f"dict(datadir={str(tmp / 'linemod')!r})",
+                          fine_train=dict(N_iters=LM_STEPS, pg_scale=list(LM_PG_SCALE)))
+    cfg = loader.load_config(cfg_file)
+    fm, ft = cfg.fine_model_and_render, cfg.fine_train
+    own = loader.load_config(str(LINEMOD_CONFIG))
+    log(f"[10a] config {LINEMOD_CONFIG.relative_to(ROOT)} (DVGO, fine stage only, "
+        f"load2gpu_on_the_fly {cfg.data.load2gpu_on_the_fly}, {ft.ray_sampler} sampler, crop "
+        f"{cfg.data.width_max}x{cfg.data.height_max}, {fm.num_voxels_rgb} voxels, k0 "
+        f"{fm.rgbnet_dim} channels, N_rand {ft.N_rand}); cuts: {ft.N_iters} steps of "
+        f"{own.fine_train.N_iters}, boundaries {list(own.fine_train.pg_scale)} compressed to "
+        f"{list(ft.pg_scale)}; a sequence of {LM_FRAMES} frames ({LM_TEST} test) written in "
+        f"{time.time() - t0:.1f} s")
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    with render_spy() as renders, Spy(common, "load_everything") as loads, \
+            PathShapes() as paths["10a ape.py"]:
+        run_cli(["--config", cfg_file, "--i_print", "1", "--render_test"])
+    total_s = time.time() - t0
+    data = loads.calls[0].result
+    n_test = len(data["i_test"])
+    counts = check_cli_run("[10a]", dict(build.LAUNCHES), renders, ft.N_iters, n_test,
+                           tuple(int(v) for v in data["HW"][0]),
+                           per_step={"march_forward": 1, "march_backward": 1})
+    records = stage_records(exp_dir, "fine")
+    bounds = [r["pg_scale"] for r in records if "pg_scale" in r]
+    first = ft.pg_scale[-1] + 1 + WARMUP_STEPS
+    ms = stage_ms(exp_dir, "fine", first, ft.N_iters)
+    all_ms = [round(t, 1) for t in stage_ms(exp_dir, "fine", 2, ft.N_iters)]
+    log(f"[10a] ape.py on {card}: scene load {loads.calls[0].seconds:.2f} s "
+        f"({len(data['i_train'])} training views of {tuple(int(v) for v in data['HW'][0])}, "
+        f"near {data['near']:.3f}, far {data['far']:.3f}); grids "
+        f"{tuple(bounds[-1]['world_size_rgb'])} from step {ft.pg_scale[-1]}, ms/step {all_ms}"
+        f" (steps 2 on), at full width median {float(np.median(ms)):.1f}; occupancy after "
+        f"the last boundary {bounds[-1]['occupancy']:.4f}; peak memory of the training "
+        f"{renders.calls[-1].peak_before_gb:.2f} GB; the command {total_s:.1f} s")
+    # linemod_eval: the ground truth against itself, then perturbed predictions
+    lines = run_cli(["--config", cfg_file, "--program", "linemod_eval"])
+    gt = json.loads(lines[-1])
+    if any(gt[k] != 1.0 for k in ("proj2d", "add", "add2", "add5", "cmd5")):
+        raise AssertionError(f"[10a] linemod_eval in its sanity mode: {gt}")
+    rng = np.random.default_rng(9)
+    preds = np.asarray(data["object_poses"])[np.asarray(data["i_test"])].copy()
+    preds[:, :, 3] += rng.normal(0.0, 0.02, preds[:, :, 3].shape)
+    np.save(tmp / "ape_preds.npy", preds)
+    bad = json.loads(run_cli(["--config", cfg_file, "--program", "linemod_eval",
+                              "--pose_preds", str(tmp / "ape_preds.npy")])[-1])
+    if not (bad["add"] < 1.0 and bad["cmd5"] < 1.0):
+        raise AssertionError(f"[10a] linemod_eval on perturbed poses: {bad}")
+    log(f"[10a] linemod_eval: ground truth {gt}; predictions 2 cm off (seeded) {bad}")
+    return counts
+
+
+def phase_co3d(tmp: pathlib.Path, card: str, paths: dict) -> list:
+    """Phase 10b: co3d/teddybear.py through the command line on a seeded CO3D
+    capture (``CO3D_FRAMES`` frames of ``CO3D_H`` x ``CO3D_W``, one test frame):
+    the coarse stage (``CO3D_COARSE_STEPS`` steps: the geometry forms after
+    500-900 from ``alpha_init`` 1e-6, as 9a found), then the fine stage to
+    160^3 and the render of the test view. Fails unless the fine stage has
+    live samples. Returns [train counts, render counts]."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+
+    t0 = time.time()
+    scene = synthetic.write_co3d_scene(str(tmp / "co3d_teddybear"), n_frames=CO3D_FRAMES,
+                                       n_test=CO3D_TEST, H=CO3D_H, W=CO3D_W, seed=10)
+    cfg_file = compressed(
+        CO3D_CONFIG, tmp, "teddybear_cli",
+        "dict(" + ", ".join(f"{k}={scene[k]!r}" for k in ("datadir", "annot_path",
+                                                          "split_path")) + ")",
+        coarse_train=dict(N_iters=CO3D_COARSE_STEPS),
+        fine_train=dict(N_iters=CO3D_FINE_STEPS, pg_scale=list(CO3D_PG_SCALE),
+                        decay_after_scale=COMPRESSED_DECAY))
+    cfg = loader.load_config(cfg_file)
+    ct, ft, fm = cfg.coarse_train, cfg.fine_train, cfg.fine_model_and_render
+    own = loader.load_config(str(CO3D_CONFIG))
+    log(f"[10b] config {CO3D_CONFIG.relative_to(ROOT)} (DVGO, inverse_y, flip_x, flip_y; coarse "
+        f"{cfg.coarse_model_and_render.num_voxels_rgb} voxels, pervoxel_lr {ct.pervoxel_lr}; "
+        f"fine {fm.num_voxels_rgb} voxels, {ft.ray_sampler}); cuts: {ct.N_iters} coarse steps "
+        f"of {own.coarse_train.N_iters}, {ft.N_iters} fine steps of {own.fine_train.N_iters}, "
+        f"boundaries {list(own.fine_train.pg_scale)} compressed to {list(ft.pg_scale)}, "
+        f"decay_after_scale {own.fine_train.decay_after_scale} -> {ft.decay_after_scale}; "
+        f"{CO3D_FRAMES} frames of {CO3D_H}x{CO3D_W} and one with an empty mask written in "
+        f"{time.time() - t0:.1f} s")
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    spies = dvgo_spies()
+    t0 = time.time()
+    with render_spy() as renders, Spy(common, "load_everything") as loads, \
+            spies[0], spies[1], spies[2], spies[3], PathShapes() as paths["10b teddybear.py"]:
+        run_cli(["--config", cfg_file, "--i_print", "1", "--render_test"])
+    total_s = time.time() - t0
+    found = report_dvgo_spies("[10b]", *spies)
+    data = loads.calls[0].result
+    render = renders.calls[-1]
+    out = render.result["test"]
+    steps = ct.N_iters + ft.N_iters
+    train = train_counts_of(dict(build.LAUNCHES), render.launches)
+    want = {"march_forward": steps, "march_backward": steps,
+            "masked_adam": adam_wanted("[10b]", ft.N_iters),
+            "masked_adam_per_lr": ADAM_WANTED.n_lr}
+    want_render = {"march_forward": CO3D_TEST * -(-CO3D_H * CO3D_W // RENDER_CHUNK)}
+    if train != want or render.launches != want_render or ADAM_WANTED.n_lr != ct.N_iters \
+            or out["rgbs"].shape[:3] != (CO3D_TEST, CO3D_H, CO3D_W) \
+            or not np.isfinite(out["rgbs"]).all():
+        raise AssertionError(f"[10b] launches train {train} (want {want}), render "
+                             f"{render.launches} (want {want_render}), rgbs {out['rgbs'].shape}")
+    bounds = [r["pg_scale"] for r in stage_records(exp_dir, "fine") if "pg_scale" in r]
+    live_samples("[10b]", spies[2], spies[3], bounds, kept=found["kept"])
+    psnr = {r["step"]: r["psnr"] for r in stage_records(exp_dir, "coarse") if "psnr" in r}
+    first = ft.pg_scale[-1] + 1 + WARMUP_STEPS
+    ms = stage_ms(exp_dir, "fine", first, ft.N_iters)
+    log(f"[10b] teddybear.py on {card}: scene load {loads.calls[0].seconds:.2f} s "
+        f"({len(data['i_train'])} training views); coarse PSNR by step "
+        f"{[(k, round(psnr[k], 2)) for k in sorted(psnr) if k % 200 == 0]}; coarse ms/step "
+        f"median {float(np.median(stage_ms(exp_dir, 'coarse', 3, ct.N_iters))):.2f}; fine grids "
+        f"{tuple(bounds[-1]['world_size_rgb'])}, ms/step at full width median "
+        f"{float(np.median(ms)):.1f}; peak memory of the training {render.peak_before_gb:.2f} "
+        f"GB; render {[round(t * 1e3, 1) for t in out['seconds']]} ms/view, psnr "
+        f"{[round(x, 3) for x in out['psnrs']]}; launches train {train}, render "
+        f"{render.launches}; the command {total_s:.1f} s")
+    return [train, render.launches]
+
+
+def phase_ship(tmp: pathlib.Path, card: str, lego_file: str, paths: dict) -> list:
+    """Phase 10c: nerf/ship.tensorf.py through ``run_train`` on 9a's
+    NeRF-synthetic capture, from a copy of 9a's ``coarse_last`` (the resume
+    finds the coarse stage finished and trains nothing there): the TensoRF
+    fine stage (density n_comp 8, k0 n_comp 24 projected to 12 channels) on
+    the coarse geometry's box, its six boundaries compressed to
+    ``SHIP_PG_SCALE``, ending at 384^3; then one test view, rendered without
+    a cache as ``run_render`` renders a TensoRF model. Fails unless the fine
+    stage has live samples. Returns [train counts, render counts]."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common
+    from unboundednerfpytorch_tpu_torch.fields.grids import TensoRFGrid
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.render import renderer
+    from unboundednerfpytorch_tpu_torch.train import loop
+
+    lego = loader.load_config(lego_file)
+    cfg_file = compressed(SHIP_CONFIG, tmp, "ship_tensorf", f"dict(datadir={lego.data.datadir!r})",
+                          coarse_train=dict(N_iters=lego.coarse_train.N_iters),
+                          fine_train=dict(N_iters=SHIP_FINE_STEPS, pg_scale=list(SHIP_PG_SCALE),
+                                          decay_after_scale=COMPRESSED_DECAY))
+    cfg = loader.load_config(cfg_file)
+    ft, fm = cfg.fine_train, cfg.fine_model_and_render
+    own = loader.load_config(str(SHIP_CONFIG))
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    os.makedirs(exp_dir, exist_ok=True)
+    shutil.copytree(os.path.join(lego.basedir, lego.expname, "coarse_last"),
+                    os.path.join(exp_dir, "coarse_last"))
+    t0 = time.time()
+    data = common.load_everything(cfg)
+    load_s = time.time() - t0
+    log(f"[10c] config {SHIP_CONFIG.relative_to(ROOT)} (DVGO, {fm.density_type} "
+        f"{dict(fm.density_config)} density, {fm.k0_type} {dict(fm.k0_config)} k0 of "
+        f"{fm.rgbnet_dim} channels, {fm.num_voxels_rgb} voxels, N_rand {ft.N_rand}); from 9a's "
+        f"coarse_last (step {lego.coarse_train.N_iters}); cuts: {ft.N_iters} fine steps of "
+        f"{own.fine_train.N_iters}, boundaries {list(own.fine_train.pg_scale)} compressed to "
+        f"{list(ft.pg_scale)}, decay_after_scale {own.fine_train.decay_after_scale} -> "
+        f"{ft.decay_after_scale}; 9a's capture loaded in {load_s:.2f} s")
+    stamps, bounds = [], []
+
+    def callback(step, metrics):
+        if not np.isfinite(float(metrics["loss"])):  # synchronises the step
+            raise AssertionError(f"[10c] step {step}: loss {float(metrics['loss'])}")
+        stamps.append((time.perf_counter(), torch.cuda.max_memory_allocated() / 1e9))
+        torch.cuda.reset_peak_memory_stats()
+        if "pg_scale" in metrics:
+            bounds.append(metrics["pg_scale"])
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    spies = dvgo_spies()
+    t_start = time.perf_counter()
+    shapes = paths["10c ship.tensorf.py"] = PathShapes()
+    with spies[1], spies[2], spies[3], shapes:
+        family, mcfg, params, _ = loop.run_train(cfg, data, seed=0, device="cuda", log_fn=log,
+                                                 log_every=1, callback=callback,
+                                                 exp_dir=exp_dir)
+    counts = dict(build.LAUNCHES)
+    want = {"march_forward": ft.N_iters, "march_backward": ft.N_iters,
+            "masked_adam": adam_wanted("[10c]", ft.N_iters)}
+    if counts != want or len(stamps) != ft.N_iters:
+        raise AssertionError(f"[10c] launch counts {counts} != {want}, {len(stamps)} steps "
+                             "(the coarse stage must train nothing)")
+    if not (isinstance(params.k0, TensoRFGrid) and isinstance(params.density, TensoRFGrid)):
+        raise AssertionError(f"[10c] fields {type(params.density)}, {type(params.k0)}")
+    rep = spies[1].calls[0].result[1]
+    live_samples("[10c]", spies[2], spies[3], bounds, kept=rep["kept"])
+    dts = np.diff([t_start] + [t for t, _ in stamps]) * 1e3
+    peaks = [p for _, p in stamps]
+    first = ft.pg_scale[-1] + 1 + WARMUP_STEPS
+    n_samples = loop.FAMILIES[family].n_samples(mcfg, fm.stepsize)
+    log(f"[10c] ship.tensorf.py on {card}: fields at {mcfg.world_size} ({n_samples} samples a "
+        f"ray) from step {ft.pg_scale[-1]}; ms/step {[round(float(t), 1) for t in dts]} (the "
+        f"first with the stage's set-up), at full width median "
+        f"{float(np.median(dts[first - 1:])):.1f}; peak memory by step "
+        f"{[round(x, 2) for x in peaks]} GB; in_maskcache kept {rep['kept']} of {rep['rays']} "
+        f"rays; launches {counts}")
+    # one test view, uncached (a TensoRF model has no render cache)
+    params.requires_grad_(False)
+    if loop.FAMILIES[family].build_render_cache(params, mcfg) is not None:
+        raise AssertionError("[10c] a TensoRF model got a render cache")
+    fwd_core = loop.make_forward(mcfg, {"near": float(data["near"]), "far": float(data["far"]),
+                                        "bg": 1.0, "stepsize": fm.stepsize})
+    idx = np.asarray(data["i_test"])[:1]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(build.LAUNCHES)
+    with shapes:
+        out = renderer.render_viewpoints(
+            lambda aux, ro, rd, vd: fwd_core(aux, ro, rd, vd, None),
+            poses=np.asarray(data["poses"])[idx], HW=np.asarray(data["HW"])[idx],
+            Ks=np.asarray(data["Ks"])[idx], gt_imgs=np.asarray(data["images"])[idx],
+            chunk=RENDER_CHUNK, aux=params, log_fn=lambda m: log(f"[10c] {m}"),
+            device="cuda")
+    render_counts = launches_since(before)
+    H, W = (int(v) for v in np.asarray(data["HW"])[idx[0]])
+    if out["rgbs"].shape != (1, H, W, 3) or not np.isfinite(out["rgbs"]).all() or \
+            render_counts != {"march_forward": -(-H * W // RENDER_CHUNK)}:
+        raise AssertionError(f"[10c] rendered {out['rgbs'].shape}, launches {render_counts}")
+    log(f"[10c] one test view of {H}x{W} on {card}: {out['seconds'][0] * 1e3:.1f} ms, psnr "
+        f"{out['psnrs'][0]:.3f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {render_counts}")
+    return [counts, render_counts]
+
+
+def phase_madoka(tmp: pathlib.Path, card: str, paths: dict) -> list:
+    """Phase 10d: custom/Madoka.py (DMPIGO, NDC rays, factor 2, 256^3 voxels
+    as [X, Y, 128]) through ``run_train`` without a checkpoint on a seeded
+    forward-facing capture in the LLFF layout (``MADOKA_VIEWS`` views at
+    images_2 of ``MADOKA_H`` x ``MADOKA_W``): the coarse stage as the JAX
+    package runs it (no ``maskout_near_cam_vox``, no per-voxel lr, no
+    filter: spies fail the phase if one runs), then the fine stage on the
+    coarse geometry's box, its cache seeded from the coarse alpha, its four
+    boundaries compressed. Fails unless the fine stage has live samples and
+    the coarse geometry's seed drops part of the fine lattice. Returns
+    [train counts]."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.train import loop
+
+    t0 = time.time()
+    data = synthetic.forward_facing_scene(MADOKA_VIEWS, MADOKA_H, MADOKA_W, seed=11)
+    scene = synthetic.write_llff_scene(str(tmp / "Madoka" / "dense"), data, factor=2,
+                                       bounds=FERN_BOUNDS)
+    cfg_file = compressed(MADOKA_CONFIG, tmp, "madoka", f"dict(datadir={scene!r})",
+                          coarse_train=dict(N_iters=MADOKA_COARSE_STEPS),
+                          fine_train=dict(N_iters=MADOKA_FINE_STEPS,
+                                          pg_scale=list(MADOKA_PG_SCALE),
+                                          decay_after_scale=COMPRESSED_DECAY))
+    cfg = loader.load_config(cfg_file)
+    t1 = time.time()
+    data = common.load_everything(cfg)
+    load_s = time.time() - t1
+    ct, ft, cm, fm = (cfg.coarse_train, cfg.fine_train, cfg.coarse_model_and_render,
+                      cfg.fine_model_and_render)
+    own = loader.load_config(str(MADOKA_CONFIG))
+    log(f"[10d] config {MADOKA_CONFIG.relative_to(ROOT)} (DMPIGO, ndc {cfg.data.ndc}, factor "
+        f"{cfg.data.factor}; coarse {cm.num_voxels_rgb} voxels over {cm.mpi_depth} planes, "
+        f"maskout_near_cam_vox {cm.maskout_near_cam_vox} and pervoxel_lr {ct.pervoxel_lr} "
+        f"skipped as in the JAX package; fine {fm.num_voxels_rgb} voxels over {fm.mpi_depth} "
+        f"planes, rgbnet {fm.rgbnet_dim}/{fm.rgbnet_width}); cuts: {ct.N_iters} coarse steps of "
+        f"{own.coarse_train.N_iters}, {ft.N_iters} fine steps of {own.fine_train.N_iters}, "
+        f"boundaries {list(own.fine_train.pg_scale)} compressed to {list(ft.pg_scale)}, "
+        f"decay_after_scale {own.fine_train.decay_after_scale} -> {ft.decay_after_scale}; "
+        f"{MADOKA_VIEWS} views written in {t1 - t0:.1f} s, loaded in {load_s:.2f} s")
+    stamps, bounds, psnr = [], [], []
+
+    def callback(step, metrics):
+        if not np.isfinite(float(metrics["loss"])):  # synchronises the step
+            raise AssertionError(f"[10d] step {step}: loss {float(metrics['loss'])}")
+        stamps.append((time.perf_counter(), torch.cuda.max_memory_allocated() / 1e9))
+        psnr.append(float(metrics["psnr"]))
+        torch.cuda.reset_peak_memory_stats()
+        if "pg_scale" in metrics:
+            bounds.append(metrics["pg_scale"])
+
+    from unboundednerfpytorch_tpu_torch.models import dvgo
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    spies = dvgo_spies()
+    skipped = Spy(dvgo, "maskout_near_cam_vox")
+    seed = Spy(dvgo, "coarse_mask_fn")
+    t_start = time.perf_counter()
+    with spies[0], spies[1], spies[2], spies[3], skipped, seed, \
+            PathShapes() as paths["10d Madoka.py"]:
+        family, mcfg, params, _ = loop.run_train(cfg, data, seed=0, device="cuda", log_fn=log,
+                                                 log_every=100, callback=callback)
+    counts = dict(build.LAUNCHES)
+    steps = ct.N_iters + ft.N_iters
+    want = {"march_forward": steps, "march_backward": steps,
+            "masked_adam": adam_wanted("[10d]", steps)}
+    if ft.weight_tv_density > 0 or ft.weight_tv_k0 > 0 or ct.weight_tv_density > 0:
+        raise AssertionError("[10d] a TV weight is set: tv_add_grad would launch")
+    if counts != want or len(stamps) != steps or family != "dmpigo":
+        raise AssertionError(f"[10d] {family}: launch counts {counts} != {want}, "
+                             f"{len(stamps)} steps")
+    if spies[0].calls or spies[1].calls or skipped.calls:
+        raise AssertionError(f"[10d] the JAX package skips these outside DVGO: "
+                             f"voxel_count_views {len(spies[0].calls)}, in_maskcache "
+                             f"{len(spies[1].calls)}, maskout {len(skipped.calls)}")
+    # The wall behind the ball fills every view, so the box can shrink only
+    # in depth, and a plane voxel that few cameras see may keep the alpha it
+    # starts with (about 1/64 at 256 / mpi_depth, over bbox_thres): the fine
+    # box may be the whole frustum box. What the coarse geometry gives
+    # the fine stage is its occupancy seed, which must drop part of the
+    # fine lattice (taken at full width on the fine box), and which the
+    # cache carries through the boundaries
+    live_samples("[10d]", spies[2], spies[3], bounds, smaller=False)
+    with torch.no_grad():
+        kept = float(seed.calls[0].result(mcfg.world_size, mcfg.xyz_min,
+                                          mcfg.xyz_max).float().mean())
+    log(f"[10d] the occupancy seed from the coarse geometry keeps {100 * kept:.2f}% of the "
+        f"fine lattice {tuple(mcfg.world_size)}")
+    if len(seed.calls) != 1 or not 0.0 < kept < 1.0 or not bounds[-1]["occupancy"] < 1.0:
+        raise AssertionError(f"[10d] the coarse stage did not shape the fine one: its seed "
+                             f"keeps {kept:.4f} of the fine lattice, the cache "
+                             f"{bounds[-1]['occupancy']:.4f} after the last boundary")
+    if not psnr[ct.N_iters - 1] > psnr[0] + 5:
+        raise AssertionError(f"[10d] the coarse stage did not learn: PSNR {psnr[0]:.2f} -> "
+                             f"{psnr[ct.N_iters - 1]:.2f}")
+    if mcfg.world_size[2] != fm.mpi_depth or params.mask_cache.mask.shape != mcfg.world_size:
+        raise AssertionError(f"[10d] fine world {mcfg.world_size}")
+    dts = np.diff([t_start] + [t for t, _ in stamps]) * 1e3
+    peaks = [p for _, p in stamps]
+    first = ct.N_iters + ft.pg_scale[-1] + 1 + WARMUP_STEPS
+    log(f"[10d] Madoka.py on {card}: coarse PSNR by step "
+        f"{[(k, round(psnr[k - 1], 2)) for k in range(100, ct.N_iters + 1, 100)]}, ms/step median "
+        f"{float(np.median(dts[2:ct.N_iters])):.2f}; fine grids {mcfg.world_size}, PSNR "
+        f"{[round(x, 2) for x in psnr[ct.N_iters:]]}, ms/step "
+        f"{[round(float(t), 1) for t in dts[ct.N_iters:]]} (the first with the stage's set-up), "
+        f"at full width median {float(np.median(dts[first - 1:])):.1f}; peak memory of the "
+        f"coarse stage {max(peaks[:ct.N_iters]):.2f} GB, of the fine stage "
+        f"{max(peaks[ct.N_iters:]):.2f} GB; launches {counts}")
+    return [counts]
+
+
+def phase_tune_pose(tmp: pathlib.Path, card: str, paths: dict) -> list:
+    """Phase 10e: the pose tuner. (1) ``--program tune_pose`` through the
+    command line on 10a's trained ``fine_last`` (``TUNE_STEPS`` steps at full
+    width): ms per step, ``march_forward`` and ``march_backward`` once a step
+    and nothing else, ``tuned_poses.npy``; the first step's delta gradient
+    equal to the CPU's plain path on the same pixel picks (``TUNE_GRAD_TOL``).
+    (2) A recovery: a fine-only DVGO trained on the card on four textured
+    spheres at different depths; the training poses perturbed by seeded 1-3
+    degree rotations and 1-3 % translations, the images still of the true
+    poses; after ``RECOVER_STEPS`` steps the mean rotation and translation
+    errors must have halved.
+    Returns [the launch counts of (1), of (2)'s training and of its
+    tuning]."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.train import pose_tune as pt
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
+    ape_file = str(tmp / "ape_cli.py")  # 10a's
+    cfg = loader.load_config(ape_file)
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    first = {}
+    stamps = []
+
+    def on_step(args, kwargs):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if "grad" not in first:
+            first["grad"] = args[0].param_groups[0]["params"][0].grad.detach().cpu().clone()
+
+    reset_counts()
+    t0 = time.time()
+    with Spy(pt, "pick_pixels") as picks, Spy(torch.optim.Adam, "step", before=on_step,
+                                              keep=False), \
+            PathShapes() as paths["10e tune_pose"]:
+        run_cli(["--config", ape_file, "--program", "tune_pose", "--tune_steps",
+                 str(TUNE_STEPS)])
+    total_s = time.time() - t0
+    counts = dict(build.LAUNCHES)
+    want = {"march_forward": TUNE_STEPS, "march_backward": TUNE_STEPS}
+    tuned = np.load(os.path.join(exp_dir, "tuned_poses.npy"))
+    if counts != want or not np.isfinite(tuned).all() or len(picks.calls) != TUNE_STEPS:
+        raise AssertionError(f"[10e] tune_pose: launches {counts} (want {want}), "
+                             f"{len(picks.calls)} steps, tuned poses finite "
+                             f"{np.isfinite(tuned).all()}")
+    step_ms = np.diff(stamps) * 1e3
+    # the first step's gradient against the CPU's plain path at the same picks
+    data = common.load_everything(cfg)
+    i_train = np.asarray(data["i_train"])
+    _, mcfg, params, _, _ = ckpt.load_model(os.path.join(exp_dir, "fine_last"), device="cpu",
+                                            with_opt_state=False)
+    params.requires_grad_(False)
+    fwd = loop.make_forward(mcfg, {"near": float(data["near"]), "far": float(data["far"]),
+                                   "bg": 1.0 if cfg.data.white_bkgd else 0.0,
+                                   "stepsize": cfg.fine_model_and_render.stepsize})
+    delta = torch.zeros((len(i_train), 6), requires_grad=True)
+    t1 = time.time()
+    loss = pt.tune_loss(lambda ro, rd, vd: fwd(params, ro, rd, vd, None), delta,
+                        torch.as_tensor(np.asarray(data["images"])[i_train]),
+                        torch.as_tensor(np.asarray(data["poses"])[i_train][:, :3, :4]),
+                        torch.as_tensor(np.asarray(data["Ks"])[i_train]),
+                        tuple(p.cpu() for p in picks.calls[0].result),
+                        inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
+                        flip_y=cfg.data.flip_y)
+    loss.backward()
+    cpu_s = time.time() - t1
+    got, ref = first["grad"], delta.grad
+    scale = float(ref.abs().max())
+    err = (got - ref).abs()
+    if scale == 0 or float(got.abs().max()) == 0 or \
+            bool((err > TUNE_GRAD_TOL[0] * scale + TUNE_GRAD_TOL[1] * ref.abs()).any()):
+        raise AssertionError(f"[10e] the first step's delta gradient: card against CPU "
+                             f"max error {float(err.max()):.3e} of {scale:.3e}")
+    log(f"[10e] tune_pose on {card}: {TUNE_STEPS} steps of {len(picks.calls[0].result[0])} "
+        f"pixels over {len(i_train)} views at full width {tuple(mcfg.world_size)}; ms per tune "
+        f"step {[round(float(t), 1) for t in step_ms]}, median "
+        f"{float(np.median(step_ms[1:])):.1f}; launches {counts}; the command {total_s:.1f} s. "
+        f"First-step delta gradient, card against the CPU's plain path on the same picks "
+        f"({cpu_s:.1f} s on the CPU): max |error| {float(err.max()):.3e}, max |grad| "
+        f"{scale:.3e} (tolerance {TUNE_GRAD_TOL[0]} of it + {TUNE_GRAD_TOL[1]} relative)")
+
+    # (2) recovery on a model that has learned a scene where a pose is
+    # well-posed: spheres at different depths, trained here
+    from unboundednerfpytorch_tpu_torch.data import synthetic
+    from unboundednerfpytorch_tpu_torch.probes import pose_recovery as pr
+
+    t1 = time.time()
+    data = synthetic.cluster_scene(RECOVER_VIEWS, RECOVER_HW, RECOVER_HW, seed=0)
+    scene_s = time.time() - t1
+    reset_counts()
+    t1 = time.time()
+    with PathShapes() as paths["10e recovery model"]:
+        model, family, mcfg, psnr = pr.train_model(data, RECOVER_VOXELS, RECOVER_TRAIN_STEPS,
+                                                   RECOVER_RAYS, "cuda")
+    train_s = time.time() - t1
+    tcounts = dict(build.LAUNCHES)
+    want = {"march_forward": RECOVER_TRAIN_STEPS, "march_backward": RECOVER_TRAIN_STEPS,
+            "masked_adam": adam_wanted("[10e]", RECOVER_TRAIN_STEPS)}
+    if tcounts != want or family != "dvgo":
+        raise AssertionError(f"[10e] the recovery's model: {family}, launches {tcounts} != {want}")
+    i_train = np.asarray(data["i_train"])
+    true = np.asarray(data["poses"])[i_train][:, :3, :4].astype(np.float64)
+    start = pr.perturb(true, np.random.default_rng(12), RECOVER_DEG, RECOVER_SHIFT)
+    images = np.asarray(data["images"])[i_train]
+    Ks = np.asarray(data["Ks"])[i_train]
+    reset_counts()
+    t1 = time.time()
+    with PathShapes() as paths["10e recovery"]:
+        tuned, _, _ = pt.tune_poses(model, images, start.astype(np.float32), Ks,
+                                       steps=RECOVER_STEPS, lr=RECOVER_LR,
+                                       n_rand=RECOVER_RAYS, device="cuda",
+                                       log_fn=lambda m: None)
+    recover_s = time.time() - t1
+    rcounts = dict(build.LAUNCHES)
+
+    # the objective at the true, perturbed and tuned poses, on the same pixels
+    def mse_at(poses) -> float:
+        dev = torch.device("cuda")
+        picks = pt.pick_pixels(torch.Generator(device=dev).manual_seed(13), RECOVER_PIXELS,
+                               len(i_train), *images.shape[1:3])
+        with torch.no_grad():
+            return float(pt.tune_loss(
+                model, torch.zeros((len(i_train), 6), device=dev),
+                torch.as_tensor(images, device=dev),
+                torch.as_tensor(np.asarray(poses, np.float32), device=dev),
+                torch.as_tensor(Ks, dtype=torch.float32, device=dev), picks))
+
+    mse = {k: mse_at(v) for k, v in (("true", true), ("start", start), ("tuned", tuned))}
+    (ang0, dist0), (ang1, dist1) = pr.pose_errors(start, true), pr.pose_errors(
+        tuned.astype(np.float64), true)
+    log(f"[10e] recovery on {card}: four textured spheres, {len(i_train)} views of "
+        f"{RECOVER_HW}x{RECOVER_HW} made in {scene_s:.2f} s; a fine-only DVGO at "
+        f"{tuple(mcfg.world_size)} trained on it in {RECOVER_TRAIN_STEPS} steps, {train_s:.1f} "
+        f"s, PSNR {psnr:.2f}, launches {tcounts}; {RECOVER_STEPS} tune steps of {RECOVER_RAYS} "
+        f"pixels at lr {RECOVER_LR} in {recover_s:.1f} s: rotation {ang0:.3f} -> {ang1:.3f} "
+        f"degrees, translation {dist0:.4f} -> {dist1:.4f} (cameras at "
+        f"{float(np.linalg.norm(true[:, :, 3], axis=-1).mean()):.2f}); mse on {RECOVER_PIXELS} "
+        f"pixels at the true poses {mse['true']:.6f}, perturbed {mse['start']:.6f}, tuned "
+        f"{mse['tuned']:.6f}; launches {rcounts}")
+    if not (ang0 > 0.5 and dist0 > 0.02 and ang1 < ang0 / 2 and dist1 < dist0 / 2) or \
+            rcounts != {"march_forward": RECOVER_STEPS, "march_backward": RECOVER_STEPS}:
+        raise AssertionError(f"[10e] the recovery did not halve both pose errors, or launched "
+                             f"{rcounts}")
+    return [counts, tcounts, rcounts]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -3320,8 +3975,18 @@ def main(argv=None) -> int:
                 path_counts += timed("9a", phase_cli_lego, lego_file, card)
             with PathShapes() as truck_lg_shapes:
                 path_counts += timed("9b", phase_truck_lg, tmp, card)
+            # phase 10f holds the kernels at the shapes these runs give them
+            phase10 = {}
+            path_counts += timed("10a", phase_cli_linemod, tmp, card, phase10)
+            path_counts += timed("10b", phase_co3d, tmp, card, phase10)
+            path_counts += timed("10c", phase_ship, tmp, card, lego_file, phase10)
+            path_counts += timed("10d", phase_madoka, tmp, card, phase10)
+            path_counts += timed("10e", phase_tune_pose, tmp, card, phase10)
+    seen = set()
     timed("9c", phase_dvgo_kernels, gen, kernels,
-          {"9a lego.py": lego_shapes, "9b Truck_lg.py": truck_lg_shapes}, floor)
+          {"9a lego.py": lego_shapes, "9b Truck_lg.py": truck_lg_shapes}, floor,
+          ("9a lego.py", "9b Truck_lg.py"), seen)
+    timed("10f", phase_dvgo_kernels, gen, kernels, phase10, floor, ("10b teddybear.py",), seen)
     log(f"seconds by phase: { {k: round(v, 1) for k, v in seconds.items()} }, in all "
         f"{time.time() - t_start:.1f}")
     # a kernel's launches: those of every path that ran it, each path counted
@@ -3335,7 +4000,10 @@ def main(argv=None) -> int:
         f"7a DCVGO train and render {path_counts[8:10]}, 7b DMPIGO {path_counts[10:12]}, "
         f"7c host store train {path_counts[12]}, 8a waymo train and render "
         f"{path_counts[13:15]}, 8b free {path_counts[15:17]}, 9a DVGO lego train and render "
-        f"{path_counts[17:19]}, 9b Truck_lg train {path_counts[19]}, probes {probe_counts}")
+        f"{path_counts[17:19]}, 9b Truck_lg train {path_counts[19]}, 10a linemod train and "
+        f"render {path_counts[20:22]}, 10b co3d {path_counts[22:24]}, 10c ship.tensorf "
+        f"{path_counts[24:26]}, 10d Madoka train {path_counts[26]}, 10e tune_pose, the "
+        f"recovery's model and the recovery {path_counts[27:30]}, probes {probe_counts}")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

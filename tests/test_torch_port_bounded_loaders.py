@@ -127,7 +127,7 @@ def test_the_list_is_the_35_dvgo_configs():
              for p in (ROOT / "configs" / d).glob("*.py")]
     names += [str(p.relative_to(ROOT / "configs"))
               for p in (ROOT / "configs" / "tankstemple").glob("[A-Z]*.py")]
-    names.remove("nerf/ship.tensorf.py")  # TensoRFGrid: ROADMAP A18c
+    names.remove("nerf/ship.tensorf.py")  # TensoRFGrid: test_torch_port_tensorf.py
     assert sorted(names) == sorted(CONFIGS) and len(CONFIGS) == 35
 
 
@@ -154,10 +154,16 @@ def test_the_dvgo_configs_build_their_coarse_and_fine_models(name):
 
 
 def test_ship_tensorf_names_a18c():
+    """ship.tensorf.py, which waited for ROADMAP A18c, builds TensoRF
+    fields of its n_comp (8 for the density, 24 for k0's 12 channels)."""
     cfg = loader.load_config(str(ROOT / "configs" / "nerf" / "ship.tensorf.py"))
-    with pytest.raises(NotImplementedError, match="TensoRFGrid.*A18c"):
-        loop.build_model(cfg, cfg.fine_model_and_render, cfg.fine_train, (-1.0,) * 3,
-                         (1.0,) * 3, torch.Generator().manual_seed(0), "cpu")
+    small = dataclasses.replace(cfg.fine_model_and_render, num_voxels_rgb=16**3,
+                                num_voxels_density=16**3)
+    fam, mcfg, params = loop.build_model(cfg, small, cfg.fine_train, (-1.0,) * 3, (1.0,) * 3,
+                                         torch.Generator().manual_seed(0), "cpu")
+    assert fam == "dvgo" and mcfg.density_type == mcfg.k0_type == "TensoRFGrid"
+    assert params.density.xy_plane.shape[-1] == 8 and params.density.f_vec is None
+    assert params.k0.f_vec.shape == (72, 12)
 
 
 # ---------------------------------------------------------------------------

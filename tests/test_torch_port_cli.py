@@ -125,6 +125,13 @@ def test_programs_not_ported_are_refused(program):
         cli.main(["--config", "unused.py", "--program", program], device="cpu")
 
 
+@pytest.mark.parametrize("program", ["tune_pose", "linemod_eval"])
+def test_the_pose_programs_reach_their_config(program):
+    """tune_pose and linemod_eval are ported: they read the config first."""
+    with pytest.raises(FileNotFoundError, match="unused.py"):
+        cli.main(["--config", "unused.py", "--program", program], device="cpu")
+
+
 @pytest.mark.parametrize("option", [["--num_per_block", "4"], ["--block_parallel"],
                                     ["--grid_parallel", "2"], ["--diffuse"]],
                          ids=lambda o: o[0])

@@ -273,16 +273,14 @@ OTHER_TYPES = ("blender", "blendedmvs", "tankstemple", "nsvf", "deepvoxels", "fr
 
 @pytest.mark.parametrize("dataset_type", OTHER_TYPES)
 def test_other_dataset_types_name_their_roadmap_item(tmp_path, dataset_type):
-    """A type not ported yet raises naming its ROADMAP item (A18c: co3d and
-    linemod); a ported one gets past the dispatch to its loader, which finds
-    no capture in an empty directory."""
+    """Every dataset type of the JAX package is ported (co3d and linemod
+    last): each gets past the dispatch to its loader, which finds no capture
+    in an empty directory; only an unknown type is refused."""
     cfg = port_cfg({"data": dict(dataset_type=dataset_type, datadir=str(tmp_path))})
-    if dataset_type in common.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP A18c"):
-            common.load_everything(cfg)
-    else:
-        with pytest.raises((FileNotFoundError, OSError, ValueError)):
-            common.load_everything(cfg)
+    with pytest.raises((FileNotFoundError, OSError, ValueError)):
+        common.load_everything(cfg)
+    with pytest.raises(NotImplementedError, match="unknown dataset type"):
+        common.load_everything(port_cfg({"data": dict(dataset_type="sfm_only")}))
 
 
 # ---------------------------------------------------------------------------

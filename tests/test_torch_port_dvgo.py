@@ -54,6 +54,7 @@ from unboundednerfpytorch_tpu_torch.configs.schema import (
 )
 from unboundednerfpytorch_tpu_torch.fields.grids import _norm01
 from unboundednerfpytorch_tpu_torch.models import dvgo
+from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
 from unboundednerfpytorch_tpu_torch.ops.cuda import adam, build
 from unboundednerfpytorch_tpu_torch.optim import factory
@@ -126,8 +127,10 @@ def test_configs_and_params_match_jax():
     fresh = dvgo.create(tcfg, torch.Generator().manual_seed(0))
     assert [lin.weight.shape[::-1] for lin in fresh.rgbnet.layers] == [
         w.shape for w in jp.rgbnet.weights]
-    with pytest.raises(NotImplementedError, match="A18c"):
-        dvgo.create(dataclasses.replace(tcfg, density_type="TensoRFGrid"))
+    # TensoRF fields are ported: their own test file holds them against JAX
+    tf = dvgo.create(dataclasses.replace(tcfg, density_type="TensoRFGrid",
+                                         density_config=(("n_comp", 2),)))
+    assert tf.density.world_size == tcfg.world_size and tf.density.f_vec is None
 
 
 def test_bounded_marching_matches_jax():
@@ -602,22 +605,35 @@ def test_random_samplers():
         tstep.HostRayStoreSampler(store, 16, 7, "cpu", mode="epoch")
 
 
-def test_what_stays_unported_names_a18c(tmp_path):
-    """A coarse stage outside the DVGO family and ``maskout_near_cam_vox``
-    outside it are refused, naming ROADMAP A18c."""
+def test_what_stays_unported_names_a18c(tmp_path, monkeypatch):
+    """What waited for ROADMAP A18c now runs: a coarse stage outside the
+    DVGO family (DCVGO here; DMPIGO's has its own test file) and
+    ``maskout_near_cam_vox`` in the FourierGrid family, each for two steps
+    a stage at a small size."""
     from unboundednerfpytorch_tpu_torch.data import synthetic
 
     data = synthetic.orbit_scene(4, 12, 12, seed=0, n_test=1)
     base = ExpConfig()
-    fam_cfg = dataclasses.replace(base, data=dataclasses.replace(base.data, unbounded_inward=True),
-                                  coarse_train=dataclasses.replace(base.coarse_train, N_iters=2))
-    with pytest.raises(NotImplementedError, match="coarse stage of the dcvgo.*A18c"):
-        loop.run_train(fam_cfg, data, device="cpu", log_fn=lambda _: None)
-    fm = dataclasses.replace(base.fine_model_and_render, maskout_near_cam_vox=True)
+    small = dict(num_voxels_rgb=12**3, num_voxels_density=12**3, num_voxels_base_rgb=12**3,
+                 num_voxels_base_density=12**3)
+    short = dict(N_iters=2, N_rand=64, pg_scale=())
+    fam_cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data, unbounded_inward=True),
+        coarse_train=dataclasses.replace(base.coarse_train, **short),
+        fine_train=dataclasses.replace(base.fine_train, **short),
+        coarse_model_and_render=dataclasses.replace(base.coarse_model_and_render, **small),
+        fine_model_and_render=dataclasses.replace(base.fine_model_and_render, **small))
+    fam, mcfg, params, _ = loop.run_train(fam_cfg, data, device="cpu", log_fn=lambda _: None)
+    assert fam == "dcvgo" and params.mask_cache.mask.shape == mcfg.world_size
+    fm = dataclasses.replace(base.fine_model_and_render, maskout_near_cam_vox=True, **small)
     fg_cfg = dataclasses.replace(base, model="FourierGrid", fine_model_and_render=fm,
-                                 coarse_train=dataclasses.replace(base.coarse_train, N_iters=0))
-    with pytest.raises(NotImplementedError, match="maskout_near_cam_vox.*A18c"):
-        loop.run_train(fg_cfg, data, device="cpu", log_fn=lambda _: None)
+                                 coarse_train=dataclasses.replace(base.coarse_train, N_iters=0),
+                                 fine_train=dataclasses.replace(base.fine_train, **short))
+    masked, maskout = [], fg.maskout_near_cam_vox
+    monkeypatch.setattr(fg, "maskout_near_cam_vox",
+                        lambda *a: masked.append(a[0]) or maskout(*a))
+    fam, _, params, _ = loop.run_train(fg_cfg, data, device="cpu", log_fn=lambda _: None)
+    assert fam == "FourierGrid" and len(masked) == 1
 
 
 @pytest.fixture

@@ -19,8 +19,8 @@ they serve.
   ``nerf_studio/Giannini_Hall.py`` (FourierGrid, host ray store) and
   ``nerf_studio/dozer.py`` (DCVGO), each at 16^3 voxels and 4 steps.
 - The six types that waited for ROADMAP A18a: blender, nsvf, deepvoxels and
-  blendedmvs reach their loaders through the command line; co3d and linemod
-  raise there, naming ROADMAP A18c.
+  blendedmvs reach their loaders through the command line, and so do co3d
+  and linemod.
 - The corner gather in slices (the memory bound of an unbudgeted
   full-width step) equals the whole gather, forward and backward, to the
   bit; its probe on the card (``probes/gather_memory.py``) refuses the CPU.
@@ -207,17 +207,13 @@ def test_train_and_render_through_the_command_line(tmp_path, capsys, base, layou
 @pytest.mark.parametrize("dataset_type",
                          ("blender", "blendedmvs", "nsvf", "deepvoxels", "co3d", "linemod"))
 def test_the_types_still_refused_name_a18a(tmp_path, dataset_type):
-    """The six types that waited for ROADMAP A18a: the four it ported reach
-    their loader, which finds no capture in an empty directory; co3d and
-    linemod are refused, naming A18c."""
+    """The six types that waited for ROADMAP A18a and A18c, all ported now:
+    each reaches its loader through the command line, which finds no capture
+    in an empty directory."""
     cfg = tmp_path / "cfg.py"
     cfg.write_text(f"_base_ = {str(ROOT / 'configs' / 'default.py')!r}\n"
                    f"data = dict(dataset_type={dataset_type!r}, datadir={str(tmp_path)!r})\n")
-    if dataset_type not in common.NOT_PORTED:
-        with pytest.raises((FileNotFoundError, OSError, ValueError)):
-            cli.main(["--config", str(cfg)], device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A18c"):
+    with pytest.raises((FileNotFoundError, OSError, ValueError)):
         cli.main(["--config", str(cfg)], device="cpu")
 
 

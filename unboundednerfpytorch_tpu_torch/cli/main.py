@@ -5,8 +5,11 @@ The port's counterpart of ``unboundednerfpytorch_tpu/cli/main.py``, the
 every flag of the JAX command line), config load, data load, ``args.txt`` in the
 experiment directory, and program dispatch. Ported programs: ``train`` (then
 ``render``, as the JAX command line does), ``render`` (or ``--render_only``),
-``export_bbox``, ``export_coarse``, ``export_baked`` and ``gen_trace``. The
-programs ``sfm``, ``tune_pose`` and ``linemod_eval`` and the options
+``export_bbox``, ``export_coarse``, ``export_baked``, ``gen_trace``,
+``tune_pose`` (camera-pose refinement against the trained model,
+``train/pose_tune.py``) and ``linemod_eval`` (the LINEMOD pose metrics of
+``--pose_preds`` against a sequence's object poses, or of the ground truth
+against itself, which scores 1.0). The program ``sfm`` and the options
 ``--num_per_block`` > 0, ``--block_parallel`` and ``--grid_parallel`` > 1
 raise ``NotImplementedError`` naming the ROADMAP item they wait for.
 ``--sample_num`` and ``--diffuse`` reach the waymo and mega loaders, as in
@@ -137,8 +140,6 @@ def build_parser() -> argparse.ArgumentParser:
 # port, each with the ROADMAP item it waits for
 REFUSED_PROGRAMS = {
     "sfm": "the COLMAP run, data/colmap.py (ROADMAP A15.7)",
-    "tune_pose": "camera-pose refinement, train/pose_tune.py (ROADMAP A17)",
-    "linemod_eval": "the linemod loader and utils/pose_eval.py (ROADMAP A17)",
 }
 REFUSED_OPTIONS = {
     "num_per_block": (lambda v: v > 0, "block training and merge_blocks (ROADMAP A14)"),
@@ -218,6 +219,27 @@ def main(argv=None, device=None) -> int:
         from unboundednerfpytorch_tpu_torch.render import export_coarse_geometry
 
         export_coarse_geometry(cfg, exp_dir, out_path=args.export_coarse_only, device=dev)
+        return 0
+    if args.program == "tune_pose":
+        from unboundednerfpytorch_tpu_torch.train.pose_tune import run_tune_pose
+
+        run_tune_pose(args, cfg, data_dict, exp_dir, device=dev)
+        return 0
+    if args.program == "linemod_eval":
+        from unboundednerfpytorch_tpu_torch.utils import pose_eval
+
+        seq = cfg.data.seq_name
+        model_pts = pose_eval.load_model_points(os.path.join(cfg.data.datadir, seq))
+        gts = np.asarray(data_dict["object_poses"])[np.asarray(data_dict["i_test"])]
+        # without --pose_preds, the sanity mode: the ground truth against
+        # itself must score 1.0 everywhere
+        preds = np.load(args.pose_preds) if args.pose_preds else gts
+        summary = pose_eval.evaluate_linemod_sequence(seq, model_pts, preds, gts,
+                                                      K=np.asarray(data_dict["Ks"])[0])
+        out = os.path.join(exp_dir, "linemod_metrics.json")
+        with open(out, "w") as f:
+            json.dump(summary, f, indent=2)
+        print(json.dumps({"sequence": seq, **summary}))
         return 0
     if args.program == "gen_trace":
         from unboundednerfpytorch_tpu_torch.render import cam_paths

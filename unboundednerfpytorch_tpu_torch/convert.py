@@ -15,7 +15,12 @@ The JAX ``DVGOParams``, ``DCVGOParams`` and ``DMPIGOParams`` have the same
 keys, their grids
 ``DenseGrid`` s without ``num_freqs`` and with a grid ``[X, Y, Z, C]`` (the
 port's is ``[1, X, Y, Z, C]``), ``rgbnet`` None where the model has no MLP,
-and DMPIGO's ``act_shift`` a ``[mpi_depth]`` array. :func:`params_to_numpy`,
+and DMPIGO's ``act_shift`` a ``[mpi_depth]`` array. A DVGO field that is a
+``TensoRFGrid`` (``nerf/ship.tensorf.py``) is a dict of its leaves instead,
+``{"xy_plane", "xz_plane", "yz_plane", "x_vec", "y_vec", "z_vec", "f_vec"
+(absent for one channel), "xyz_min", "xyz_max", "channels"}``, the JAX
+layouts as they are; its optimizer moments are keyed by the same leaf
+names. :func:`params_to_numpy`,
 :func:`params_from_numpy`, :func:`config_from_dict` and the optimizer-state
 functions take the family (``"FourierGrid"``, ``"dvgo"``, ``"dcvgo"``,
 ``"dmpigo"``, the names of the JAX package's checkpoints).
@@ -58,7 +63,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from unboundednerfpytorch_tpu_torch.fields.grids import DenseGrid, FourierGrid, MaskGrid
+from unboundednerfpytorch_tpu_torch.fields.grids import (
+    TENSORF_LEAVES, DenseGrid, FourierGrid, MaskGrid, TensoRFGrid,
+)
 from unboundednerfpytorch_tpu_torch.fields.mlp import MLP
 from unboundednerfpytorch_tpu_torch.models import dcvgo, dmpigo, dvgo
 from unboundednerfpytorch_tpu_torch.models.fourier_grid import (
@@ -123,11 +130,24 @@ def _dense_from(sub: dict, device) -> DenseGrid:
                      grid=grid[None])
 
 
+def _tensorf_from(sub: dict, device) -> TensoRFGrid:
+    leaves = {k: _tensor(sub[k], device) for k in TENSORF_LEAVES if sub.get(k) is not None}
+    xy, xz = leaves["xy_plane"], leaves["xz_plane"]
+    channels = int(sub.get("channels", leaves["f_vec"].shape[1] if "f_vec" in leaves else 1))
+    return TensoRFGrid(channels, (xy.shape[0], xy.shape[1], xz.shape[1]), sub["xyz_min"],
+                       sub["xyz_max"], n_comp=xz.shape[-1], n_comp_xy=xy.shape[-1],
+                       leaves=leaves)
+
+
+def _field_from(sub: dict, device):
+    return _tensorf_from(sub, device) if "xy_plane" in sub else _dense_from(sub, device)
+
+
 def params_from_numpy(family: str, tree: dict, device):
     """The port's parameters of ``family`` from the JAX params as numpy."""
     if family == "FourierGrid":
         return fourier_grid_params_from_numpy(tree, device)
-    parts = (_dense_from(tree["density"], device), _dense_from(tree["k0"], device),
+    parts = (_field_from(tree["density"], device), _field_from(tree["k0"], device),
              _mlp_from(tree.get("rgbnet"), device))
     mask = _mask_from(tree["mask_cache"], device)
     if family in ("dvgo", "dcvgo"):
@@ -140,6 +160,9 @@ def params_from_numpy(family: str, tree: dict, device):
 
 
 def _grid_to_numpy(g, bf16_bits: bool) -> dict:
+    if isinstance(g, TensoRFGrid):
+        return {**{k: v.detach().float().cpu().numpy() for k, v in g.leaves().items()},
+                "xyz_min": g.xyz_min, "xyz_max": g.xyz_max, "channels": g.channels}
     t = g.grid.detach()
     if isinstance(g, DenseGrid):
         t = t[0]
@@ -190,6 +213,11 @@ def tree_from_params_object(p) -> dict:
     ``vd`` / ``img_embeddings``)."""
 
     def grid(g) -> dict:
+        if hasattr(g, "xy_plane"):  # a TensoRFGrid
+            return {**{k: np.asarray(getattr(g, k)) for k in TENSORF_LEAVES
+                       if getattr(g, k) is not None},
+                    "xyz_min": tuple(g.xyz_min), "xyz_max": tuple(g.xyz_max),
+                    "channels": int(g.channels)}
         out = {"grid": np.asarray(g.grid), "xyz_min": tuple(g.xyz_min),
                "xyz_max": tuple(g.xyz_max)}
         if hasattr(g, "num_freqs"):
@@ -224,7 +252,9 @@ def config_from_dict(d: dict, family: str = "FourierGrid"):
     needs one of them is refused by ``create``/``forward``'s own checks)."""
     cls = CONFIGS[family]
     names = {f.name for f in dataclasses.fields(cls)}
-    fix = lambda v: tuple(v) if isinstance(v, list) else v
+    def fix(v):  # JSON's lists back to the config's tuples, nested ones too
+        return tuple(fix(x) for x in v) if isinstance(v, list) else v
+
     return cls(**{k: fix(v) for k, v in d.items() if k in names})
 
 
@@ -232,6 +262,8 @@ def _moments_to_numpy(name: str, moments, dense: bool) -> dict:
     arrays = [m.detach().cpu().numpy() for m in moments]
     if name == "rgbnet":  # the port's order: weight [out, in], bias, per layer
         return {"weights": [w.T for w in arrays[0::2]], "biases": arrays[1::2]}
+    if len(arrays) > 1:  # a TensoRF group: its leaves in order
+        return dict(zip(TENSORF_LEAVES, arrays))
     (grid,) = arrays
     return {"grid": grid[0] if dense else grid}
 
@@ -240,6 +272,8 @@ def _moments_from_numpy(name: str, sub: dict, dense: bool) -> list:
     if name == "rgbnet":
         return [a for w, b in zip(sub["weights"], sub["biases"])
                 for a in (np.asarray(w).T, np.asarray(b))]
+    if "grid" not in sub:  # a TensoRF group
+        return [np.asarray(sub[k]) for k in TENSORF_LEAVES if sub.get(k) is not None]
     grid = np.asarray(sub["grid"])
     return [grid[None] if dense else grid]
 
@@ -269,6 +303,9 @@ def opt_state_tree_from_object(s) -> dict:
     grids with ``.grid`` and an MLP with ``.weights`` / ``.biases``)."""
 
     def sub(x) -> dict:
+        if hasattr(x, "xy_plane"):
+            return {k: np.asarray(getattr(x, k)) for k in TENSORF_LEAVES
+                    if getattr(x, k) is not None}
         if hasattr(x, "weights"):
             return {"weights": [np.asarray(w) for w in x.weights],
                     "biases": [np.asarray(b) for b in x.biases]}

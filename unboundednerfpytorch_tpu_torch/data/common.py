@@ -7,13 +7,16 @@ layouts: ``llff`` (Mip-NeRF-360 and LLFF, ``configs/nerf_unbounded``,
 (``configs/nsvf``), ``blendedmvs`` (``configs/blendedmvs``), ``deepvoxels``
 (``configs/deepvoxels``), ``tankstemple`` (``configs/tankstemple``), ``free`` (F2-NeRF,
 ``configs/free_dataset``), ``nerfstudio`` (``configs/nerf_studio``),
+``co3d`` (``configs/co3d``: composited on its masks), ``linemod``
+(``configs/linemod``: per-view intrinsics after the crop, and
+``object_poses``, the ground truth of ``--program linemod_eval``), and
 ``waymo`` and ``mega`` (``configs/waymo``, ``configs/mega``; routed by
 :func:`load_everything`). The ``data_dict`` holds numpy arrays on the host,
 keyed HW, Ks, near, far, near_clip, i_train, i_val, i_test, poses,
-render_poses, images, irregular_shape. For waymo and mega ``i_test`` is a
-generated trajectory without images: its indices lie past the end of
-``images``. Every other ``dataset_type`` raises ``NotImplementedError``
-naming the ROADMAP item it waits for.
+render_poses, images, irregular_shape (and object_poses for linemod). For
+waymo and mega ``i_test`` is a generated trajectory without images: its
+indices lie past the end of ``images``. An unknown ``dataset_type`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,10 +24,6 @@ from __future__ import annotations
 import numpy as np
 
 from unboundednerfpytorch_tpu_torch.configs.schema import DataConfig, ExpConfig
-
-# dataset types of the JAX package that the port does not load yet
-NOT_PORTED = ("co3d", "linemod")
-
 
 def inward_nearfar_heuristic(cam_o: np.ndarray, ratio: float = 0.05):
     dist = np.linalg.norm(cam_o[:, None] - cam_o, axis=-1)
@@ -40,14 +39,9 @@ def _composite_bkgd(images: np.ndarray, white_bkgd: bool) -> np.ndarray:
     return images
 
 
-def _refuse(dt) -> None:
-    if dt in NOT_PORTED:
-        raise NotImplementedError(f"dataset_type {dt!r} is not ported yet (ROADMAP A18c)")
-    raise NotImplementedError(f"unknown dataset type {dt!r}")
-
-
 def load_common_data(data_cfg: DataConfig) -> dict:
     from unboundednerfpytorch_tpu_torch.data import extra_loaders, loaders
+    from unboundednerfpytorch_tpu_torch.data import linemod as linemod_mod
     from unboundednerfpytorch_tpu_torch.data import llff as llff_mod
 
     K = None
@@ -152,6 +146,33 @@ def load_common_data(data_cfg: DataConfig) -> dict:
             near_clip = max(float(bds.min()) * 0.9, 0)
             near = 0
             far = inward_nearfar_heuristic(poses[i_train, :3, 3])[1]
+    elif dt == "co3d":
+        images, masks, poses, render_poses, hwf, K, i_split = extra_loaders.load_co3d_data(
+            data_cfg.datadir, data_cfg.annot_path, data_cfg.split_path,
+            data_cfg.sequence_name)
+        i_train, i_val, i_test = i_split
+        near, far = inward_nearfar_heuristic(poses[np.asarray(i_train), :3, 3], ratio=0)
+        for i in range(len(images)):
+            m = masks[i][..., None]
+            images[i] = images[i] * m + (1.0 - m) if data_cfg.white_bkgd else images[i] * m
+    elif dt == "linemod":
+        images, poses4, Ks_arr, obj_poses, i_train, i_test = linemod_mod.load_linemod_data(
+            data_cfg.datadir, data_cfg.seq_name, width_max=data_cfg.width_max,
+            height_max=data_cfg.height_max, white_bkgd=data_cfg.white_bkgd,
+            testskip=data_cfg.testskip)
+        poses = poses4[:, :3, :4]
+        dists = np.linalg.norm(poses[np.asarray(i_train), :3, 3], axis=-1)
+        near = float(data_cfg.near) if data_cfg.near is not None else max(
+            float(dists.min()) * 0.5, 1e-3)
+        far = float(data_cfg.far) if data_cfg.far is not None else float(dists.max()) * 1.5
+        # per-view intrinsics after the crop, and the object poses: returned
+        # here, as the JAX package does
+        return dict(
+            hwf=None, HW=np.array([im.shape[:2] for im in images]), Ks=Ks_arr, near=near,
+            far=far, near_clip=near, i_train=np.asarray(i_train), i_val=np.asarray(i_test),
+            i_test=np.asarray(i_test), poses=poses, render_poses=poses[np.asarray(i_test)],
+            images=images.astype(np.float32), object_poses=obj_poses, irregular_shape=False,
+        )
     elif dt == "nerfpp":
         images, poses, render_poses, hwf, K, i_split = loaders.load_nerfpp_data(
             data_cfg.datadir,
@@ -164,7 +185,7 @@ def load_common_data(data_cfg: DataConfig) -> dict:
         )
         near = 0
     else:
-        _refuse(dt)
+        raise NotImplementedError(f"unknown dataset type {dt!r}")
 
     H, W, focal = hwf
     H, W = int(H), int(W)
@@ -227,6 +248,6 @@ def load_everything(cfg: ExpConfig, sample_num: int = -1, diffuse: bool = False)
         data_dict = load_common_data(d)
     keep = [
         "HW", "Ks", "near", "far", "near_clip", "i_train", "i_val", "i_test",
-        "poses", "render_poses", "images", "irregular_shape",
+        "poses", "render_poses", "images", "irregular_shape", "object_poses",
     ]
     return {k: data_dict[k] for k in keep if k in data_dict}

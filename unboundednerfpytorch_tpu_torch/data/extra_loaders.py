@@ -1,6 +1,6 @@
-"""The free-trajectory and nerfstudio loaders.
+"""The free-trajectory, nerfstudio and CO3D loaders.
 
-The port's copy of the free and nerfstudio parts of
+The port's copy of
 ``unboundednerfpytorch_tpu/data/extra_loaders.py``:
 
 - free scenes (F2-NeRF): ``cams_meta.npy`` of [N, 27] rows (a 3x4 pose, a
@@ -11,13 +11,18 @@ The port's copy of the free and nerfstudio parts of
   and ``transform_matrix``, one focal length for all views.
 
 Images are read through :func:`..data.png.imread` and area-resized with
-``cv2`` where ``factor`` > 1, as the JAX package does. The CO3D loader of
-that module is not ported (ROADMAP A18c).
+``cv2`` where ``factor`` > 1, as the JAX package does;
+- CO3D sequences: the gzipped ``frame_annotations.jgz`` (each frame's image
+  and mask paths, the mask's mass and the viewpoint: R, T and the principal
+  point and focal length in NDC units) and ``set_lists.json`` (the
+  ``*known*`` lists train, the others test), a frame with an empty mask
+  dropped.
 """
 
 from __future__ import annotations
 
 import glob
+import gzip
 import json
 import os
 
@@ -118,3 +123,57 @@ def load_nerfstudio_data(basedir: str, factor: int = 1, dvgohold: int = 8):
     i_test = np.arange(len(imgs))[::dvgohold] if dvgohold > 0 else [0]
     bds = np.array([[0.1, 10.0]] * len(imgs))
     return imgs, None, poses5, bds, poses5[list(i_test)], list(i_test)
+
+
+def load_co3d_data(datadir: str, annot_path: str, split_path: str, sequence_name: str):
+    """(images, masks, poses [N, 4, 4], render_poses, [H, W, focal], Ks [N, 3,
+    3], [i_train, i_test, i_test]) of one CO3D sequence. Images and masks are
+    f64 in [0, 1]; frames whose mask's mass is 0 or whose mask stays under
+    0.5 are dropped. The camera-to-world pose is the inverse of [R | T]; the
+    NDC principal point and focal length become pixels, ``-(pp - 1) * (W,
+    H) / 2`` and ``fl * (W, H) / 2``. Frames of several sizes come as object
+    arrays, as in the JAX package (whose common loader then cannot cast
+    them; neither trains on such a sequence)."""
+    with gzip.open(annot_path, "rt", encoding="utf8") as zf:
+        annot = [v for v in json.load(zf) if v["sequence_name"] == sequence_name]
+    with open(split_path) as f:
+        split = json.load(f)
+    train_im, test_im = set(), set()
+    for k, lst in split.items():
+        for v in lst:
+            if v[0] == sequence_name:
+                (train_im if "known" in k else test_im).add(v[-1])
+
+    imgs, masks, poses, Ks = [], [], [], []
+    i_split = [[], []]
+    for meta in annot:
+        fname = meta["image"]["path"]
+        sid = 0 if fname in train_im else 1
+        if meta["mask"]["mass"] == 0:
+            continue
+        mask = _imread(os.path.join(datadir, meta["mask"]["path"])) / 255.0
+        if mask.max() < 0.5:
+            continue
+        Rt = np.concatenate(
+            [meta["viewpoint"]["R"], np.array(meta["viewpoint"]["T"])[:, None]], 1)
+        poses.append(np.linalg.inv(np.concatenate([Rt, [[0, 0, 0, 1]]])))
+        imgs.append(_imread(os.path.join(datadir, fname)) / 255.0)
+        masks.append(mask)
+        half_wh = np.float32(meta["image"]["size"][::-1]) * 0.5
+        pp = np.float32(meta["viewpoint"]["principal_point"])
+        fl = np.float32(meta["viewpoint"]["focal_length"])
+        pp_px = -1.0 * (pp - 1.0) * half_wh
+        fl_px = fl * half_wh
+        Ks.append(np.array([[fl_px[0], 0, pp_px[0]], [0, fl_px[1], pp_px[1]], [0, 0, 1]]))
+        i_split[sid].append(len(imgs) - 1)
+
+    ragged = lambda xs: len({x.shape for x in xs}) > 1
+    imgs_arr = np.array(imgs, dtype=object) if ragged(imgs) else np.stack(imgs)
+    masks_arr = np.array(masks, dtype=object) if ragged(masks) else np.stack(masks)
+    poses = np.stack(poses)
+    Ks = np.stack(Ks)
+    render_poses = poses[i_split[-1]]
+    i_split.append(i_split[-1])
+    H, W = np.array([im.shape[:2] for im in imgs]).mean(0).astype(int)
+    focal = Ks[:, [0, 1], [0, 1]].mean()
+    return imgs_arr, masks_arr, poses, render_poses, [H, W, focal], Ks, i_split

@@ -14,13 +14,18 @@ loaders read; :func:`write_tankstemple_scene`, :func:`write_free_scene`,
 :func:`write_nerfstudio_scene`, :func:`write_waymo_scene`,
 :func:`write_mega_scene`, :func:`write_blender_scene`,
 :func:`write_nsvf_scene`, :func:`write_blendedmvs_scene` and
-:func:`write_deepvoxels_scene` in the other nine. With ``alpha``,
+:func:`write_deepvoxels_scene` in the other nine;
+:func:`write_linemod_scene` and :func:`write_co3d_scene` write an object
+sequence in the LINEMOD (pvnet) and CO3D layouts. With ``alpha``,
 :func:`orbit_scene` makes RGBA views whose alpha is the sphere's coverage
 (the NeRF-synthetic and NSVF captures, composited on white by the loader).
+:func:`cluster_scene` lays out the four textured spheres of the JAX
+package's unbounded test scene on white, for the pose tuner's recovery.
 """
 
 from __future__ import annotations
 
+import gzip
 import json
 import os
 
@@ -112,6 +117,66 @@ def orbit_scene(n_views: int = 20, H: int = 411, W: int = 618, *, seed: int = 0,
         "i_train": np.arange(n_views),
         "i_val": np.arange(0),
         "i_test": np.arange(n_views, n),
+        "poses": np.stack(poses),
+        "images": np.stack(images),
+        "irregular_shape": False,
+    }
+
+
+# the four spheres (centre, radius) of the JAX package's unbounded test scene
+# (its data/synthetic.py::_scene_density_color)
+CLUSTER_SPHERES = (((0.45, 0.0, -0.1), 0.38), ((-0.4, 0.35, 0.05), 0.30),
+                   ((-0.15, -0.5, -0.2), 0.26), ((0.05, 0.15, 0.42), 0.22))
+
+
+def cluster_scene(n_views: int = 20, H: int = 96, W: int = 96, *, seed: int = 0,
+                  cam_radius: float = 3.0, focal_scale: float = 1.2) -> dict:
+    """A data_dict (numpy) of ``n_views`` training views of four textured
+    spheres (:data:`CLUSTER_SPHERES`) on white, from cameras on an orbit of
+    ``cam_radius`` at alternating elevations, looking at the origin, focal
+    ``focal_scale * W``; near 1, far 6. The spheres lie at different depths
+    from every camera, so a camera's sideways shift moves them against each
+    other: each pose is well-posed against its view, where a lone sphere
+    leaves a sideways shift with its compensating rotation nearly free. The
+    seed sets the texture phases."""
+    rng = np.random.default_rng(seed)
+    phase = rng.uniform(0.0, 2.0 * np.pi, 3)
+    focal = focal_scale * W
+    K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]], dtype=np.float32)
+    i, j = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5, indexing="xy")
+    dirs_cam = np.stack([(i - W / 2) / focal, -(j - H / 2) / focal, -np.ones_like(i)], -1)
+    dirs_cam = dirs_cam.reshape(-1, 3)
+    poses, images = [], []
+    for k in range(n_views):
+        theta = 2 * np.pi * k / n_views
+        elev = 0.35 if k % 2 == 0 else 0.65
+        pos = cam_radius * np.array([np.cos(theta) * np.cos(elev),
+                                     np.sin(theta) * np.cos(elev), np.sin(elev)])
+        c2w = look_at_pose(pos, np.zeros(3))
+        d = dirs_cam @ c2w[:3, :3].T
+        d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        nearest = np.full(len(d), np.inf)
+        rgb = np.ones_like(d)
+        for n, (centre, radius) in enumerate(CLUSTER_SPHERES):
+            oc = pos - np.asarray(centre)
+            b = d @ oc
+            disc = b * b - (oc @ oc - radius**2)
+            t = -b - np.sqrt(np.maximum(disc, 0.0))
+            hit = (disc > 0) & (t < nearest)
+            nearest[hit] = t[hit]
+            local = (pos + t[hit, None] * d[hit] - np.asarray(centre)) * (0.8 / radius)
+            rgb[hit] = _sphere_color(local, phase + n)
+        poses.append(c2w.astype(np.float32))
+        images.append(np.clip(rgb, 0.0, 1.0).reshape(H, W, 3).astype(np.float32))
+    return {
+        "HW": np.array([[H, W]] * n_views),
+        "Ks": np.stack([K] * n_views),
+        "near": 1.0,
+        "far": 6.0,
+        "near_clip": None,
+        "i_train": np.arange(n_views),
+        "i_val": np.arange(0),
+        "i_test": np.arange(0),
         "poses": np.stack(poses),
         "images": np.stack(images),
         "irregular_shape": False,
@@ -543,3 +608,163 @@ def write_deepvoxels_scene(basedir: str, data: dict, scene: str = "greek") -> st
     with open(os.path.join(basedir, "train", scene, "intrinsics.txt"), "w") as f:
         f.write(f"{f_!r} {cx!r} {cy!r} 0.\n0. 0. 0.\n1.\n{H} {W}\n")
     return basedir
+
+
+def _sphere_hits(origin: np.ndarray, dirs: np.ndarray, radius: float):
+    """(hit [P], hit points [hits, 3]) of rays from ``origin`` along unit
+    ``dirs`` [P, 3] against the sphere of ``radius`` at the world origin."""
+    b = dirs @ origin
+    disc = b * b - (origin @ origin - radius**2)
+    hit = disc > 0
+    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    return hit, origin + t[hit, None] * dirs[hit]
+
+
+def _shade(origin: np.ndarray, dirs: np.ndarray, radius: float, phase: np.ndarray):
+    """(rgb [P, 3] of the textured sphere at the origin before the sky, hit
+    [P]); the texture is that of a sphere of radius 0.8 scaled to
+    ``radius``."""
+    d = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    hit, p = _sphere_hits(origin, d, radius)
+    rgb = _sky_color(d, phase)
+    rgb[hit] = _sphere_color(p * (0.8 / radius), phase)
+    return np.clip(rgb, 0.0, 1.0), hit
+
+
+def _write_jpeg(path: str, img8: np.ndarray) -> None:
+    from PIL import Image
+
+    Image.fromarray(img8).save(path, quality=95)
+
+
+# the LINEMOD writer's object (a sphere of 5 cm, the size of the ape), the
+# range of its cameras' distances (m), its frames' size and model points
+LINEMOD_RADIUS, LINEMOD_DISTANCE, LINEMOD_HW, LINEMOD_POINTS = 0.05, (0.6, 0.9), (480, 640), 500
+
+
+def write_linemod_scene(basedir: str, seq: str = "ape", n_frames: int = 24, n_test: int = 4,
+                        *, seed: int = 0) -> str:
+    """A seeded LINEMOD sequence in the pvnet layout under ``basedir/seq``:
+    ``JPEGImages/<6 digits>.jpg`` (640x480 frames through the shared
+    LINEMOD intrinsics), ``mask/<stem>.png`` (the object's coverage),
+    ``pose/pose<i>.npy`` ([3, 4] object poses, world -> camera in the OpenCV
+    convention of the real sequences: x right, y down, the object ahead at
+    +z), ``train.txt`` and ``test.txt`` (the last ``n_test`` frames) and
+    ``<seq>.ply``, 500 points of the object's surface in binary
+    little-endian float32. The object is the textured sphere of
+    :func:`orbit_scene` with a radius of 5 cm at the world origin, seen
+    from seeded directions of the upper hemisphere at seeded distances of
+    0.6 to 0.9 m, each camera aimed a little off the object. Returns the
+    sequence's directory."""
+    radius, (H, W), n_points = LINEMOD_RADIUS, LINEMOD_HW, LINEMOD_POINTS
+    from unboundednerfpytorch_tpu_torch.data.png import write_png
+    from unboundednerfpytorch_tpu_torch.utils.pose_eval import LINEMOD_K
+
+    rng = np.random.default_rng(seed)
+    phase = rng.uniform(0.0, 2.0 * np.pi, 3)
+    seq_dir = os.path.join(basedir, seq)
+    for sub in ("JPEGImages", "mask", "pose"):
+        os.makedirs(os.path.join(seq_dir, sub), exist_ok=True)
+    K = np.asarray(LINEMOD_K, np.float64)
+    u, v = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5, indexing="xy")
+    dirs_cam = np.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1], np.ones_like(u)],
+                        -1).reshape(-1, 3)
+    stems = []
+    for i in range(n_frames):
+        az = rng.uniform(0.0, 2.0 * np.pi)
+        el = rng.uniform(0.2, 1.2)
+        dist = rng.uniform(*LINEMOD_DISTANCE)
+        cam = dist * np.array([np.cos(az) * np.cos(el), np.sin(az) * np.cos(el), np.sin(el)])
+        gl = look_at_pose(cam, rng.normal(0.0, 0.2 * radius, 3))
+        c2w = gl @ TO_OPENCV
+        R = c2w[:3, :3].T
+        rt = np.concatenate([R, (-R @ cam)[:, None]], 1)
+        rgb, hit = _shade(cam, dirs_cam @ c2w[:3, :3].T, radius, phase)
+        stem = f"{i:06d}"
+        stems.append(stem)
+        _write_jpeg(os.path.join(seq_dir, "JPEGImages", stem + ".jpg"),
+                    _to8(rgb.reshape(H, W, 3)))
+        write_png(os.path.join(seq_dir, "mask", stem + ".png"),
+                  (hit.reshape(H, W) * 255).astype(np.uint8))
+        np.save(os.path.join(seq_dir, "pose", f"pose{i}.npy"), rt)
+    for name, part in (("train.txt", stems[:n_frames - n_test]),
+                       ("test.txt", stems[n_frames - n_test:])):
+        with open(os.path.join(seq_dir, name), "w") as f:
+            f.write("".join(f"JPEGImages/{s}.jpg\n" for s in part))
+    pts = rng.normal(size=(n_points, 3))
+    pts = (radius * pts / np.linalg.norm(pts, axis=-1, keepdims=True)).astype("<f4")
+    with open(os.path.join(seq_dir, f"{seq}.ply"), "wb") as f:
+        f.write((f"ply\nformat binary_little_endian 1.0\nelement vertex {n_points}\n"
+                 "property float x\nproperty float y\nproperty float z\nend_header\n")
+                .encode("ascii"))
+        f.write(pts.tobytes())
+    return seq_dir
+
+
+def write_co3d_scene(basedir: str, sequence_name: str = "34_1479_4753", n_frames: int = 20,
+                     n_test: int = 4, *, seed: int = 0, H: int = 800, W: int = 600,
+                     sizes=None, empty_frames: int = 1) -> dict:
+    """A seeded CO3D sequence: ``<basedir>/<sequence_name>/images/frame<n>.jpg``
+    and ``masks/frame<n>.png``, and beside the sequence's directory the
+    gzipped ``frame_annotations.jgz`` (a frame of another sequence among
+    them) and ``set_lists.json`` (``train_known``: the first frames,
+    ``test_unseen``: the last ``n_test``). The scene is :func:`orbit_scene`'s
+    sphere and sky, the cameras on its orbit. Each viewpoint holds R and T
+    with [R | T] world -> camera in the axes the co3d configs' rays take
+    (``inverse_y``, ``flip_x``, ``flip_y``: x left, y up, looking along +z),
+    and the principal point and focal length in NDC units (0 and ``2 f /
+    (W, H)``, f = 0.8 W). ``sizes`` gives each frame its own (H, W); ``empty_frames``
+    more frames have an empty mask (mass 0), which the loader drops.
+    Returns {"datadir", "annot_path", "split_path", "sequence_name"}."""
+    from unboundednerfpytorch_tpu_torch.data.png import write_png
+
+    rng = np.random.default_rng(seed)
+    phase = rng.uniform(0.0, 2.0 * np.pi, 3)
+    theta0 = rng.uniform(0.0, 2.0 * np.pi)
+    seq_dir = os.path.join(basedir, sequence_name)
+    for sub in ("images", "masks"):
+        os.makedirs(os.path.join(seq_dir, sub), exist_ok=True)
+    sizes = list(sizes) if sizes is not None else [(H, W)] * n_frames
+    to_p3d = np.diag([-1.0, 1.0, -1.0, 1.0])  # OpenGL camera axes -> x left, y up, +z ahead
+    annot, known, unseen = [], [], []
+    for i in range(n_frames + empty_frames):
+        h, w = sizes[i % len(sizes)]
+        theta = theta0 + 2 * np.pi * i / n_frames
+        elev = 0.35 if i % 2 == 0 else 0.65
+        cam = 3.0 * np.array([np.cos(theta) * np.cos(elev),
+                                     np.sin(theta) * np.cos(elev), np.sin(elev)])
+        c2w = look_at_pose(cam, np.zeros(3)) @ to_p3d
+        R = c2w[:3, :3].T
+        T = -R @ cam
+        half_wh = np.float32([w, h]) * 0.5
+        fl = np.float32(0.8 * w) / half_wh
+        f_px = fl * half_wh
+        # the pixel rays of the configs' flags, as the loader's K gives them
+        px, py = np.meshgrid(np.arange(w), np.arange(h), indexing="xy")
+        dirs = np.stack([((w - 1 - px) + 0.5 - half_wh[0]) / f_px[0],
+                         ((h - 1 - py) + 0.5 - half_wh[1]) / f_px[1], np.ones(px.shape)],
+                        -1).reshape(-1, 3)
+        rgb, hit = _shade(cam, dirs @ c2w[:3, :3].T, 0.8, phase)
+        if i >= n_frames:
+            hit[:] = False
+        name = f"frame{i:06d}"
+        img_path, mask_path = f"images/{name}.jpg", f"masks/{name}.png"
+        _write_jpeg(os.path.join(seq_dir, img_path), _to8(rgb.reshape(h, w, 3)))
+        write_png(os.path.join(seq_dir, mask_path), (hit.reshape(h, w) * 255).astype(np.uint8))
+        annot.append({"sequence_name": sequence_name, "frame_number": i,
+                      "image": {"path": img_path, "size": [h, w]},
+                      "mask": {"path": mask_path, "mass": int(hit.sum())},
+                      "viewpoint": {"R": R.tolist(), "T": T.tolist(),
+                                    "principal_point": [0.0, 0.0],
+                                    "focal_length": [float(v) for v in fl]}})
+        (unseen if n_frames - n_test <= i < n_frames else known).append(
+            [sequence_name, i, img_path])
+    other = dict(annot[0], sequence_name="0_0_0")
+    annot_path = os.path.join(basedir, "frame_annotations.jgz")
+    with gzip.open(annot_path, "wt", encoding="utf8") as f:
+        json.dump(annot + [other], f)
+    split_path = os.path.join(basedir, "set_lists.json")
+    with open(split_path, "w") as f:
+        json.dump({"train_known": known, "test_unseen": unseen}, f)
+    return {"datadir": seq_dir, "annot_path": annot_path, "split_path": split_path,
+            "sequence_name": sequence_name}

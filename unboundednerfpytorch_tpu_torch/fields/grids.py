@@ -1,16 +1,18 @@
-"""Field primitives: the Fourier-embedded multi-bank grid, the dense grid
-and the occupancy mask.
+"""Field primitives: the Fourier-embedded multi-bank grid, the dense grid,
+the vector-matrix (TensoRF) grid and the occupancy mask.
 
 Counterpart of ``FourierGrid`` (with ``scale_volume_grid``), ``DenseGrid``,
-``MaskGrid`` and ``nerf_pos_embed_coords`` of
-``unboundednerfpytorch_tpu/fields/grids.py``. Grids are channel-last
+``TensoRFGrid``, ``MaskGrid`` and ``nerf_pos_embed_coords`` of
+``unboundednerfpytorch_tpu/fields/grids.py``. Voxel grids are channel-last
 ``[B, X, Y, Z, C]`` parameters (B = 2K+1 banks; one for a dense grid, whose
 JAX counterpart is ``[X, Y, Z, C]``), so that the TV kernel, the resize and
-the index-add backward serve both.
+the index-add backward serve both. A TensoRF grid keeps the JAX layout:
+planes ``[A, B, R]`` and vectors ``[A, R]``, channel-last.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -36,7 +38,14 @@ def nerf_pos_embed_coords(coords: torch.Tensor, num_freqs: int) -> torch.Tensor:
 
 class FourierGrid(nn.Module):
     """Multi-bank voxel grid; query = mean over banks of a trilinear sample
-    at each bank's embedded coordinate (num_freqs == 0: one plain bank)."""
+    at each bank's embedded coordinate (num_freqs == 0: one plain bank).
+
+    ``dense`` says that the field's values are its lattice ``grid`` itself,
+    which the TV kernel, the packed render cache, the near-camera mask-out
+    and the bf16 storage work on; a decomposed field (TensoRF) has none and
+    says False. Every field gives ``get_dense_grid``."""
+
+    dense = True
 
     def __init__(self, channels: int, world_size, xyz_min, xyz_max, num_freqs: int = 0,
                  dtype=torch.float32, device=None, grid: torch.Tensor | None = None):
@@ -73,6 +82,14 @@ class FourierGrid(nn.Module):
             new[b] = interp.resize_grid_3d(old[b], size)
         self.grid = nn.Parameter(new, requires_grad=self.grid.requires_grad)
 
+    @property
+    def world_size(self) -> tuple:
+        return tuple(self.grid.shape[1:4])
+
+    def get_dense_grid(self) -> torch.Tensor:
+        """The lattice, every bank: [B, X, Y, Z, C] (the JAX ``grid``)."""
+        return self.grid
+
 
 class DenseGrid(FourierGrid):
     """One plain bank ``[1, X, Y, Z, C]``, queried at the normalized
@@ -90,6 +107,116 @@ class DenseGrid(FourierGrid):
     def get_dense_grid(self) -> torch.Tensor:
         """The values at the lattice's nodes, [X, Y, Z, C]."""
         return self.grid[0]
+
+
+# the TensoRF leaves in the JAX pytree's order (f_vec only where channels > 1)
+TENSORF_LEAVES = ("xy_plane", "xz_plane", "yz_plane", "x_vec", "y_vec", "z_vec", "f_vec")
+
+
+class TensoRFGrid(nn.Module):
+    """Vector-matrix decomposed grid (TensoRF; the JAX ``TensoRFGrid``):
+    planes xy [X, Y, Rxy], xz [X, Z, R], yz [Y, Z, R] and vectors x [X, R],
+    y [Y, R], z [Z, Rxy]. A query multiplies each plane's bilinear sample by
+    its complementary vector's linear one; for ``channels`` > 1 the three
+    products, concatenated, are projected by ``f_vec`` [R + R + Rxy,
+    channels] (a matmul), else summed to one channel.
+
+    ``leaves`` (name -> tensor) builds it from given values, e.g. the JAX
+    package's; otherwise planes and vectors are drawn N(0, 0.1^2) and
+    ``f_vec`` U(+-sqrt(6 / (6 fan_in))) from ``generator``, on the CPU, then
+    moved (the JAX package's distributions; its draws differ)."""
+
+    dense = False
+
+    def __init__(self, channels: int, world_size, xyz_min, xyz_max, n_comp: int,
+                 n_comp_xy: int | None = None, generator: torch.Generator | None = None,
+                 device=None, leaves: dict | None = None):
+        super().__init__()
+        X, Y, Z = (int(s) for s in world_size)
+        R = int(n_comp)
+        Rxy = int(n_comp_xy) if n_comp_xy is not None else R
+        self.xyz_min = tuple(float(v) for v in xyz_min)
+        self.xyz_max = tuple(float(v) for v in xyz_max)
+        self.channels = int(channels)
+        shapes = {"xy_plane": (X, Y, Rxy), "xz_plane": (X, Z, R), "yz_plane": (Y, Z, R),
+                  "x_vec": (X, R), "y_vec": (Y, R), "z_vec": (Z, Rxy)}
+        if self.channels > 1:
+            shapes["f_vec"] = (R + R + Rxy, self.channels)
+        for name in TENSORF_LEAVES:
+            if name not in shapes:
+                self.f_vec = None
+                continue
+            if leaves is not None:
+                value = leaves[name]
+                value = (value.detach().to(torch.float32) if isinstance(value, torch.Tensor)
+                         else torch.tensor(np.asarray(value, np.float32)))
+                if tuple(value.shape) != shapes[name]:
+                    raise ValueError(f"{name} {tuple(value.shape)}, want {shapes[name]}")
+            elif name == "f_vec":
+                bound = (6.0 / ((1 + 5.0) * (R + R + Rxy))) ** 0.5
+                value = (torch.rand(shapes[name], generator=generator) * 2 - 1) * bound
+            else:
+                value = torch.randn(shapes[name], generator=generator) * 0.1
+            setattr(self, name, nn.Parameter(value.to(device)))
+
+    @property
+    def world_size(self) -> tuple:
+        return (self.xy_plane.shape[0], self.xy_plane.shape[1], self.xz_plane.shape[1])
+
+    def forward(self, xyz: torch.Tensor) -> torch.Tensor:
+        n01 = _norm01(xyz, self.xyz_min, self.xyz_max)
+        x, y, z = n01[..., 0], n01[..., 1], n01[..., 2]
+
+        def line(vec, c):  # [A, R] at c in [0, 1] -> [..., R]
+            return interp.grid_sample_2d(vec[:, None, :], torch.stack([c, torch.zeros_like(c)], -1))
+
+        xy = interp.grid_sample_2d(self.xy_plane, torch.stack([x, y], -1))
+        xz = interp.grid_sample_2d(self.xz_plane, torch.stack([x, z], -1))
+        yz = interp.grid_sample_2d(self.yz_plane, torch.stack([y, z], -1))
+        xv, yv, zv = line(self.x_vec, x), line(self.y_vec, y), line(self.z_vec, z)
+        if self.channels > 1:
+            return torch.cat([xy * zv, xz * yv, yz * xv], dim=-1) @ self.f_vec
+        val = (xy * zv).sum(-1) + (xz * yv).sum(-1) + (yz * xv).sum(-1)
+        return val[..., None]
+
+    @torch.no_grad()
+    def scale_volume_grid(self, new_world_size) -> None:
+        """Planes and vectors resampled to ``new_world_size`` (trilinear,
+        align-corners, as the JAX package resizes them), in place: new
+        parameters of the same trainability; ``f_vec`` is kept."""
+        X, Y, Z = (int(s) for s in new_world_size)
+
+        def plane(p, a, b):
+            return interp.resize_grid_3d(p[:, :, None, :], (a, b, 1))[:, :, 0, :]
+
+        def vec(v, a):
+            return interp.resize_grid_3d(v[:, None, None, :], (a, 1, 1))[:, 0, 0, :]
+
+        new = {"xy_plane": plane(self.xy_plane, X, Y), "xz_plane": plane(self.xz_plane, X, Z),
+               "yz_plane": plane(self.yz_plane, Y, Z), "x_vec": vec(self.x_vec, X),
+               "y_vec": vec(self.y_vec, Y), "z_vec": vec(self.z_vec, Z)}
+        for name, value in new.items():
+            old = getattr(self, name)
+            setattr(self, name, nn.Parameter(value.to(old.dtype),
+                                             requires_grad=old.requires_grad))
+
+    def get_dense_grid(self) -> torch.Tensor:
+        """The field at every node of the lattice, [X, Y, Z, C] (C = 1 for a
+        scalar grid), as the JAX einsums give it."""
+        if self.channels > 1:
+            feat = torch.cat([torch.einsum("xyr,zr->xyzr", self.xy_plane, self.z_vec),
+                              torch.einsum("xzr,yr->xyzr", self.xz_plane, self.y_vec),
+                              torch.einsum("yzr,xr->xyzr", self.yz_plane, self.x_vec)], dim=-1)
+            return torch.einsum("xyzr,rc->xyzc", feat, self.f_vec)
+        g = (torch.einsum("xyr,zr->xyz", self.xy_plane, self.z_vec)
+             + torch.einsum("xzr,yr->xyz", self.xz_plane, self.y_vec)
+             + torch.einsum("yzr,xr->xyz", self.yz_plane, self.x_vec))
+        return g[..., None]
+
+    def leaves(self) -> dict:
+        """name -> parameter, in the JAX pytree's order."""
+        return {name: getattr(self, name) for name in TENSORF_LEAVES
+                if getattr(self, name) is not None}
 
 
 class MaskGrid(nn.Module):

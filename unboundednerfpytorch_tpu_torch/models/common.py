@@ -7,6 +7,7 @@ Counterpart of ``unboundednerfpytorch_tpu/models/common.py``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -41,6 +42,17 @@ class RenderResult(NamedTuple):
     # DCVGO only: per ray, the weight of the samples inside the unit
     # (uncontracted) region. None elsewhere.
     wsum_mid: torch.Tensor | None = None
+
+
+def sample_grad(rays_o: torch.Tensor, rays_d: torch.Tensor):
+    """The context of a forward's sampling: ``torch.no_grad()`` unless the
+    rays require a gradient. Training rays never do; the pose tuner's carry
+    the gradient of the camera poses, which then reaches the sample points,
+    their interpolation weights and the view directions, as in the JAX
+    forwards (which stop no gradient there)."""
+    if rays_o.requires_grad or rays_d.requires_grad:
+        return contextlib.nullcontext()
+    return torch.no_grad()
 
 
 def act_shift_from_alpha_init(alpha_init: float) -> float:

@@ -209,10 +209,12 @@ def oversample_mask(cfg: DCVGOConfig, pts: torch.Tensor, inner: torch.Tensor,
 def query_fields(params: DCVGOParams, pts: torch.Tensor):
     """(density [N, S], k0 [N, S, k0_dim]) in f32 from the grids. On one
     lattice (always, but after a mask-only change) the corners are found once
-    for both grids."""
-    dg, kg = params.density.grid, params.k0.grid
-    if dg.shape[1:4] != kg.shape[1:4]:
+    for both grids; a field without a voxel grid (TensoRF) is queried
+    itself."""
+    if not (params.density.dense and params.k0.dense) or \
+            params.density.world_size != params.k0.world_size:
         return params.density(pts)[..., 0], params.k0(pts)
+    dg, kg = params.density.grid, params.k0.grid
     c01 = _norm01(pts, params.density.xyz_min, params.density.xyz_max)
     idx, w = interp.trilerp_corners(c01, dg.shape[1:4])
     density = interp.gather_trilerp(dg.reshape(-1, 1), idx, w)[..., 0]
@@ -259,10 +261,10 @@ def forward(
     stepsize = cfg.stepsize if stepsize is None else stepsize
     N = rays_o.shape[0]
     interval = stepsize * cfg.voxel_size_ratio
-    with torch.no_grad(), record_function("forward/sample"):
+    with common.sample_grad(rays_o, rays_d), record_function("forward/sample"):
         pts, inner, t = sample_ray(cfg, rays_o, rays_d)
         S = pts.shape[1]
-        mask = oversample_mask(cfg, pts, inner, stepsize) & params.mask_cache(pts)
+        mask = oversample_mask(cfg, pts.detach(), inner, stepsize) & params.mask_cache(pts)
     with record_function("forward/density_k0"):
         if cache is not None:
             dims = params.density.grid.shape[1:4]
@@ -317,7 +319,7 @@ def resize_and_refresh(params, cfg, new_cfg, alpha_of, report: dict | None = Non
     of the new lattice that the old mask holds (the mask's own share where it
     is kept). DMPIGO's boundary is this one with its own alpha."""
     ws = new_cfg.world_size
-    dev = params.density.grid.device
+    dev = params.mask_cache.mask.device
     t0 = time.perf_counter()
     params.density.scale_volume_grid(ws)
     params.k0.scale_volume_grid(ws)

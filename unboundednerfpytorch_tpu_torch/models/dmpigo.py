@@ -162,7 +162,7 @@ def forward(
     N = rays_o.shape[0]
     S = cfg.n_samples(stepsize)
     interval = stepsize * cfg.voxel_size_ratio
-    with torch.no_grad(), record_function("forward/sample"):
+    with common.sample_grad(rays_o, rays_d), record_function("forward/sample"):
         pts, mask, t = sampling.sample_ndc_pts_on_rays(rays_o, rays_d, cfg.xyz_min,
                                                        cfg.xyz_max, S)
         mask = mask & params.mask_cache(pts)

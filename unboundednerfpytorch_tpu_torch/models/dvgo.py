@@ -12,10 +12,12 @@ filter), ``maskout_near_cam_vox``, ``scale_volume_grid``,
 ``update_occupancy_cache`` and ``voxel_count_views`` (``pervoxel_lr``).
 
 Density and k0 are one-bank :class:`..fields.grids.DenseGrid` s, ``[1, X, Y,
-Z, C]`` in the port's layout, as DCVGO's; the scan is the fused CUDA march of
+Z, C]`` in the port's layout, as DCVGO's, or, where the config names them
+(``nerf/ship.tensorf.py``), :class:`..fields.grids.TensoRFGrid` s
+(:func:`make_grid`); the scan is the fused CUDA march of
 :func:`.common.march`, and a ``pg_scale`` boundary is DCVGO's
-:func:`.dcvgo.resize_and_refresh`. The ``TensoRFGrid`` field types of
-``nerf/ship.tensorf.py`` are not ported (ROADMAP A18c).
+:func:`.dcvgo.resize_and_refresh`, through the grid's ``get_dense_grid``. As
+in the JAX package a TensoRF model renders without a cache.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ from torch import nn
 from torch.profiler import record_function
 
 from unboundednerfpytorch_tpu_torch.configs.schema import normalize_fast_color_thres
-from unboundednerfpytorch_tpu_torch.fields.grids import DenseGrid, MaskGrid, _norm01
+from unboundednerfpytorch_tpu_torch.fields.grids import (
+    DenseGrid, MaskGrid, TensoRFGrid, _norm01,
+)
 from unboundednerfpytorch_tpu_torch.fields.mlp import MLP
 from unboundednerfpytorch_tpu_torch.models import common, dcvgo
 from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
@@ -143,17 +147,31 @@ class DVGOParams(nn.Module):
         self.mask_cache = mask_cache
 
 
+def make_grid(grid_type: str, channels: int, world_size, cfg: DVGOConfig, grid_cfg,
+              generator: torch.Generator | None = None, device=None):
+    """A field of ``channels`` (the JAX ``_make_grid``): a zero
+    ``DenseGrid`` in the config's dtype, or a ``TensoRFGrid`` of
+    ``grid_cfg``'s ``n_comp`` (and ``n_comp_xy``) drawn from
+    ``generator``."""
+    if grid_type == "DenseGrid":
+        return DenseGrid(channels, world_size, cfg.xyz_min, cfg.xyz_max,
+                         dtype=fg._DTYPES[cfg.grid_dtype], device=device)
+    if grid_type == "TensoRFGrid":
+        gc = dict(grid_cfg)
+        return TensoRFGrid(channels, world_size, cfg.xyz_min, cfg.xyz_max, n_comp=gc["n_comp"],
+                           n_comp_xy=gc.get("n_comp_xy"), generator=generator, device=device)
+    raise NotImplementedError(grid_type)
+
+
 def create(cfg: DVGOConfig, generator: torch.Generator | None = None,
            device=None) -> DVGOParams:
-    """Zero grids, an all-true occupancy cache and a U(+-1/sqrt(fan_in)) MLP
-    drawn from ``generator`` (a CPU generator; values are then moved)."""
-    for kind in (cfg.density_type, cfg.k0_type):
-        if kind != "DenseGrid":
-            raise NotImplementedError(f"{kind} fields are not ported yet (ROADMAP A18c)")
+    """The two fields (:func:`make_grid`: zero dense grids, or TensoRF grids
+    drawn from ``generator``), an all-true occupancy cache and a
+    U(+-1/sqrt(fan_in)) MLP drawn from ``generator`` (a CPU generator;
+    values are then moved)."""
     ws = cfg.world_size
-    dt = fg._DTYPES[cfg.grid_dtype]
-    density = DenseGrid(1, ws, cfg.xyz_min, cfg.xyz_max, dtype=dt, device=device)
-    k0 = DenseGrid(max(cfg.k0_dim, 1), ws, cfg.xyz_min, cfg.xyz_max, dtype=dt, device=device)
+    density = make_grid(cfg.density_type, 1, ws, cfg, cfg.density_config, generator, device)
+    k0 = make_grid(cfg.k0_type, max(cfg.k0_dim, 1), ws, cfg, cfg.k0_config, generator, device)
     rgbnet = None
     if cfg.rgbnet_dim > 0:
         rgbnet = MLP(cfg.rgbnet_in_dim, cfg.rgbnet_width, 3, cfg.rgbnet_depth,
@@ -175,9 +193,9 @@ def activate_density(params: DVGOParams, cfg: DVGOConfig, density: torch.Tensor,
 
 def build_render_cache(params: DVGOParams, cfg: DVGOConfig, log_fn=None):
     """DCVGO's packed table of density and k0 together, or None where k0 is
-    unused (``rgbnet_full_implicit``), the grids differ in size or the table
-    is over the memory guard."""
-    if cfg.rgbnet_full_implicit:
+    unused (``rgbnet_full_implicit``), a field is not a ``DenseGrid``, the
+    grids differ in size or the table is over the memory guard."""
+    if cfg.rgbnet_full_implicit or not (params.density.dense and params.k0.dense):
         return None
     return dcvgo.build_render_cache(params, cfg, log_fn=log_fn)
 
@@ -222,7 +240,7 @@ def forward(
     :func:`build_render_cache`."""
     S = n_samples(cfg, stepsize)
     interval = stepsize * cfg.voxel_size_ratio
-    with torch.no_grad(), record_function("forward/sample"):
+    with common.sample_grad(rays_o, rays_d), record_function("forward/sample"):
         pts, mask, t = _sample(cfg, rays_o, rays_d, near, stepsize, S)
         mask = mask & params.mask_cache(pts)
     with record_function("forward/density_k0"):
@@ -274,7 +292,12 @@ def maskout_near_cam_vox(params: DVGOParams, cfg: DVGOConfig, cam_o,
     """The density of every lattice node within ``near_clip`` of a camera
     centre (``cam_o`` [C, 3]) set to -100, in place; returns ``params``. The
     distance to the nearest camera is kept a camera at a time, not for all
-    at once ([X, Y, Z, C] would be GBs at 100^3 and a hundred views)."""
+    at once ([X, Y, Z, C] would be GBs at 100^3 and a hundred views). A
+    TensoRF density has no dense grid to set: it raises, as the JAX
+    version does."""
+    if not params.density.dense:
+        raise TypeError(f"maskout_near_cam_vox needs a DenseGrid density, not "
+                        f"{type(params.density).__name__}")
     grid = params.density.grid
     xyz = dcvgo.lattice(cfg.xyz_min, cfg.xyz_max, cfg.world_size, grid.device)
     d2 = None
@@ -311,7 +334,7 @@ LATTICE_SLAB_NODES = 1 << 21
 
 
 @torch.no_grad()
-def density_on_lattice(density: DenseGrid, axes):
+def density_on_lattice(density, axes):
     """The density field [X, Y, Z] (f32) queried through its grid at the
     lattice of the three 1-D node coordinates ``axes``, in x-slabs of at most
     ``LATTICE_SLAB_NODES`` nodes."""
@@ -324,14 +347,18 @@ def density_on_lattice(density: DenseGrid, axes):
     return out
 
 
-def coarse_mask_fn(density: DenseGrid, act_shift: float, cfg: DVGOConfig, thres: float):
+def coarse_mask_fn(density, act_shift, cfg, thres: float):
     """The fine stage's occupancy seed from the coarse model's density grid
     (and its ``act_shift`` and config): ``fn(world_size, xyz_min, xyz_max)``
     gives the 3^3 max-pool of the coarse alpha at the fine lattice's nodes
-    ``>= thres`` (``mask_cache_thres``), bool [X, Y, Z]."""
+    ``>= thres`` (``mask_cache_thres``), bool [X, Y, Z]. The alpha is this
+    module's :func:`activate_density` whatever the coarse family, as in the
+    JAX ``run_train``: a DMPIGO ``act_shift`` [mpi_depth] is added along the
+    lattice's last axis, plane k of the fine lattice taking the coarse plane
+    k's bias."""
 
     def fn(world_size, xyz_min, xyz_max):
-        dev = density.grid.device
+        dev = next(density.parameters()).device
         axes = [fg._linspace(mn, mx, int(n), dev)
                 for mn, mx, n in zip(xyz_min, xyz_max, world_size)]
         alpha = alpha_ops.raw2alpha(density_on_lattice(density, axes), act_shift,
@@ -364,7 +391,7 @@ def voxel_count_views(params: DVGOParams, cfg: DVGOConfig, rays_o, rays_d, near:
     corner weights). The sums are taken in another order than the JAX
     gradient's, so a voxel whose sum lies within rounding of 1 may count
     otherwise."""
-    dev = params.density.grid.device
+    dev = params.mask_cache.mask.device
     ws = tuple(int(v) for v in cfg.world_size)
     S = n_samples(cfg, stepsize)
     step = torch.arange(S, dtype=torch.float32, device=dev) * (stepsize * cfg.voxel_size)

@@ -10,7 +10,8 @@ share), and the render half: ``RenderCache``,
 (``_forward_two_stage``), the single-stage cache branch,
 ``_eval_field_on_lattice`` and ``bake_for_rendering``; and the ``pg_scale``
 boundary: ``scale_volume_grid`` (both grids upsampled, the occupancy cache
-refreshed from the trained density) and ``update_occupancy_cache``.
+refreshed from the trained density) and ``update_occupancy_cache``; and
+``maskout_near_cam_vox`` (each bank's density near the cameras set to -100).
 
 A training forward (no cache) gathers the eight corners from the grids
 themselves (one gather over all banks of a grid, one index-add in the
@@ -520,7 +521,7 @@ def forward(
     N = rays_o.shape[0]
     interval = stepsize * cfg.voxel_size_ratio_density
 
-    with torch.no_grad(), record_function("forward/sample"):
+    with common.sample_grad(rays_o, rays_d), record_function("forward/sample"):
         pts, _, t = sample_ray(cfg, rays_o, rays_d)
         S = pts.shape[1]
         n_max = S
@@ -750,4 +751,34 @@ def update_occupancy_cache(params: FourierGridParams, cfg: FourierGridConfig):
     with torch.no_grad():
         pooled = _pooled_alpha(params, cfg, mask.shape)
     params.mask_cache.mask = mask & (pooled > cfg.fast_color_thres)
+    return params
+
+
+@torch.no_grad()
+def maskout_near_cam_vox(params: FourierGridParams, cfg: FourierGridConfig, cam_o,
+                         near_clip: float) -> FourierGridParams:
+    """The JAX ``maskout_near_cam_vox`` of this family: in every bank, the
+    density of each node of the [-1, 1] lattice within ``near_clip`` of a
+    camera centre (``cam_o`` [C, 3]) at that bank's embedded coordinate set
+    to -100, in place; returns ``params``. Nearest distances are kept a
+    camera at a time."""
+    grid = params.density.grid
+    dev = grid.device
+    mn = torch.tensor(cfg.xyz_min, dtype=torch.float32, device=dev)
+    mx = torch.tensor(cfg.xyz_max, dtype=torch.float32, device=dev)
+    cams = torch.as_tensor(np.asarray(cam_o), dtype=torch.float32, device=dev)
+    ind_norm = (cams - mn) / (mx - mn) * 2.0 - 1.0
+    if cfg.fourier_freq_num > 0:
+        bank_cams = nerf_pos_embed_coords(ind_norm, cfg.fourier_freq_num).permute(1, 0, 2)
+    else:
+        bank_cams = ind_norm[None]
+    axes = [_linspace(-1.0, 1.0, int(n), dev) for n in cfg.world_size_density]
+    xyz = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)
+    for b, cams_b in enumerate(bank_cams):
+        d2 = None
+        for c in cams_b:
+            diff = xyz - c
+            s = diff[..., 0] ** 2 + diff[..., 1] ** 2 + diff[..., 2] ** 2
+            d2 = s if d2 is None else torch.minimum(d2, s)
+        grid.data[b][torch.sqrt(d2) <= near_clip] = -100.0
     return params

@@ -7,6 +7,9 @@ integer index lies inside the grid. Grids are channel-last ``[X, Y, Z, C]``
 (banks leading for FourierGrid: ``[B, X, Y, Z, C]``), so a sample gathers 8
 contiguous C-vectors.
 
+:func:`grid_sample_2d` samples the planes and lines of a TensoRF grid
+through the same gather.
+
 The gather is a ``torch.autograd.Function`` whose backward is one
 ``index_add_`` into an f32 buffer the size of the table (cast once to the
 table's dtype), rather than autograd's per-index scatter, which would
@@ -149,6 +152,47 @@ def grid_sample_banks(grids: torch.Tensor, xyz01_banks: torch.Tensor) -> torch.T
     for b in range(1, B):
         out = out + vals[..., b, :]
     return out
+
+
+def bilerp_corners(xy01: torch.Tensor, dims: tuple):
+    """Corner indices + weights for bilinear interpolation on an [H, W]
+    lattice: xy01 [..., 2] in [0, 1] (the first coordinate indexes H).
+    Returns (flat_idx [..., K] int64 clamped in range, w [..., K] with
+    out-of-bounds corners zeroed), the corners in the JAX order (h, w) =
+    (0, 0), (0, 1), (1, 0), (1, 1). A line (W == 1) keeps only its two
+    corners of w = 0: the other two never lie in range, and the JAX sum adds
+    them as exact zeros."""
+    H, W = (int(d) for d in dims)
+    ch = xy01[..., 0] * (H - 1)
+    cw = xy01[..., 1] * (W - 1)
+    h0 = torch.floor(ch)
+    w0 = torch.floor(cw)
+    fh, fw = ch - h0, cw - w0
+    h0i, w0i = h0.to(torch.int64), w0.to(torch.int64)
+    idx_list, w_list = [], []
+    for dh in (0, 1):
+        wh = fh if dh else 1.0 - fh
+        hi = h0i + dh
+        vh = (hi >= 0) & (hi < H)
+        for dw in ((0,) if W == 1 else (0, 1)):
+            ww = fw if dw else 1.0 - fw
+            wi = w0i + dw
+            vw = (wi >= 0) & (wi < W)
+            w_list.append((wh * ww) * (vh & vw).to(xy01.dtype))
+            idx_list.append(hi.clamp(0, H - 1) * W + wi.clamp(0, W - 1))
+    return torch.stack(idx_list, -1), torch.stack(w_list, -1)
+
+
+def grid_sample_2d(plane: torch.Tensor, xy01: torch.Tensor) -> torch.Tensor:
+    """Bilinearly sample a channel-last plane [H, W, C] at xy01 [..., 2] in
+    [0, 1] (align_corners=True, zeros padding): [..., C]. The JAX
+    ``grid_sample_2d``, which TensoRF's planes use; a line [A, 1, C] (the
+    second coordinate 0) is a plane of width 1. Through the sliced corner
+    gather of :class:`GatherTrilerp`, so a plane's gathered rows stay under
+    ``SLICE_BYTES`` a slice."""
+    H, W, C = plane.shape
+    idx, w = bilerp_corners(xy01, (H, W))
+    return gather_trilerp(plane.reshape(H * W, C), idx, w)
 
 
 def resize_grid_3d(grid: torch.Tensor, new_size) -> torch.Tensor:

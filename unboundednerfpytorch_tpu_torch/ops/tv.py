@@ -9,6 +9,8 @@ Weights are divided by 6 inside the op; missing neighbours contribute 0;
 Grids are channel-last ``[..., X, Y, Z, C]``; leading (bank) axes are
 independent. The per-axis terms are accumulated in place so that a
 full-width grid needs a few grid-sized temporaries, not one per shift.
+:func:`tensorf_tv_grads` is the TV of a TensoRF grid, a smooth-L1 loss over
+its planes and vectors whose gradient the step adds the same way.
 """
 
 from __future__ import annotations
@@ -47,3 +49,36 @@ def total_variation_grad(
             raise ValueError("dense_mode=False requires the existing grad")
         acc = torch.where(existing_grad != 0, acc, torch.zeros_like(acc))
     return acc
+
+
+def _smooth_l1_sum(d: torch.Tensor) -> torch.Tensor:
+    a = d.abs()
+    return torch.where(a < 1.0, 0.5 * d * d, a - 0.5).sum()
+
+
+def tensorf_tv_loss(leaves: dict, wx: float, wy: float, wz: float) -> torch.Tensor:
+    """The JAX package's smooth-L1 TV of a TensoRF grid (``train/step.py::
+    _tensorf_tv_loss``): differences of neighbours along each axis of the
+    planes and vectors, each axis weighed by its own weight, over 6."""
+    sl1 = _smooth_l1_sum
+    xy, xz, yz = leaves["xy_plane"], leaves["xz_plane"], leaves["yz_plane"]
+    loss = (wx * sl1(xy[1:] - xy[:-1]) + wy * sl1(xy[:, 1:] - xy[:, :-1])
+            + wx * sl1(xz[1:] - xz[:-1]) + wz * sl1(xz[:, 1:] - xz[:, :-1])
+            + wy * sl1(yz[1:] - yz[:-1]) + wz * sl1(yz[:, 1:] - yz[:, :-1])
+            + wx * sl1(leaves["x_vec"][1:] - leaves["x_vec"][:-1])
+            + wy * sl1(leaves["y_vec"][1:] - leaves["y_vec"][:-1])
+            + wz * sl1(leaves["z_vec"][1:] - leaves["z_vec"][:-1]))
+    return loss / 6.0
+
+
+def tensorf_tv_grads(leaves: dict, wx: float, wy: float, wz: float) -> dict:
+    """name -> the gradient of :func:`tensorf_tv_loss` for each plane and
+    vector of ``leaves`` (``f_vec`` takes no part), by autograd on detached
+    copies. A loss's gradient, not a kernel: TensoRF's TV is no Pallas site
+    in the JAX package."""
+    names = [k for k in leaves if k != "f_vec"]
+    with torch.enable_grad():
+        copies = {k: leaves[k].detach().requires_grad_(True) for k in names}
+        grads = torch.autograd.grad(tensorf_tv_loss(copies, wx, wy, wz),
+                                    [copies[k] for k in names])
+    return dict(zip(names, grads))

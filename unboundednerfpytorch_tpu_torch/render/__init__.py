@@ -199,9 +199,13 @@ def export_coarse_geometry(cfg, exp_dir: str, out_path: str = "", device=None,
         path = os.path.join(exp_dir, "fine_last")
     family, mcfg, params, _, _ = ckpt.load_model(path, device=dev, with_opt_state=False)
     with torch.no_grad():
-        dense = params.density.grid.float().mean(0)  # [X, Y, Z, 1]: banks averaged
+        dense = params.density.get_dense_grid().float()
+        if dense.ndim == 5:  # a FourierGrid's banks, averaged
+            dense = dense.mean(0)
         alpha = FAMILIES[family].activate_density(params, mcfg, dense[..., 0])
-        rgb = torch.sigmoid(params.k0.grid.float()).mean(0)
+        rgb = torch.sigmoid(params.k0.get_dense_grid().float())
+        if rgb.ndim == 5:
+            rgb = rgb.mean(0)
     out = out_path or os.path.join(exp_dir, "coarse_volume.npz")
     np.savez_compressed(out, alpha=alpha.cpu().numpy(), rgb=rgb[..., :3].cpu().numpy())
     log_fn(f"exported coarse geometry to {out}")

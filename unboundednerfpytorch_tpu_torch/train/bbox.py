@@ -119,7 +119,7 @@ def compute_bbox_by_coarse_geo(params, cfg, activate_fn, thres: float):
     axis) whose ``activate_fn(density)`` exceeds ``thres``; every node where
     none does. The density is queried through the grid at the nodes."""
     ws = cfg.world_size
-    dev = params.density.grid.device
+    dev = params.mask_cache.mask.device
     mn = torch.tensor(cfg.xyz_min, dtype=torch.float32, device=dev)
     mx = torch.tensor(cfg.xyz_max, dtype=torch.float32, device=dev)
     axes = [mn[i] * (1 - u) + mx[i] * u

@@ -9,9 +9,10 @@ schedule and the ``pg_scale`` boundaries (:func:`pg_scale_boundary`: both
 grids upsampled, the occupancy cache refreshed from the trained density,
 ``act_shift`` lowered, a deferred ``sample_budget`` switched on, the
 optimizer rebuilt and the lr decay re-anchored), the ``flatten``, ``random``
-and ``in_maskcache`` ray samplers, and ``run_train``: for a DVGO config with
-a coarse stage (``nerf/*``, ``nsvf/*``, ``deepvoxels/*``, ``blendedmvs/*``,
-``tankstemple/<Scene>.py``), the coarse stage on the camera-frustum box with
+and ``in_maskcache`` ray samplers, and ``run_train``: for a config with
+a coarse stage (DVGO: ``nerf/*``, ``nsvf/*``, ``deepvoxels/*``,
+``blendedmvs/*``, ``co3d/*``, ``tankstemple/<Scene>.py``; DMPIGO:
+``custom/*`` forward-facing), the coarse stage on the camera-frustum box with
 ``maskout_near_cam_vox`` and ``pervoxel_lr``, then the fine stage on the box
 of the coarse geometry, its occupancy cache seeded from the coarse alpha and
 its rays filtered to those that meet it (``in_maskcache``); else the fine
@@ -30,12 +31,13 @@ checkpoint stands at its last step trains nothing and builds no ray store.
 emits at each logged step, and the record of each ``pg_scale`` boundary.
 ``render.run_render`` loads ``fine_last``.
 
-Not ported yet, and refused rather than skipped: a coarse stage of another
-family than DVGO and ``maskout_near_cam_vox`` outside it (ROADMAP A18c), the
-two-stage training forward (``train_survivor_budget``) and the held-out
-panels of ``i_panel``. As in the JAX package, ``pervoxel_lr`` and the
-``in_maskcache`` filter act on the DVGO family only: elsewhere the first is
-ignored and the second samples as ``flatten`` does.
+Not ported yet, and refused rather than skipped: the two-stage training
+forward (``train_survivor_budget``) and the held-out panels of ``i_panel``.
+As in the JAX package, ``pervoxel_lr`` and the ``in_maskcache`` filter act
+on the DVGO family only (elsewhere the first is ignored and the second
+samples as ``flatten`` does), and ``maskout_near_cam_vox`` on the DVGO and
+FourierGrid families only; a coarse stage runs for any family (the DMPIGO
+configs of ``custom/`` have one).
 """
 
 from __future__ import annotations
@@ -223,7 +225,7 @@ def pg_scale_boundary(state: TrainState, mcfg, cfg_model: ModelRenderConfig,
     cur_vox_density = int(cfg_model.num_voxels_density / (2**n_rest))
     cur_vox_rgb = int(cfg_model.num_voxels_rgb / (2**n_rest))
     params = state.params
-    dev = params.density.grid.device
+    dev = params.mask_cache.mask.device
     state.optimizer = None  # the old grids' moments go first
     for p in params.parameters():
         p.grad = None
@@ -242,8 +244,8 @@ def pg_scale_boundary(state: TrainState, mcfg, cfg_model: ModelRenderConfig,
     seconds["rebuild"] = seconds_since(t0, dev)
     record = {
         "step": global_step,
-        "world_size_density": tuple(params.density.grid.shape[1:4]),
-        "world_size_rgb": tuple(params.k0.grid.shape[1:4]),
+        "world_size_density": tuple(params.density.world_size),
+        "world_size_rgb": tuple(params.k0.world_size),
         "occupancy_carried": report["carried"],
         "occupancy": float(params.mask_cache.mask.float().mean()),
         "sample_budget_before": budget_before,
@@ -288,7 +290,7 @@ def apply_pervoxel_lr(state: TrainState, mcfg, cfg_train: TrainStageConfig, stor
     lr, and voxels of a count of 2 or less leave the occupancy cache. Returns {"views", "seconds",
     "occupancy"}."""
     params = state.params
-    dev = params.density.grid.device
+    dev = params.mask_cache.mask.device
     t0 = time.perf_counter()
     n_img = len(np.asarray(data_dict["i_train"]))
     H, W = (int(v) for v in np.asarray(data_dict["HW"])[0])
@@ -371,9 +373,6 @@ def scene_rep_reconstruction(
     if cfg_train.i_panel:
         raise NotImplementedError("fine_train.i_panel (held-out panels during training) is "
                                   "not ported yet (ROADMAP A17)")
-    if cfg_model.maskout_near_cam_vox and model_family_name(cfg) != "dvgo":
-        raise NotImplementedError("maskout_near_cam_vox is ported for the DVGO family only "
-                                  "(ROADMAP A18c)")
 
     xyz_min = np.asarray(xyz_min, np.float64)
     xyz_max = np.asarray(xyz_max, np.float64)
@@ -410,9 +409,11 @@ def scene_rep_reconstruction(
             ws = params.mask_cache.mask.shape
             params.mask_cache.mask = torch.as_tensor(
                 coarse_mask_fn(ws, mcfg.xyz_min, mcfg.xyz_max), dtype=torch.bool, device=device)
-    if cfg_model.maskout_near_cam_vox and start_step == 0:  # DVGO (refused above otherwise)
+    # as the JAX package: DVGO and FourierGrid mask the density near the
+    # cameras; DCVGO and DMPIGO, which define no such step, train on
+    if cfg_model.maskout_near_cam_vox and start_step == 0 and family in ("dvgo", "FourierGrid"):
         cam_o = np.asarray(data_dict["poses"])[np.asarray(data_dict["i_train"])][:, :3, 3]
-        dvgo.maskout_near_cam_vox(params, mcfg, cam_o, float(data_dict["near"]))
+        FAMILIES[family].maskout_near_cam_vox(params, mcfg, cam_o, float(data_dict["near"]))
 
     render_kwargs = {
         "near": float(data_dict["near"]),
@@ -552,16 +553,19 @@ def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,
               exp_dir: str | None = None, no_reload: bool = False,
               no_reload_optimizer: bool = False, save_every: int = 0, ft_path: str = ""):
     """The recipe: the coarse stage where ``coarse_train.N_iters`` > 0 (the
-    DVGO family; another family's raises, ROADMAP A18c), then the fine
-    stage. Returns the fine stage's (family, model config, params, last
-    logged psnr).
+    DVGO configs of ``nerf/`` and the like, and the DMPIGO ones of
+    ``custom/``), then the fine stage. Returns the fine stage's (family,
+    model config, params, last logged psnr).
 
     As the JAX ``run_train``: the coarse stage trains on the camera-frustum
     box; the fine stage, except for waymo captures, on the box of the coarse
     lattice's nodes whose alpha passes ``bbox_thres``
     (``bbox.compute_bbox_by_coarse_geo``), its occupancy cache seeded with
     the pooled coarse alpha at the fine lattice ``>= mask_cache_thres``
-    (``dvgo.coarse_mask_fn``). Of the coarse model only its density grid is
+    (``dvgo.coarse_mask_fn``). Both take the alpha of
+    ``dvgo.activate_density`` whatever the family, as the JAX package does:
+    for DMPIGO its per-plane ``act_shift`` [mpi_depth] is added along the
+    lattice's last axis (ROADMAP queue C). Of the coarse model only its density grid is
     kept for that seed: the rest, its optimizer and its ray store are freed
     before the fine model is built.
 
@@ -582,9 +586,6 @@ def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,
               exp_dir=exp_dir, no_reload=no_reload, no_reload_optimizer=no_reload_optimizer,
               save_every=save_every, ft_path=ft_path)
     if cfg.coarse_train.N_iters > 0:
-        if family != "dvgo":
-            raise NotImplementedError(f"a coarse stage of the {family} family is not ported yet "
-                                      "(ROADMAP A18c)")
         _, mcfg_c, params_c, _ = scene_rep_reconstruction(
             cfg, cfg.coarse_model_and_render, cfg.coarse_train, xyz_min, xyz_max, data_dict,
             stage="coarse", **kw)

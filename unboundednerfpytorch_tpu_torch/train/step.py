@@ -6,7 +6,9 @@ its ``flatten`` and ``random`` samplers and its ``HostRayStoreSampler`` (the
 (tv_every / tv_after / tv_before) and the dense/sparse TV mode are host
 booleans per step. TV goes into ``param.grad`` after ``backward()`` and
 before the optimizer, through the fused CUDA kernel
-(:func:`..ops.cuda.tv.tv_add_grad`), in place.
+(:func:`..ops.cuda.tv.tv_add_grad`), in place; a TensoRF grid gets the
+gradient of its smooth-L1 TV loss (:func:`..ops.tv.tensorf_tv_grads`)
+instead, as in the JAX package.
 
 The step's phases run under ``torch.profiler.record_function`` ranges
 (``train_step/forward_loss``, ``/backward``, ``/tv``, ``/adam``), so a
@@ -28,6 +30,7 @@ from unboundednerfpytorch_tpu_torch.configs.schema import TrainStageConfig
 from unboundednerfpytorch_tpu_torch.models.common import RenderResult
 from unboundednerfpytorch_tpu_torch.ops import losses as L
 from unboundednerfpytorch_tpu_torch.ops.cuda.tv import tv_add_grad
+from unboundednerfpytorch_tpu_torch.ops.tv import tensorf_tv_grads
 from unboundednerfpytorch_tpu_torch.optim import factory
 from unboundednerfpytorch_tpu_torch.optim.masked_adam import MaskedAdam
 
@@ -116,12 +119,22 @@ def make_train_step(
         for name, weight in (("density", train_cfg.weight_tv_density),
                              ("k0", train_cfg.weight_tv_k0)):
             sub = getattr(params, name, None)
-            if weight <= 0 or sub is None or not sub.grid.requires_grad:
+            if weight <= 0 or sub is None:
+                continue
+            w = weight / n_rays
+            if not sub.dense:  # TensoRF: the smooth-L1 loss's gradient
+                leaves = sub.leaves()
+                if not leaves["xy_plane"].requires_grad:
+                    continue
+                for key, g in tensorf_tv_grads(leaves, w * sx, w * sy, w * sz).items():
+                    p = leaves[key]
+                    p.grad = g if p.grad is None else p.grad.add_(g)
+                continue
+            if not sub.grid.requires_grad:
                 continue
             grid = sub.grid
             if grid.grad is None:
                 grid.grad = torch.zeros_like(grid)
-            w = weight / n_rays
             tv_add_grad(grid.detach(), grid.grad, w * sx, w * sy, w * sz, 1.0, dense,
                         out=grid.grad)
 

@@ -156,7 +156,7 @@ def save_model(path: str, family: str, cfg, params, global_step: int = 0,
     if np.ndim(flat["act_shift"]) == 0:
         flat["act_shift"] = np.float64(params.act_shift)
     stored = {f"{name}/grid": "bfloat16" for name in ("density", "k0")
-              if flat[f"{name}/grid"].dtype == np.uint16}
+              if getattr(params, name).dense and flat[f"{name}/grid"].dtype == np.uint16}
     taken = _current_members(path)
     members = {"params": _member("params", global_step, taken), "opt_state": None}
     _write_npz(os.path.join(path, members["params"]), flat)
@@ -206,9 +206,9 @@ def load_model(path: str, device="cpu", with_opt_state: bool = True):
             for k, v in flat.items()}
     params = convert.params_from_numpy(family, _unflatten(flat), device)
     dt = getattr(cfg, "grid_dtype", "float32")
-    for name in ("density", "k0"):
-        grid = getattr(params, name).grid
-        grid.data = grid.data.to(_DTYPES[dt])
+    for field in (params.density, params.k0):
+        if field.dense:
+            field.grid.data = field.grid.data.to(_DTYPES[dt])
     opt_state = None
     if with_opt_state and meta.get("has_opt_state"):
         opt_state = convert.opt_state_from_numpy(
