@@ -199,13 +199,34 @@ Phases, each reported on its own line:
      fail unless the fine stage has live samples (the fine box inside the
      frustum's, the cache not empty after the last boundary). 10f holds both march kernels and
      ``masked_adam`` (with and without a per-element lr) against their plain
-     versions at every shape phase 10 gave them, and times them.
+     versions at every shape phase 10 gave them, and times them;
+ 11. reference ``.tar`` checkpoints, ``--program sfm``, the held-out panels,
+     the render server and ARF, on the models phases 4-10 trained: 11a
+     exports 9a's lego model to a reference ``.tar`` (``export_checkpoint``),
+     renders its test views with ``--program render --ft_path lego.tar``
+     (equal to 9a's render within ``TAR_ATOL``, the reference storing its box
+     as float32) and trains 3 steps from it with ``--program train
+     --ft_path lego.tar`` (fresh moments); 11b takes phase 4's bicycle_single
+     model through ``convert_to_reference``, ``torch.save`` into memory and
+     back (every leaf equal, one render chunk within ``TAR_ATOL``); 11c
+     ``--program tune_pose --ft_path ape.tar`` on 10a's model (the first
+     step's delta gradient 10e's); 11d is 10d's capture written as a sparse
+     COLMAP model whose poses ``--program sfm`` recovers (within 1e-5, the
+     bounds on the ball's front and at the wall); 11e is 9a's panel
+     (``i_panel``), its PSNR that of ``render_image`` of its view; 11f serves
+     9a's checkpoint and the ``.tar`` with ``tools/serve.py`` on localhost
+     (each PNG equal to ``render_image`` of its pose); 11g is phase 5's
+     render with ``--style_root`` (colours that span three directions; the
+     stylized set's colour mean and covariance the style image's); 11h
+     holds the kernels at the shapes 11a and 11c gave them.
 
 ``--profile`` also traces the last train steps and one rendered view with
 ``torch.profiler`` and prints the device time by range and by kernel.
 ``--kernels-only`` stops after phase 3 and prints the kernel table without
 launch counts and without the last line (a quick check of a changed kernel).
-The kernel table's launches are those of phases 4 to 10 and of the probe run.
+The kernel table's launches are those of phases 4 to 11 and of the probe run.
+Near the end it prints the seconds and the GiB written (``/proc/self/io``) by
+phase: a chip call may write 45 GiB, deleted files included.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -351,6 +372,9 @@ SHIP_FINE_STEPS, SHIP_PG_SCALE = 11, (2, 3, 4, 5, 6, 7)
 # 0.0026 at 1000, over mask_cache_thres 1e-3): 1000 coarse steps, as 9a's,
 # leave an occupancy seed that drops 3.5 % of the fine lattice, 300 only 0.2 %
 MADOKA_H, MADOKA_W, MADOKA_VIEWS = 540, 960, 12
+# 11d: the surface points of 10d's sparse model, and how near its poses must
+# come to the scene's
+MADOKA_POINTS, SFM_POSE_TOL = 4000, 1e-5
 MADOKA_COARSE_STEPS, MADOKA_FINE_STEPS, MADOKA_PG_SCALE = 1000, 9, (2, 3, 4, 5)
 # 10e: tune_pose steps through the command line; the card's first-step delta
 # gradient against the CPU's: within TUNE_GRAD_TOL[0] of its largest element
@@ -368,6 +392,27 @@ TUNE_GRAD_TOL = (1e-3, 1e-2)
 RECOVER_VIEWS, RECOVER_HW, RECOVER_VOXELS, RECOVER_TRAIN_STEPS = 20, 96, 64**3, 600
 RECOVER_DEG, RECOVER_SHIFT = (1.0, 3.0), (0.01, 0.03)
 RECOVER_STEPS, RECOVER_LR, RECOVER_RAYS, RECOVER_PIXELS = 1000, 3e-3, 4096, 32768
+# phase 11: reference .tar checkpoints, the panels, sfm, the server and ARF.
+# An imported model against its native one: the reference stores its box,
+# scene centre and radius as float32, so the imported model samples at
+# points a few ulps away (and a FourierGrid one holds as float32 the values
+# of bicycle_single's bfloat16 grids): each ray's colour within TAR_ATOL, but
+# for at most TAR_FLIP_SHARE of the rays (a sample that crosses
+# fast_color_thres). TAR_TRAIN_STEPS: 11a's train and 11c's tune_pose from a
+# .tar. 11f: SERVE_POSES (theta, phi in degrees) at SERVE_W x SERVE_H. 11g: a
+# seeded style image of STYLE_H x STYLE_W, Gaussian about STYLE_MEAN with
+# STYLE_STD, narrow enough that the transfer of phase 5's views needs no
+# clipping. Those views' colours must span three directions (each eigenvalue
+# of their covariance over ARF_RANK_FLOOR, 100 times the transfer's clamp of
+# the singular values at 1e-8), so that every column of the 3x3 transform
+# is used; the stylized set then takes the style image's mean (within
+# ARF_MEAN_TOL) and its covariance (within ARF_COV_REL of the style's
+# largest entry). The rank-deficient case is a CPU test
+# (tests/test_torch_port_panels_serve.py).
+TAR_ATOL, TAR_FLIP_SHARE, TAR_TRAIN_STEPS = 1e-4, 1e-3, 3
+SERVE_POSES, SERVE_W, SERVE_H = ((0.0, -15.0), (120.0, 10.0), (240.0, 30.0)), 400, 300
+STYLE_H, STYLE_W, STYLE_MEAN, STYLE_STD = 600, 800, (0.45, 0.5, 0.55), 0.08
+ARF_MEAN_TOL, ARF_COV_REL, ARF_RANK_FLOOR = 1e-4, 0.01, 1e-6
 # kernel launches of a train step and of a render chunk, by family
 TRAIN_PER_STEP = {"tv_add_grad": 2, "march_forward": 1, "march_backward": 1}
 DCVGO_PER_STEP = {**TRAIN_PER_STEP, "cumdist_thres": 1}
@@ -376,6 +421,18 @@ DCVGO_PER_CHUNK = ("march_forward", "cumdist_thres")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def written_gib() -> float | None:
+    """GiB this process has handed to write calls so far (``wchar`` of
+    ``/proc/self/io``: files, and the little it prints), None where the
+    kernel does not say."""
+    try:
+        with open("/proc/self/io") as f:
+            fields = dict(line.split(":") for line in f)
+    except OSError:
+        return None
+    return int(fields["wchar"]) / 2**30
 
 
 class Spy:
@@ -454,6 +511,9 @@ class AdamWanted:
 
 
 ADAM_WANTED = AdamWanted()
+# what a phase hands a later one: 9a's rendered test views and its panel,
+# 10e's first tune step (its pixel picks and delta gradient)
+SHARED = {}
 
 
 def reset_counts() -> None:
@@ -1360,8 +1420,12 @@ def phase_boundary(cfg, card: str) -> None:
                              "the threshold differs between card and CPU")
 
 
-def phase_render(cfg, data, exp_dir: str, cfg_file: str, profile: bool) -> dict:
-    """Phase 5; returns the launch counts of the command line's render."""
+def phase_render(cfg, data, exp_dir: str, cfg_file: str, profile: bool,
+                 style: pathlib.Path) -> dict:
+    """Phase 5, and 11g: the command line's render runs with ``--style_root``
+    over the seeded style image ``style``, whose colour statistics the
+    stylized views must take (``check_arf``). Returns the launch counts of
+    the command line's render."""
     import numpy as np
     import torch
 
@@ -1398,12 +1462,13 @@ def phase_render(cfg, data, exp_dir: str, cfg_file: str, profile: bool) -> dict:
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     t0 = time.time()
-    with Spy(render, "run_render") as spy:
+    with Spy(render, "run_render") as spy, Spy(render, "render_viewpoints") as views:
         run_cli(["--config", cfg_file, "--program", "render", "--render_test", "--ft_path",
-                 path])
+                 path, "--style_root", str(style.parent), "--style_id", style.stem])
     total_s = time.time() - t0
     out = spy.calls[0].result["test"]
     counts = dict(build.LAUNCHES)
+    check_arf("[11g]", out["rgbs"], views.calls[0].result["rgbs"], style)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"march_forward": n_views * n_chunks}
     if counts != want:
@@ -1832,7 +1897,8 @@ def lego_scene(tmp: pathlib.Path):
     """9a's capture: ``LEGO_TRAIN`` + 2 x ``LEGO_HELD`` views of ``LEGO_H`` x
     ``LEGO_W`` RGBA in the NeRF-synthetic layout, and its config (the stages
     cut to ``LEGO_COARSE_STEPS`` and ``LEGO_FINE_STEPS``, the fine boundaries
-    to ``LEGO_PG_SCALE``). Returns the config file."""
+    to ``LEGO_PG_SCALE``, a held-out panel at the fine stage's last step:
+    phase 11e). Returns the config file."""
     from unboundednerfpytorch_tpu_torch.configs import loader
     from unboundednerfpytorch_tpu_torch.data import common, synthetic
     from unboundednerfpytorch_tpu_torch.train import bbox as bbox_mod
@@ -1849,7 +1915,8 @@ def lego_scene(tmp: pathlib.Path):
         f"_base_ = {str(LEGO_CONFIG)!r}\nbasedir = {str(tmp / 'logs')!r}\n"
         f"data = dict(datadir={scene!r})\n"
         f"coarse_train = dict(N_iters={LEGO_COARSE_STEPS})\n"
-        f"fine_train = dict(N_iters={LEGO_FINE_STEPS}, pg_scale={list(LEGO_PG_SCALE)})\n")
+        f"fine_train = dict(N_iters={LEGO_FINE_STEPS}, pg_scale={list(LEGO_PG_SCALE)}, "
+        f"i_panel={LEGO_FINE_STEPS})\n")
     cfg = loader.load_config(str(cfg_file))
     loaded = common.load_everything(cfg)
     box = bbox_mod.compute_bbox_by_cam_frustrm(cfg, loaded, "dvgo", device="cuda")
@@ -3112,12 +3179,19 @@ def phase_cli_lego(cfg_file: str, card: str) -> list:
         f"of {own.fine_train.N_iters}, boundaries {list(own.fine_train.pg_scale)} compressed to "
         f"{list(ft.pg_scale)}; {LEGO_TRAIN} training views of the scene's 100")
     exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    from unboundednerfpytorch_tpu_torch.render import renderer
+    from unboundednerfpytorch_tpu_torch.utils import observability
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.time()
     spies = dvgo_spies()
-    with render_spy() as renders, spies[0], spies[1], spies[2], spies[3]:
+    # the panel of the fine stage's last step (i_panel): the first
+    # render_image of the command, then its PNG and record
+    with render_spy() as renders, spies[0], spies[1], spies[2], spies[3], \
+            Spy(renderer, "render_image") as images, \
+            Spy(observability, "record_panel") as panels:
         run_cli(["--config", cfg_file, "--i_print", "1", "--render_test"])
     total_s = time.time() - t0
     found = report_dvgo_spies("[9a]", *spies)
@@ -3127,11 +3201,17 @@ def phase_cli_lego(cfg_file: str, card: str) -> list:
     if out["rgbs"].shape[:3] != (n_test, LEGO_H, LEGO_W) or not np.isfinite(out["rgbs"]).all():
         raise AssertionError(f"[9a] rendered {out['rgbs'].shape} or non-finite values")
     steps = ct.N_iters + ft.N_iters
+    chunks = -(-LEGO_H * LEGO_W // RENDER_CHUNK)
     train = train_counts_of(dict(build.LAUNCHES), render.launches)
-    want = {"march_forward": steps, "march_backward": steps,
+    want = {"march_forward": steps + chunks, "march_backward": steps,  # the panel's view
             "masked_adam": adam_wanted("[9a]", ft.N_iters),
             "masked_adam_per_lr": ADAM_WANTED.n_lr}
-    want_render = {"march_forward": n_test * -(-LEGO_H * LEGO_W // RENDER_CHUNK)}
+    want_render = {"march_forward": n_test * chunks}
+    if len(panels.calls) != 1 or len(images.calls) != 1 + n_test:
+        raise AssertionError(f"[9a] {len(panels.calls)} panels, {len(images.calls)} views "
+                             f"rendered (want 1 and 1 + {n_test})")
+    SHARED["9a"] = {"rgbs": out["rgbs"], "panel": panels.calls[0].result,
+                    "panel_ms": (images.calls[0].seconds + panels.calls[0].seconds) * 1e3}
     if train != want or render.launches != want_render or ADAM_WANTED.n_lr != ct.N_iters:
         raise AssertionError(f"[9a] launches train {train} (want {want}), render "
                              f"{render.launches} (want {want_render})")
@@ -3169,6 +3249,9 @@ def phase_cli_lego(cfg_file: str, card: str) -> list:
         f"{[round(t * 1e3, 1) for t in out['seconds']]} ms/view, psnr "
         f"{[round(x, 3) for x in out['psnrs']]}; launches train {train}, render "
         f"{render.launches}; the command {total_s:.1f} s")
+    log(f"[9a] held-out panel (phase 11e) of the first test view at fine step "
+        f"{ft.N_iters}: {SHARED['9a']['panel_ms']:.1f} ms (its render "
+        f"{images.calls[0].seconds * 1e3:.1f} ms), psnr {SHARED['9a']['panel']:.3f}")
     # the coarse volume, as a user exports it
     before = dict(build.LAUNCHES)
     t0 = time.time()
@@ -3600,6 +3683,33 @@ def phase_ship(tmp: pathlib.Path, card: str, lego_file: str, paths: dict) -> lis
     return [counts, render_counts]
 
 
+def check_sfm(scene: str, data: dict, factor: int) -> str:
+    """Phase 11d's gate on what ``--program sfm`` wrote from a
+    ``write_colmap_scene`` capture of ``forward_facing_scene``: each row of
+    ``poses_bounds.npy`` holds its view's pose in the LLFF storage convention
+    within ``SFM_POSE_TOL`` and (H, W, focal) at the full resolution; its
+    bounds (the 0.1 and 99.9 percentiles of the depths of the points it sees)
+    span the scene: near on the ball's front half (depths 3 to 4 from every
+    camera), far at the wall (depth 8). Returns a summary."""
+    import numpy as np
+
+    rows = np.load(os.path.join(scene, "poses_bounds.npy"))
+    err = 0.0
+    for row, c2w, K, hw in zip(rows, data["poses"], data["Ks"], data["HW"]):
+        c2w = np.asarray(c2w, np.float64)
+        want = np.concatenate([-c2w[:3, 1:2], c2w[:3, 0:1], c2w[:3, 2:4],
+                               np.array([[hw[0]], [hw[1]], [K[0][0]]]) * factor], 1)
+        err = max(err, float(np.abs(row[:15].reshape(3, 5) - want).max()))
+    near, far = rows[:, 15], rows[:, 16]
+    if len(rows) != len(data["poses"]) or not err < SFM_POSE_TOL or \
+            not ((3.0 <= near) & (near < 4.0)).all() or not np.allclose(far, 8.0, atol=1e-6):
+        raise AssertionError(f"[11d] sfm: {len(rows)} rows, pose error {err:.2e}, near "
+                             f"{near.min():.4f}..{near.max():.4f}, far {far.min():.4f}.."
+                             f"{far.max():.4f}")
+    return (f"{len(rows)} poses within {err:.2e} of the scene's (tolerance {SFM_POSE_TOL}), "
+            f"near {near.min():.4f}..{near.max():.4f}, far {far.min():.6f}..{far.max():.6f}")
+
+
 def phase_madoka(tmp: pathlib.Path, card: str, paths: dict) -> list:
     """Phase 10d: custom/Madoka.py (DMPIGO, NDC rays, factor 2, 256^3 voxels
     as [X, Y, 128]) through ``run_train`` without a checkpoint on a seeded
@@ -3621,13 +3731,20 @@ def phase_madoka(tmp: pathlib.Path, card: str, paths: dict) -> list:
 
     t0 = time.time()
     data = synthetic.forward_facing_scene(MADOKA_VIEWS, MADOKA_H, MADOKA_W, seed=11)
-    scene = synthetic.write_llff_scene(str(tmp / "Madoka" / "dense"), data, factor=2,
-                                       bounds=FERN_BOUNDS)
+    # phase 11d: the capture's cameras as a sparse COLMAP model, not
+    # poses_bounds.npy, which --program sfm makes from it
+    scene = synthetic.write_colmap_scene(
+        str(tmp / "Madoka" / "dense"), data,
+        synthetic.forward_facing_points(MADOKA_POINTS, seed=11), factor=2)
     cfg_file = compressed(MADOKA_CONFIG, tmp, "madoka", f"dict(datadir={scene!r})",
                           coarse_train=dict(N_iters=MADOKA_COARSE_STEPS),
                           fine_train=dict(N_iters=MADOKA_FINE_STEPS,
                                           pg_scale=list(MADOKA_PG_SCALE),
                                           decay_after_scale=COMPRESSED_DECAY))
+    t_sfm = time.time()
+    run_cli(["--config", cfg_file, "--program", "sfm"])
+    sfm_s = time.time() - t_sfm
+    sfm_line = check_sfm(scene, data, factor=2)
     cfg = loader.load_config(cfg_file)
     t1 = time.time()
     data = common.load_everything(cfg)
@@ -3643,7 +3760,9 @@ def phase_madoka(tmp: pathlib.Path, card: str, paths: dict) -> list:
         f"{own.coarse_train.N_iters}, {ft.N_iters} fine steps of {own.fine_train.N_iters}, "
         f"boundaries {list(own.fine_train.pg_scale)} compressed to {list(ft.pg_scale)}, "
         f"decay_after_scale {own.fine_train.decay_after_scale} -> {ft.decay_after_scale}; "
-        f"{MADOKA_VIEWS} views written in {t1 - t0:.1f} s, loaded in {load_s:.2f} s")
+        f"{MADOKA_VIEWS} views and their sparse model of {MADOKA_POINTS} points written in "
+        f"{t_sfm - t0:.1f} s; [11d] --program sfm {sfm_s:.2f} s: {sfm_line}; the capture "
+        f"loaded in {load_s:.2f} s")
     stamps, bounds, psnr = [], [], []
 
     def callback(step, metrics):
@@ -3795,6 +3914,7 @@ def phase_tune_pose(tmp: pathlib.Path, card: str, paths: dict) -> list:
             bool((err > TUNE_GRAD_TOL[0] * scale + TUNE_GRAD_TOL[1] * ref.abs()).any()):
         raise AssertionError(f"[10e] the first step's delta gradient: card against CPU "
                              f"max error {float(err.max()):.3e} of {scale:.3e}")
+    SHARED["10e"] = {"grad": got, "picks": [p.cpu() for p in picks.calls[0].result]}
     log(f"[10e] tune_pose on {card}: {TUNE_STEPS} steps of {len(picks.calls[0].result[0])} "
         f"pixels over {len(i_train)} views at full width {tuple(mcfg.world_size)}; ms per tune "
         f"step {[round(float(t), 1) for t in step_ms]}, median "
@@ -3868,6 +3988,395 @@ def phase_tune_pose(tmp: pathlib.Path, card: str, paths: dict) -> list:
     return [counts, tcounts, rcounts]
 
 
+def close_rays(tag: str, got, ref) -> str:
+    """Phase 11's gate of an imported model's colours against the native
+    model's (``TAR_ATOL``, ``TAR_FLIP_SHARE``). Returns a summary."""
+    import numpy as np
+
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64)).reshape(-1, 3).max(-1)
+    share = float((d > TAR_ATOL).mean())
+    if got.shape != ref.shape or share > TAR_FLIP_SHARE:
+        raise AssertionError(f"{tag}: {got.shape} against {ref.shape}, {share:.2e} of the rays "
+                             f"differ by more than {TAR_ATOL} (max {d.max():.3e})")
+    return (f"max |diff| {d.max():.3e}, mean {d.mean():.3e}, {int((d > TAR_ATOL).sum())} of "
+            f"{d.size} rays over {TAR_ATOL}")
+
+
+def style_image(path: pathlib.Path) -> None:
+    """11g's seeded style image (JPEG)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(14)
+    mix = np.array([[1.0, 0.4, 0.1], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]]) / 1.2
+    img = np.asarray(STYLE_MEAN) + STYLE_STD * rng.standard_normal((STYLE_H, STYLE_W, 3)) @ mix
+    path.parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray((np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)).save(path, quality=95)
+
+
+def mean_cov(x):
+    import numpy as np
+
+    x = np.asarray(x, np.float64).reshape(-1, 3)
+    return x.mean(0), np.cov(x.T, bias=True)
+
+
+def check_arf(tag: str, stylized, raw, style: pathlib.Path) -> None:
+    """ARF's gate: the rendered colours ``raw`` span three directions (each
+    eigenvalue of their covariance over ``ARF_RANK_FLOOR``), and the
+    stylized set takes the style image's colour mean (``ARF_MEAN_TOL``) and
+    covariance (``ARF_COV_REL`` of its largest entry), the style image as
+    ``render/arf.py::load_style_img`` sizes it for these views."""
+    import numpy as np
+
+    from unboundednerfpytorch_tpu_torch.render import arf
+
+    target = arf.load_style_img(str(style), *np.shape(raw)[1:3])
+    (m, c), (ms, cs), (_, cc) = mean_cov(stylized), mean_cov(target), mean_cov(raw)
+    eig = np.linalg.eigvalsh(cc)
+    cov_err, cov_tol = float(np.abs(c - cs).max()), ARF_COV_REL * float(np.abs(cs).max())
+    clipped = float(((stylized <= 0) | (stylized >= 1)).mean())
+    log(f"{tag} ARF (--style_root, a seeded {STYLE_H}x{STYLE_W} style image) over "
+        f"{np.shape(raw)[0]} views of {np.shape(raw)[1]}x{np.shape(raw)[2]}: the rendered "
+        f"colours' covariance eigenvalues {eig.tolist()}; the stylized set's mean "
+        f"{np.round(m, 6).tolist()} against the style's {np.round(ms, 6).tolist()} (max |diff| "
+        f"{float(np.abs(m - ms).max()):.2e}), its covariance against the style's max |diff| "
+        f"{cov_err:.2e} (tolerance {cov_tol:.2e}; the style's eigenvalues "
+        f"{np.linalg.eigvalsh(cs).tolist()}); clipped share {clipped:.2e}")
+    if not eig.min() > ARF_RANK_FLOOR:
+        raise AssertionError(f"{tag} the rendered colours span fewer than three directions "
+                             f"(eigenvalues {eig.tolist()}): the gate would not test the "
+                             f"whole transform")
+    if np.shape(stylized) != np.shape(raw) or not (np.abs(m - ms).max() < ARF_MEAN_TOL
+                                                   and cov_err < cov_tol):
+        raise AssertionError(f"{tag} the stylized views do not take the style image's colour "
+                             f"statistics (tolerances {ARF_MEAN_TOL}, {cov_tol:.2e})")
+
+
+def phase_tar_cli(tmp: pathlib.Path, card: str, lego_file: str, paths: dict) -> list:
+    """Phases 11a and 11e on 9a's nerf/lego.py model (DVGO at full
+    width). 11a: ``export_checkpoint`` of ``fine_last`` to a reference
+    ``.tar`` (seconds, GB, and the seconds of its import onto the card); the
+    command line's ``--program render --ft_path lego.tar`` of the test views,
+    whose colours must be 9a's render of them (``close_rays``); then
+    ``--program train --ft_path lego.tar`` for ``TAR_TRAIN_STEPS`` steps
+    (fine stage only), resumed from the .tar's step without the optimizer's
+    state, with both march kernels and masked Adam. 11e: 9a's panel
+    (``i_panel`` at its last fine step) must be written, with its record,
+    and its PSNR must be that of ``render_image`` of the same view through
+    ``fine_last``. Returns [the render's counts, the train's, the render
+    after it]."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch import render as render_mod
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.render import renderer
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+    from unboundednerfpytorch_tpu_torch.utils import reference_import as ri
+
+    lego = loader.load_config(lego_file)
+    exp_dir = os.path.join(lego.basedir, lego.expname)
+    tar = str(tmp / "lego.tar")
+    t0 = time.perf_counter()
+    ri.export_checkpoint(os.path.join(exp_dir, "fine_last"), tar)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, _, imported, step, _ = ckpt.load_model(tar, device="cuda")
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    del imported
+
+    # 11a: the .tar's render
+    reset_counts()
+    t0 = time.time()
+    with render_spy() as renders, Spy(render_mod, "render_viewpoints") as views, \
+            Spy(common, "load_everything") as loads:
+        run_cli(["--config", lego_file, "--program", "render", "--render_test", "--ft_path",
+                 tar])
+    render_s = time.time() - t0
+    data = loads.calls[0].result
+    n_test = len(data["i_test"])
+    chunks = -(-LEGO_H * LEGO_W // RENDER_CHUNK)
+    render_counts = renders.calls[0].launches
+    if render_counts != {"march_forward": n_test * chunks}:
+        raise AssertionError(f"[11a] render of the .tar: launches {render_counts}")
+    raw = views.calls[0].result["rgbs"]
+    line = close_rays("[11a] the .tar's test views against 9a's", raw, SHARED["9a"]["rgbs"])
+    log(f"[11a] lego.tar on {card}: exported from fine_last (step {step}) in {export_s:.2f} s, "
+        f"{os.path.getsize(tar) / 1e9:.3f} GB on disk; imported onto the card in "
+        f"{import_s:.2f} s; --program render --ft_path lego.tar ({n_test} views of "
+        f"{LEGO_H}x{LEGO_W}, {[round(t * 1e3, 1) for t in views.calls[0].result['seconds']]} "
+        f"ms/view, the command {render_s:.1f} s) against 9a's render of the native "
+        f"checkpoint: {line}; launches {render_counts}")
+
+    # 11e: 9a's held-out panel, against render_image of the same view and step
+    with open(os.path.join(exp_dir, "panels", "panels.jsonl")) as f:
+        records = [json.loads(x) for x in f]
+    _, mcfg, params, _, _ = ckpt.load_model(os.path.join(exp_dir, "fine_last"), device="cuda",
+                                            with_opt_state=False)
+    params.requires_grad_(False)
+    fwd = loop.make_forward(mcfg, {"near": float(data["near"]), "far": float(data["far"]),
+                                   "bg": 1.0 if lego.data.white_bkgd else 0.0,
+                                   "stepsize": lego.fine_model_and_render.stepsize})
+    view = int(np.asarray(data["i_test"])[0])
+    rgb, _, _ = renderer.render_image(lambda ro, rd, vd: fwd(params, ro, rd, vd, None),
+                                      LEGO_H, LEGO_W, np.asarray(data["Ks"])[view],
+                                      np.asarray(data["poses"])[view][:3, :4], device="cuda")
+    gt = np.asarray(data["images"][view], np.float32)
+    psnr = -10.0 * np.log10(max(float(np.mean((gt - rgb) ** 2)), 1e-12))
+    panel = os.path.join(exp_dir, records[-1]["panel"]) if records else ""
+    log(f"[11e] the panel of 9a's fine step {LEGO_FINE_STEPS}: {records}, "
+        f"{os.path.getsize(panel) if panel else 0} bytes; psnr {SHARED['9a']['panel']:.6f} "
+        f"against render_image of view {view} through fine_last {psnr:.6f}")
+    if [(r["stage"], r["step"]) for r in records] != [("fine", LEGO_FINE_STEPS)] or \
+            not os.path.isfile(panel) or abs(SHARED["9a"]["panel"] - psnr) > 1e-4 or \
+            abs(records[-1]["psnr"] - round(psnr, 3)) > 1e-3:
+        raise AssertionError("[11e] the panel is missing, or its PSNR is not the view's")
+    del params
+
+    # 11a: train from the .tar, the fine stage alone
+    cfg_file = tmp / "lego_tar.py"
+    cfg_file.write_text(f"_base_ = {lego_file!r}\nexpname = 'lego_tar'\n"
+                        f"coarse_train = dict(N_iters=0)\n"
+                        f"fine_train = dict(N_iters={step + TAR_TRAIN_STEPS}, i_panel=0)\n")
+    reset_counts()
+    t0 = time.time()
+    with render_spy() as renders, PathShapes() as paths["11a lego.tar train"]:
+        lines = run_cli(["--config", str(cfg_file), "--ft_path", tar, "--i_print", "1",
+                         "--render_test"])
+    train_s = time.time() - t0
+    counts = check_cli_run("[11a]", dict(build.LAUNCHES), renders, TAR_TRAIN_STEPS, n_test,
+                           (LEGO_H, LEGO_W), per_step={"march_forward": 1, "march_backward": 1})
+    said = f"fine: resumed from {tar} at step {step} (without the optimizer's state"
+    meta = json.load(open(tmp / "logs" / "lego_tar" / "fine_last" / "meta.json"))
+    if not any(said in x for x in lines) or meta["global_step"] != step + TAR_TRAIN_STEPS:
+        raise AssertionError(f"[11a] train --ft_path lego.tar: not resumed from the .tar, or "
+                             f"fine_last at step {meta['global_step']}")
+    log(f"[11a] --program train --ft_path lego.tar: {TAR_TRAIN_STEPS} steps from step {step}, "
+        f"fresh moments, the command {train_s:.1f} s; fine_last "
+        f"{dir_gb(tmp / 'logs' / 'lego_tar' / 'fine_last'):.3f} GB")
+    return [render_counts, *counts]
+
+
+def phase_tar_in_memory(exp_dir: str, data: dict, cfg, card: str) -> list:
+    """Phase 11b: phase 4's bicycle_single model (seven banks of 199^3 in
+    bfloat16, imprinted by phase 5) through ``convert_to_reference``, a
+    ``torch.save`` into memory, ``torch.load`` and ``convert_reference_ckpt``
+    onto the card (a .tar of it, with float32 grids, would not fit beside
+    the other phases' checkpoints on the disk). Every leaf must come back
+    with its values (each bfloat16 value exactly in float32), and one render
+    chunk of a test view through the imported model must give the native
+    one's colours (``close_rays``). Returns [the imported chunk's counts]."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops import rays as ray_ops
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+    from unboundednerfpytorch_tpu_torch.utils import reference_import as ri
+
+    family, mcfg, params, step, _ = ckpt.load_model(os.path.join(exp_dir, "fine_last"),
+                                                    device="cuda", with_opt_state=False)
+    params.requires_grad_(False)
+    t0 = time.perf_counter()
+    ref = ri.convert_to_reference(family, mcfg, params, global_step=step)
+    buf = io.BytesIO()
+    torch.save(ref, buf)
+    del ref
+    export_s, nbytes = time.perf_counter() - t0, buf.tell()
+    t0 = time.perf_counter()
+    buf.seek(0)
+    back = torch.load(buf, weights_only=False)
+    del buf
+    fam2, cfg2, p2, step2 = ri.convert_reference_ckpt(back, device="cuda")
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    del back
+    cfg2 = ri.overlay_render_knobs(cfg2, cfg.fine_model_and_render)
+    same = (fam2, step2) == (family, step)
+    for name in ("density", "k0"):
+        a, b = getattr(p2, name).grid, getattr(params, name).grid
+        same = same and a.dtype == torch.float32 and torch.equal(a, b.float())
+    for x, y in zip(p2.rgbnet.layers, params.rgbnet.layers):
+        same = same and torch.equal(x.weight, y.weight) and torch.equal(x.bias, y.bias)
+    same = same and torch.equal(p2.mask_cache.mask, params.mask_cache.mask) and \
+        p2.act_shift == float(np.float32(params.act_shift))
+    if not same:
+        raise AssertionError("[11b] a leaf did not come back from the reference checkpoint")
+    moved = {f.name: (getattr(mcfg, f.name), getattr(cfg2, f.name))
+             for f in dataclasses.fields(mcfg) if getattr(mcfg, f.name) != getattr(cfg2, f.name)}
+    view = int(np.asarray(data["i_test"])[0])
+    H, W = (int(v) for v in np.asarray(data["HW"])[view])
+    with torch.no_grad():
+        ro, rd, vd = (x.reshape(-1, 3) for x in ray_ops.get_rays_of_a_view(
+            H, W, torch.as_tensor(np.asarray(data["Ks"])[view], device="cuda"),
+            torch.as_tensor(np.asarray(data["poses"])[view][:3, :4], device="cuda")))
+        mid = slice(H * W // 2 - RENDER_CHUNK // 2, H * W // 2 + RENDER_CHUNK // 2)
+        kw = {"near": float(data["near"]), "far": float(data["far"]), "bg": 0.0,
+              "stepsize": cfg.fine_model_and_render.stepsize}
+        want = loop.make_forward(mcfg, kw)(params, ro[mid], rd[mid], vd[mid], None).rgb_marched
+        reset_counts()
+        got = loop.make_forward(cfg2, kw)(p2, ro[mid], rd[mid], vd[mid], None).rgb_marched
+        counts = dict(build.LAUNCHES)
+    line = close_rays("[11b] the imported chunk", got.cpu().numpy(), want.cpu().numpy())
+    log(f"[11b] bicycle_single (FourierGrid, grids {tuple(params.k0.grid.shape)} "
+        f"{params.k0.grid.dtype}) on {card}: convert_to_reference + torch.save into memory "
+        f"{export_s:.2f} s, {nbytes / 1e9:.3f} GB (float32 grids); torch.load + "
+        f"convert_reference_ckpt onto the card {import_s:.2f} s; every leaf back with its "
+        f"values (grids as float32); config fields moved by the float32 storage: {moved}; a "
+        f"render chunk of {RENDER_CHUNK} rays of test view {view} against the native model: "
+        f"{line}; launches {counts}")
+    if counts != {"march_forward": 1}:
+        raise AssertionError(f"[11b] the imported chunk launched {counts}")
+    return [counts]
+
+
+def phase_tar_tune(tmp: pathlib.Path, card: str, paths: dict) -> list:
+    """Phase 11c: 10a's linemod/ape.py model exported to a reference .tar,
+    then ``--program tune_pose --ft_path ape.tar`` for ``TAR_TRAIN_STEPS``
+    steps: its first step draws 10e's pixels (the same seed), and its delta
+    gradient must be 10e's on the native checkpoint within
+    ``TUNE_GRAD_TOL``. Returns [its launch counts]."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.train import pose_tune as pt
+    from unboundednerfpytorch_tpu_torch.utils import reference_import as ri
+
+    ape_file = str(tmp / "ape_cli.py")  # 10a's
+    cfg = loader.load_config(ape_file)
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    tar = str(tmp / "ape.tar")
+    t0 = time.perf_counter()
+    ri.export_checkpoint(os.path.join(exp_dir, "fine_last"), tar)
+    export_s = time.perf_counter() - t0
+    first = {}
+
+    def on_step(args, kwargs):
+        if "grad" not in first:
+            first["grad"] = args[0].param_groups[0]["params"][0].grad.detach().cpu().clone()
+
+    reset_counts()
+    t0 = time.time()
+    with Spy(pt, "pick_pixels") as picks, Spy(torch.optim.Adam, "step", before=on_step,
+                                              keep=False), \
+            PathShapes() as paths["11c ape.tar tune_pose"]:
+        run_cli(["--config", ape_file, "--program", "tune_pose", "--ft_path", tar,
+                 "--tune_steps", str(TAR_TRAIN_STEPS)])
+    total_s = time.time() - t0
+    counts = dict(build.LAUNCHES)
+    want = {"march_forward": TAR_TRAIN_STEPS, "march_backward": TAR_TRAIN_STEPS}
+    native = SHARED["10e"]
+    same_picks = all(torch.equal(a.cpu(), b) for a, b in zip(picks.calls[0].result,
+                                                              native["picks"]))
+    got, ref = first["grad"], native["grad"]
+    scale = float(ref.abs().max())
+    err = (got - ref).abs()
+    log(f"[11c] --program tune_pose --ft_path ape.tar on {card}: exported in {export_s:.2f} s, "
+        f"{os.path.getsize(tar) / 1e9:.3f} GB; {TAR_TRAIN_STEPS} steps, the command "
+        f"{total_s:.1f} s; launches {counts}; the first step's pixels 10e's: {same_picks}; its "
+        f"delta gradient against 10e's on the native checkpoint: max |error| "
+        f"{float(err.max()):.3e} of {scale:.3e} (tolerance {TUNE_GRAD_TOL[0]} of it + "
+        f"{TUNE_GRAD_TOL[1]} relative)")
+    if counts != want or not same_picks or scale == 0 or \
+            bool((err > TUNE_GRAD_TOL[0] * scale + TUNE_GRAD_TOL[1] * ref.abs()).any()) or \
+            not np.isfinite(np.load(os.path.join(exp_dir, "tuned_poses.npy"))).all():
+        raise AssertionError("[11c] tune_pose from the .tar: launches, pixels or gradient")
+    return [counts]
+
+
+def phase_serve(tmp: pathlib.Path, card: str, lego_file: str) -> list:
+    """Phase 11f: ``tools/serve.py``'s ``RenderService`` over 9a's lego
+    checkpoint and over 11a's ``lego.tar``, served on localhost: ``/health``
+    and ``/meta`` (the checkpoint's family, step and box centre), and
+    ``/render`` at ``SERVE_POSES`` of ``SERVE_W`` x ``SERVE_H``, each PNG
+    decoded equal to ``to8b`` of ``render_image`` of the same pose. Prints
+    ms per request. Returns [the requests' launch counts]."""
+    import threading
+    import urllib.request
+    from http.server import HTTPServer
+
+    import numpy as np
+    from PIL import Image
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data.synthetic import look_at_pose
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.render import renderer
+    from unboundednerfpytorch_tpu_torch.tools import serve
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.utils import metrics as M
+
+    lego = loader.load_config(lego_file)
+    native = os.path.join(lego.basedir, lego.expname, "fine_last")
+    meta = json.load(open(os.path.join(native, "meta.json")))
+    lo, hi = (np.asarray(meta["model_kwargs"][k], np.float64) for k in ("xyz_min", "xyz_max"))
+    reset_counts()
+    total = {}
+    for label, path in (("fine_last", native), ("lego.tar", str(tmp / "lego.tar"))):
+        t0 = time.perf_counter()
+        service = serve.RenderService(path, device="cuda")
+        start_s = time.perf_counter() - t0
+        srv = HTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+        port = srv.server_address[1]
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+
+        def get(path):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as r:
+                return r.read()
+
+        try:
+            health, got_meta = json.loads(get("/health")), json.loads(get("/meta"))
+            if health.pop("status") != "ok" or health != got_meta or \
+                    (got_meta["family"], got_meta["step"]) != ("dvgo", meta["global_step"]) or \
+                    not np.allclose(got_meta["scene_center"], (lo + hi) / 2, atol=1e-6):
+                raise AssertionError(f"[11f] {label}: /health {health}, /meta {got_meta}")
+            fwd = loop.make_forward(service.mcfg, service.render_kwargs, cache=service.cache)
+            ms = []
+            for theta, phi in SERVE_POSES:
+                before = dict(build.LAUNCHES)
+                t0 = time.perf_counter()
+                png = get(f"/render?theta={theta}&phi={phi}&w={SERVE_W}&h={SERVE_H}")
+                ms.append((time.perf_counter() - t0) * 1e3)
+                for k, v in launches_since(before).items():
+                    total[k] = total.get(k, 0) + v
+                got = np.asarray(Image.open(io.BytesIO(png)))
+                th, ph = np.radians(theta), np.radians(phi)
+                center = np.asarray(got_meta["scene_center"])
+                pos = center + 1.2 * got_meta["scene_radius"] * np.array(
+                    [np.cos(ph) * np.cos(th), np.cos(ph) * np.sin(th), np.sin(ph)])
+                K = np.array([[1.2 * SERVE_W, 0, SERVE_W / 2], [0, 1.2 * SERVE_W, SERVE_H / 2],
+                              [0, 0, 1]], np.float32)
+                rgb, _, _ = renderer.render_image(
+                    lambda ro, rd, vd: fwd(service.params, ro, rd, vd, None), SERVE_H, SERVE_W,
+                    K, look_at_pose(pos, center)[:3, :4], device="cuda")
+                if got.shape != (SERVE_H, SERVE_W, 3) or not np.array_equal(got, M.to8b(rgb)) \
+                        or got.std() == 0:
+                    raise AssertionError(f"[11f] {label}: /render at ({theta}, {phi}) is not "
+                                         f"render_image's view")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join()
+        log(f"[11f] RenderService over {label} on {card}: loaded with its render cache in "
+            f"{start_s:.2f} s; /meta {got_meta}; /render of {SERVE_W}x{SERVE_H} at "
+            f"{list(SERVE_POSES)}: {[round(t, 1) for t in ms]} ms per request, each PNG equal "
+            f"to render_image's view")
+        del service
+    want = {"march_forward": 2 * len(SERVE_POSES) * -(-SERVE_W * SERVE_H // RENDER_CHUNK)}
+    if total != want:
+        raise AssertionError(f"[11f] the requests launched {total}, want {want}")
+    return [total]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -3915,13 +4424,16 @@ def main(argv=None) -> int:
     floor = launch_floor_ms()
     log(f"[3] launch floor: an empty <<<1, 32>>> kernel takes {floor:.5f} ms a launch "
         f"({MANY_LAUNCHES} launches in one CUDA graph between one pair of events)")
-    seconds = {}
+    seconds, written = {}, {}
+    written_start = written_gib()
 
     def timed(phase, fn, *fn_args):
-        t0 = time.time()
+        t0, w0 = time.time(), written_gib()
         out = fn(*fn_args)
         torch.cuda.empty_cache()
         seconds[phase] = time.time() - t0
+        if w0 is not None:
+            written[phase] = written_gib() - w0
         return out
 
     seconds["1-2"] = time.time() - t_start
@@ -3960,8 +4472,10 @@ def main(argv=None) -> int:
             path_counts = [timed("4", phase_train, cfg, args.steps, data, args.profile,
                                  exp_dir, card, tv_shapes)]
             timed("4b", phase_boundary, cfg, card)
+            style = tmp / "style" / "0.jpg"
+            style_image(style)
             path_counts.append(timed("5", phase_render, cfg, data, exp_dir, cfg_file,
-                                     args.profile))
+                                     args.profile, style))
             path_counts += timed("6a", phase_cli_360, cfg_file, card, len(data["i_test"]))
             path_counts += timed("6b", phase_cli_truck, tmp, card)
             path_counts += timed("7a", phase_cli_dcvgo, tmp, card)
@@ -3982,13 +4496,26 @@ def main(argv=None) -> int:
             path_counts += timed("10c", phase_ship, tmp, card, lego_file, phase10)
             path_counts += timed("10d", phase_madoka, tmp, card, phase10)
             path_counts += timed("10e", phase_tune_pose, tmp, card, phase10)
+            # phase 11: reference .tar checkpoints, 9a's panel and the
+            # server (11g is phase 5's render); 11h holds the kernels at the
+            # shapes 11a and 11c give
+            phase11 = {}
+            path_counts += timed("11a,e", phase_tar_cli, tmp, card, lego_file, phase11)
+            path_counts += timed("11b", phase_tar_in_memory, exp_dir, data, cfg, card)
+            path_counts += timed("11c", phase_tar_tune, tmp, card, phase11)
+            path_counts += timed("11f", phase_serve, tmp, card, lego_file)
     seen = set()
     timed("9c", phase_dvgo_kernels, gen, kernels,
           {"9a lego.py": lego_shapes, "9b Truck_lg.py": truck_lg_shapes}, floor,
           ("9a lego.py", "9b Truck_lg.py"), seen)
     timed("10f", phase_dvgo_kernels, gen, kernels, phase10, floor, ("10b teddybear.py",), seen)
+    timed("11h", phase_dvgo_kernels, gen, kernels, phase11, floor, (), seen)
     log(f"seconds by phase: { {k: round(v, 1) for k, v in seconds.items()} }, in all "
         f"{time.time() - t_start:.1f}")
+    if written:
+        log(f"GiB written by phase (the process's write calls, /proc/self/io wchar): "
+            f"{ {k: round(v, 3) for k, v in written.items() if v >= 0.001} }, in all "
+            f"{written_gib() - written_start:.2f}")
     # a kernel's launches: those of every path that ran it, each path counted
     # from 0 just before it was driven to just after
     for k in kernels:
@@ -4003,7 +4530,9 @@ def main(argv=None) -> int:
         f"{path_counts[17:19]}, 9b Truck_lg train {path_counts[19]}, 10a linemod train and "
         f"render {path_counts[20:22]}, 10b co3d {path_counts[22:24]}, 10c ship.tensorf "
         f"{path_counts[24:26]}, 10d Madoka train {path_counts[26]}, 10e tune_pose, the "
-        f"recovery's model and the recovery {path_counts[27:30]}, probes {probe_counts}")
+        f"recovery's model and the recovery {path_counts[27:30]}, 11a the .tar's render, "
+        f"train and render {path_counts[30:33]}, 11b {path_counts[33]}, 11c "
+        f"{path_counts[34]}, 11f {path_counts[35]}, probes {probe_counts}")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

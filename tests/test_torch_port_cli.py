@@ -15,7 +15,8 @@ The other families through the same command line: ``train`` then the render
 of the test views for ``nerf_unbounded/bicycle.py`` (DCVGO, 24^3 voxels) and
 ``llff/fern.py`` (DMPIGO on NDC rays, 20^3 voxels, ``mpi_depth`` 16) on
 written scenes. A checkpoint save killed at any point leaves the previous
-checkpoint whole, and a non-zero ``fine_train.i_panel`` is refused.
+checkpoint whole, and a non-zero ``fine_train.i_panel`` writes the held-out
+panels.
 """
 
 import json
@@ -119,9 +120,12 @@ def test_render_export_and_trace_programs(trained, capsys, monkeypatch):
     assert np.asarray(json.load(open(exp_dir / "render_poses.json"))).shape == (120, 3, 4)
 
 
-@pytest.mark.parametrize("program", sorted(cli.REFUSED_PROGRAMS))
+@pytest.mark.parametrize("program", ["sfm"])
 def test_programs_not_ported_are_refused(program):
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+    """Every program of the JAX command line is ported now (``sfm`` last): it
+    reads its config first."""
+    assert not hasattr(cli, "REFUSED_PROGRAMS")
+    with pytest.raises(FileNotFoundError, match="unused.py"):
         cli.main(["--config", "unused.py", "--program", program], device="cpu")
 
 
@@ -278,10 +282,19 @@ def test_the_last_format_still_loads(tmp_path):
     assert step == opt["step"] == 3 and float(params.density.grid.detach().min()) == 1.0
 
 
-def test_i_panel_is_refused(trained, tmp_path):
-    cfg, _ = trained
-    text = pathlib.Path(cfg).read_text() + (
-        "fine_train = dict(N_iters=2, N_rand=64, pg_scale=[], i_panel=100)\n")
-    (tmp_path / "panel.py").write_text(text.replace("expname = 'tiny'", "expname = 'panel'"))
-    with pytest.raises(NotImplementedError, match="i_panel.*A17"):
-        cli.main(["--config", str(tmp_path / "panel.py")], device="cpu")
+def test_i_panel_is_refused(tmp_path):
+    """Ported since: a non-zero ``fine_train.i_panel`` writes a held-out panel
+    every ``i_panel`` steps and at the last step; here through ``fern.py``
+    (DMPIGO on NDC rays, whose flag the panel's render takes)."""
+    data = synthetic.forward_facing_scene(9, 12, 16, seed=0)
+    scene = synthetic.write_llff_scene(str(tmp_path / "scene"), data, factor=4, bounds=(2.5, 9.0))
+    cfg = _family_config(tmp_path / "cfg.py", "llff/fern.py", scene, tmp_path / "logs", 20**3,
+                         ", mpi_depth=16")
+    with open(cfg, "a") as f:
+        f.write("fine_train = dict(N_iters=3, N_rand=64, pg_scale=[], i_panel=2)\n")
+    assert cli.main(["--config", cfg], device="cpu") == 0
+    panels = tmp_path / "logs" / "tiny" / "panels"
+    records = [json.loads(line) for line in open(panels / "panels.jsonl")]
+    assert [(r["stage"], r["step"]) for r in records] == [("fine", 2), ("fine", 3)]
+    assert sorted(os.listdir(panels)) == ["fine_000002.png", "fine_000003.png", "panels.jsonl"]
+    assert png.read_png(str(panels / "fine_000003.png")).shape == (12, 4 * 16, 3)

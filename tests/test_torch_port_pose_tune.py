@@ -7,7 +7,9 @@ the same pixel picks through the DVGO forward and the DCVGO one (random
 grids of about 20^3, carried from JAX by ``convert``), where the gradient
 reaches the deltas through the sample points, their interpolation weights
 and the view directions; and a recovery of perturbed poses on a scene the
-port trained, as ``tests/test_pose_tune.py`` does for the JAX package.
+port trained, as ``tests/test_pose_tune.py`` does for the JAX package. The
+program resolves its checkpoint as the JAX one does (``--ft_path``, a
+reference ``.tar`` included; a merged block checkpoint is refused).
 
 Tolerances: rotations to 1e-6 (scipy's to 1e-5), poses and rays to 1e-6;
 the loss to 1e-5 relative; the delta gradient to 1e-3 of its largest
@@ -19,6 +21,7 @@ rotation and the translation errors.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -290,3 +293,43 @@ def test_the_recovery_perturbation_stays_in_its_ranges():
         assert 1.0 - 1e-6 <= ang <= 3.0 + 1e-6 and 0.03 - 1e-9 <= dist <= 0.09 + 1e-9
         np.testing.assert_allclose(start[k, :, :3].T @ start[k, :, :3], np.eye(3), atol=1e-6)
     assert pr.pose_errors(true, true) == (0.0, 0.0)
+
+
+def test_tune_pose_resolves_its_checkpoint_as_the_jax_program(tmp_path):
+    """Fault C1, repaired: ``--ft_path`` wins; without it a merged block
+    checkpoint beside ``fine_last`` (which the JAX program prefers) is
+    refused naming ROADMAP A14, never passed over for ``fine_last``; a
+    reference ``.tar`` tunes, the scene config's render knobs laid over it."""
+    import types
+
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+    from unboundednerfpytorch_tpu_torch.utils import reference_import as ri
+
+    _, mcfg, _ = loop.build_model(ExpConfig(), ModelRenderConfig(**MODEL_KW),
+                                  TrainStageConfig(pg_scale=()), XYZ_MIN, XYZ_MAX,
+                                  torch.Generator().manual_seed(0), "cpu")
+    params = loop.FAMILIES["dvgo"].create(mcfg, torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        params.density.grid.normal_(-1.0, 3.0, generator=torch.Generator().manual_seed(2))
+    ckpt.save_model(str(tmp_path / "fine_last"), "dvgo", mcfg, params, global_step=4)
+    os.makedirs(tmp_path / "fine_last_merged")
+    (tmp_path / "fine_last_merged" / "meta.json").write_text("{}")
+    images, poses, Ks, _ = views(n=2)
+    data = {"i_train": np.arange(2), "images": images, "poses": poses, "Ks": Ks, "near": NEAR,
+            "far": 6.0}
+    cfg = ExpConfig(fine_model_and_render=ModelRenderConfig(stepsize=STEPSIZE),
+                    fine_train=TrainStageConfig(N_rand=64))
+    args = types.SimpleNamespace(tune_steps=1, tune_lr=1e-3)
+    with pytest.raises(NotImplementedError, match="fine_last_merged.*A14"):
+        pt.run_tune_pose(args, cfg, data, str(tmp_path), device="cpu", log_fn=lambda _: None)
+    ri.export_checkpoint(str(tmp_path / "fine_last"), str(tmp_path / "run.tar"))
+    for ft_path in (str(tmp_path / "run.tar"), str(tmp_path / "fine_last")):
+        args.ft_path = ft_path
+        out = pt.run_tune_pose(args, cfg, data, str(tmp_path), device="cpu",
+                               log_fn=lambda _: None)
+        tuned = np.load(out)
+        assert tuned.shape == (2, 3, 4) and np.isfinite(tuned).all()
+        assert 0 < np.abs(tuned - poses).max() < 0.01  # one step of lr 1e-3
+    args.ft_path = str(tmp_path / "missing.tar")
+    with pytest.raises(FileNotFoundError, match="missing.tar"):
+        pt.run_tune_pose(args, cfg, data, str(tmp_path), device="cpu", log_fn=lambda _: None)

@@ -639,9 +639,24 @@ def test_run_render_ft_path_and_refusals(trained, tmp_path, monkeypatch):
     out = render.run_render(ns(chunk=CHUNK, ft_path=os.path.join(exp_dir, "fine_last")), cfg,
                             data, str(tmp_path), device="cpu", log_fn=lambda _: None)
     assert out["test"]["rgbs"].shape[0] == 2
-    for option in ("auto_budget", "constant_baked", "style_root"):
+    for option in ("auto_budget", "constant_baked"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render.run_render(ns(**{option: "x"}), cfg, data, exp_dir, device="cpu")
+    # --style_root is ported: the test views take the style image's colours
+    style = np.random.default_rng(1).random((20, 30, 3)) * np.array([0.3, 0.6, 0.9])
+    from PIL import Image
+
+    Image.fromarray((style * 255).astype(np.uint8)).save(tmp_path / "7.jpg", quality=95)
+    out = render.run_render(ns(chunk=CHUNK, style_root=str(tmp_path), style_id="7",
+                               ft_path=os.path.join(exp_dir, "fine_last")), cfg, data,
+                            str(tmp_path), device="cpu", log_fn=lambda _: None)
+    from unboundednerfpytorch_tpu_torch.render import arf
+
+    target = arf.load_style_img(str(tmp_path / "7.jpg"), 16, 24).reshape(-1, 3)
+    got = out["test"]["rgbs"].reshape(-1, 3)
+    np.testing.assert_allclose(got.mean(0), target.mean(0), atol=0.02)
+    assert out["test"]["color_tf"].shape == (4, 4)
+    assert (tmp_path / "style_image.png").is_file()
     os.makedirs(tmp_path / "fine_last_0")
     (tmp_path / "fine_last_0" / "meta.json").write_text("{}")
     with pytest.raises(NotImplementedError, match="block"):

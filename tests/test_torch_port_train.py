@@ -174,7 +174,8 @@ def test_port_imports_nothing_of_jax():
     assert {f"unboundednerfpytorch_tpu_torch/{m}.py" for m in (
         "__main__", "cli/main", "data/common", "data/llff", "data/loaders", "data/png",
         "utils/checkpoint", "models/dcvgo", "models/dmpigo", "ops/cuda/ub360",
-        "probes/adam_memory")} <= names
+        "probes/adam_memory", "data/colmap", "data/cameras", "utils/reference_import",
+        "utils/observability", "render/arf", "tools/serve")} <= names
     bad = []
     for f in files:
         for mod in _imported_modules(f):

@@ -7,11 +7,15 @@ experiment directory, and program dispatch. Ported programs: ``train`` (then
 ``render``, as the JAX command line does), ``render`` (or ``--render_only``),
 ``export_bbox``, ``export_coarse``, ``export_baked``, ``gen_trace``,
 ``tune_pose`` (camera-pose refinement against the trained model,
-``train/pose_tune.py``) and ``linemod_eval`` (the LINEMOD pose metrics of
+``train/pose_tune.py``), ``linemod_eval`` (the LINEMOD pose metrics of
 ``--pose_preds`` against a sequence's object poses, or of the ground truth
-against itself, which scores 1.0). The program ``sfm`` and the options
-``--num_per_block`` > 0, ``--block_parallel`` and ``--grid_parallel`` > 1
-raise ``NotImplementedError`` naming the ROADMAP item they wait for.
+against itself, which scores 1.0) and ``sfm`` (COLMAP on
+``<datadir>/images``, skipped where ``sparse/0`` is whole, then
+``poses_bounds.npy``; it runs before the data load, which needs it, and on
+no device). ``--ft_path`` may name a reference ``.tar`` checkpoint in
+``train``, ``render`` and ``tune_pose`` (``utils/reference_import.py``). The
+options ``--num_per_block`` > 0, ``--block_parallel`` and ``--grid_parallel``
+> 1 raise ``NotImplementedError`` naming the ROADMAP item they wait for.
 ``--sample_num`` and ``--diffuse`` reach the waymo and mega loaders, as in
 the JAX command line.
 
@@ -105,7 +109,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="periodic checkpoint cadence in steps (0 = stage end only)")
     p.add_argument("--dump_images", action="store_true")
     p.add_argument("--style_root", default="",
-                   help="ARF style image dir (stylized rendering; refused: not ported)")
+                   help="ARF style image dir (stylized rendering)")
     p.add_argument("--style_id", default="0")
     p.add_argument("--bake_render", action="store_true",
                    help="bake the Fourier banks into a single-bank grid "
@@ -136,11 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# programs and options of the JAX command line that wait for a later slice of the
-# port, each with the ROADMAP item it waits for
-REFUSED_PROGRAMS = {
-    "sfm": "the COLMAP run, data/colmap.py (ROADMAP A15.7)",
-}
+# options of the JAX command line that wait for a later slice of the port, each
+# with the ROADMAP item it waits for
 REFUSED_OPTIONS = {
     "num_per_block": (lambda v: v > 0, "block training and merge_blocks (ROADMAP A14)"),
     "block_parallel": (bool, "block-parallel training (ROADMAP A14)"),
@@ -154,9 +155,6 @@ def main(argv=None, device=None) -> int:
     args = build_parser().parse_args(argv)
     if args.render_only:
         args.program = "render"
-    if args.program in REFUSED_PROGRAMS:
-        raise NotImplementedError(f"--program {args.program} is not ported yet: "
-                                  f"{REFUSED_PROGRAMS[args.program]}")
     for name, (refused, why) in REFUSED_OPTIONS.items():
         if refused(getattr(args, name)):
             raise NotImplementedError(f"--{name} is not ported yet: {why}")
@@ -165,9 +163,17 @@ def main(argv=None, device=None) -> int:
     from unboundednerfpytorch_tpu_torch.data.common import load_everything
     from unboundednerfpytorch_tpu_torch.device import resolve_device
 
-    dev = resolve_device(device)
     cfg = load_config(args.config, visualize_poses=args.visualize_poses)
     np.random.seed(args.seed)
+    if args.program == "sfm":
+        # custom-scene reconstruction (imgs2poses.py): COLMAP on the capture's
+        # images/, then poses_bounds.npy, which load_everything needs
+        from unboundednerfpytorch_tpu_torch.data import colmap
+
+        colmap.gen_poses(cfg.data.datadir)
+        print(f"sfm: wrote {os.path.join(cfg.data.datadir, 'poses_bounds.npy')}")
+        return 0
+    dev = resolve_device(device)
     data_dict = load_everything(cfg, sample_num=args.sample_num, diffuse=args.diffuse)
 
     exp_dir = os.path.join(cfg.basedir, cfg.expname)

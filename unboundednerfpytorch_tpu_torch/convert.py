@@ -68,12 +68,15 @@ from unboundednerfpytorch_tpu_torch.fields.grids import (
 )
 from unboundednerfpytorch_tpu_torch.fields.mlp import MLP
 from unboundednerfpytorch_tpu_torch.models import dcvgo, dmpigo, dvgo
+from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
 from unboundednerfpytorch_tpu_torch.models.fourier_grid import (
     FourierGridConfig, FourierGridParams,
 )
 
 CONFIGS = {"FourierGrid": FourierGridConfig, "dvgo": dvgo.DVGOConfig,
            "dcvgo": dcvgo.DCVGOConfig, "dmpigo": dmpigo.DMPIGOConfig}
+# the model module of each family (create, forward, build_render_cache, ...)
+FAMILIES = {"FourierGrid": fg, "dvgo": dvgo, "dcvgo": dcvgo, "dmpigo": dmpigo}
 
 
 def _tensor(a, device) -> torch.Tensor:

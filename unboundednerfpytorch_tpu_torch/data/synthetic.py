@@ -21,6 +21,9 @@ sequence in the LINEMOD (pvnet) and CO3D layouts. With ``alpha``,
 (the NeRF-synthetic and NSVF captures, composited on white by the loader).
 :func:`cluster_scene` lays out the four textured spheres of the JAX
 package's unbounded test scene on white, for the pose tuner's recovery.
+:func:`write_colmap_scene` writes a capture with the COLMAP sparse model of
+its known cameras and of surface points (:func:`forward_facing_points`), for
+``--program sfm`` and the COLMAP tooling.
 """
 
 from __future__ import annotations
@@ -768,3 +771,119 @@ def write_co3d_scene(basedir: str, sequence_name: str = "34_1479_4753", n_frames
         json.dump({"train_known": known, "test_unseen": unseen}, f)
     return {"datadir": seq_dir, "annot_path": annot_path, "split_path": split_path,
             "sequence_name": sequence_name}
+
+
+def forward_facing_points(n_points: int = 4000, *, seed: int = 0, ball_depth: float = 4.0,
+                          ball_radius: float = 1.0, wall_depth: float = 8.0,
+                          wall_half: tuple = (7.0, 4.5)) -> tuple:
+    """Surface points of :func:`forward_facing_scene`'s geometry, as a
+    sparse reconstruction would hold them: (xyz [P, 3] float64, rgb [P, 3]
+    uint8). Half lie on the ball's half facing the cameras, half on the wall
+    over ``wall_half`` about the z axis (what the views see of it)."""
+    rng = np.random.default_rng(seed)
+    n_ball = n_points // 2
+    d = rng.standard_normal((n_ball, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d[:, 2] = np.abs(d[:, 2])  # the half towards the cameras at z = 0
+    ball = np.array([0.0, 0.0, -ball_depth]) + ball_radius * d
+    wall = np.stack([rng.uniform(-wall_half[0], wall_half[0], n_points - n_ball),
+                     rng.uniform(-wall_half[1], wall_half[1], n_points - n_ball),
+                     np.full(n_points - n_ball, -wall_depth)], -1)
+    xyz = np.concatenate([ball, wall])
+    return xyz, rng.integers(0, 256, (n_points, 3), dtype=np.uint8)
+
+
+def _rotmat2qvec(R: np.ndarray) -> np.ndarray:
+    """COLMAP's unit quaternion (w, x, y, z) of a rotation matrix
+    (``colmap_read_model.py::rotmat2qvec``)."""
+    Rxx, Ryx, Rzx, Rxy, Ryy, Rzy, Rxz, Ryz, Rzz = R.flat
+    K = np.array([[Rxx - Ryy - Rzz, 0, 0, 0],
+                  [Ryx + Rxy, Ryy - Rxx - Rzz, 0, 0],
+                  [Rzx + Rxz, Rzy + Ryz, Rzz - Rxx - Ryy, 0],
+                  [Ryz - Rzy, Rzx - Rxz, Rxy - Ryx, Rxx + Ryy + Rzz]]) / 3.0
+    vals, vecs = np.linalg.eigh(K)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return -q if q[0] < 0 else q
+
+
+def write_colmap_scene(basedir: str, data: dict, points, factor: int = 1,
+                       text: bool = False) -> str:
+    """Write a data_dict's views (every view, in order, named
+    ``img_000.png`` ...) with a whole COLMAP sparse model ``sparse/0`` of
+    their known cameras, as COLMAP's mapper would leave it: ``cameras.bin``
+    (one PINHOLE camera shared by every view), ``images.bin`` (each view's
+    world-to-camera rotation as a quaternion and its translation, in COLMAP's
+    camera frame: x right, y down, looking along +z) and ``points3D.bin``
+    (``points`` = (xyz [P, 3], rgb [P, 3] uint8), each observed by every view
+    it projects into, in front of the camera). ``text`` writes the text
+    model (``cameras.txt``, ``images.txt``, ``points3D.txt``) instead.
+
+    The camera record describes the full resolution, ``factor`` times the
+    views'. The views go to ``images/`` where ``factor`` is 1, else to
+    ``images_{factor}/``, the LLFF layout's downsampled copy that the
+    ``llff`` loader reads as it is (the full-resolution ``images/`` is then
+    not written, as :func:`write_llff_scene` does). ``gen_poses`` finds the
+    model whole and runs no COLMAP."""
+    import struct
+
+    from unboundednerfpytorch_tpu_torch.data.png import write_png
+
+    xyz, rgb = (np.asarray(a) for a in points)
+    outdir = os.path.join(basedir, "images" if factor == 1 else f"images_{factor}")
+    sparse = os.path.join(basedir, "sparse", "0")
+    os.makedirs(outdir, exist_ok=True)
+    os.makedirs(sparse, exist_ok=True)
+    H, W = (int(v) * factor for v in np.asarray(data["HW"])[0])
+    K = np.asarray(data["Ks"][0], np.float64)
+    params = [float(K[0, 0] * factor), float(K[1, 1] * factor), float(K[0, 2] * factor),
+              float(K[1, 2] * factor)]
+    views, tracks = [], [[] for _ in range(len(xyz))]
+    for i, (img, pose) in enumerate(zip(data["images"], data["poses"])):
+        name = f"img_{i:03d}.png"
+        write_png(os.path.join(outdir, name), _to8(img))
+        w2c = np.linalg.inv(_c2w(pose, opencv=True))
+        cam = xyz @ w2c[:3, :3].T + w2c[:3, 3]
+        z = np.where(cam[:, 2] > 0, cam[:, 2], 1.0)
+        uv = np.stack([params[0] * cam[:, 0] / z + params[2],
+                       params[1] * cam[:, 1] / z + params[3]], -1)
+        seen = np.flatnonzero((cam[:, 2] > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < W)
+                              & (uv[:, 1] >= 0) & (uv[:, 1] < H))
+        for k, p in enumerate(seen):
+            tracks[p].append((i + 1, k))
+        views.append((i + 1, _rotmat2qvec(w2c[:3, :3]), w2c[:3, 3], name, uv[seen], seen + 1))
+    if text:
+        with open(os.path.join(sparse, "cameras.txt"), "w") as f:
+            f.write("# CAMERA_ID MODEL WIDTH HEIGHT PARAMS[]\n")
+            f.write(f"1 PINHOLE {W} {H} " + " ".join(repr(v) for v in params) + "\n")
+        with open(os.path.join(sparse, "images.txt"), "w") as f:
+            f.write("# IMAGE_ID QW QX QY QZ TX TY TZ CAMERA_ID NAME\n# POINTS2D[] as (X, Y, "
+                    "POINT3D_ID)\n")
+            for image_id, q, t, name, uv, ids in views:
+                f.write(f"{image_id} " + " ".join(repr(float(v)) for v in (*q, *t))
+                        + f" 1 {name}\n")
+                f.write(" ".join(f"{u!r} {v!r} {p}" for (u, v), p in zip(uv.tolist(), ids))
+                        + "\n")
+        with open(os.path.join(sparse, "points3D.txt"), "w") as f:
+            f.write("# POINT3D_ID X Y Z R G B ERROR TRACK[] as (IMAGE_ID, POINT2D_IDX)\n")
+            for p, (pt, c, track) in enumerate(zip(xyz.tolist(), rgb.tolist(), tracks)):
+                f.write(f"{p + 1} " + " ".join(repr(v) for v in pt) + " "
+                        + " ".join(str(v) for v in c) + " 0.5 "
+                        + " ".join(f"{a} {b}" for a, b in track) + "\n")
+        return basedir
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<QiiQQ4d", 1, 1, 1, W, H, *params))  # model 1: PINHOLE
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(views)))
+        for image_id, q, t, name, uv, ids in views:
+            f.write(struct.pack("<i7di", image_id, *q, *t, 1) + name.encode() + b"\x00")
+            f.write(struct.pack("<Q", len(ids)))
+            for (u, v), p in zip(uv.tolist(), ids.tolist()):
+                f.write(struct.pack("<ddq", u, v, p))
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)))
+        for p, (pt, c, track) in enumerate(zip(xyz.tolist(), rgb.tolist(), tracks)):
+            f.write(struct.pack("<Q3d3Bd", p + 1, *pt, *c, 0.5))
+            f.write(struct.pack("<Q", len(track)))
+            for a, b in track:
+                f.write(struct.pack("<ii", a, b))
+    return basedir

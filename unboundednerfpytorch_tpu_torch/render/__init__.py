@@ -1,8 +1,10 @@
 """Rendering and evaluation: ``run_render`` and the video writer.
 
 Counterpart of ``unboundednerfpytorch_tpu/render/__init__.py`` for the
-FourierGrid, DVGO, DCVGO and DMPIGO families, with ``export_coarse_geometry``.
-One departure: a view whose index
+FourierGrid, DVGO, DCVGO and DMPIGO families, with ``export_coarse_geometry``,
+a reference ``.tar`` as ``ft_path`` (the scene config's render knobs laid
+over it, ``utils.reference_import.overlay_render_knobs``) and the ARF
+stylization of ``--style_root`` (``render/arf.py``). One departure: a view whose index
 lies past the end of ``images`` (the generated test trajectories of the
 waymo and mega loaders) is rendered without ground truth and gets no
 metrics, where the JAX package's ``images[i_test]`` raises an
@@ -49,7 +51,6 @@ _NOT_PORTED = {
     "auto_budget": "suggest_budgets and the hierarchical probe (ROADMAP A16)",
     "constant_baked": "no counterpart: tables as compile-time constants are an XLA "
                       "device (ROADMAP A18b records the decision)",
-    "style_root": "ARF stylization (ROADMAP A18b)",
 }
 
 
@@ -70,7 +71,8 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
     (``render_train``, ``render_test``, ``render_video``, ``dump_images``,
     ``bake_render``, ``bake_scale``, ``eval_lpips``, ``eval_lpips_vgg``,
     ``render_video_factor``, ``render_video_flipy``, ``render_video_rot90``,
-    ``ft_path``, ``chunk``); absent ones take the defaults.
+    ``ft_path``, ``chunk``, ``style_root``, ``style_id``); absent ones take the
+    defaults.
 
     ``device``: ``None`` -> ``cuda`` (raises without a GPU); ``"cpu"`` for the
     plain path.
@@ -96,6 +98,12 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
             "block checkpoints (run_render_blocks, merge_blocks) are not ported "
             "(ROADMAP A14)")
     family, mcfg, params, _, _ = ckpt.load_model(path, device=dev, with_opt_state=False)
+    if str(path).endswith(".tar"):
+        # reference checkpoints carry no render-time knobs: the scene
+        # config's values (stepsize, t_boundary, budgets) win
+        from unboundednerfpytorch_tpu_torch.utils.reference_import import overlay_render_knobs
+
+        mcfg = overlay_render_knobs(mcfg, cfg.fine_model_and_render)
     params.requires_grad_(False)
     render_kwargs = {
         "near": float(data_dict["near"]),
@@ -117,6 +125,14 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
     fwd_core = make_forward(mcfg, render_kwargs)
     fwd = lambda aux, ro, rd, vd: fwd_core(aux[0], ro, rd, vd, None, cache=aux[1])
     aux = (params, cache)
+
+    # optional ARF stylization of the render set (run_render.py:119-122,170-172)
+    stylizer = None
+    if getattr(args, "style_root", ""):
+        from unboundednerfpytorch_tpu_torch.render.arf import ARF
+
+        H0, W0 = (int(v) for v in np.asarray(data_dict["HW"])[0])
+        stylizer = ARF(args.style_root, getattr(args, "style_id", 0), H0, W0, device=dev)
 
     splits = []
     if getattr(args, "render_train", False):
@@ -157,8 +173,11 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
             render_video_flipy=getattr(args, "render_video_flipy", False) if is_video else False,
             render_video_rot90=getattr(args, "render_video_rot90", 0) if is_video else 0,
         )
-        results[name] = out
         rgbs = out["rgbs"]
+        if stylizer is not None and len(rgbs):
+            rgbs, color_tf = stylizer.match_colors_for_image_set(rgbs, exp_dir)
+            out = {**out, "rgbs": rgbs, "color_tf": color_tf}
+        results[name] = out
         if getattr(args, "dump_images", False):
             outdir = os.path.join(exp_dir, f"render_{name}")
             os.makedirs(outdir, exist_ok=True)

@@ -31,8 +31,18 @@ checkpoint stands at its last step trains nothing and builds no ray store.
 emits at each logged step, and the record of each ``pg_scale`` boundary.
 ``render.run_render`` loads ``fine_last``.
 
+With ``fine_train.i_panel`` (or ``coarse_train.i_panel``) the stage renders
+the first held-out view that has an image through the current model every
+``i_panel`` steps and at its last step, and writes the
+``[GT | pred | err | depth]`` panel and its PSNR
+(``utils/observability.py``) under ``<exp_dir>/panels/``. The panel renders
+with the data's ray flags (``ndc``, ``inverse_y``, ``flip_x``, ``flip_y``),
+which the JAX loop does not pass (ROADMAP C). A reference ``.tar`` as
+``ft_path`` resumes with fresh moments and the config's render knobs
+(``utils.reference_import.overlay_render_knobs``), as in the JAX package.
+
 Not ported yet, and refused rather than skipped: the two-stage training
-forward (``train_survivor_budget``) and the held-out panels of ``i_panel``.
+forward (``train_survivor_budget``).
 As in the JAX package, ``pervoxel_lr`` and the ``in_maskcache`` filter act
 on the DVGO family only (elsewhere the first is ignored and the second
 samples as ``flatten`` does), and ``maskout_near_cam_vox`` on the DVGO and
@@ -56,6 +66,7 @@ from unboundednerfpytorch_tpu_torch import convert
 from unboundednerfpytorch_tpu_torch.configs.schema import (
     ExpConfig, ModelRenderConfig, TrainStageConfig, normalize_fast_color_thres,
 )
+from unboundednerfpytorch_tpu_torch.convert import FAMILIES
 from unboundednerfpytorch_tpu_torch.device import resolve_device, seconds_since
 from unboundednerfpytorch_tpu_torch.models import dcvgo, dmpigo, dvgo
 from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
@@ -69,9 +80,6 @@ from unboundednerfpytorch_tpu_torch.train.step import (
 )
 from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 
-
-# the model module of each ported family
-FAMILIES = {"FourierGrid": fg, "dvgo": dvgo, "dcvgo": dcvgo, "dmpigo": dmpigo}
 # rays a call of the in_maskcache filter takes at a time
 FILTER_CHUNK = 65536
 
@@ -370,9 +378,6 @@ def scene_rep_reconstruction(
     n_iters = cfg_train.N_iters
     if cfg_train.ray_sampler not in ("flatten", "random", "in_maskcache"):
         raise ValueError(f"unknown ray_sampler {cfg_train.ray_sampler!r}")
-    if cfg_train.i_panel:
-        raise NotImplementedError("fine_train.i_panel (held-out panels during training) is "
-                                  "not ported yet (ROADMAP A17)")
 
     xyz_min = np.asarray(xyz_min, np.float64)
     xyz_max = np.asarray(xyz_max, np.float64)
@@ -397,6 +402,14 @@ def scene_rep_reconstruction(
         t0 = time.perf_counter()
         family, mcfg, params, start_step, opt_state = ckpt.load_model(
             reload_path, device=device, with_opt_state=not no_reload_optimizer)
+        if str(reload_path).endswith(".tar"):
+            # a reference checkpoint carries no render/train-time knobs: the
+            # scene config's values win
+            from unboundednerfpytorch_tpu_torch.utils.reference_import import (
+                overlay_render_knobs,
+            )
+
+            mcfg = overlay_render_knobs(mcfg, cfg_model)
         log_fn(f"{stage}: resumed from {reload_path} at step {start_step} "
                f"({'with' if opt_state else 'without'} the optimizer's state, "
                f"{time.perf_counter() - t0:.2f} s)")
@@ -494,6 +507,32 @@ def scene_rep_reconstruction(
         with open(os.path.join(exp_dir, f"{stage}_metrics.jsonl"), "a") as f:
             f.write(json.dumps(_jsonable(rec)) + "\n")
 
+    i_panel = int(cfg_train.i_panel)
+    n_images = len(data_dict["images"]) if data_dict.get("images") is not None else 0
+    panel_views = [int(i) for i in np.asarray(data_dict["i_test"]).reshape(-1) if i < n_images]
+    panel_kwargs = {k: v for k, v in render_kwargs.items() if k != "rand_bkgd"}
+
+    def write_eval_panel(mcfg_now, step_now: int) -> None:
+        """Render the first held-out view through the current model and
+        write its panel (the JAX loop's ``_write_eval_panel``)."""
+        from unboundednerfpytorch_tpu_torch.render.renderer import DEFAULT_CHUNK, render_image
+        from unboundednerfpytorch_tpu_torch.utils import observability
+
+        if not panel_views:
+            return
+        view = panel_views[0]
+        fwd = make_forward(mcfg_now, panel_kwargs)
+        H, W = (int(v) for v in np.asarray(data_dict["HW"])[view])
+        rgb, depth, bgmap = render_image(
+            lambda ro, rd, vd: fwd(state.params, ro, rd, vd, None), H, W,
+            np.asarray(data_dict["Ks"])[view], np.asarray(data_dict["poses"])[view][:3, :4],
+            ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
+            flip_y=cfg.data.flip_y, chunk=min(DEFAULT_CHUNK, H * W), device=device)
+        psnr = observability.record_panel(exp_dir, stage, step_now,
+                                          np.asarray(data_dict["images"][view]), rgb, depth,
+                                          bgmap)
+        log_fn(f"{stage} panel @ {step_now}: view {view} psnr {psnr:.2f}")
+
     # the lr decays after each update and returns to the base lr wherever the
     # optimizer is rebuilt: the decay is anchored at the last boundary
     lr_anchor = max([1] + [b for b in pg_scale if b <= start_step])
@@ -536,6 +575,9 @@ def scene_rep_reconstruction(
             if exp_dir is not None:
                 record({"step": global_step, "elapsed_s": elapsed,
                         **{k: v for k, v in metrics.items() if k != "pg_scale"}})
+        if i_panel and exp_dir is not None and (global_step % i_panel == 0
+                                                 or global_step == n_iters):
+            write_eval_panel(mcfg, global_step)
         if save_every and exp_dir is not None and global_step % save_every == 0 \
                 and global_step < n_iters:
             save(global_step)

@@ -1,1 +1,1 @@
-"""Metrics and checkpoints."""
+"""Metrics, checkpoints, the reference checkpoint import and the training panels."""

@@ -24,7 +24,8 @@ grids stored as float32 values) still load. Since format 2 a bfloat16 grid is
 stored as its 16-bit patterns (uint16), named with its dtype in
 ``meta.json``'s ``stored_dtypes``, and a float ``act_shift`` as float64.
 
-Not ported yet: ``merge_blocks`` and the import of reference ``.tar`` files.
+A reference ``.tar`` checkpoint loads through :func:`load_model` as well
+(``utils/reference_import.py``). Not ported yet: ``merge_blocks``.
 """
 
 from __future__ import annotations
@@ -188,9 +189,16 @@ def load_model(path: str, device="cpu", with_opt_state: bool = True):
     (family, cfg, params, global_step, opt_state), as the JAX package does;
     ``opt_state`` is None where the checkpoint holds none or
     ``with_opt_state`` is false (a render needs none), else a state for
-    ``MaskedAdam.load_state_dict`` whose moments are numpy arrays."""
+    ``MaskedAdam.load_state_dict`` whose moments are numpy arrays. A path to
+    a reference ``.tar`` file is imported transparently
+    (``utils/reference_import.py``), without the optimizer's state."""
     if os.path.isfile(path) and path.endswith(".tar"):
-        raise NotImplementedError("importing a reference .tar checkpoint is not ported yet")
+        # a reference checkpoint, converted in memory: --ft_path run.tar
+        # migrates a reference run; it carries no optimizer state
+        from unboundednerfpytorch_tpu_torch.utils.reference_import import import_checkpoint
+
+        family, cfg, params, step = import_checkpoint(path, device=device)
+        return family, cfg, params, step, None
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     family = meta["family"]
