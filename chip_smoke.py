@@ -218,13 +218,40 @@ Phases, each reported on its own line:
      (each PNG equal to ``render_image`` of its pose); 11g is phase 5's
      render with ``--style_root`` (colours that span three directions; the
      stylized set's colour mean and covariance the style image's); 11h
-     holds the kernels at the shapes 11a and 11c gave them.
+     holds the kernels at the shapes 11a and 11c gave them;
+ 12. FourierGrid's fast paths on phase 4's model as phase 5 left it (full
+     width, the scene imprinted, ``fast_color_thres`` 1e-4), writing no
+     checkpoint, each sub-phase printing one JSON line: 12a the hierarchical
+     probe (``probe_coarse_stride`` 8) on test view 0: with a candidate
+     group for every group its selection must equal the flat probe's on
+     every ray, with the automatic count each ray's must be a prefix of it
+     (the far tail truncated); the probe rows a ray and the view's ms with
+     either probe; 12d the adaptive render (``render_rays_adaptive``
+     through ``render_image``'s ``rays_fn``) against the two-stage cached
+     render of the same view: within ``ADAPTIVE_ATOL`` on every ray but those
+     with a sample on the other side of a threshold (counted), the live rays,
+     the bucket and ms/view; the layout: the view through the packed
+     single-stage tables and through the 8-corner gather
+     (``packed_gather=False``); 12c phase 5's command-line render with
+     ``--auto_budget``: the budgets, the occupancy, whether the hierarchical
+     probe came on, ms/view against phase 5's and the PSNR against the full
+     march (``AUTO_MIN_PSNR``); 12b one 2048-ray batch through the train step
+     with the single-stage and the two-stage forward (``train_survivor_budget``
+     48): the loss within 1e-4, every gradient by ``check_grad``; stage A's
+     time; then timed steps of each, with ``color_overflow_frac``; 12e
+     bicycle_single at full width with the coarse colour head, the view grid
+     (63^3, what ``num_voxels_viewdir`` 64^3 gives) and the embeddings, 3
+     steps each, the first two through the ``.tar`` format in memory, the
+     third's export refused; 12f holds the march kernels and masked Adam at
+     every shape phase 12 gave them ([2048, 48], the adaptive render's
+     [262144, 96], the view grid, the embeddings, the coarse head's grids)
+     and ``tv_add_grad`` at the coarse head's k0.
 
 ``--profile`` also traces the last train steps and one rendered view with
 ``torch.profiler`` and prints the device time by range and by kernel.
 ``--kernels-only`` stops after phase 3 and prints the kernel table without
 launch counts and without the last line (a quick check of a changed kernel).
-The kernel table's launches are those of phases 4 to 11 and of the probe run.
+The kernel table's launches are those of phases 4 to 12 and of the probe run.
 Near the end it prints the seconds and the GiB written (``/proc/self/io``) by
 phase: a chip call may write 45 GiB, deleted files included.
 
@@ -413,6 +440,24 @@ TAR_ATOL, TAR_FLIP_SHARE, TAR_TRAIN_STEPS = 1e-4, 1e-3, 3
 SERVE_POSES, SERVE_W, SERVE_H = ((0.0, -15.0), (120.0, 10.0), (240.0, 30.0)), 400, 300
 STYLE_H, STYLE_W, STYLE_MEAN, STYLE_STD = 600, 800, (0.45, 0.5, 0.55), 0.08
 ARF_MEAN_TOL, ARF_COV_REL, ARF_RANK_FLOOR = 1e-4, 0.01, 1e-6
+# phase 12: FourierGrid's fast paths on phase 4's model as phase 5 left it
+# (7 banks of 199^3 bf16, 96 of 664 samples, fast_color_thres 1e-4). 12a: the
+# hierarchical probe's coarse stride; 12d: the adaptive render's first
+# segment (the JAX default) and how near its view must come to the two-stage
+# render's, a ray with a flipped threshold excepted; 12c: the floor of the
+# --auto_budget render's PSNR against the full march (no budgets, no bake),
+# the bake's own floor, since the config bakes the density; 12b: the
+# survivor budget, batch and timed steps of the two-stage training forward;
+# 12e: the view grid's voxels (64^3), the embeddings' width, the steps and
+# the new groups' lrs (the grids' lr for the view grid)
+FAST_PROBE_STRIDE, ADAPTIVE_SEG, ADAPTIVE_ATOL = 8, 32, 1e-5
+AUTO_MIN_PSNR = BAKED_MIN_PSNR
+FAST_SURVIVORS, FAST_N_RAND, FAST_STEPS = 48, 2048, 5
+HEAD_VIEWDIR, HEAD_EMB_DIM, HEAD_STEPS = 64**3, 16, 3
+HEAD_LRATES = dict(lrate_vd=0.1, lrate_img_embeddings=0.01)
+# 12c's full march on every 4th ray of the view; 12e pickles a .tar dict
+# under this size (11b times the pickling of a 2.9 GB one)
+AUTO_PSNR_STRIDE, TAR_PICKLE_BYTES = 4, 1 << 30
 # kernel launches of a train step and of a render chunk, by family
 TRAIN_PER_STEP = {"tv_add_grad": 2, "march_forward": 1, "march_backward": 1}
 DCVGO_PER_STEP = {**TRAIN_PER_STEP, "cumdist_thres": 1}
@@ -1478,6 +1523,7 @@ def phase_render(cfg, data, exp_dir: str, cfg_file: str, profile: bool,
         if arr.shape[:3] != (n_views, H, W) or not np.isfinite(arr).all():
             raise AssertionError(f"rendered {name}: shape {arr.shape} or non-finite values")
     view_ms = float(np.median(out["seconds"][1:])) * 1e3
+    SHARED["5"] = {"view_ms": view_ms}
     log(f"[5] --program render: {n_views} views of {H}x{W} in {n_chunks} chunks of "
         f"{RENDER_CHUNK}, {total_s:.1f} s with the scene's load, the checkpoint's and the "
         f"cache build (run_render {spy.calls[0].seconds:.1f} s); ms/view "
@@ -4377,6 +4423,580 @@ def phase_serve(tmp: pathlib.Path, card: str, lego_file: str) -> list:
     return [total]
 
 
+# ---------------------------------------------------------------------------
+# phase 12: FourierGrid's fast paths on phase 4's model, as phase 5 left it
+
+
+def test_view_rays(data, cfg, idx: int):
+    """The flat rays (ro, rd, vd) of view ``idx`` on the card, with the
+    data's ray flags."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops import rays as ray_ops
+
+    Hv, Wv = (int(v) for v in np.asarray(data["HW"])[idx])
+    with torch.no_grad():
+        out = ray_ops.get_rays_of_a_view(
+            Hv, Wv, torch.as_tensor(np.asarray(data["Ks"])[idx], device="cuda"),
+            torch.as_tensor(np.asarray(data["poses"])[idx][:3, :4], device="cuda"),
+            inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x, flip_y=cfg.data.flip_y)
+    return [x.reshape(-1, 3) for x in out]
+
+
+def view_ms(render_one, repeats: int = 2) -> tuple:
+    """(median ms of ``repeats`` renders after a warm-up one, the last
+    render's (rgb, depth, alphainv_last))."""
+    import numpy as np
+
+    out = render_one()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = render_one()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def load_phase5(exp_dir: str):
+    """Phase 5's checkpoint (phase 4's model, the scene imprinted, the final
+    ``fast_color_thres``) on the card: (config, params without a grad)."""
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
+    _, mcfg, params, _, _ = ckpt.load_model(os.path.join(exp_dir, "fine_last"), device="cuda",
+                                            with_opt_state=False)
+    params.requires_grad_(False)
+    return mcfg, params
+
+
+def phase_fast_render(mcfg, params, data, cfg, card: str) -> list:
+    """Phase 12a (the hierarchical probe), 12d (the adaptive render) and the
+    layout measurement, on phase 5's model (``load_phase5``) and its first
+    test view, through the config's render cache (two-stage, the density
+    baked). Returns the launch counts of the three paths, each counted from
+    0."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.render import renderer
+
+    idx = int(np.asarray(data["i_test"])[0])
+    Hv, Wv = (int(v) for v in np.asarray(data["HW"])[idx])
+    K, c2w = np.asarray(data["Ks"])[idx], np.asarray(data["poses"])[idx][:3, :4]
+    flags = dict(inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x, flip_y=cfg.data.flip_y)
+    ro, rd, vd = test_view_rays(data, cfg, idx)
+    S, cs, stride = 2 * mcfg.n_inner, FAST_PROBE_STRIDE, mcfg.budget_probe_stride
+    n_g = -(-S // cs)
+    auto = dataclasses.replace(mcfg, probe_coarse_stride=cs)
+    c_g = min(-(-int(1.5 * mcfg.sample_budget) // cs), n_g)
+    counts = []
+
+    # ---- 12a: the selections, chunk by chunk, and the view's time
+    reset_counts()
+    equal_ample = equal_auto = prefix_auto = 0
+    with torch.no_grad():
+        for a in range(0, ro.shape[0], RENDER_CHUNK):
+            sl = slice(a, a + RENDER_CHUNK)
+            got = {}
+            for tag, c in (("flat", mcfg), ("auto", auto),
+                           ("ample", dataclasses.replace(auto, probe_candidate_groups=n_g))):
+                pts, _, t = fg.sample_ray(c, ro[sl], rd[sl])
+                got[tag] = fg.budget_select(params, c, pts, ro[sl], rd[sl], t)
+            (sf, mf), (sa, ma), (sx, mx) = got["flat"], got["auto"], got["ample"]
+            if not (torch.equal(sx, sf) and torch.equal(mx, mf)):
+                raise AssertionError("[12a] the hierarchical selection with a candidate group "
+                                     "for every group is not the flat probe's")
+            equal_ample += int(mf.shape[0])
+            same = (sa == sf).all(-1) & (ma == mf).all(-1)
+            equal_auto += int(same.sum())
+            k = ma.sum(-1, keepdim=True)
+            prefix = (((sa == sf) | ~ma).all(-1) & (k[:, 0] <= mf.sum(-1))
+                      & (ma == (torch.arange(ma.shape[1], device="cuda") < k)).all(-1))
+            prefix_auto += int(prefix.sum())
+    n = int(ro.shape[0])
+    if prefix_auto != n:
+        raise AssertionError(f"[12a] {n - prefix_auto} rays' automatic-candidate selections are "
+                             "not a prefix of the flat probe's")
+    cache = fg.build_render_cache(params, mcfg, log_fn=lambda m: log(f"[12a] {m}"))
+
+    def render_view(c, cache_now, rays_fn=None):
+        return renderer.render_image(
+            lambda aux, o, d, v: fg.forward(aux[0], c, o, d, v, cache=aux[1]), Hv, Wv, K, c2w,
+            chunk=RENDER_CHUNK, aux=(params, cache_now), rays_fn=rays_fn, device="cuda", **flags)
+
+    ms_flat, img_flat = view_ms(lambda: render_view(mcfg, cache))
+    ms_hier, img_hier = view_ms(lambda: render_view(auto, cache))
+    counts.append(dict(build.LAUNCHES))
+    rec = {"phase": "12a", "card": card, "view": idx, "rays": n,
+           "selection_equal_flat_ample_candidates": equal_ample,
+           "selection_equal_flat_auto_candidates": equal_auto,
+           "auto_truncations_that_keep_a_prefix": n - equal_auto,
+           "probe_rows_a_ray": {"flat": S // stride, "coarse": n_g,
+                                "fine": c_g * cs // stride},
+           "candidate_groups_auto": c_g, "view_ms_flat": ms_flat,
+           "view_ms_hierarchical": ms_hier,
+           "max_abs_diff_of_the_views": float(np.abs(img_hier[0] - img_flat[0]).max()),
+           "launches": counts[-1]}
+    log(json.dumps(rec))
+
+    # ---- 12d: the adaptive render through render_image's rays_fn
+    reset_counts()
+    report = {}
+    adaptive = lambda o, d, v: fg.render_rays_adaptive(params, mcfg, cache, o, d, v, bg=0.0,
+                                                       seg=ADAPTIVE_SEG, report=report)
+    ms_adapt, img_adapt = view_ms(lambda: render_view(mcfg, cache, rays_fn=adaptive))
+    counts.append(dict(build.LAUNCHES))
+    with torch.no_grad():  # the two-stage cached forward on the same padded rays
+        n_pad = (-n) % RENDER_CHUNK
+        pad = lambda x: torch.cat([x, x[-1:].expand(n_pad, 3)])
+        pr, pd_, pv = (pad(x) for x in (ro, rd, vd))
+        parts = [fg.forward(params, mcfg, pr[a:a + RENDER_CHUNK], pd_[a:a + RENDER_CHUNK],
+                            pv[a:a + RENDER_CHUNK], cache=cache)
+                 for a in range(0, pr.shape[0], RENDER_CHUNK)]
+        ref_mask = torch.cat([r.mask for r in parts])[:n]
+        ref = [torch.cat([getattr(r, f) for r in parts])[:n].cpu().numpy().reshape(n, -1)
+               for f in ("rgb_marched", "depth", "alphainv_last")]
+    got = [np.asarray(x).reshape(n, -1) for x in img_adapt]
+    diff = np.max([np.abs(g - r).max(-1) for g, r in zip(got, ref)], axis=0)
+    flipped = (report["mask"][:n] != ref_mask)
+    flip_rays = flipped.any(-1).cpu().numpy()
+    over = diff > ADAPTIVE_ATOL
+    rec = {"phase": "12d", "card": card, "view": idx, "rays": n, "seg": ADAPTIVE_SEG,
+           "alive_after_phase_a": report["alive"], "bucket": report["bucket"],
+           "rays_padded": int(pr.shape[0]), "view_ms_adaptive": ms_adapt,
+           "view_ms_two_stage": ms_flat, "max_abs_diff": float(diff.max()),
+           "rays_over_atol": int(over.sum()), "flipped_samples": int(flipped.sum()),
+           "rays_with_a_flip": int(flip_rays.sum()), "atol": ADAPTIVE_ATOL,
+           "launches": counts[-1]}
+    log(json.dumps(rec))
+    if bool((over & ~flip_rays).any()) or int(flipped.sum()) > MAX_FLIPPED_SHARE * flipped.numel():
+        raise AssertionError("[12d] the adaptive render differs from the two-stage render "
+                             "beyond its tolerance where no threshold flipped")
+    if counts[-1] != {"march_forward": 3}:
+        raise AssertionError(f"[12d] launches {counts[-1]}: one march a view")
+    del report
+
+    # ---- the layout: the packed single-stage tables against the 8-corner
+    # gather from the grids (no render cache), both single-stage
+    reset_counts()
+    single = dataclasses.replace(mcfg, color_budget=0)
+    packed = fg.build_render_cache(params, single, log_fn=lambda m: log(f"[12 layout] {m}"))
+    del cache
+    ms_packed, img_packed = view_ms(lambda: render_view(single, packed), repeats=1)
+    del packed
+    torch.cuda.empty_cache()
+    corners = dataclasses.replace(single, packed_gather=False)
+    if fg.build_render_cache(params, corners) is not None:
+        raise AssertionError("packed_gather=False built a cache")
+    ms_corners, img_corners = view_ms(lambda: render_view(corners, None), repeats=1)
+    counts.append(dict(build.LAUNCHES))
+    rec = {"phase": "12 layout", "card": card, "view": idx,
+           "view_ms_config_cache_two_stage_baked": ms_flat,
+           "view_ms_packed_single_stage": ms_packed, "view_ms_8_corner_gather": ms_corners,
+           "max_abs_diff_packed_vs_8_corner": float(np.abs(img_packed[0] - img_corners[0]).max()),
+           "launches": counts[-1]}
+    log(json.dumps(rec))
+    SHARED["12"] = {"view_ms": ms_flat}
+    return counts
+
+
+def phase_auto_budget(mcfg, params, exp_dir: str, data, cfg, cfg_file: str,
+                      card: str) -> list:
+    """Phase 12c: phase 5's command-line render with ``--auto_budget``: the
+    budgets it chose, the mask's occupied share and whether the
+    hierarchical probe came on (a spy on ``render.auto_budgets``), ms/view
+    against phase 5's, and the PSNR of its first test view against the
+    full march of the same model (``params``; no budgets, no bake), which
+    must pass ``AUTO_MIN_PSNR``: on every ``AUTO_PSNR_STRIDE``-th ray of the
+    view, the full march taking 664 samples a ray through 7 banks. Returns
+    [the command's launch counts]."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch import render
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.render import renderer
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.utils import metrics as M
+
+    path = os.path.join(exp_dir, "fine_last")
+    reset_counts()
+    t0 = time.time()
+    with Spy(render, "auto_budgets") as ab, Spy(render, "run_render") as rr:
+        run_cli(["--config", cfg_file, "--program", "render", "--render_test", "--ft_path",
+                 path, "--auto_budget"])
+    total_s = time.time() - t0
+    counts = dict(build.LAUNCHES)
+    auto_cfg, got = ab.calls[0].result
+    out = rr.calls[0].result["test"]
+    ms = float(np.median(out["seconds"][1:])) * 1e3
+    full = dataclasses.replace(mcfg, sample_budget=0, color_budget=0, density_bake_scale=0.0,
+                               probe_coarse_stride=0)
+    cache = fg.build_render_cache(params, full)
+    idx = int(np.asarray(data["i_test"])[0])
+    kw = {"near": float(data["near"]), "far": float(data["far"]), "bg": 0.0,
+          "stepsize": cfg.fine_model_and_render.stepsize}
+    fwd = loop.make_forward(full, kw)
+    ro, rd, vd = (x[::AUTO_PSNR_STRIDE] for x in test_view_rays(data, cfg, idx))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        img = torch.cat([fwd(params, ro[a:a + RENDER_CHUNK], rd[a:a + RENDER_CHUNK],
+                             vd[a:a + RENDER_CHUNK], None, cache=cache).rgb_marched
+                         for a in range(0, ro.shape[0], RENDER_CHUNK)]).cpu().numpy()
+    full_s = time.perf_counter() - t0
+    del cache
+    torch.cuda.empty_cache()
+    psnr = float(M.psnr(out["rgbs"][0].reshape(-1, 3)[::AUTO_PSNR_STRIDE], img))
+    keys = ("sample_budget", "color_budget", "probe_coarse_stride", "probe_candidate_groups")
+    rec = {"phase": "12c", "card": card, "budgets": {k: getattr(auto_cfg, k) for k in keys},
+           "config_budgets": {k: getattr(mcfg, k) for k in keys},
+           "occupancy": got["occupancy"], "hierarchical_probe": got["hierarchical"],
+           "probe_rays": got["n_rays"], "occ_q": got["occ_q"], "surv_q": got["surv_q"],
+           "view_ms": [round(t * 1e3, 1) for t in out["seconds"]], "median_view_ms": ms,
+           "phase5_view_ms": SHARED["5"]["view_ms"], "command_s": total_s,
+           "psnr_vs_full_march_db": psnr, "psnr_rays": int(ro.shape[0]),
+           "full_march_s": full_s, "gate_db": AUTO_MIN_PSNR, "launches": counts}
+    log(json.dumps(rec))
+    if not psnr > AUTO_MIN_PSNR or got["hierarchical"] != (got["occupancy"] < 0.45):
+        raise AssertionError(f"[12c] psnr {psnr} against the full march, or the probe switch")
+    return [counts]
+
+
+class GradGrab:
+    """Stands in for the optimizer of a train step: keeps each parameter's
+    gradient as the step leaves it, and updates nothing."""
+
+    def __init__(self, params):
+        self.params, self.grads = params, None
+
+    def step(self, lr_scale: float = 1.0) -> None:
+        self.grads = {k: p.grad.detach().clone() for k, p in self.params.named_parameters()
+                      if p.grad is not None}
+
+
+def check_grad(name: str, got, ref) -> dict:
+    """A gradient of the two-stage step against the single-stage step's: every
+    element within 1e-4 of its value plus 1e-6 of the largest (float32 sums
+    in another order). A bfloat16 gradient (the grids') is one rounding of a
+    float32 index-add whose atomic adds run in any order, so two equal sums
+    may round to neighbouring bfloat16 values: an element one bfloat16 step
+    off is counted as such, and at most 1e-4 of the non-zero elements may
+    be. Returns the summary."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    big = float(r.abs().max())
+    ok = d <= 1e-4 * r.abs() + 1e-6 * big
+    nonzero = int((r != 0).sum())
+    flips = 0
+    if got.dtype == torch.bfloat16:
+        step = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+        flips = int((~ok & (d <= step)).sum())
+        ok = ok | (d <= step)
+    if not bool(ok.all()) or flips > 1e-4 * max(nonzero, 1):
+        raise AssertionError(f"[12b] gradient {name}: {int((~ok).sum())} elements off, {flips} "
+                             f"one bfloat16 step off of {nonzero}")
+    return {"max_abs_diff": float(d.max()), "max_abs": big, "nonzero": nonzero,
+            "bf16_step_flips": flips}
+
+
+def phase_train_two_stage(mcfg, params, data, cfg, card: str) -> list:
+    """Phase 12b: phase 5's model (at full width, past phase 4's last
+    boundary; it trains ``params`` in place) at ``fast_color_thres`` 1e-4 with ``train_survivor_budget``
+    ``FAST_SURVIVORS``. One ``FAST_N_RAND`` batch through the train step of
+    both forwards (TV off, the optimizer replaced by ``GradGrab``): the loss
+    within 1e-4 relative, every gradient by ``check_grad``. The batch's rays
+    are drawn at random; those with more survivors than the budget (the
+    share printed) are replaced by rays without, since only for those do the
+    two forwards compute the same function. Then ``FAST_STEPS`` timed steps
+    of each forward (TV and masked Adam on, after a warm-up step) on random
+    batches, with ``color_overflow_frac``. Returns the launch counts of the
+    two timed runs."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
+    from unboundednerfpytorch_tpu_torch.ops import sampling
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.train.step import TrainState, create_train_state, \
+        make_train_step
+
+    params.requires_grad_(True)
+    mcfg = dataclasses.replace(mcfg, fast_color_thres=1e-4)
+    two = dataclasses.replace(mcfg, train_survivor_budget=FAST_SURVIVORS)
+    ft = cfg.fine_train
+    store = loop.gather_training_rays(cfg, data, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    n_total = store["rgb"].shape[0]
+    kw = {"near": float(data["near"]), "far": float(data["far"]), "bg": 0.0,
+          "rand_bkgd": cfg.data.rand_bkgd, "stepsize": cfg.fine_model_and_render.stepsize}
+    near_thres = 0.0
+    if ft.weight_nearclip > 0 and data.get("near_clip"):
+        near_thres = float(data["near_clip"]) / float(mcfg.scene_radius[0])
+    interval = mcfg.stepsize * mcfg.voxel_size_ratio_density
+
+    def survivors(idx):
+        with torch.no_grad():
+            ro, rd = store["rays_o"][idx], store["rays_d"][idx]
+            pts, _, t = fg.sample_ray(mcfg, ro, rd)
+            sel, m = fg.budget_select(params, mcfg, pts, ro, rd, t)
+            pts = sampling.gather_samples(pts, sel)
+            a = alpha_ops.raw2alpha(fg._probe_density(params, mcfg, pts), params.act_shift,
+                                    interval)
+            return (m & (a > mcfg.fast_color_thres)).sum(-1)
+
+    pool = torch.randint(n_total, (4 * FAST_N_RAND,), generator=gen, device="cuda")
+    n_surv = survivors(pool)
+    first = n_surv[:FAST_N_RAND] > FAST_SURVIVORS
+    keep = pool[n_surv <= FAST_SURVIVORS][:FAST_N_RAND]
+    if keep.shape[0] < FAST_N_RAND:
+        raise AssertionError("[12b] too few rays within the survivor budget")
+    batch = {k: v[keep] for k, v in store.items()}
+    ft_cmp = dataclasses.replace(ft, weight_tv_density=0.0, weight_tv_k0=0.0)
+    out = {}
+    for tag, c in (("single", mcfg), ("two_stage", two)):
+        step_fn = make_train_step(loop.make_forward(c, kw), ft_cmp,
+                                  world_size_max=float(max(c.world_size)), near_thres=near_thres,
+                                  lr_anchor=1)
+        grab = GradGrab(params)
+        metrics = step_fn(TrainState(params, grab, step=100), batch)
+        out[tag] = (float(metrics["loss"]), grab.grads, metrics.get("overflow_frac"))
+    (l1, g1, _), (l2, g2, of2) = out["single"], out["two_stage"]
+    if sorted(g1) != sorted(g2) or abs(l2 - l1) > 1e-4 * abs(l1) or float(of2) != 0.0:
+        raise AssertionError(f"[12b] loss {l2} against {l1}, overflow {of2}, grads "
+                             f"{sorted(g2)} against {sorted(g1)}")
+    grads = {k: check_grad(k, g2[k], g1[k]) for k in g1}
+    del out, g1, g2
+
+    # stage A of the two-stage forward on that batch, alone: the density
+    # probe, and of it the packing of the seven folded tables
+    from unboundednerfpytorch_tpu_torch.ops import packed as packed_ops
+
+    with torch.no_grad():
+        pts, _, t = fg.sample_ray(mcfg, batch["rays_o"], batch["rays_d"])
+        sel, _ = fg.budget_select(params, mcfg, pts, batch["rays_o"], batch["rays_d"], t)
+        pts = sampling.gather_samples(pts, sel)
+        grid = params.density.grid.detach()
+        stage_a = {}
+        for what, fn in (("probe_ms", lambda: fg._probe_density(params, mcfg, pts)),
+                         ("pack_ms", lambda: [packed_ops.pack_corners_folded(grid[b], 16)
+                                              for b in range(grid.shape[0])])):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            stage_a[what] = (time.perf_counter() - t0) * 1e3 / 3
+    del batch, pts, sel, grid
+
+    timing, counts = {}, []
+    for tag, c in (("single", mcfg), ("two_stage", two)):
+        reset_counts()
+        step_fn = make_train_step(loop.make_forward(c, kw), ft,
+                                  world_size_max=float(max(c.world_size)), near_thres=near_thres,
+                                  lr_anchor=1)
+        state = create_train_state(params, ft, start_step=100)
+        ms, over = [], []
+        for i in range(FAST_STEPS + 1):
+            b = {k: v[torch.randint(n_total, (FAST_N_RAND,), generator=gen, device="cuda")]
+                 for k, v in store.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step_fn(state, b)
+            loss = float(m["loss"])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not np.isfinite(loss):
+                raise AssertionError(f"[12b] {tag} step: loss {loss}")
+            if "overflow_frac" in m:
+                over.append(float(m["overflow_frac"]))
+        counts.append(dict(build.LAUNCHES))
+        steps = FAST_STEPS + 1
+        want = {"tv_add_grad": 2 * steps, "march_forward": steps, "march_backward": steps,
+                "masked_adam": adam_wanted(f"[12b] {tag}", steps)}
+        if counts[-1] != want:
+            raise AssertionError(f"[12b] {tag} launches {counts[-1]} != {want}")
+        timing[tag] = {"ms": [round(t, 2) for t in ms], "median_ms": float(np.median(ms[1:])),
+                       "overflow_frac": over}
+        del state
+        torch.cuda.empty_cache()
+    rec = {"phase": "12b", "card": card, "n_rand": FAST_N_RAND, "survivor_budget": FAST_SURVIVORS,
+           "fast_color_thres": mcfg.fast_color_thres,
+           "random_batch_overflow_share": float(first.float().mean()),
+           "loss": {"single": l1, "two_stage": l2}, "grads": grads, "stage_a": stage_a,
+           "steps": timing,
+           "launches": counts}
+    log(json.dumps(rec))
+    del store
+    return counts
+
+
+def phase_heads(data, cfg, card: str, tv_shapes: dict) -> tuple:
+    """Phase 12e: bicycle_single at full width with the coarse colour head
+    (``rgbnet_dim`` 0), with the view-direction grid (``num_voxels_viewdir``
+    ``HEAD_VIEWDIR``) and with appearance embeddings (``img_emb_dim``
+    ``HEAD_EMB_DIM``, one a training view), each ``HEAD_STEPS`` steps of
+    ``run_train`` from the full-width grids (no boundary; the analytic
+    occupancy seed), ``HEAD_LRATES`` for the new groups. The first two go
+    through the ``.tar`` format in memory (``convert_to_reference``, then
+    ``convert_reference_ckpt``; the coarse head's dict through ``torch.save``
+    and back as well, the view grid's 2.9 GB one not: 11b times that
+    pickling): every leaf back, a render chunk of a test view equal to the
+    native model's (``close_rays``); the third,
+    whose MLP reads embeddings, has no reference counterpart and its export
+    must raise. Returns (the runs' launch counts, the shapes of the new
+    leaves the optimizer saw)."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.data import synthetic
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.train import bbox as bbox_mod
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.utils import reference_import as ri
+
+    xyz_min, xyz_max = bbox_mod.compute_bbox_by_cam_frustrm(cfg, data, "FourierGrid",
+                                                            device="cuda")
+    seed_fn = synthetic.occupancy_seed((xyz_min + xyz_max) / 2, (xyz_max - xyz_min) / 2,
+                                       sphere_radius=sphere_radius_of(data))
+    ft = dataclasses.replace(cfg.fine_train, N_iters=HEAD_STEPS, pg_scale=(), **HEAD_LRATES)
+    idx = int(np.asarray(data["i_test"])[0])
+    ro, rd, vd = test_view_rays(data, cfg, idx)
+    mid = slice(ro.shape[0] // 2 - RENDER_CHUNK // 2, ro.shape[0] // 2 + RENDER_CHUNK // 2)
+    kw = {"near": float(data["near"]), "far": float(data["far"]), "bg": 0.0,
+          "stepsize": cfg.fine_model_and_render.stepsize}
+    counts, leaves = [], {}
+    for tag, head in (("coarse", dict(rgbnet_dim=0)),
+                      ("viewgrid", dict(num_voxels_viewdir=HEAD_VIEWDIR)),
+                      ("embeddings", dict(img_emb_dim=HEAD_EMB_DIM))):
+        run_cfg = dataclasses.replace(
+            cfg, fine_train=ft,
+            fine_model_and_render=dataclasses.replace(cfg.fine_model_and_render, **head))
+        ms = []
+        stamps = [time.perf_counter()]
+
+        def callback(step, metrics):
+            if not np.isfinite(float(metrics["loss"])):
+                raise AssertionError(f"[12e] {tag} step {step}: loss {metrics['loss']}")
+            stamps.append(time.perf_counter())
+
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        _, mcfg, params, _ = loop.run_train(run_cfg, data, seed=0, device="cuda",
+                                            log_fn=lambda m: None, callback=callback,
+                                            coarse_mask_fn=seed_fn)
+        counts.append(dict(build.LAUNCHES))
+        want = {"tv_add_grad": 2 * HEAD_STEPS, "march_forward": HEAD_STEPS,
+                "march_backward": HEAD_STEPS,
+                "masked_adam": adam_wanted(f"[12e] {tag}", HEAD_STEPS)}
+        if counts[-1] != want:
+            raise AssertionError(f"[12e] {tag} launches {counts[-1]} != {want}")
+        ms = np.diff(stamps) * 1e3
+        new = {"vd": params.vd.grid if params.vd is not None else None,
+               "img_embeddings": params.img_embeddings}
+        rec = {"phase": "12e", "card": card, "head": tag, "k0": list(params.k0.grid.shape),
+               "rgbnet": params.rgbnet is not None,
+               "new_leaves": {k: list(v.shape) for k, v in new.items() if v is not None},
+               "step_ms": [round(t, 1) for t in ms],
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts[-1]}
+        params.requires_grad_(False)
+        if tag == "embeddings":
+            if mcfg.sample_num != len(np.asarray(data["i_train"])):
+                raise AssertionError(f"[12e] sample_num {mcfg.sample_num}")
+            try:
+                ri.convert_to_reference("FourierGrid", mcfg, params)
+            except ValueError as e:
+                rec["tar"] = f"export refused: {e}"
+            else:
+                raise AssertionError("[12e] a model whose MLP reads embeddings was exported")
+        else:
+            ref = ri.convert_to_reference("FourierGrid", mcfg, params, global_step=3)
+            nbytes = sum(t.numel() * t.element_size() for t in ref["model_state_dict"].values())
+            if nbytes < TAR_PICKLE_BYTES:  # the coarse head's: through torch.save and back
+                buf = io.BytesIO()
+                torch.save(ref, buf)
+                buf.seek(0)
+                ref = torch.load(buf, weights_only=False)
+                del buf
+            _, cfg2, p2, _ = ri.convert_reference_ckpt(ref, device="cuda")
+            del ref
+            cfg2 = ri.overlay_render_knobs(cfg2, run_cfg.fine_model_and_render)
+            same = (p2.rgbnet is None) == (params.rgbnet is None)
+            for name in ("density", "k0", "vd"):
+                a, b = getattr(p2, name), getattr(params, name)
+                same = same and (a is None) == (b is None) and (
+                    a is None or torch.equal(a.grid, b.grid.float()))
+            if params.rgbnet is not None:
+                for x, y in zip(p2.rgbnet.layers, params.rgbnet.layers):
+                    same = same and torch.equal(x.weight, y.weight) and torch.equal(x.bias, y.bias)
+            same = same and torch.equal(p2.mask_cache.mask, params.mask_cache.mask)
+            if not same:
+                raise AssertionError(f"[12e] {tag}: a leaf did not come back from the .tar")
+            with torch.no_grad():
+                want_rgb = loop.make_forward(mcfg, kw)(params, ro[mid], rd[mid], vd[mid])
+                got_rgb = loop.make_forward(cfg2, kw)(p2, ro[mid], rd[mid], vd[mid])
+            rec["tar"] = {"gb": nbytes / 1e9, "chunk": close_rays(
+                f"[12e] {tag} .tar chunk", got_rgb.rgb_marched.cpu().numpy(),
+                want_rgb.rgb_marched.cpu().numpy())}
+            del p2
+        leaves[tag] = {k: tuple(v.shape) for k, v in new.items() if v is not None}
+        log(json.dumps(rec))
+        del params
+        torch.cuda.empty_cache()
+    return counts, leaves
+
+
+def phase_fast_paths(exp_dir: str, data, cfg, cfg_file: str, card: str, tv_shapes: dict,
+                     shapes) -> list:
+    """Phase 12: 12a, 12d and the layout (``phase_fast_render``), 12c
+    (``phase_auto_budget``), 12b (``phase_train_two_stage``) and 12e
+    (``phase_heads``); ``shapes``, a ``PathShapes``, records what they hand
+    the march kernels and masked Adam for 12f. Writes no checkpoint.
+    Returns the launch counts of each path."""
+    mcfg, params = load_phase5(exp_dir)
+    with shapes:
+        counts = phase_fast_render(mcfg, params, data, cfg, card)
+        counts += phase_auto_budget(mcfg, params, exp_dir, data, cfg, cfg_file, card)
+        counts += phase_train_two_stage(mcfg, params, data, cfg, card)
+        del params
+        head_counts, _ = phase_heads(data, cfg, card, tv_shapes)
+    return counts + head_counts
+
+
+def phase_fast_kernels(gen, kernels: list, shapes, floor: float, seen: set,
+                       coarse_k0: tuple) -> None:
+    """Phase 12f: both march kernels and masked Adam at the shapes phase 12's
+    train steps gave them (``phase_dvgo_kernels``: [2048, 48] and [2048, 96],
+    the view grid, the embeddings, the coarse head's grids), the adaptive
+    render's and the renders' march at their shapes, and ``tv_add_grad`` at
+    the coarse head's k0 (one bank of 3 channels)."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import tv
+    from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms
+
+    rows = {k["name"]: k for k in kernels}
+    phase_dvgo_kernels(gen, kernels, {"12": shapes}, floor, (), seen)
+    w = (0.3, 0.2, 0.1)
+    err = tv_case(gen, "12e coarse head k0", coarse_k0, torch.bfloat16, w)
+    rows["tv_add_grad"]["max_abs_err"] = max(rows["tv_add_grad"]["max_abs_err"], err)
+    # the train step's case: bf16, dense, in place
+    p = torch.randn(coarse_k0, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(coarse_k0, generator=gen, device="cuda").to(torch.bfloat16)
+    ms, call = kernel_ms(lambda: tv.tv_add_grad(p, g, *w, 1.0, True, out=g))
+    rows["tv_add_grad"]["shapes"].append(shape_line(
+        f"tv_add_grad 12e coarse head k0 {coarse_k0} bf16 in place", ms, call,
+        bound_ms(3 * p.numel() * p.element_size(), 25 * p.numel())[0], floor))
+    del p, g
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -4504,12 +5124,19 @@ def main(argv=None) -> int:
             path_counts += timed("11b", phase_tar_in_memory, exp_dir, data, cfg, card)
             path_counts += timed("11c", phase_tar_tune, tmp, card, phase11)
             path_counts += timed("11f", phase_serve, tmp, card, lego_file)
-    seen = set()
+            # phase 12: the fast paths; 12f holds the kernels at their shapes
+            shapes12 = PathShapes()
+            path_counts += timed("12", phase_fast_paths, exp_dir, data, cfg, cfg_file, card,
+                                 tv_shapes, shapes12)
+    # phase 3 held masked Adam at phase 4's grids already
+    seen = {(tuple(s), torch.bfloat16, True, True, False) for s in tv_shapes.values()}
     timed("9c", phase_dvgo_kernels, gen, kernels,
           {"9a lego.py": lego_shapes, "9b Truck_lg.py": truck_lg_shapes}, floor,
           ("9a lego.py", "9b Truck_lg.py"), seen)
     timed("10f", phase_dvgo_kernels, gen, kernels, phase10, floor, ("10b teddybear.py",), seen)
     timed("11h", phase_dvgo_kernels, gen, kernels, phase11, floor, (), seen)
+    timed("12f", phase_fast_kernels, gen, kernels, shapes12, floor, seen,
+          (1, *tv_shapes["k0"][1:4], 3))
     log(f"seconds by phase: { {k: round(v, 1) for k, v in seconds.items()} }, in all "
         f"{time.time() - t_start:.1f}")
     if written:
@@ -4532,7 +5159,10 @@ def main(argv=None) -> int:
         f"{path_counts[24:26]}, 10d Madoka train {path_counts[26]}, 10e tune_pose, the "
         f"recovery's model and the recovery {path_counts[27:30]}, 11a the .tar's render, "
         f"train and render {path_counts[30:33]}, 11b {path_counts[33]}, 11c "
-        f"{path_counts[34]}, 11f {path_counts[35]}, probes {probe_counts}")
+        f"{path_counts[34]}, 11f {path_counts[35]}, 12a, 12d and the layout "
+        f"{path_counts[36:39]}, 12c {path_counts[39]}, 12b single and two-stage "
+        f"{path_counts[40:42]}, 12e coarse head, view grid and embeddings "
+        f"{path_counts[42:45]}, probes {probe_counts}")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -193,20 +193,28 @@ def test_overlay_render_knobs_matches_jax():
 
 
 def test_what_the_port_does_not_model_is_refused():
-    """The view-direction grid, appearance embeddings and the coarse colour
-    head are refused naming ROADMAP A16, never dropped; a tensor of another
-    shape than its model_kwargs give is refused too."""
+    """What a checkpoint's model_kwargs build must fit its tensors: a view
+    grid without ``vd.*`` tensors and a coarse colour head over a k0 of
+    several banks are refused where the JAX import refuses them, and a
+    tensor of another shape than its model_kwargs give. The view grid, the
+    coarse head and appearance embeddings themselves are imported
+    (``tests/test_torch_port_colour_heads.py``): stray ``img_embeddings.*``
+    are dropped, as the JAX import drops them."""
     family, jcfg, jp = jax_model("FourierGrid")
     ref = jri.convert_to_reference(family, jcfg, jp)
     kw, sd = ref["model_kwargs"], ref["model_state_dict"]
-    for change in (dict(num_voxels_viewdir=8**3), dict(img_emb_dim=4, sample_num=3),
-                   dict(rgbnet_dim=0)):
+    for change, error in ((dict(num_voxels_viewdir=8**3), KeyError),
+                          (dict(rgbnet_dim=0), ValueError)):
         bad = {**ref, "model_kwargs": {**kw, **change}}
-        with pytest.raises(NotImplementedError, match="A16"):
+        with pytest.raises(error):
+            jri.convert_reference_ckpt(bad)
+        with pytest.raises(error):
             ri.convert_reference_ckpt(bad, device="cpu")
-    bad = {**ref, "model_state_dict": {**sd, "img_embeddings.weight": torch.zeros(3, 4)}}
-    with pytest.raises(NotImplementedError, match="appearance embeddings.*A16|A16.*appearance"):
-        ri.convert_reference_ckpt(bad, device="cpu")
+    extra = {**ref, "model_kwargs": {**kw, "img_emb_dim": 4, "sample_num": 3},
+             "model_state_dict": {**sd, "img_embeddings.weight": torch.zeros(3, 4)}}
+    _, _, tp, _ = ri.convert_reference_ckpt(extra, device="cpu")
+    _, _, jp2, _ = jri.convert_reference_ckpt(extra)
+    assert tp.img_embeddings is None and jp2.img_embeddings is None
     bad = {**ref, "model_kwargs": {**kw, "num_voxels_rgb": 9**3}}
     with pytest.raises(ValueError, match="k0.grid"):
         ri.convert_reference_ckpt(bad, device="cpu")

@@ -555,10 +555,20 @@ def test_jax_checkpoint_carried_over_renders_the_same_image(tmp_path):
 
 
 def test_convert_refuses_what_the_port_lacks():
+    """The converter carries the view grid and the appearance embeddings
+    now; what it refuses is embeddings that are no [sample_num, dim]
+    table."""
     _, jp, _, _ = make_pair()
     tree = convert.tree_from_params_object(jp)
-    tree["img_embeddings"] = np.zeros((2, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="img_embeddings"):
+    tree["img_embeddings"] = np.arange(6, dtype=np.float32).reshape(2, 3)
+    tree["vd"] = {"grid": np.ones((1, 4, 4, 4, 3), np.float32), "xyz_min": (-1.0,) * 3,
+                  "xyz_max": (1.0,) * 3, "num_freqs": 0}
+    tp = convert.fourier_grid_params_from_numpy(tree, "cpu")
+    back = convert.params_to_numpy(tp)
+    np.testing.assert_array_equal(back["img_embeddings"], tree["img_embeddings"])
+    np.testing.assert_array_equal(back["vd"]["grid"], tree["vd"]["grid"])
+    tree["img_embeddings"] = np.zeros((2, 3, 1), np.float32)
+    with pytest.raises(ValueError, match="img_embeddings"):
         convert.fourier_grid_params_from_numpy(tree, "cpu")
 
 
@@ -636,12 +646,14 @@ def test_run_render_dumps_images_and_video(trained, tmp_path):
 def test_run_render_ft_path_and_refusals(trained, tmp_path, monkeypatch):
     cfg, data, exp_dir, _, _ = trained
     ns = types.SimpleNamespace
-    out = render.run_render(ns(chunk=CHUNK, ft_path=os.path.join(exp_dir, "fine_last")), cfg,
-                            data, str(tmp_path), device="cpu", log_fn=lambda _: None)
-    assert out["test"]["rgbs"].shape[0] == 2
-    for option in ("auto_budget", "constant_baked"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render.run_render(ns(**{option: "x"}), cfg, data, exp_dir, device="cpu")
+    # --auto_budget is ported: the budgets come from the scene's occupancy
+    logs = []
+    out = render.run_render(ns(chunk=CHUNK, ft_path=os.path.join(exp_dir, "fine_last"),
+                               auto_budget=True), cfg, data, str(tmp_path), device="cpu",
+                            log_fn=logs.append)
+    assert out["test"]["rgbs"].shape[0] == 2 and any("auto budgets" in m for m in logs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        render.run_render(ns(constant_baked="x"), cfg, data, exp_dir, device="cpu")
     # --style_root is ported: the test views take the style image's colours
     style = np.random.default_rng(1).random((20, 30, 3)) * np.array([0.3, 0.6, 0.9])
     from PIL import Image

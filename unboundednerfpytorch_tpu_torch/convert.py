@@ -9,7 +9,13 @@ arrays keyed by its field names, so this module needs nothing of JAX:
      "k0": {... same keys, grid [B, X, Y, Z, k0_dim]},
      "rgbnet": {"weights": [[in, out], ...], "biases": [[out], ...]},
      "act_shift": scalar,
-     "mask_cache": {"mask": bool [X, Y, Z], "xyz_min": ..., "xyz_max": ...}}
+     "mask_cache": {"mask": bool [X, Y, Z], "xyz_min": ..., "xyz_max": ...},
+     "vd": {... the density's keys, grid [1, n, n, n, 3]} (the view grid),
+     "img_embeddings": [sample_num, img_emb_dim]}
+
+``rgbnet`` is None for the coarse colour head (k0 then one plain bank of 3
+channels); ``vd`` and ``img_embeddings`` are absent or None where the model
+has none.
 
 The JAX ``DVGOParams``, ``DCVGOParams`` and ``DMPIGOParams`` have the same
 keys, their grids
@@ -26,9 +32,7 @@ functions take the family (``"FourierGrid"``, ``"dvgo"``, ``"dcvgo"``,
 ``"dmpigo"``, the names of the JAX package's checkpoints).
 
 ``nn.Linear`` keeps its weight as ``[out, in]``, so the MLP kernels are
-transposed on the way in and back on the way out. The view-direction grid
-and appearance embeddings are not part of the ported model; a tree that
-carries them is refused.
+transposed on the way in and back on the way out.
 
 A whole checkpoint is carried over in a process that has both packages: the
 JAX package's ``load_model`` gives (config, params); :func:`tree_from_params_object`
@@ -45,6 +49,9 @@ The optimizer's state travels the same way, in the layout of the JAX
                                 "rgbnet": {"weights": [[in, out], ...],
                                            "biases": [[out], ...]}},
      "exp_avg_sq": {... the same}}
+
+(``vd`` a grid's ``{"grid": m}`` and ``img_embeddings`` the moment array
+itself, where the model trains them.)
 
 The JAX package's ``load_model`` gives a checkpoint's ``opt_state.msgpack``
 as bytes; its ``restore_opt_state`` (with the template of its
@@ -118,13 +125,19 @@ def _mask_from(mc: dict, device) -> MaskGrid:
 
 def fourier_grid_params_from_numpy(tree: dict, device) -> FourierGridParams:
     """The port's parameters from the JAX ``FourierGridParams`` as numpy."""
-    for extra in ("vd", "img_embeddings"):
-        if tree.get(extra) is not None:
-            raise NotImplementedError(f"{extra} is not part of the ported model")
+    vd = tree.get("vd")
+    emb = tree.get("img_embeddings")
+    if emb is not None:
+        emb = _tensor(emb, device).to(torch.float32)
+        if emb.ndim != 2:
+            raise ValueError(f"img_embeddings must be [sample_num, img_emb_dim], got "
+                             f"{tuple(emb.shape)}")
     return FourierGridParams(_grid_from(tree["density"], device), _grid_from(tree["k0"], device),
-                             _mlp_from(tree["rgbnet"], device),
+                             _mlp_from(tree.get("rgbnet"), device),
                              float(np.asarray(tree["act_shift"])),
-                             _mask_from(tree["mask_cache"], device))
+                             _mask_from(tree["mask_cache"], device),
+                             vd=None if vd is None else _grid_from(vd, device),
+                             img_embeddings=emb)
 
 
 def _dense_from(sub: dict, device) -> DenseGrid:
@@ -191,7 +204,7 @@ def params_to_numpy(params, bf16_bits: bool = False) -> dict:
             "biases": [lin.bias.detach().cpu().numpy() for lin in params.rgbnet.layers],
         }
     shift = params.act_shift
-    return {
+    tree = {
         "density": _grid_to_numpy(params.density, bf16_bits),
         "k0": _grid_to_numpy(params.k0, bf16_bits),
         "rgbnet": rgbnet,
@@ -201,6 +214,11 @@ def params_to_numpy(params, bf16_bits: bool = False) -> dict:
                        "xyz_min": params.mask_cache.xyz_min,
                        "xyz_max": params.mask_cache.xyz_max},
     }
+    if getattr(params, "vd", None) is not None:
+        tree["vd"] = _grid_to_numpy(params.vd, bf16_bits)
+    if getattr(params, "img_embeddings", None) is not None:
+        tree["img_embeddings"] = params.img_embeddings.detach().cpu().numpy()
+    return tree
 
 
 def bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
@@ -213,7 +231,7 @@ def tree_from_params_object(p) -> dict:
     ``FourierGridParams``, ``DVGOParams``, ``DCVGOParams`` or ``DMPIGOParams``
     (attributes
     ``density``, ``k0``, ``rgbnet``, ``act_shift``, ``mask_cache``, optionally
-    ``vd`` / ``img_embeddings``)."""
+    ``vd`` / ``img_embeddings``, carried where they are not None)."""
 
     def grid(g) -> dict:
         if hasattr(g, "xy_plane"):  # a TensoRFGrid
@@ -237,8 +255,9 @@ def tree_from_params_object(p) -> dict:
         "mask_cache": {"mask": np.asarray(p.mask_cache.mask),
                        "xyz_min": tuple(p.mask_cache.xyz_min),
                        "xyz_max": tuple(p.mask_cache.xyz_max)},
-        "vd": getattr(p, "vd", None),
-        "img_embeddings": getattr(p, "img_embeddings", None),
+        "vd": None if getattr(p, "vd", None) is None else grid(p.vd),
+        "img_embeddings": (None if getattr(p, "img_embeddings", None) is None
+                           else np.asarray(p.img_embeddings)),
     }
 
 
@@ -261,8 +280,10 @@ def config_from_dict(d: dict, family: str = "FourierGrid"):
     return cls(**{k: fix(v) for k, v in d.items() if k in names})
 
 
-def _moments_to_numpy(name: str, moments, dense: bool) -> dict:
+def _moments_to_numpy(name: str, moments, dense: bool):
     arrays = [m.detach().cpu().numpy() for m in moments]
+    if name == "img_embeddings":  # a parameter of its own: the array itself
+        return arrays[0]
     if name == "rgbnet":  # the port's order: weight [out, in], bias, per layer
         return {"weights": [w.T for w in arrays[0::2]], "biases": arrays[1::2]}
     if len(arrays) > 1:  # a TensoRF group: its leaves in order
@@ -271,7 +292,9 @@ def _moments_to_numpy(name: str, moments, dense: bool) -> dict:
     return {"grid": grid[0] if dense else grid}
 
 
-def _moments_from_numpy(name: str, sub: dict, dense: bool) -> list:
+def _moments_from_numpy(name: str, sub, dense: bool) -> list:
+    if name == "img_embeddings":
+        return [np.asarray(sub)]
     if name == "rgbnet":
         return [a for w, b in zip(sub["weights"], sub["biases"])
                 for a in (np.asarray(w).T, np.asarray(b))]
@@ -305,7 +328,9 @@ def opt_state_tree_from_object(s) -> dict:
     ``MaskedAdamState`` (``step``, and ``exp_avg`` / ``exp_avg_sq`` dicts of
     grids with ``.grid`` and an MLP with ``.weights`` / ``.biases``)."""
 
-    def sub(x) -> dict:
+    def sub(x):
+        if not hasattr(x, "grid") and not hasattr(x, "weights") and not hasattr(x, "xy_plane"):
+            return np.asarray(x)  # a parameter of its own (img_embeddings)
         if hasattr(x, "xy_plane"):
             return {k: np.asarray(getattr(x, k)) for k in TENSORF_LEAVES
                     if getattr(x, k) is not None}

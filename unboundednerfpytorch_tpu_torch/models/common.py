@@ -91,12 +91,20 @@ def march(density: torch.Tensor, mask: torch.Tensor, shift: float, interval: flo
     return alpha, weights, alphainv_last, mask
 
 
-def rgb_head(rgbnet, k0: torch.Tensor, viewdirs: torch.Tensor, viewbase_pe: int):
-    """Sample colours [N, S, 3]: the rgb MLP on k0 and the view-direction
-    embedding, or, without an MLP, the sigmoid of k0's first three channels."""
+def rgb_head(rgbnet, k0: torch.Tensor, viewdirs: torch.Tensor, viewbase_pe: int,
+             vcol: torch.Tensor | None = None, emb: torch.Tensor | None = None):
+    """Sample colours [N, S, 3], in the JAX ``_rgb_head``'s order: without an
+    MLP, the sigmoid of k0's first three channels; with a view-direction
+    colour ``vcol`` [N, 3], the sigmoid of those channels plus it; else the
+    rgb MLP on k0, the view-direction embedding and, given, the ray's
+    appearance embedding ``emb`` [N, E]."""
     if rgbnet is None:
         return torch.sigmoid(k0[..., :3])
+    if vcol is not None:
+        return torch.sigmoid(k0[..., :3] + vcol[:, None, :])
     N, S = k0.shape[:2]
     vemb = viewdir_embedding(viewdirs, viewbase_pe)
-    feats = torch.cat([k0, vemb[:, None, :].expand(N, S, vemb.shape[-1])], dim=-1)
-    return torch.sigmoid(rgbnet(feats))
+    feats = [k0, vemb[:, None, :].expand(N, S, vemb.shape[-1])]
+    if emb is not None:
+        feats.append(emb[:, None, :].expand(N, S, emb.shape[-1]))
+    return torch.sigmoid(rgbnet(torch.cat(feats, dim=-1)))

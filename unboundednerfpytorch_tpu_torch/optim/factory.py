@@ -3,7 +3,9 @@
 Counterpart of ``unboundednerfpytorch_tpu/optim/factory.py``: every
 training-config key ``lrate_<name>`` with a value > 0 that names a field of
 the model becomes a group with that lr and a ``skip_zero_grad`` flag from
-``skip_zero_grad_fields``; lr == 0 freezes the field.
+``skip_zero_grad_fields``; lr == 0 freezes the field. A field is a
+submodule (its parameters make the group) or a parameter of its own
+(FourierGrid's ``img_embeddings``).
 """
 
 from __future__ import annotations
@@ -15,8 +17,8 @@ from torch import nn
 from unboundednerfpytorch_tpu_torch.optim.masked_adam import MaskedAdam, ParamGroup
 
 
-def split_trainable(params: nn.Module, train_cfg) -> dict[str, nn.Module]:
-    """{group name: submodule} for every trainable lrate_* field."""
+def split_trainable(params: nn.Module, train_cfg) -> dict[str, nn.Module | nn.Parameter]:
+    """{group name: submodule or parameter} for every trainable lrate_* field."""
     out = {}
     for f in dataclasses.fields(train_cfg):
         if not f.name.startswith("lrate_") or f.name == "lrate_decay":
@@ -33,7 +35,8 @@ def make_optimizer(params: nn.Module, train_cfg) -> MaskedAdam:
     skip = tuple(getattr(train_cfg, "skip_zero_grad_fields", ()) or ())
     groups = []
     for name, sub in split_trainable(params, train_cfg).items():
-        groups.append(ParamGroup(name=name, params=list(sub.parameters()),
+        tensors = [sub] if isinstance(sub, nn.Parameter) else list(sub.parameters())
+        groups.append(ParamGroup(name=name, params=tensors,
                                  lr=float(getattr(train_cfg, f"lrate_{name}")),
                                  skip_zero_grad=name in skip))
     trainable = {id(p) for g in groups for p in g.params}

@@ -54,10 +54,10 @@ def make_per_lr(trainable: dict, group_lrs: dict) -> dict:
     group]}: for the groups named in ``group_lrs`` (name -> [a tensor of each
     parameter's shape], e.g. ``{"density": [count / count.max()]}``) those
     tensors as f32, for every other group of ``trainable`` (name ->
-    submodule, ``factory.split_trainable``) None throughout."""
+    submodule or parameter, ``factory.split_trainable``) None throughout."""
     out = {}
     for name, sub in trainable.items():
-        n = len(list(sub.parameters()))
+        n = 1 if isinstance(sub, torch.nn.Parameter) else len(list(sub.parameters()))
         lrs = group_lrs.get(name)
         if lrs is None:
             out[name] = [None] * n

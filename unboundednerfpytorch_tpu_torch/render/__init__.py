@@ -3,8 +3,9 @@
 Counterpart of ``unboundednerfpytorch_tpu/render/__init__.py`` for the
 FourierGrid, DVGO, DCVGO and DMPIGO families, with ``export_coarse_geometry``,
 a reference ``.tar`` as ``ft_path`` (the scene config's render knobs laid
-over it, ``utils.reference_import.overlay_render_knobs``) and the ARF
-stylization of ``--style_root`` (``render/arf.py``). One departure: a view whose index
+over it, ``utils.reference_import.overlay_render_knobs``), the
+occupancy-adaptive budgets of ``--auto_budget`` (:func:`auto_budgets`) and the
+ARF stylization of ``--style_root`` (``render/arf.py``). One departure: a view whose index
 lies past the end of ``images`` (the generated test trajectories of the
 waymo and mega loaders) is rendered without ground truth and gets no
 metrics, where the JAX package's ``images[i_test]`` raises an
@@ -45,13 +46,62 @@ def write_video(path: str, frames, fps: int = 30) -> str:
         return outdir
 
 
-# options of the JAX package's run_render that wait for a later slice of the
-# port, each with the ROADMAP item it waits for
+# options of the JAX package's run_render that the port does not take, each
+# with its ROADMAP item
 _NOT_PORTED = {
-    "auto_budget": "suggest_budgets and the hierarchical probe (ROADMAP A16)",
     "constant_baked": "no counterpart: tables as compile-time constants are an XLA "
                       "device (ROADMAP A18b records the decision)",
 }
+
+
+# --auto_budget: the occupied share of the mask under which the hierarchical
+# probe is switched on, the training views and the rays a view it probes
+AUTO_BUDGET_OCCUPANCY = 0.45
+AUTO_BUDGET_VIEWS, AUTO_BUDGET_RAYS = 4, 1024
+
+
+def auto_budgets(params, mcfg, data_dict, flags: dict, device, log_fn=print):
+    """The ``--auto_budget`` branch of the JAX ``run_render``: the budgets
+    sized by ``fourier_grid.suggest_budgets`` from the scene's own occupancy
+    on about ``AUTO_BUDGET_RAYS`` rays of each of the first
+    ``AUTO_BUDGET_VIEWS`` training views, and the hierarchical probe switched
+    on where the mask's occupied share is under ``AUTO_BUDGET_OCCUPANCY``.
+    Returns (the config with the budgets, the record). Unlike the JAX
+    branch, the probe rays take the data's ray flags (``flags``), and the
+    full-march forward reads a single-stage render cache built first, as
+    ``suggest_budgets`` asks (the JAX branch passes none); where that cache
+    does not apply (over the memory guard), from the grids."""
+    import dataclasses
+
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.ops import rays as ray_ops
+
+    rays = []
+    for i in np.asarray(data_dict["i_train"]).reshape(-1)[:AUTO_BUDGET_VIEWS]:
+        H, W = (int(v) for v in np.asarray(data_dict["HW"])[i])
+        view = ray_ops.get_rays_of_a_view(
+            H, W, torch.as_tensor(np.asarray(data_dict["Ks"][i]), device=device),
+            torch.as_tensor(np.asarray(data_dict["poses"][i])[:3, :4], device=device), **flags)
+        sl = slice(0, H * W, max(1, (H * W) // AUTO_BUDGET_RAYS))
+        rays.append([x.reshape(-1, 3)[sl] for x in view])
+    ro, rd, vd = (torch.cat(parts) for parts in zip(*rays))
+    full = fg.build_render_cache(params, dataclasses.replace(
+        mcfg, color_budget=0, density_bake_scale=0.0))
+    rec = fg.suggest_budgets(params, mcfg, ro, rd, vd, chunk=1024, cache=full)
+    del full
+    occ = float(params.mask_cache.mask.float().mean())
+    knobs = {"sample_budget": rec["sample_budget"],
+             "color_budget": rec["color_budget"] if mcfg.color_budget > 0 else 0}
+    hierarchical = occ < AUTO_BUDGET_OCCUPANCY
+    if hierarchical:
+        knobs.update(probe_coarse_stride=rec["probe_coarse_stride"],
+                     probe_candidate_groups=rec["probe_candidate_groups"])
+    rec.update(occupancy=occ, hierarchical=hierarchical)
+    log_fn(f"auto budgets (occupancy {occ:.3f}): sample {rec['sample_budget']}, color "
+           f"{knobs['color_budget']}, hierarchical probe {'on' if hierarchical else 'off'}")
+    return dataclasses.replace(mcfg, **knobs), rec
 
 
 def _ground_truth(images, idx):
@@ -117,6 +167,10 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
         params, mcfg = fg.bake_for_rendering(params, mcfg,
                                              scale=getattr(args, "bake_scale", 1.26))
         log_fn(f"baked render grids: {mcfg.world_size_density} single-bank")
+    if getattr(args, "auto_budget", False) and family == "FourierGrid" and mcfg.sample_budget > 0:
+        mcfg, _ = auto_budgets(params, mcfg, data_dict, dict(
+            ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
+            flip_y=cfg.data.flip_y), dev, log_fn=log_fn)
     # each family's packed-table cache, as the JAX package picks it
     cache = FAMILIES[family].build_render_cache(params, mcfg, log_fn=log_fn)
     if cache is None:
@@ -237,5 +291,6 @@ __all__ = [
     "depth_to_vis",
     "write_video",
     "run_render",
+    "auto_budgets",
     "export_coarse_geometry",
 ]

@@ -41,8 +41,11 @@ which the JAX loop does not pass (ROADMAP C). A reference ``.tar`` as
 ``ft_path`` resumes with fresh moments and the config's render knobs
 (``utils.reference_import.overlay_render_knobs``), as in the JAX package.
 
-Not ported yet, and refused rather than skipped: the two-stage training
-forward (``train_survivor_budget``).
+A ``train_survivor_budget`` (the two-stage training forward) is held at 0
+until the last ``pg_scale`` boundary, where the grids reach their final
+resolution, as in the JAX loop; the held-out panel renders without it, and
+the saves store the configured value.
+
 As in the JAX package, ``pervoxel_lr`` and the ``in_maskcache`` filter act
 on the DVGO family only (elsewhere the first is ignored and the second
 samples as ``flatten`` does), and ``maskout_near_cam_vox`` on the DVGO and
@@ -156,8 +159,10 @@ def gather_training_rays(cfg: ExpConfig, data_dict: dict, device, host: bool = F
 
 
 def make_forward(mcfg, render_kwargs: dict, cache=None) -> Callable:
-    """(params, rays_o, rays_d, viewdirs, bg_color, cache=...) -> RenderResult,
-    for the family of ``mcfg``.
+    """(params, rays_o, rays_d, viewdirs, bg_color, cache=..., img_index=...)
+    -> RenderResult, for the family of ``mcfg``; ``img_index`` (the rays'
+    views) reaches the FourierGrid forward only, whose appearance embeddings
+    read it, as in the JAX package.
 
     As the JAX package's branches: ``render_kwargs["stepsize"]`` reaches
     every forward; ``render_kwargs["bg"]`` reaches DVGO's, DCVGO's and
@@ -170,10 +175,10 @@ def make_forward(mcfg, render_kwargs: dict, cache=None) -> Callable:
     rendering with frozen params; it may also be given per call."""
     family = family_of(mcfg)
 
-    def fwd(params, ro, rd, vd, bg_color=None, cache=cache):
+    def fwd(params, ro, rd, vd, bg_color=None, cache=cache, img_index=None):
         kw = dict(stepsize=render_kwargs["stepsize"], bg_color=bg_color, cache=cache)
         if family == "FourierGrid":
-            return fg.forward(params, mcfg, ro, rd, vd, **kw)
+            return fg.forward(params, mcfg, ro, rd, vd, img_index=img_index, **kw)
         if family == "dvgo":
             return dvgo.forward(params, mcfg, ro, rd, vd, near=render_kwargs["near"],
                                 stepsize=render_kwargs["stepsize"], bg=render_kwargs["bg"],
@@ -486,6 +491,23 @@ def scene_rep_reconstruction(
     if getattr(mcfg, "sample_budget", 0) > 0 and not cache_trusted:
         deferred_budget = mcfg.sample_budget
         mcfg = dataclasses.replace(mcfg, sample_budget=0)
+    # the two-stage training forward waits for the last boundary: before the
+    # final resolution the density has not sharpened, the threshold keeps
+    # more samples a ray than the survivor budget, and the far tail it
+    # drops would be real content
+    deferred_survivors = 0
+    if getattr(mcfg, "train_survivor_budget", 0) > 0 and start_step < max(pg_scale, default=0):
+        deferred_survivors = mcfg.train_survivor_budget
+        mcfg = dataclasses.replace(mcfg, train_survivor_budget=0)
+
+    def undeferred(mcfg_now):
+        """The config with every deferred budget as configured: what a save
+        stores and what the stage hands on."""
+        if deferred_budget:
+            mcfg_now = dataclasses.replace(mcfg_now, sample_budget=deferred_budget)
+        if deferred_survivors:
+            mcfg_now = dataclasses.replace(mcfg_now, train_survivor_budget=deferred_survivors)
+        return mcfg_now
 
     def compile_step(mcfg_now, lr_anchor_now):
         return make_train_step(
@@ -497,11 +519,8 @@ def scene_rep_reconstruction(
     def save(step: int) -> None:
         # never persist a deferral-zeroed budget: a resume must re-enter the
         # deferral with the configured one
-        save_cfg = mcfg
-        if deferred_budget:
-            save_cfg = dataclasses.replace(mcfg, sample_budget=deferred_budget)
-        ckpt.save_model(os.path.join(exp_dir, f"{stage}_last"), family, save_cfg, state.params,
-                        global_step=step, opt_state=state.optimizer.state_dict())
+        ckpt.save_model(os.path.join(exp_dir, f"{stage}_last"), family, undeferred(mcfg),
+                        state.params, global_step=step, opt_state=state.optimizer.state_dict())
 
     def record(rec: dict) -> None:
         with open(os.path.join(exp_dir, f"{stage}_metrics.jsonl"), "a") as f:
@@ -521,6 +540,8 @@ def scene_rep_reconstruction(
         if not panel_views:
             return
         view = panel_views[0]
+        if getattr(mcfg_now, "train_survivor_budget", 0):  # a render: every survivor
+            mcfg_now = dataclasses.replace(mcfg_now, train_survivor_budget=0)
         fwd = make_forward(mcfg_now, panel_kwargs)
         H, W = (int(v) for v in np.asarray(data_dict["HW"])[view])
         rgb, depth, bgmap = render_image(
@@ -551,6 +572,9 @@ def scene_rep_reconstruction(
             state, mcfg, boundary = pg_scale_boundary(state, mcfg, cfg_model, cfg_train,
                                                       global_step, deferred_budget)
             deferred_budget = 0
+            if deferred_survivors and global_step == max(pg_scale):
+                mcfg = dataclasses.replace(mcfg, train_survivor_budget=deferred_survivors)
+                deferred_survivors = 0
             lr_anchor = global_step
             step_fn = compile_step(mcfg, lr_anchor)
             sec = boundary["seconds"]
@@ -585,9 +609,8 @@ def scene_rep_reconstruction(
             callback(global_step, metrics)
     if exp_dir is not None and n_iters > start_step:
         save(n_iters)
-    if deferred_budget:  # never hand on a deferral-zeroed budget
-        mcfg = dataclasses.replace(mcfg, sample_budget=deferred_budget)
-    return family, mcfg, state.params, last_psnr
+    # never hand on a deferral-zeroed budget
+    return family, undeferred(mcfg), state.params, last_psnr
 
 
 def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,

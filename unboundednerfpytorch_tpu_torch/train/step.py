@@ -66,7 +66,8 @@ def make_train_step(
     """Build ``train_step(state, batch, bg_color=None) -> metrics``.
 
     ``forward_fn(params, rays_o, rays_d, viewdirs, bg_color)`` returns a
-    RenderResult. ``world_size_max`` scales the TV weights
+    RenderResult; where the batch holds ``img_index`` it is passed on as a
+    keyword. ``world_size_max`` scales the TV weights
     (``weight * world_size.max() / 128``) of all three axes, unless
     ``tv_axis_scale`` gives one scale an axis (DMPIGO's ``(max(X, Y),
     max(X, Y), mpi_depth) / 128``); ``near_thres`` is the near-clip
@@ -76,8 +77,11 @@ def make_train_step(
     """
 
     def loss_fn(params, batch, bg_color):
+        # a batch of the ray store carries each ray's view (the appearance
+        # embeddings' index); a forward of the loop's make_forward takes it
+        extra = {"img_index": batch["img_index"]} if "img_index" in batch else {}
         res = forward_fn(params, batch["rays_o"], batch["rays_d"], batch["viewdirs"],
-                         bg_color)
+                         bg_color, **extra)
         target = batch["rgb"]
         n_rays = target.shape[0]
         components = {}
@@ -106,6 +110,10 @@ def make_train_step(
         metrics = {"loss": loss.detach(), "mse": mse_loss.detach(),
                    "psnr": L.mse2psnr(mse_loss.detach())}
         metrics.update({k: v.detach() for k, v in components.items()})
+        if res.color_overflow_frac is not None:
+            # the two-stage training forward: the share of rays with more
+            # survivors than its budget (their far tail was dropped)
+            metrics["overflow_frac"] = res.color_overflow_frac.detach()
         return loss, metrics
 
     def add_tv_grads(params, step: int, n_rays: int) -> None:
@@ -233,7 +241,9 @@ class HostRayStoreSampler:
     buffer. Given ``bg_generator`` (the ``rand_bkgd`` configs) each batch
     also gets a random background per ray, drawn on the device from it (as
     :class:`FlattenSampler` draws it), so :meth:`fast_forward` replays both
-    streams and a resumed run draws what the uninterrupted one draws."""
+    streams and a resumed run draws what the uninterrupted one draws. A
+    store with ``img_index`` hands each batch its rays' views too (through a
+    second, int32 staging buffer), as the device sampler does."""
 
     COLUMNS = {"rgb": (0, 3), "rays_o": (3, 6), "rays_d": (6, 9), "viewdirs": (9, 12)}
 
@@ -243,6 +253,8 @@ class HostRayStoreSampler:
             raise ValueError(f"unknown sampler mode {mode!r}")
         self.mode = mode
         self.store = {k: np.asarray(store[k], np.float32) for k in self.COLUMNS}
+        self.img_index = (np.asarray(store["img_index"], np.int32) if "img_index" in store
+                          else None)
         self.n_total = int(self.store["rgb"].shape[0])
         self.n_rand = int(n_rand)
         self.device = torch.device(device)
@@ -252,6 +264,8 @@ class HostRayStoreSampler:
         self._cursor = 0
         pinned = self.device.type == "cuda"
         self._stage = torch.empty((self.n_rand, 12), dtype=torch.float32, pin_memory=pinned)
+        self._stage_idx = (None if self.img_index is None else
+                           torch.empty((self.n_rand,), dtype=torch.int32, pin_memory=pinned))
         self._copied = None  # event recorded after the last copy out of the stage
 
     def next_indices(self) -> np.ndarray:
@@ -270,8 +284,8 @@ class HostRayStoreSampler:
         return torch.rand((self.n_rand, 3), generator=self.bg_generator, device=self.device)
 
     def next_batch(self) -> tuple[dict, torch.Tensor | None]:
-        """(batch of rgb, rays_o, rays_d, viewdirs [n_rand, 3] on the device,
-        background colours [n_rand, 3] or None)."""
+        """(batch of rgb, rays_o, rays_d, viewdirs [n_rand, 3] (and img_index
+        [n_rand]) on the device, background colours [n_rand, 3] or None)."""
         idx = self.next_indices()
         if self._copied is not None:
             self._copied.synchronize()
@@ -279,10 +293,15 @@ class HostRayStoreSampler:
         for key, (a, b) in self.COLUMNS.items():
             stage[:, a:b] = self.store[key][idx]
         rows = self._stage.to(self.device, non_blocking=True, copy=True)
+        if self._stage_idx is not None:
+            self._stage_idx.numpy()[:] = self.img_index[idx]
+            views = self._stage_idx.to(self.device, non_blocking=True, copy=True)
         if self.device.type == "cuda":
             self._copied = torch.cuda.Event()
             self._copied.record()
         batch = {key: rows[:, a:b] for key, (a, b) in self.COLUMNS.items()}
+        if self._stage_idx is not None:
+            batch["img_index"] = views
         return batch, self._next_bg()
 
     def fast_forward(self, n: int) -> None:

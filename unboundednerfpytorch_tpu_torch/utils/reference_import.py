@@ -36,13 +36,14 @@ keys its moments by the index of a flat parameter group, whose order follows
 its module construction; a migrated model is rendered or fine-tuned with
 fresh moments.
 
-What the port does not model is refused, never dropped: a FourierGrid
-checkpoint with the view-direction grid (``num_voxels_viewdir`` > 0 or
-``vd.*`` tensors), appearance embeddings (``img_embeddings.*``, or
-``img_emb_dim`` > 0 with ``sample_num`` > 0) or the coarse colour head
-(``rgbnet_dim`` <= 0) raises ``NotImplementedError`` naming ROADMAP A16. The
-JAX package drops the embeddings on import (the reference's forward never
-reads them); the port refuses them with the rest.
+A FourierGrid checkpoint's view-direction grid (``num_voxels_viewdir`` > 0,
+``vd.*``) and coarse colour head (``rgbnet_dim`` <= 0: no MLP, k0 one plain
+bank of 3 channels) are imported and exported as the JAX package does. Its
+appearance embeddings (``img_embeddings.*``) are dropped on import, as the
+JAX package drops them: the reference's forward never reads them, and its
+MLP's input has no room for them. The other way, a model of the port whose
+MLP reads appearance embeddings has no reference counterpart, and its export
+raises (the JAX package writes a file that no loader takes back).
 """
 
 from __future__ import annotations
@@ -211,22 +212,6 @@ def _rgb_fields(kw: dict, viewbase_pe: int) -> dict:
                 viewbase_pe=int(kw.get("viewbase_pe", viewbase_pe)))
 
 
-def _refuse_unported(kw: dict, sd: dict) -> None:
-    """A FourierGrid checkpoint's parts that the port does not model."""
-    unported = {
-        "the view-direction grid (num_voxels_viewdir > 0)":
-            int(kw.get("num_voxels_viewdir", -1)) > 0 or any(k.startswith("vd.") for k in sd),
-        "appearance embeddings (img_emb_dim > 0)":
-            (int(kw.get("img_emb_dim", -1)) > 0 and int(kw.get("sample_num", -1)) > 0)
-            or any(k.startswith("img_embeddings.") for k in sd),
-        "the coarse colour head (rgbnet_dim <= 0)": int(kw.get("rgbnet_dim", 0)) <= 0,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError("this reference checkpoint holds what the port does not "
-                                  "model yet (ROADMAP A16): " + "; ".join(bad))
-
-
 def _fourier_cfg(kw: dict, sd: dict) -> dict:
     return dict(
         scene_center=tuple(float(v) for v in _np(sd["scene_center"])),
@@ -241,6 +226,8 @@ def _fourier_cfg(kw: dict, sd: dict) -> dict:
         bg_len=_box(kw, "xyz_max")[0] - 1.0,
         contracted_norm=str(kw["contracted_norm"]),
         fourier_freq_num=int(kw["fourier_freq_num"]),
+        # the reference builds appearance embeddings but its forward never
+        # reads them and its MLP's input excludes them: dropped
         img_emb_dim=-1,
         sample_num=int(kw.get("sample_num", -1)),
         **_rgb_fields(kw, 4),
@@ -327,8 +314,6 @@ def convert_reference_ckpt(ckpt: dict, device=None):
     kw = dict(ckpt["model_kwargs"])
     sd = dict(ckpt["model_state_dict"])
     family = detect_family(kw)
-    if family == "FourierGrid":
-        _refuse_unported(kw, sd)
     cfg = convert.CONFIGS[family](**_CONFIG_FIELDS[family](kw, sd))
     template = convert.FAMILIES[family].create(cfg, None, device="meta")
     if family == "dmpigo":
@@ -344,6 +329,8 @@ def convert_reference_ckpt(ckpt: dict, device=None):
         "mask_cache": {"mask": mask, "xyz_min": template.mask_cache.xyz_min,
                        "xyz_max": template.mask_cache.xyz_max},
     }
+    if getattr(template, "vd", None) is not None:
+        tree["vd"] = _field_tree(template.vd, sd, "vd")
     params = convert.params_from_numpy(family, tree, device)
     _check_shapes(template, params)
     for name in ("density", "k0"):  # the grids in the dtype the config asks for
@@ -417,6 +404,9 @@ def convert_to_reference(family: str, cfg, params, global_step: int = 0) -> dict
     the JAX package writes them (a bfloat16 value is exact in float32)."""
     if family not in convert.CONFIGS:
         raise ValueError(f"unknown model family {family!r}")
+    if getattr(params, "img_embeddings", None) is not None:
+        raise ValueError("the model's MLP reads appearance embeddings, which no reference "
+                         "checkpoint holds (the reference's MLP never reads them)")
     tree = convert.params_to_numpy(params)
     sd: dict = {}
     bbox_min = np.asarray(cfg.xyz_min, np.float32)
@@ -438,6 +428,8 @@ def convert_to_reference(family: str, cfg, params, global_step: int = 0) -> dict
         sd["scene_center"] = torch.tensor(list(cfg.scene_center))
         sd["scene_radius"] = torch.tensor(list(cfg.scene_radius))
         sd["act_shift"] = shift
+        if "vd" in tree:
+            _export_grid(sd, "vd", tree["vd"])
         kw = dict(
             xyz_min=bbox_min, xyz_max=bbox_max,
             num_voxels_density=int(cfg.num_voxels_density),
