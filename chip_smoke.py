@@ -108,21 +108,28 @@ Phases, each reported on its own line:
      to what run 1 saved, the lr anchored at the last boundary, and trains
      two more full-width steps. The seconds and GB of each save and of a
      full-width load are printed;
-  6b. ``configs/tankstemple_unbounded/truck_single.py`` through the command
-     line on a NeRF++-layout scene written the same way (8 training and 2
-     test views of 546x980, OpenCV poses, ``inverse_y``): 8 steps, its seven
-     boundaries compressed to ``CLI_PG_SCALE``, ending at full width (9 banks
-     of 199^3, ``N_rand`` 4096); ms/step at full width and peak memory.
+  6b. ``configs/tankstemple_unbounded/truck_single.py``'s command-line
+     ``train`` on a NeRF++-layout scene written the same way (8 training and
+     2 test views of 546x980, OpenCV poses, ``inverse_y``): 8 steps, its
+     seven boundaries compressed to ``CLI_PG_SCALE``, ending at full width (9
+     banks of 199^3, ``N_rand`` 4096); ms/step at full width and peak memory.
+     It writes no checkpoint, and nor do 7a and 8a (``cli_train_in_memory``,
+     the disk kept for phase 13a, the save code held by 6a and 13a): the
+     command line itself loads the data and writes ``args.txt``
+     (``--program export_bbox``), ``run_train`` trains without an
+     ``exp_dir`` (a callback keeps the loop's records), and the test views
+     are rendered from the trained parameters as ``run_render`` renders a
+     checkpoint's.
      Every command-line run is checked for its launches: ``tv_add_grad`` 2 a
      step, both march kernels 1 a step, ``march_forward`` once per chunk of
      the render that follows training;
   7. the other families and the host ray store, each at its config's full
      width, its boundaries compressed to ``CLI_PG_SCALE`` and
      ``FAMILY_STEPS`` steps: 7a ``configs/nerf_unbounded/bicycle.py`` (DCVGO,
-     319^3 one-bank grids, k0 12 channels bf16, 1064 samples a ray) through
-     the command line on an 8-view capture at images_4 (822x1237), ending with
+     319^3 one-bank grids, k0 12 channels bf16, 1064 samples a ray), the
+     command line's ``train`` on an 8-view capture at images_4 (822x1237), ending with
      the render of its one test view (``cumdist_thres`` too once a step and a
-     chunk); then, on the checkpoint with the scene imprinted, the cached
+     chunk); then, on the trained model with the scene imprinted, the cached
      render's forward against the uncached one on a chunk and the card against
      the CPU on ``CPU_RAYS`` rays, threshold flips counted; 7b
      ``configs/llff/fern.py`` (DMPIGO, NDC rays, 256^3 voxels as [X, Y, 128],
@@ -136,7 +143,7 @@ Phases, each reported on its own line:
      and ``FAMILY_STEPS`` steps: 8a ``configs/waymo/waymo_no_block.py``
      (seven banks of 299^3, k0 of 3 channels bf16, ``N_rand`` 2048, the
      96-sample budget and the 32-sample colour budget, the Fourier MSE loss,
-     ``--diffuse``) through the command line on a Waymo-layout capture
+     ``--diffuse``), the command line's ``train`` on a Waymo-layout capture
      (``metadata.json``; 8 training views of camera 73, 2 of camera 74 with
      another focal length, which the config's ``training_ids`` drop, 2 val
      views, 640x960), then the render of the 2 val views with PSNR and of the
@@ -245,13 +252,38 @@ Phases, each reported on its own line:
      third's export refused; 12f holds the march kernels and masked Adam at
      every shape phase 12 gave them ([2048, 48], the adaptive render's
      [262144, 96], the view grid, the embeddings, the coarse head's grids)
-     and ``tv_add_grad`` at the coarse head's k0.
+     and ``tv_add_grad`` at the coarse head's k0;
+ 13. the Waymo city-scale path: 13a the street scene (``street_scene``,
+     14 views of 640x960, each with its exposure) written as the Waymo
+     release's TFRecords (per-pixel rays, intrinsics, camera, exposure, PNG)
+     and decoded by ``data/preprocess.py`` (each camera recovered from its
+     rays), then ``configs/waymo/waymo_block.py --num_per_block 5`` through
+     the command line: two blocks of the 10 camera-73 training views (the two
+     of camera 74 dropped by its ``sample_cam``), each at the config's full
+     width (seven banks of 299^3, k0 3 channels bf16), its boundaries
+     compressed as in 8a, saved with Adam's state in ``block_<b>/``, as
+     ``fine_last_<b>`` and merged into ``fine_last_merged`` (the grids the
+     blocks' elementwise minimum to the bit, the occupancy cache a fresh
+     refresh's); 13b ``--render_only`` through the merged checkpoint (val
+     views with PSNR), and with it moved aside through ``run_render_blocks``
+     (each block's views, each frame equal to the render of that block's
+     checkpoint alone); 13c Block-NeRF at the reference's width (D=8, W=256,
+     visibility 128, appearance 32, 64 + 64 samples, batch 1024,
+     ``use_disp``) on the same records in two overlapping blocks
+     (``split_blocks``, each block's capture by ``extract_block_meta``):
+     ``BN_STEPS`` steps a block through ``tools.train_block_nerf`` (the fine
+     PSNR must rise ``BN_MIN_GAIN`` dB), an overlap view composed through
+     ``tools.eval_block_nerf``; 13d a chunk of 4096 rays and a step's
+     gradients, card against CPU within ``BN_TOL``, and the composed frame
+     against the host's blend of the same block renders; 13e both march
+     kernels, masked Adam and ``tv_add_grad`` at every shape 13a and 13b gave
+     them.
 
 ``--profile`` also traces the last train steps and one rendered view with
 ``torch.profiler`` and prints the device time by range and by kernel.
 ``--kernels-only`` stops after phase 3 and prints the kernel table without
 launch counts and without the last line (a quick check of a changed kernel).
-The kernel table's launches are those of phases 4 to 12 and of the probe run.
+The kernel table's launches are those of phases 4 to 13 and of the probe run.
 Near the end it prints the seconds and the GiB written (``/proc/self/io``) by
 phase: a chip call may write 45 GiB, deleted files included.
 
@@ -458,6 +490,27 @@ HEAD_LRATES = dict(lrate_vd=0.1, lrate_img_embeddings=0.01)
 # 12c's full march on every 4th ray of the view; 12e pickles a .tar dict
 # under this size (11b times the pickling of a 2.9 GB one)
 AUTO_PSNR_STRIDE, TAR_PICKLE_BYTES = 4, 1 << 30
+# phase 13: the Waymo city-scale path. 13a: BLOCK_VIEWS views of the street
+# scene at 8a's 640x960 as the Waymo release's TFRecords (the validation
+# file's views BLOCK_VAL_IDS, camera 74's BLOCK_OTHER_IDS, which the config's
+# sample_cam 73 drops), decoded by data/preprocess.py, trained by
+# waymo_block.py with --num_per_block NUM_PER_BLOCK: two blocks of the 10
+# camera-73 training views; 13c: the same records split into two
+# overlapping Block-NeRF blocks (split_blocks at BN_RADIUS, BN_OVERLAP),
+# BN_STEPS steps a block through the entry point, the fine PSNR (the mean of
+# the first and of the last BN_PSNR_WINDOW steps) rising at least
+# BN_MIN_GAIN dB; 13d: a chunk of BN_RAYS rays and a step's gradients, card
+# against CPU within BN_TOL of the largest value (f32 with TF32 off on both:
+# the products sum in another order and sin, cos, exp and log round
+# otherwise by an ulp or two, which 16 linear layers and encoding phases up
+# to 2^9 times the coordinates grow to some 1e-5; BN_TOL leaves a margin),
+# but for the rays whose fine depths fall in another bin (at most
+# BN_MAX_FLIPPED of them: some 65 x 62 u-cdf pairs a ray, each within 1e-7
+# of a crossing with a chance of about 1e-5)
+BLOCK_CONFIG = ROOT / "configs" / "waymo" / "waymo_block.py"
+BLOCK_VIEWS, BLOCK_VAL_IDS, BLOCK_OTHER_IDS, NUM_PER_BLOCK = 14, (4, 9), (2, 11), 5
+BN_RADIUS, BN_OVERLAP, BN_STEPS, BN_MIN_GAIN, BN_PSNR_WINDOW = 3.0, 0.3, 300, 3.0, 20
+BN_RAYS, BN_TOL, BN_MAX_FLIPPED = 4096, 1e-3, 0.01
 # kernel launches of a train step and of a render chunk, by family
 TRAIN_PER_STEP = {"tv_add_grad": 2, "march_forward": 1, "march_backward": 1}
 DCVGO_PER_STEP = {**TRAIN_PER_STEP, "cumdist_thres": 1}
@@ -1680,17 +1733,17 @@ def train_counts_of(total: dict, render_counts: dict) -> dict:
     return {k: v for k, v in out.items() if v}
 
 
-def check_cli_run(tag: str, total: dict, render_spy: Spy, steps: int, n_views: int,
+def check_cli_run(tag: str, total: dict, render, steps: int, n_views: int,
                   hw: tuple, per_step=TRAIN_PER_STEP, per_chunk=("march_forward",)) -> list:
     """The launches of a command-line ``train`` (the steps, then the render
-    of the test views that follows): ``per_step`` a step (``tv_add_grad`` 2,
-    both march kernels 1; DCVGO adds ``cumdist_thres``), ``masked_adam`` as
-    often as the optimizer should have launched it, each kernel of
-    ``per_chunk`` once per render chunk, and nothing else. Returns [train
-    counts, render counts]."""
+    of the test views that follows; ``render`` is the render's call, as
+    ``render_spy`` or ``cli_train_in_memory`` records it): ``per_step`` a
+    step (``tv_add_grad`` 2, both march kernels 1; DCVGO adds
+    ``cumdist_thres``), ``masked_adam`` as often as the optimizer should have
+    launched it, each kernel of ``per_chunk`` once per render chunk, and
+    nothing else. Returns [train counts, render counts]."""
     import numpy as np
 
-    render = render_spy.calls[-1]
     out = render.result["test"]
     if out["rgbs"].shape[:3] != (n_views, *hw) or not np.isfinite(out["rgbs"]).all():
         raise AssertionError(f"{tag}: rendered {out['rgbs'].shape} or non-finite values")
@@ -1728,6 +1781,93 @@ def render_spy():
     return Spy(render, "run_render", before, after)
 
 
+class Records:
+    """A ``run_train`` callback that keeps what the loop writes to
+    ``fine_metrics.jsonl`` where it has an ``exp_dir`` (the record of each
+    boundary, then each step's scalars and the seconds since the run
+    began), for a run without one."""
+
+    def __init__(self):
+        self.records, self.t0 = [], time.time()
+
+    def __call__(self, step, metrics):
+        if "pg_scale" in metrics:
+            self.records.append({"step": step, "pg_scale": metrics["pg_scale"]})
+        self.records.append({"step": step, "elapsed_s": time.time() - self.t0,
+                             **{k: v.item() if hasattr(v, "item") else v
+                                for k, v in metrics.items() if k != "pg_scale"}})
+
+
+def render_held_out(tag: str, cfg, data, family: str, mcfg, params) -> dict:
+    """The test views rendered from parameters in memory as ``run_render``
+    renders a checkpoint's: the family's render cache, its forward, the
+    command line's chunk, the ground truth where a view has an image."""
+    import numpy as np
+
+    from unboundednerfpytorch_tpu_torch import render
+    from unboundednerfpytorch_tpu_torch.render import renderer
+    from unboundednerfpytorch_tpu_torch.train import loop
+
+    params.requires_grad_(False)
+    cache = loop.FAMILIES[family].build_render_cache(params, mcfg,
+                                                     log_fn=lambda m: log(f"{tag} {m}"))
+    fwd_core = loop.make_forward(mcfg, {"near": float(data["near"]), "far": float(data["far"]),
+                                        "bg": 1.0 if cfg.data.white_bkgd else 0.0,
+                                        "stepsize": cfg.fine_model_and_render.stepsize})
+    idx = np.asarray(data["i_test"])
+    return renderer.render_viewpoints(
+        lambda aux, ro, rd, vd: fwd_core(aux[0], ro, rd, vd, None, cache=aux[1]),
+        poses=np.asarray(data["poses"])[idx], HW=np.asarray(data["HW"])[idx],
+        Ks=np.asarray(data["Ks"])[idx], gt_imgs=render._ground_truth(data.get("images"), idx),
+        ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
+        flip_y=cfg.data.flip_y, chunk=RENDER_CHUNK, aux=(params, cache),
+        log_fn=lambda m: log(f"{tag} {m}"), device="cuda")
+
+
+def cli_train_in_memory(tag: str, cfg_file: str, argv=(), load_after=None):
+    """A command-line ``train`` that writes no checkpoint: the command line
+    itself runs ``--program export_bbox`` with ``argv`` (the config, the data
+    through ``load_everything`` with the command line's arguments, which a
+    spy keeps, ``args.txt``); that data goes through ``run_train`` with the
+    command line's seed and no ``exp_dir``, its records kept by
+    ``Records``; then the test views are rendered from the trained
+    parameters (``render_held_out``). The save code is held by phases 6a
+    and 13a. Returns (the loader's call, the records, (family, config,
+    params), the render's call as ``render_spy`` records it)."""
+    import argparse as ap
+
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.cli import main as cli
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.train import loop
+
+    with Spy(common, "load_everything", after=load_after) as loads:
+        run_cli(["--config", cfg_file, "--program", "export_bbox", *argv])
+    cfg = loader.load_config(cfg_file)
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    args_txt = open(os.path.join(exp_dir, "args.txt")).read()
+    if "program = export_bbox" not in args_txt or not os.path.exists(
+            os.path.join(exp_dir, "cam.npz")):
+        raise AssertionError(f"{tag}: the command line wrote no args.txt or cam.npz")
+    seed = cli.build_parser().get_default("seed")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    records = Records()
+    family, mcfg, params, _ = loop.run_train(cfg, loads.calls[0].result, seed=seed,
+                                             device="cuda", log_fn=log, log_every=1,
+                                             callback=records)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    before = dict(build.LAUNCHES)
+    out = render_held_out(tag, cfg, loads.calls[0].result, family, mcfg, params)
+    call = ap.Namespace(result={"test": out}, launches=launches_since(before),
+                        peak_before_gb=peak)
+    return loads.calls[0], records.records, (family, mcfg, params), call
+
+
 def phase_cli_360(cfg_file: str, card: str, n_test: int) -> list:
     """Phase 6a: bicycle_single through the command line, saved and resumed.
     Returns the launch counts of its runs."""
@@ -1763,7 +1903,7 @@ def phase_cli_360(cfg_file: str, card: str, n_test: int) -> list:
     reset_counts()
     with Spy(ckpt, "save_model", after=on_save) as saves, render_spy() as renders:
         run_cli(["--config", cfg_file, "--i_weights", str(CLI_SAVE_EVERY), "--i_print", "1"])
-    counts = check_cli_run("[6a] run 1", dict(build.LAUNCHES), renders, CLI_STEPS, n_test,
+    counts = check_cli_run("[6a] run 1", dict(build.LAUNCHES), renders.calls[-1], CLI_STEPS, n_test,
                            (H, W))
     records = read_records(exp_dir)
     bounds = {r["step"]: r["pg_scale"] for r in records if "pg_scale" in r}
@@ -1824,7 +1964,8 @@ def phase_cli_360(cfg_file: str, card: str, n_test: int) -> list:
                                                  after=on_restore), render_spy() as renders:
         lines = run_cli(["--config", cfg_file, "--i_weights", str(CLI_SAVE_EVERY),
                          "--i_print", "1"])
-    counts += check_cli_run("[6a] run 2", dict(build.LAUNCHES), renders, 2, n_test, (H, W))
+    counts += check_cli_run("[6a] run 2", dict(build.LAUNCHES), renders.calls[-1], 2, n_test,
+                            (H, W))
     del saved["moments"]
     said = f"fine: resumed from {exp_dir}/fine_last at step {CLI_STEPS} (with the optimizer's"
     if not any(line.startswith(said) for line in lines):
@@ -1853,16 +1994,16 @@ def phase_cli_360(cfg_file: str, card: str, n_test: int) -> list:
 
 
 def phase_cli_truck(tmp: pathlib.Path, card: str) -> list:
-    """Phase 6b: truck_single through the command line on a NeRF++ scene.
-    Returns the launch counts of the run."""
+    """Phase 6b: truck_single's command-line train on a NeRF++ scene, without
+    its checkpoint (``cli_train_in_memory``: the disk is kept for phase 13a;
+    the save code is held by 6a). Returns the launch counts of the run."""
     import numpy as np
     import torch
 
     from unboundednerfpytorch_tpu_torch.configs import loader
-    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.data import synthetic
     from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
     from unboundednerfpytorch_tpu_torch.ops.cuda import build
-    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 
     t0 = time.time()
     data = synthetic.orbit_scene(TRUCK_VIEWS, TRUCK_H, TRUCK_W, seed=1, n_test=TRUCK_TEST,
@@ -1876,18 +2017,12 @@ def phase_cli_truck(tmp: pathlib.Path, card: str) -> list:
         f"N_rand {ft.N_rand}, inverse_y {cfg.data.inverse_y}, pg_scale {ft.pg_scale}; scene of "
         f"{TRUCK_VIEWS} + {TRUCK_TEST} views of {TRUCK_H}x{TRUCK_W} made and written in "
         f"{time.time() - t0:.1f} s")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
     t0 = time.time()
-    with Spy(ckpt, "save_model") as saves, Spy(common, "load_everything") as loads, \
-            render_spy() as renders:
-        run_cli(["--config", cfg_file, "--i_print", "1"])
+    load, records, (_, _, params), render = cli_train_in_memory("[6b]", cfg_file,
+                                                                ["--i_print", "1"])
     total_s = time.time() - t0
-    counts = check_cli_run("[6b]", dict(build.LAUNCHES), renders, TRUCK_STEPS, TRUCK_TEST,
+    counts = check_cli_run("[6b]", dict(build.LAUNCHES), render, TRUCK_STEPS, TRUCK_TEST,
                            (TRUCK_H, TRUCK_W))
-    exp_dir = os.path.join(cfg.basedir, cfg.expname)
-    records = read_records(exp_dir)
     bounds = {r["step"]: r["pg_scale"] for r in records if "pg_scale" in r}
     steps = {r["step"]: r for r in records if "loss" in r}
     if sorted(bounds) != list(CLI_PG_SCALE) or sorted(steps) != list(range(1, TRUCK_STEPS + 1)):
@@ -1895,19 +2030,18 @@ def phase_cli_truck(tmp: pathlib.Path, card: str) -> list:
     first = bounds[CLI_PG_SCALE[0]]
     if (first["sample_budget_before"], first["sample_budget"]) != (0, fm.sample_budget):
         raise AssertionError("truck: the deferred budget did not come on at the first boundary")
-    params = saves.calls[-1].args[3]
     want = (2 * fm.fourier_freq_num + 1, *full.world_size_rgb, full.k0_dim)
     if tuple(params.k0.grid.shape) != want or params.k0.grid.dtype != torch.bfloat16:
         raise AssertionError(f"truck k0 grid {tuple(params.k0.grid.shape)}, want {want} bf16")
     ms = [1e3 * (steps[s]["elapsed_s"] - steps[s - 1]["elapsed_s"])
           for s in range(CLI_PG_SCALE[-1] + 1 + WARMUP_STEPS, TRUCK_STEPS + 1)]
-    log(f"[6b] truck_single on {card}: load_everything {loads.calls[0].seconds:.2f} s; grids "
+    log(f"[6b] truck_single on {card}: load_everything {load.seconds:.2f} s; grids "
         f"{tuple(params.k0.grid.shape)} bf16 from step {CLI_PG_SCALE[-1]}; ms/step at full "
-        f"width (steps {CLI_PG_SCALE[-1] + 1 + WARMUP_STEPS} to {TRUCK_STEPS}, the loop's "
+        f"width (steps {CLI_PG_SCALE[-1] + 1 + WARMUP_STEPS} to {TRUCK_STEPS}, the callback's "
         f"clock) {[round(t, 1) for t in ms]}, median {float(np.median(ms)):.1f}; peak memory of "
-        f"the training {renders.calls[-1].peak_before_gb:.2f} GB, of the whole run "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; final save "
-        f"{saves.calls[-1].seconds:.2f} s; the command {total_s:.1f} s")
+        f"the training {render.peak_before_gb:.2f} GB, of the whole run "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; load, train and render "
+        f"{total_s:.1f} s, no checkpoint")
     return counts
 
 
@@ -2552,15 +2686,17 @@ def phase_adam(gen, tv_shapes: dict, fam: dict, floor: float) -> list:
 class PathShapes:
     """For a ``with`` block, the signatures the path hands ``march_forward``
     (shape, shift, interval, whether it keeps residuals), ``march_backward``
-    (shape, shift, interval) and ``masked_adam`` (shape, dtype, skip, whether
-    a grad and a per-element lr came), each with its number of calls: spies
-    on the wrappers that read their arguments and hold none."""
+    (shape, shift, interval), ``masked_adam`` (shape, dtype, skip, whether
+    a grad and a per-element lr came) and the train step's ``tv_add_grad``
+    (shape, dtype, weights), each with its number of calls: spies on the
+    wrappers that read their arguments and hold none."""
 
     def __init__(self):
-        self.fwd, self.bwd, self.adam = {}, {}, {}
+        self.fwd, self.bwd, self.adam, self.tv = {}, {}, {}, {}
 
     def __enter__(self):
         from unboundednerfpytorch_tpu_torch.ops.cuda import adam, march
+        from unboundednerfpytorch_tpu_torch.train import step
 
         def count(table, key):
             table[key] = table.get(key, 0) + 1
@@ -2578,9 +2714,14 @@ class PathShapes:
             count(self.adam, (tuple(p.shape), p.dtype, bool(skip), grad is not None,
                               kwargs.get("per_lr") is not None))
 
+        def on_tv(args, kwargs):
+            count(self.tv, (tuple(args[0].shape), args[0].dtype,
+                            tuple(float(w) for w in args[2:5])))
+
         self.spies = [Spy(march, "march_forward", before=on_fwd, keep=False),
                       Spy(march, "march_backward", before=on_bwd, keep=False),
-                      Spy(adam, "masked_adam", before=on_adam, keep=False)]
+                      Spy(adam, "masked_adam", before=on_adam, keep=False),
+                      Spy(step, "tv_add_grad", before=on_tv, keep=False)]
         for spy in self.spies:
             spy.__enter__()
         return self
@@ -2652,14 +2793,15 @@ def full_width_ms(records, first: int, last: int) -> list:
             for s in range(first, last + 1)]
 
 
-def check_family_records(tag: str, exp_dir: str, family: str, world_size: tuple) -> list:
-    """The loop's records and the checkpoint of a family's command-line
-    run: both boundaries crossed, every step logged with a finite loss, the
-    grids at ``world_size`` after the last boundary and in ``fine_last``.
+def check_family_records(tag: str, records: list, family: str, world_size: tuple,
+                         exp_dir: str | None = None) -> list:
+    """The loop's records of a family's command-line run (``read_records``,
+    or ``Records`` of a run without a checkpoint): both boundaries crossed,
+    every step logged with a finite loss, the grids at ``world_size`` after
+    the last boundary; with ``exp_dir``, ``fine_last`` at the last step.
     Returns the records."""
     import numpy as np
 
-    records = read_records(exp_dir)
     bounds = {r["step"]: r["pg_scale"] for r in records if "pg_scale" in r}
     steps = [r for r in records if "loss" in r]
     if sorted(bounds) != list(CLI_PG_SCALE) or [r["step"] for r in steps] != list(
@@ -2673,6 +2815,8 @@ def check_family_records(tag: str, exp_dir: str, family: str, world_size: tuple)
             tuple(last["world_size_rgb"]) != tuple(world_size):
         raise AssertionError(f"{tag}: grids {last['world_size_rgb']} after the last boundary, "
                              f"want {world_size}")
+    if exp_dir is None:
+        return records
     meta = json.load(open(os.path.join(exp_dir, "fine_last", "meta.json")))
     if (meta["family"], meta["global_step"]) != (family, FAMILY_STEPS):
         raise AssertionError(f"{tag}: fine_last holds {meta['family']} at step "
@@ -2681,21 +2825,22 @@ def check_family_records(tag: str, exp_dir: str, family: str, world_size: tuple)
 
 
 def phase_cli_dcvgo(tmp: pathlib.Path, card: str) -> list:
-    """Phase 7a: bicycle.py (DCVGO) through the command line on a capture at
-    images_4, then its render's forward held: cached against uncached and
-    the card against the CPU. Returns the launch counts of the run."""
+    """Phase 7a: bicycle.py (DCVGO)'s command-line train on a capture at
+    images_4, without its checkpoint (``cli_train_in_memory``: the disk is
+    kept for phase 13a), then its render's forward held on the trained
+    model: cached against uncached and the card against the CPU. Returns the
+    launch counts of the run."""
     import numpy as np
     import torch
 
     from unboundednerfpytorch_tpu_torch.configs import loader
     from unboundednerfpytorch_tpu_torch.configs.schema import normalize_fast_color_thres
     from unboundednerfpytorch_tpu_torch.convert import params_from_numpy, params_to_numpy
-    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.data import synthetic
     from unboundednerfpytorch_tpu_torch.models import dcvgo
     from unboundednerfpytorch_tpu_torch.ops import rays as ray_ops
     from unboundednerfpytorch_tpu_torch.ops.cuda import build
     from unboundednerfpytorch_tpu_torch.train import loop
-    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 
     t0 = time.time()
     data = synthetic.orbit_scene(BIKE4_VIEWS, BIKE4_H, BIKE4_W, seed=2, cam_radius=CAM_RADIUS,
@@ -2711,29 +2856,27 @@ def phase_cli_dcvgo(tmp: pathlib.Path, card: str) -> list:
         f"N_rand {ft.N_rand}, {2 * full.n_inner} samples a ray, pg_scale {ft.pg_scale}; scene "
         f"of {BIKE4_VIEWS} views of {BIKE4_H}x{BIKE4_W} made and written in "
         f"{time.time() - t0:.1f} s")
-    exp_dir = os.path.join(cfg.basedir, cfg.expname)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
     t0 = time.time()
-    with render_spy() as renders:
-        run_cli(["--config", cfg_file, "--i_print", "1", "--render_test"])
+    load, records, (family, mcfg, params), render = cli_train_in_memory(
+        "[7a]", cfg_file, ["--i_print", "1", "--render_test"])
     total_s = time.time() - t0
-    counts = check_cli_run("[7a]", dict(build.LAUNCHES), renders, FAMILY_STEPS, 1,
+    counts = check_cli_run("[7a]", dict(build.LAUNCHES), render, FAMILY_STEPS, 1,
                            (BIKE4_H, BIKE4_W), per_step=DCVGO_PER_STEP, per_chunk=DCVGO_PER_CHUNK)
-    records = check_family_records("[7a]", exp_dir, "dcvgo", full.world_size)
+    records = check_family_records("[7a]", records, "dcvgo", full.world_size)
+    if family != "dcvgo" or tuple(params.density.world_size) != tuple(full.world_size):
+        raise AssertionError(f"[7a] trained {family} at {params.density.world_size}")
     ms = full_width_ms(records, CLI_PG_SCALE[-1] + 1 + WARMUP_STEPS, FAMILY_STEPS)
     log(f"[7a] bicycle.py on {card}: grids {full.world_size} from step {CLI_PG_SCALE[-1]}; "
-        f"ms/step by the loop's clock {[round(t, 1) for t in full_width_ms(records, 2, FAMILY_STEPS)]}"
-        f" (steps 2 on), at full width median {float(np.median(ms)):.1f}; peak memory of the "
-        f"training {renders.calls[-1].peak_before_gb:.2f} GB, of the whole run "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; the command {total_s:.1f} s")
+        f"ms/step by the callback's clock "
+        f"{[round(t, 1) for t in full_width_ms(records, 2, FAMILY_STEPS)]} (steps 2 on), at full "
+        f"width median {float(np.median(ms)):.1f}; peak memory of the training "
+        f"{render.peak_before_gb:.2f} GB, of the whole run "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; load, train and render "
+        f"{total_s:.1f} s, no checkpoint")
 
-    # ---- the render's forward on an imprinted scene: cached against the
-    # grids, and the card against the CPU
-    loaded = common.load_everything(cfg)
-    family, mcfg, params, _, _ = ckpt.load_model(os.path.join(exp_dir, "fine_last"),
-                                                  device="cuda", with_opt_state=False)
+    # ---- the render's forward on the trained model with the scene
+    # imprinted: cached against the grids, and the card against the CPU
+    loaded = load.result
     params.requires_grad_(False)
     synthetic.imprint_scene(params, mcfg.scene_center, mcfg.scene_radius, seed=0,
                             sphere_radius=sphere_radius_of(loaded))
@@ -2819,12 +2962,12 @@ def phase_cli_fern(cfg_file: str, card: str) -> list:
         run_cli(["--config", cfg_file, "--i_print", "1", "--render_test"])
     total_s = time.time() - t0
     n_test = len(renders.calls[-1].result["test"]["psnrs"])
-    counts = check_cli_run("[7b]", dict(build.LAUNCHES), renders, FAMILY_STEPS, n_test,
+    counts = check_cli_run("[7b]", dict(build.LAUNCHES), renders.calls[-1], FAMILY_STEPS, n_test,
                            (FERN_H, FERN_W))
     mcfg = saves.calls[-1].args[2]
     params = saves.calls[-1].args[3]
     ws = mcfg.world_size
-    records = check_family_records("[7b]", exp_dir, "dmpigo", ws)
+    records = check_family_records("[7b]", read_records(exp_dir), "dmpigo", ws, exp_dir)
     if ws[2] != fm.mpi_depth or tuple(params.k0.grid.shape) != (1, *ws, fm.rgbnet_dim) or \
             params.k0.grid.dtype != torch.float32:
         raise AssertionError(f"[7b] k0 grid {tuple(params.k0.grid.shape)} "
@@ -2938,18 +3081,18 @@ def cut_trajectory(call) -> None:
 
 
 def phase_cli_waymo(tmp: pathlib.Path, card: str) -> list:
-    """Phase 8a: waymo_no_block.py through the command line, ``--diffuse``
-    on, on a Waymo-layout capture, then the render of its val views (with
-    PSNR) and of trajectory views (without). Returns the launch counts of
-    the run."""
+    """Phase 8a: waymo_no_block.py's command-line train, ``--diffuse`` on, on
+    a Waymo-layout capture, without its checkpoint (``cli_train_in_memory``:
+    the disk is kept for phase 13a, which saves this config's width), then
+    the render of its val views (with PSNR) and of trajectory views
+    (without). Returns the launch counts of the run."""
     import numpy as np
     import torch
 
     from unboundednerfpytorch_tpu_torch.configs import loader
-    from unboundednerfpytorch_tpu_torch.data import common, synthetic
+    from unboundednerfpytorch_tpu_torch.data import synthetic
     from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
     from unboundednerfpytorch_tpu_torch.ops.cuda import build
-    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 
     t0 = time.time()
     kw = dict(seed=4, cam_radius=CAM_RADIUS, sphere_radius=SPHERE_RADIUS)
@@ -2980,48 +3123,41 @@ def phase_cli_waymo(tmp: pathlib.Path, card: str) -> list:
         f"{list(own.pg_scale)} compressed to {list(CLI_PG_SCALE)}; {WAYMO_TRAIN + WAYMO_OTHER} "
         f"training and {WAYMO_VAL} val views; the render's test split cut to the val views "
         f"and {WAYMO_TRAJECTORY} of the 200 trajectory views")
-    exp_dir = os.path.join(cfg.basedir, cfg.expname)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
     t0 = time.time()
     n_render = WAYMO_VAL + WAYMO_TRAJECTORY
-    with Spy(common, "load_everything", after=cut_trajectory) as loads, \
-            Spy(ckpt, "save_model") as saves, render_spy() as renders:
-        run_cli(["--config", cfg_file, "--i_print", "1", "--diffuse"])
+    load, records, (_, _, params), render = cli_train_in_memory(
+        "[8a]", cfg_file, ["--i_print", "1", "--diffuse"], load_after=cut_trajectory)
     total_s = time.time() - t0
-    load = loads.calls[0]
     data = load.result
     if load.kwargs != {"sample_num": -1, "diffuse": True} or \
             len(data["i_train"]) != WAYMO_TRAIN or len(data["i_val"]) != WAYMO_VAL:
         raise AssertionError(f"[8a] load_everything {load.kwargs}: {len(data['i_train'])} "
                              f"training and {len(data['i_val'])} val views")
-    counts = check_cli_run("[8a]", dict(build.LAUNCHES), renders, FAMILY_STEPS, n_render,
+    counts = check_cli_run("[8a]", dict(build.LAUNCHES), render, FAMILY_STEPS, n_render,
                            (WAYMO_H, WAYMO_W))
-    out = renders.calls[-1].result["test"]
+    out = render.result["test"]
     if len(out["psnrs"]) != WAYMO_VAL or not np.isfinite(out["psnrs"]).all():
         raise AssertionError(f"[8a] PSNR of {len(out['psnrs'])} views, want the "
                              f"{WAYMO_VAL} val views only")
-    records = check_family_records("[8a]", exp_dir, "FourierGrid", full.world_size_rgb)
+    records = check_family_records("[8a]", records, "FourierGrid", full.world_size_rgb)
     freq = [r["loss_freq"] for r in records if "loss" in r]
     if len(freq) != FAMILY_STEPS or not all(np.isfinite(f) and f > 0 for f in freq):
         raise AssertionError(f"[8a] the Fourier loss by step {freq}")
-    params = saves.calls[-1].args[3]
     want = (banks, *full.world_size_rgb, full.k0_dim)
     if tuple(params.k0.grid.shape) != want or params.k0.grid.dtype != torch.bfloat16:
         raise AssertionError(f"[8a] k0 grid {tuple(params.k0.grid.shape)}, want {want} bf16")
     ms = full_width_ms(records, CLI_PG_SCALE[-1] + 1 + WARMUP_STEPS, FAMILY_STEPS)
     view_ms = [round(t * 1e3, 1) for t in out["seconds"]]
     log(f"[8a] waymo_no_block.py on {card}: load_everything {load.seconds:.2f} s; grids {want} "
-        f"bf16 from step {CLI_PG_SCALE[-1]}; ms/step by the loop's clock "
+        f"bf16 from step {CLI_PG_SCALE[-1]}; ms/step by the callback's clock "
         f"{[round(t, 1) for t in full_width_ms(records, 2, FAMILY_STEPS)]} (steps 2 on), at full "
         f"width median {float(np.median(ms)):.1f}; Fourier loss by step "
         f"{[round(f, 5) for f in freq]}; peak memory of the training "
-        f"{renders.calls[-1].peak_before_gb:.2f} GB, of the whole run "
+        f"{render.peak_before_gb:.2f} GB, of the whole run "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; render {view_ms} ms/view ("
         f"{WAYMO_VAL} val views with PSNR {[round(x, 3) for x in out['psnrs']]}, then "
-        f"{WAYMO_TRAJECTORY} of the 200 trajectory views without); final save "
-        f"{saves.calls[-1].seconds:.2f} s; the command {total_s:.1f} s")
+        f"{WAYMO_TRAJECTORY} of the 200 trajectory views without); load, train and render "
+        f"{total_s:.1f} s, no checkpoint")
     return counts
 
 
@@ -3041,7 +3177,6 @@ def phase_free(tmp: pathlib.Path, card: str) -> list:
     from unboundednerfpytorch_tpu_torch.data import common, synthetic
     from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
     from unboundednerfpytorch_tpu_torch.ops.cuda import build
-    from unboundednerfpytorch_tpu_torch.render import renderer
     from unboundednerfpytorch_tpu_torch.train import loop
 
     t0 = time.time()
@@ -3108,23 +3243,11 @@ def phase_free(tmp: pathlib.Path, card: str) -> list:
 
     # ---- the test view, as run_render renders it: the family's render cache
     # (none: the packed table would pass the memory guard) and forward
-    params.requires_grad_(False)
-    cache = loop.FAMILIES[family].build_render_cache(params, mcfg,
-                                                     log_fn=lambda m: log(f"[8b] {m}"))
-    fwd_core = loop.make_forward(mcfg, {"near": float(data["near"]), "far": float(data["far"]),
-                                        "bg": 1.0 if cfg.data.white_bkgd else 0.0,
-                                        "stepsize": fm.stepsize})
     idx = np.asarray(data["i_test"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = dict(build.LAUNCHES)
-    out = renderer.render_viewpoints(
-        lambda aux, ro, rd, vd: fwd_core(aux[0], ro, rd, vd, None, cache=aux[1]),
-        poses=np.asarray(data["poses"])[idx], HW=np.asarray(data["HW"])[idx],
-        Ks=np.asarray(data["Ks"])[idx], gt_imgs=np.asarray(data["images"])[idx],
-        ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
-        flip_y=cfg.data.flip_y, chunk=RENDER_CHUNK, aux=(params, cache),
-        log_fn=lambda m: log(f"[8b] {m}"), device="cuda")
+    out = render_held_out("[8b]", cfg, data, family, mcfg, params)
     render_counts = launches_since(before)
     n_chunks = len(idx) * -(-FREE_H * FREE_W // RENDER_CHUNK)
     if out["rgbs"].shape != (len(idx), FREE_H, FREE_W, 3) or not np.isfinite(out["rgbs"]).all() \
@@ -3509,7 +3632,7 @@ def phase_cli_linemod(tmp: pathlib.Path, card: str, paths: dict) -> list:
     total_s = time.time() - t0
     data = loads.calls[0].result
     n_test = len(data["i_test"])
-    counts = check_cli_run("[10a]", dict(build.LAUNCHES), renders, ft.N_iters, n_test,
+    counts = check_cli_run("[10a]", dict(build.LAUNCHES), renders.calls[-1], ft.N_iters, n_test,
                            tuple(int(v) for v in data["HW"][0]),
                            per_step={"march_forward": 1, "march_backward": 1})
     records = stage_records(exp_dir, "fine")
@@ -4195,8 +4318,9 @@ def phase_tar_cli(tmp: pathlib.Path, card: str, lego_file: str, paths: dict) -> 
         lines = run_cli(["--config", str(cfg_file), "--ft_path", tar, "--i_print", "1",
                          "--render_test"])
     train_s = time.time() - t0
-    counts = check_cli_run("[11a]", dict(build.LAUNCHES), renders, TAR_TRAIN_STEPS, n_test,
-                           (LEGO_H, LEGO_W), per_step={"march_forward": 1, "march_backward": 1})
+    counts = check_cli_run("[11a]", dict(build.LAUNCHES), renders.calls[-1], TAR_TRAIN_STEPS,
+                           n_test, (LEGO_H, LEGO_W),
+                           per_step={"march_forward": 1, "march_backward": 1})
     said = f"fine: resumed from {tar} at step {step} (without the optimizer's state"
     meta = json.load(open(tmp / "logs" / "lego_tar" / "fine_last" / "meta.json"))
     if not any(said in x for x in lines) or meta["global_step"] != step + TAR_TRAIN_STEPS:
@@ -4997,6 +5121,438 @@ def phase_fast_kernels(gen, kernels: list, shapes, floor: float, seen: set,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the Waymo city-scale path: waymo_block.py's blocks and Block-NeRF (phase 13)
+
+
+def street_records(tmp: pathlib.Path) -> tuple:
+    """13a's capture: the street scene (``data/synthetic.py::street_scene``,
+    rendered on the card) as the Waymo release's TFRecords, a training and a
+    validation file (uncompressed: the decode takes both; the CPU tests
+    hold the gzipped ones), decoded by ``preprocess.decode_waymo_tfrecords``;
+    each recovered camera against its view's. Returns (the decoded
+    directory, its metadata)."""
+    import numpy as np
+
+    from unboundednerfpytorch_tpu_torch.data import preprocess, synthetic
+
+    t0 = time.time()
+    views, images = synthetic.street_scene(BLOCK_VIEWS, WAYMO_H, WAYMO_W, device="cuda",
+                                           chunk=1 << 16)
+    t1 = time.time()
+    cams = [74 if i in BLOCK_OTHER_IDS else 73 for i in range(BLOCK_VIEWS)]
+    train = [i for i in range(BLOCK_VIEWS) if i not in BLOCK_VAL_IDS]
+    files = []
+    for name, ids in (("waymo_train.tfrecord", train), ("waymo_validation.tfrecord",
+                                                        BLOCK_VAL_IDS)):
+        files.append(synthetic.write_waymo_tfrecords(
+            str(tmp / name), [views[i] for i in ids], [images[i] for i in ids],
+            [cams[i] for i in ids], compress=False))
+    t2 = time.time()
+    decoded = str(tmp / "waymo_block_dataset")
+    meta = preprocess.decode_waymo_tfrecords(files, decoded)
+    t3 = time.time()
+    order = train + list(BLOCK_VAL_IDS)
+    got = meta["train"]["cam2world"] + meta["val"]["cam2world"]
+    err = max(float(np.abs(np.asarray(c)[:3] - np.asarray(views[i]["c2w"])).max())
+              for c, i in zip(got, order))
+    if len(meta["train"]["file_path"]) != len(train) or err > 1e-4 or \
+            meta["train"]["cam_idx"] != [cams[i] for i in train]:
+        raise AssertionError(f"[13a] decoded {len(meta['train']['file_path'])} training "
+                             f"views, cameras off by {err}")
+    log(f"[13a] street scene of {BLOCK_VIEWS} views of {WAYMO_H}x{WAYMO_W} rendered on the card "
+        f"in {t1 - t0:.1f} s; TFRecords ({len(train)} training views, cameras 73 and 74, "
+        f"{len(BLOCK_VAL_IDS)} val views; {sum(os.path.getsize(f) for f in files) / 1e9:.2f} GB) "
+        f"written in {t2 - t1:.1f} s, decoded in {t3 - t2:.1f} s; recovered cameras within "
+        f"{err:.2e} of the views'")
+    return decoded, meta
+
+
+def block_config(tmp: pathlib.Path, decoded: str) -> str:
+    """waymo_block.py for the decoded capture: its images are named by index
+    (waymo_no_block.py's training_ids, 73_<k>, select none of them), and its
+    cameras are in the convention of the rays they were recovered from (x
+    right, y up, -z forward), where waymo_base.py's inverse_y reads the
+    OpenCV one; the run cut to FAMILY_STEPS a block, the boundaries
+    compressed to CLI_PG_SCALE."""
+    path = tmp / "waymo_block_cli.py"
+    path.write_text(f"_base_ = {str(BLOCK_CONFIG)!r}\nbasedir = {str(tmp / 'logs')!r}\n"
+                    f"data = dict(datadir={decoded!r}, training_ids=[], inverse_y=False)\n"
+                    f"fine_train = dict(N_iters={FAMILY_STEPS}, pg_scale={list(CLI_PG_SCALE)})\n")
+    return str(path)
+
+
+def phase_waymo_blocks(tmp: pathlib.Path, card: str, shapes) -> tuple:
+    """Phases 13a and 13b: waymo_block.py with ``--num_per_block`` through the
+    command line on 13a's decoded records, each block at the config's full
+    width; then ``--render_only`` through the merged checkpoint, and with it
+    moved aside through ``run_render_blocks``. ``shapes`` (a ``PathShapes``)
+    is entered around both. Returns ([the training's counts, the merged
+    render's, the block render's], the decoded directory)."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch import render as render_mod
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.render import renderer
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
+    decoded, _ = street_records(tmp)
+    cfg_file = block_config(tmp, decoded)
+    cfg = loader.load_config(cfg_file)
+    fm, ft = cfg.fine_model_and_render, cfg.fine_train
+    full = fg.config_from(fm, (-1.0,) * 3, (1.0,) * 3, fm.num_voxels_density, fm.num_voxels_rgb)
+    banks = 2 * full.fourier_freq_num + 1
+    want_k0 = (banks, *full.world_size_rgb, full.k0_dim)
+    own = loader.load_config(str(BLOCK_CONFIG))
+    log(f"[13a] config {BLOCK_CONFIG.relative_to(ROOT)}: {banks} banks of {full.world_size_rgb}, "
+        f"k0 {full.k0_dim} channels {full.grid_dtype}, N_rand {ft.N_rand}, sample_cam "
+        f"{cfg.data.sample_cam}; cuts: {FAMILY_STEPS} steps a block of the config's "
+        f"{own.fine_train.N_iters}, its boundaries {list(own.fine_train.pg_scale)} compressed to "
+        f"{list(CLI_PG_SCALE)}")
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    blocks = []
+
+    def on_block(call):
+        params = call.result[2]
+        blocks.append({"ids": np.asarray(call.args[1]["i_train"]).tolist(),
+                       "seed": call.kwargs["seed"], "exp_dir": call.kwargs["exp_dir"],
+                       "k0": (tuple(params.k0.grid.shape), params.k0.grid.dtype),
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    saves = {}  # each save's seconds by path; the spy holds no tensor alive
+    with Spy(common, "load_everything") as loads, Spy(loop, "run_train", after=on_block,
+                                                       keep=False), \
+            Spy(ckpt, "save_model", keep=False, after=lambda c: saves.update(
+                {os.path.relpath(c.args[0], exp_dir): round(c.seconds, 2)})), \
+            Spy(ckpt, "merge_blocks") as merges, render_spy() as renders, shapes:
+        lines = run_cli(["--config", cfg_file, "--num_per_block", str(NUM_PER_BLOCK),
+                         "--i_print", "1", "--running_block_id", "0"])
+    total_s = time.time() - t0
+    i_train = np.asarray(loads.calls[0].result["i_train"]).tolist()
+    want = [{"ids": i_train[b * NUM_PER_BLOCK:(b + 1) * NUM_PER_BLOCK], "seed": 777 + b,
+             "exp_dir": os.path.join(exp_dir, f"block_{b}"), "k0": (want_k0, torch.bfloat16)}
+            for b in range(2)]
+    if len(i_train) != 2 * NUM_PER_BLOCK or [{k: v for k, v in b.items() if k != "peak_gb"}
+                                             for b in blocks] != want:
+        raise AssertionError(f"[13a] {len(i_train)} training views; blocks {blocks}, "
+                             f"want {want}")
+    if renders.calls or "block training finished (2 blocks)" not in lines:
+        raise AssertionError("[13a] block training rendered, or did not finish")
+    counts = dict(build.LAUNCHES)
+    steps = 2 * FAMILY_STEPS
+    want_counts = {k: v * steps for k, v in TRAIN_PER_STEP.items()}
+    want_counts["masked_adam"] = adam_wanted("[13a]", steps)
+    if counts != want_counts:
+        raise AssertionError(f"[13a] launches {counts} != {want_counts}")
+    ms = []
+    for b in range(2):
+        block_dir = os.path.join(exp_dir, f"block_{b}")
+        records = check_family_records(f"[13a] block {b}", read_records(block_dir),
+                                       "FourierGrid", full.world_size_rgb, block_dir)
+        ms.append(full_width_ms(records, CLI_PG_SCALE[-1] + 1 + WARMUP_STEPS, FAMILY_STEPS))
+    gb = {name: round(dir_gb(os.path.join(exp_dir, name)), 3) for name in (
+        "block_0/fine_last", "block_1/fine_last", "fine_last_0", "fine_last_1",
+        "fine_last_merged")}
+
+    # the merge: the elementwise minimum, to the bit, and a fresh refresh
+    t1 = time.time()
+    _, mcfg, merged, step, opt = ckpt.load_model(os.path.join(exp_dir, "fine_last_merged"),
+                                                 device="cuda")
+    parts = [ckpt.load_model(os.path.join(exp_dir, f"fine_last_{b}"), device="cuda",
+                             with_opt_state=False)[2] for b in range(2)]
+    for name in ("density", "k0"):
+        got = getattr(merged, name).grid
+        if not torch.equal(got, torch.minimum(*(getattr(p, name).grid for p in parts))):
+            raise AssertionError(f"[13a] the merged {name} is not the blocks' minimum")
+    fresh = parts[0]
+    for name in ("density", "k0"):
+        getattr(fresh, name).grid.data = getattr(merged, name).grid.data
+    fresh = fg.update_occupancy_cache(fresh, mcfg)
+    mask = merged.mask_cache.mask
+    if not torch.equal(mask, fresh.mask_cache.mask) or opt is not None or step != 0:
+        raise AssertionError(f"[13a] the merged occupancy cache is not a fresh refresh's, or "
+                             f"the merge kept an optimizer state or step {step}")
+    occupancy = float(mask.float().mean())
+    del merged, parts, fresh, mask
+    torch.cuda.empty_cache()
+    log(f"[13a] waymo_block.py --num_per_block {NUM_PER_BLOCK} on {card}: blocks of views "
+        f"{[b['ids'] for b in blocks]}, seeds {[b['seed'] for b in blocks]}, k0 {want_k0} bf16; "
+        f"ms/step at full width by block {[[round(t, 1) for t in m] for m in ms]}; peak memory "
+        f"by block {[round(b['peak_gb'], 2) for b in blocks]} GB; saves (s) {saves}; GB on "
+        f"disk {gb}; merge {merges.calls[0].seconds:.2f} s: the grids the minimum to the bit, "
+        f"the occupancy cache ({occupancy:.4f} occupied) a fresh refresh's (checked in "
+        f"{time.time() - t1:.1f} s); the command {total_s:.1f} s; launches {counts}")
+
+    # ---- 13b: --render_only through the merged model, then through the blocks
+    n_views = len(BLOCK_VAL_IDS) + WAYMO_TRAJECTORY
+    chunks = -(-WAYMO_H * WAYMO_W // RENDER_CHUNK)
+    reset_counts()
+    loaded = []
+    with Spy(common, "load_everything", after=cut_trajectory), \
+            Spy(ckpt, "load_model", keep=False,
+                after=lambda c: loaded.append(os.path.basename(c.args[0]))), \
+            render_spy() as renders, shapes:
+        run_cli(["--config", cfg_file, "--render_only"])
+    merged_counts = dict(build.LAUNCHES)
+    out = renders.calls[-1].result["test"]
+    if loaded != ["fine_last_merged"] or \
+            out["rgbs"].shape != (n_views, WAYMO_H, WAYMO_W, 3) or \
+            len(out["psnrs"]) != len(BLOCK_VAL_IDS) or not np.isfinite(out["psnrs"]).all() or \
+            merged_counts != {"march_forward": n_views * chunks}:
+        raise AssertionError(f"[13b] the merged render loaded {loaded}, "
+                             f"rendered {out['rgbs'].shape}, psnr {out['psnrs']}, launches "
+                             f"{merged_counts}")
+    log(f"[13b] --render_only through fine_last_merged: {n_views} views ({len(BLOCK_VAL_IDS)} "
+        f"val with psnr {[round(x, 3) for x in out['psnrs']]}), "
+        f"{[round(t * 1e3, 1) for t in out['seconds']]} ms/view; launches {merged_counts}")
+    aside = os.path.join(exp_dir, "merged_aside")
+    os.rename(os.path.join(exp_dir, "fine_last_merged"), aside)
+    reset_counts()
+    with Spy(render_mod, "run_render_blocks") as by_block, shapes:
+        run_cli(["--config", cfg_file, "--render_only"])
+    block_counts = dict(build.LAUNCHES)
+    result = by_block.calls[0].result
+    if [os.path.basename(p) for p in result["paths"]] != ["fine_last_0", "fine_last_1"] or \
+            [v.tolist() for v in result["views"]] != [b["ids"] for b in blocks] or \
+            block_counts != {"march_forward": len(i_train) * chunks}:
+        raise AssertionError(f"[13b] run_render_blocks: {result['paths']}, views "
+                             f"{result['views']}, launches {block_counts}")
+    # each frame against the render of that block's checkpoint alone
+    data = loads.calls[0].result
+    for path, idx, got in zip(result["paths"], result["views"], result["outs"]):
+        family, bcfg, params, _, _ = ckpt.load_model(path, device="cuda", with_opt_state=False)
+        params.requires_grad_(False)
+        cache = fg.build_render_cache(params, bcfg)
+        fwd = loop.make_forward(bcfg, {"near": float(data["near"]), "far": float(data["far"]),
+                                       "bg": 1.0 if cfg.data.white_bkgd else 0.0,
+                                       "stepsize": fm.stepsize})
+        alone = renderer.render_viewpoints(
+            lambda aux, ro, rd, vd: fwd(aux[0], ro, rd, vd, None, cache=aux[1]),
+            poses=np.asarray(data["poses"])[idx], HW=np.asarray(data["HW"])[idx],
+            Ks=np.asarray(data["Ks"])[idx], ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y,
+            flip_x=cfg.data.flip_x, flip_y=cfg.data.flip_y, chunk=RENDER_CHUNK,
+            aux=(params, cache), verbose=False, device="cuda")
+        if not np.array_equal(alone["rgbs"], got["rgbs"]):
+            raise AssertionError(f"[13b] {path}: its frames differ from its render alone by "
+                                 f"{np.abs(alone['rgbs'] - got['rgbs']).max()}")
+        del params, cache
+        torch.cuda.empty_cache()
+    os.rename(aside, os.path.join(exp_dir, "fine_last_merged"))
+    psnrs = [round(float(np.mean(o["psnrs"])), 3) for o in result["outs"]]
+    log(f"[13b] --render_only without the merged model: run_render_blocks rendered views "
+        f"{[v.tolist() for v in result['views']]} with "
+        f"{[os.path.basename(p) for p in result['paths']]}"
+        f" (psnr by block {psnrs}), each frame equal to its block's render alone; "
+        f"{[round(t * 1e3, 1) for o in result['outs'] for t in o['seconds']]} ms/view; "
+        f"launches {block_counts}")
+    return [counts, merged_counts, block_counts], decoded
+
+
+def phase_block_nerf(tmp: pathlib.Path, card: str, decoded: str) -> None:
+    """Phases 13c and 13d: Block-NeRF at the reference's full width on 13a's
+    decoded records, laid out in two overlapping blocks
+    (``synthetic.write_block_nerf_scene``: ``split_blocks``), each block's
+    own capture by ``extract_block_meta``; each block trained ``BN_STEPS``
+    steps through ``tools.train_block_nerf`` (its fine PSNR must rise
+    ``BN_MIN_GAIN`` dB); an overlap view composed through
+    ``tools.eval_block_nerf``; then a chunk of ``BN_RAYS`` rays and one step's
+    gradients, card against CPU within ``BN_TOL``, and the composed frame
+    against the composition of the same block renders on the host."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.data import png, preprocess, synthetic
+    from unboundednerfpytorch_tpu_torch.models.block_nerf import (
+        compose, dataset, model as bn_model, rendering, training,
+    )
+    from unboundednerfpytorch_tpu_torch.tools import eval_block_nerf, train_block_nerf
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
+    root = str(tmp / "block_nerf_data")
+    blocks = synthetic.write_block_nerf_scene(decoded, root, radius=BN_RADIUS, overlap=BN_OVERLAP)
+    meta = json.load(open(os.path.join(root, "train", "train_all_meta.json")))
+    members = {b: [e[0] for e in info["elements"]] for b, info in blocks.items()}
+    overlap = [n for n in meta if sum(n in m for m in members.values()) > 1
+               and not any(np.allclose(meta[n]["origin_pos"], info["centroid"])
+                           for info in blocks.values())]
+    for b in range(len(blocks)):
+        unified = preprocess.extract_block_meta(root, b, str(tmp / f"block_nerf_block_{b}"))
+        if len(unified["train"]["file_path"]) != len(members[f"block_{b}"]):
+            raise AssertionError(f"[13c] extract_block_meta of block {b}")
+    if len(blocks) != 2 or not overlap:
+        raise AssertionError(f"[13c] {len(blocks)} blocks {members}, overlap views {overlap}")
+    log(f"[13c] split_blocks (radius {BN_RADIUS}, overlap {BN_OVERLAP}): "
+        f"{ {b: len(m) for b, m in members.items()} } views, {len(overlap)} in both and no "
+        f"centroid; extract_block_meta wrote each block's capture")
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the entry points write logs/<exp_name>/<block>, as the JAX ones
+    try:
+        trained = {}
+        for block in blocks:
+            psnr, stamps = [], []
+
+            def on_step(call):
+                psnr.append(float(call.result["psnr"]))
+                stamps.append(time.perf_counter())
+
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            with Spy(training, "train_step", after=on_step, keep=False):
+                if train_block_nerf.main(["--root_dir", root, "--block_index", block,
+                                          "--steps", str(BN_STEPS)]) != 0:
+                    raise AssertionError(f"[13c] train_block_nerf {block}")
+            w = BN_PSNR_WINDOW
+            gain = float(np.mean(psnr[-w:]) - np.mean(psnr[:w]))
+            step_ms = float(np.median(np.diff(stamps[w:]))) * 1e3
+            trained[block] = dict(gain=round(gain, 3), first=round(float(np.mean(psnr[:w])), 3),
+                                  last=round(float(np.mean(psnr[-w:])), 3),
+                                  step_ms=round(step_ms, 2), seconds=round(time.time() - t0, 1),
+                                  peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2))
+            if len(psnr) != BN_STEPS or not gain >= BN_MIN_GAIN:
+                raise AssertionError(f"[13c] {block}: {len(psnr)} steps, psnr rose {gain} dB")
+        log(f"[13c] Block-NeRF (D=8, W=256, vis 128, appearance 32, 64 + 64 samples, batch "
+            f"1024, use_disp) on {card}: {BN_STEPS} steps a block through train_block_nerf: "
+            f"{trained}")
+        view = overlap[0]
+        out = str(tmp / "block_nerf_compose")
+        t0 = time.time()
+        with Spy(compose, "render_block") as renders:
+            if eval_block_nerf.main(["--root_dir", root, "--ckpt_dir", "logs/block_nerf",
+                                     "--out_dir", out, "--cam_begin", view,
+                                     "--cam_end", view]) != 0:
+                raise AssertionError("[13c] eval_block_nerf")
+        compose_s = time.time() - t0
+        frame = png.imread(os.path.join(out, f"{view}.png"))
+    finally:
+        os.chdir(cwd)
+    H, W = WAYMO_H // 4, WAYMO_W // 4
+    video = [n for n in os.listdir(out) if n.startswith("compose")]
+    if frame.shape != (H, W, 3) or len(renders.calls) != 2 or not video:
+        raise AssertionError(f"[13c] composed {frame.shape} from {len(renders.calls)} blocks, "
+                             f"{os.listdir(out)}")
+    # 13d: the frame against the host's composition of the same block renders
+    candidates = [b for b in blocks if view in members[b]]
+    vis = {b: round(float(c.result["transmittance_fine_vis"].mean()), 4)
+           for b, c in zip(candidates, renders.calls)}
+    rays, _, _, _ = dataset.build_image_rays(meta[view], None, 0)
+    kept = {}
+    for block, call in zip(candidates, renders.calls):
+        if vis[block] > compose.VISIBILITY_GATE:
+            kept[block] = {**call.result, "distance_weight": compose.distance_weight(
+                rays[0, :3], blocks[block]["centroid"])}
+    rgb, _ = compose.inverse_interpolation(kept, H, W)
+    if not kept or not np.array_equal(rgb["compose"], frame):
+        raise AssertionError(f"[13d] the composed frame is not the blocks' composition ({kept})")
+    log(f"[13c] eval_block_nerf composed view {view} ({H}x{W}) from {sorted(kept)} (mean "
+        f"fine visibility by block {vis}) in {compose_s:.1f} s, "
+        f"{[round(c.seconds * 1e3, 1) for c in renders.calls]} ms a block render; frames "
+        f"{video}; [13d] the frame equals the host's blend of the same renders")
+
+    # ---- 13d: the card against the CPU on block_0's trained model. The fine
+    # depths invert the cdf of the coarse weights at 65 fixed u, and a bin
+    # whose cdf step is under sample_pdf's alpha takes a step of 1: where the
+    # two devices' cdfs (some 1e-7 apart) straddle a u there, that fine depth
+    # jumps to another bin. Such rays are counted and bounded
+    # (BN_MAX_FLIPPED of the rays), the others held within BN_TOL, and the
+    # gradients taken on a batch without them.
+    model, _ = ckpt.load_block_nerf(os.path.join(tmp, "logs", "block_nerf", "block_0"), "cuda")
+    cpu_model, _ = ckpt.load_block_nerf(os.path.join(tmp, "logs", "block_nerf", "block_0"))
+    store, _ = dataset.load_block_ray_store(root, "block_0")
+    kw = dict(n_samples=64, n_importance=64, use_disp=True)
+
+    def render(m, rays, ts, jitter=None):
+        with Spy(rendering, "sample_pdf") as pdf:
+            out = rendering.render_rays(m, rays, ts, jitter=jitter, **kw)
+        return out, pdf.calls[0].result.detach().cpu()
+
+    def flipped(z_card, z_cpu):
+        return ((z_card - z_cpu).abs() > 1e-4 * z_cpu.abs() + 1e-6).any(-1)
+
+    t0 = time.time()
+    rays = torch.as_tensor(store["rays"][:BN_RAYS])
+    ts = torch.as_tensor(store["ts"][:BN_RAYS])
+    with torch.no_grad():
+        got, z_card = render(model, rays.to("cuda"), ts.to("cuda"))
+        ref, z_cpu = render(cpu_model, rays, ts)
+    flips = flipped(z_card, z_cpu)
+    keep = ~flips
+    errs = {k: float((got[k].cpu()[keep] - r[keep]).abs().max() / r.abs().max().clamp(min=1e-30))
+            for k, r in ref.items()}
+    sel = torch.randint(0, len(store["rays"]), (1024,), generator=torch.Generator().manual_seed(0))
+    jitter = torch.rand((1024, 65), generator=torch.Generator().manual_seed(1))
+    batch = {k: torch.as_tensor(v)[sel] for k, v in store.items()}
+    with torch.no_grad():
+        batch_flips = flipped(render(model, batch["rays"].to("cuda"), batch["ts"].to("cuda"),
+                                     jitter.to("cuda"))[1],
+                              render(cpu_model, batch["rays"], batch["ts"], jitter)[1])
+    batch = {k: v[~batch_flips] for k, v in batch.items()}
+    grads = []
+    for m, dev in ((model, "cuda"), (cpu_model, "cpu")):
+        res = rendering.render_rays(m, batch["rays"].to(dev), batch["ts"].to(dev),
+                                    jitter=jitter[~batch_flips].to(dev), **kw)
+        m.zero_grad(set_to_none=True)
+        sum(bn_model.block_nerf_loss(res, batch["rgbs"].to(dev)).values()).backward()
+        grads.append({n: p.grad.detach().cpu() for n, p in m.named_parameters()})
+    for n, g in grads[1].items():
+        errs[f"grad {n}"] = float((grads[0][n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+    worst = max(errs, key=errs.get)
+    n_flips, n_batch_flips = int(flips.sum()), int(batch_flips.sum())
+    log(f"[13d] card against CPU, block_0: a chunk of {BN_RAYS} rays and a step's gradients of "
+        f"1024 rays in {time.time() - t0:.1f} s; fine depths in another bin on {n_flips} rays of "
+        f"the chunk and {n_batch_flips} of the batch (at most {BN_MAX_FLIPPED:.0%}); on the "
+        f"others the largest error over the largest value {errs[worst]:.2e} ({worst}), "
+        f"tolerance {BN_TOL:g}; outputs "
+        f"{ {k: f'{v:.1e}' for k, v in errs.items() if not k.startswith('grad')} }")
+    if errs[worst] > BN_TOL or n_flips > BN_MAX_FLIPPED * BN_RAYS or \
+            n_batch_flips > BN_MAX_FLIPPED * 1024:
+        raise AssertionError(f"[13d] {worst}: {errs[worst]} > {BN_TOL}, or {n_flips} and "
+                             f"{n_batch_flips} rays with fine depths in another bin")
+
+
+def phase_block_kernels(gen, kernels: list, shapes, floor: float, seen: set,
+                        held_tv: set) -> None:
+    """Phase 13e: both march kernels and masked Adam at every shape 13a and
+    13b gave them (``phase_dvgo_kernels``), and ``tv_add_grad`` at each grid
+    shape of 13a's steps that phase 3 did not hold (``held_tv``: the
+    full-width ones are waymo_no_block.py's), checked, then timed as the
+    train step calls it (in place, dense)."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import tv
+    from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms, time_ms
+
+    rows = {k["name"]: k for k in kernels}
+    phase_dvgo_kernels(gen, kernels, {"13a,b waymo_block.py": shapes}, floor, (), seen)
+    if not shapes.tv:
+        raise AssertionError("[13e] the block training launched no tv_add_grad")
+    for (shape, dtype, w), n in sorted(shapes.tv.items(), key=str):
+        if (shape, dtype) in held_tv:
+            continue
+        held_tv.add((shape, dtype))
+        label = f"13a ({n} calls)"
+        err = tv_case(gen, label, shape, dtype, w)
+        rows["tv_add_grad"]["max_abs_err"] = max(rows["tv_add_grad"]["max_abs_err"], err)
+        p = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        ms, call = kernel_ms(lambda: tv.tv_add_grad(p, g, *w, 1.0, True, out=g))
+        line = shape_line(f"tv_add_grad {label} {shape} {str(dtype)[6:]} in place", ms, call,
+                          bound_ms(3 * p.numel() * p.element_size(), 25 * p.numel())[0], floor)
+        line["plain_ms"] = time_ms(lambda: tv.tv_add_grad_plain(p, g, *w, 1.0, True), iters=5)
+        rows["tv_add_grad"]["shapes"].append(line)
+        del p, g
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -5128,6 +5684,12 @@ def main(argv=None) -> int:
             shapes12 = PathShapes()
             path_counts += timed("12", phase_fast_paths, exp_dir, data, cfg, cfg_file, card,
                                  tv_shapes, shapes12)
+            # phase 13: the Waymo city-scale path; 13e holds the kernels at
+            # the shapes 13a and 13b gave them
+            shapes13 = PathShapes()
+            counts13, decoded = timed("13a,b", phase_waymo_blocks, tmp, card, shapes13)
+            path_counts += counts13
+            timed("13c,d", phase_block_nerf, tmp, card, decoded)
     # phase 3 held masked Adam at phase 4's grids already
     seen = {(tuple(s), torch.bfloat16, True, True, False) for s in tv_shapes.values()}
     timed("9c", phase_dvgo_kernels, gen, kernels,
@@ -5137,6 +5699,8 @@ def main(argv=None) -> int:
     timed("11h", phase_dvgo_kernels, gen, kernels, phase11, floor, (), seen)
     timed("12f", phase_fast_kernels, gen, kernels, shapes12, floor, seen,
           (1, *tv_shapes["k0"][1:4], 3))
+    timed("13e", phase_block_kernels, gen, kernels, shapes13, floor, seen,
+          {(tuple(shape), dtype) for _, shape, dtype, _ in fam["tv"]})
     log(f"seconds by phase: { {k: round(v, 1) for k, v in seconds.items()} }, in all "
         f"{time.time() - t_start:.1f}")
     if written:
@@ -5162,7 +5726,8 @@ def main(argv=None) -> int:
         f"{path_counts[34]}, 11f {path_counts[35]}, 12a, 12d and the layout "
         f"{path_counts[36:39]}, 12c {path_counts[39]}, 12b single and two-stage "
         f"{path_counts[40:42]}, 12e coarse head, view grid and embeddings "
-        f"{path_counts[42:45]}, probes {probe_counts}")
+        f"{path_counts[42:45]}, 13a block training {path_counts[45]}, 13b the merged and the "
+        f"block renders {path_counts[46:48]}, probes {probe_counts}")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

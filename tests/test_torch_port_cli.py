@@ -8,8 +8,8 @@ command line runs after training), ``train`` again with more steps (the implicit
 resume), ``--render_only``, ``export_bbox`` (its ``cam.npz`` against the
 JAX command line's on the same config), ``export_baked`` and a render of its
 output, and ``gen_trace``. Every program and option the port refuses raises
-``NotImplementedError`` naming its ROADMAP item; without a GPU the command
-line raises unless the CPU is asked for.
+``NotImplementedError`` naming its ROADMAP item (``--num_per_block`` trains
+blocks); without a GPU the command line raises unless the CPU is asked for.
 
 The other families through the same command line: ``train`` then the render
 of the test views for ``nerf_unbounded/bicycle.py`` (DCVGO, 24^3 voxels) and
@@ -139,12 +139,26 @@ def test_the_pose_programs_reach_their_config(program):
 @pytest.mark.parametrize("option", [["--num_per_block", "4"], ["--block_parallel"],
                                     ["--grid_parallel", "2"], ["--diffuse"]],
                          ids=lambda o: o[0])
-def test_options_not_ported_are_refused(option):
+def test_options_not_ported_are_refused(option, tmp_path):
+    """``--block_parallel`` and ``--grid_parallel`` wait for ROADMAP A18b's
+    multi-device parallelism; ``--diffuse`` and ``--num_per_block`` are
+    ported: the first reaches the loader, the second trains (two blocks of
+    two views on a tiny waymo_block.py capture, and their merge)."""
     if option == ["--diffuse"]:  # ported: it reaches the loader, after the config
         with pytest.raises(FileNotFoundError, match="unused.py"):
             cli.main(["--config", "unused.py", *option], device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+    if option[0] == "--num_per_block":
+        from test_torch_port_blocks import write_block_capture
+
+        cfg = write_block_capture(tmp_path, steps=1)
+        assert cli.main(["--config", cfg, "--num_per_block", "2"], device="cpu") == 0
+        exp_dir = tmp_path / "logs" / "tiny"
+        for name in ("block_0/fine_last", "block_1/fine_last", "fine_last_0", "fine_last_1",
+                     "fine_last_merged"):
+            assert (exp_dir / name / "meta.json").exists(), name
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A18b"):
         cli.main(["--config", "unused.py", *option], device="cpu")
 
 

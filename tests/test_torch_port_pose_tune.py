@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -295,10 +296,9 @@ def test_the_recovery_perturbation_stays_in_its_ranges():
     assert pr.pose_errors(true, true) == (0.0, 0.0)
 
 
-def test_tune_pose_resolves_its_checkpoint_as_the_jax_program(tmp_path):
-    """Fault C1, repaired: ``--ft_path`` wins; without it a merged block
-    checkpoint beside ``fine_last`` (which the JAX program prefers) is
-    refused naming ROADMAP A14, never passed over for ``fine_last``; a
+def test_tune_pose_resolves_its_checkpoint_as_the_jax_program(tmp_path, monkeypatch):
+    """Fault C1, repaired: ``--ft_path`` wins; without it the merged block
+    checkpoint is taken before ``fine_last``, as the JAX program does; a
     reference ``.tar`` tunes, the scene config's render knobs laid over it."""
     import types
 
@@ -312,16 +312,21 @@ def test_tune_pose_resolves_its_checkpoint_as_the_jax_program(tmp_path):
     with torch.no_grad():
         params.density.grid.normal_(-1.0, 3.0, generator=torch.Generator().manual_seed(2))
     ckpt.save_model(str(tmp_path / "fine_last"), "dvgo", mcfg, params, global_step=4)
-    os.makedirs(tmp_path / "fine_last_merged")
-    (tmp_path / "fine_last_merged" / "meta.json").write_text("{}")
+    ckpt.save_model(str(tmp_path / "fine_last_merged"), "dvgo", mcfg, params, global_step=4)
+    loads = []
+    real_load = ckpt.load_model
+    monkeypatch.setattr(ckpt, "load_model", lambda path, **kw: loads.append(
+        os.path.basename(path)) or real_load(path, **kw))
     images, poses, Ks, _ = views(n=2)
     data = {"i_train": np.arange(2), "images": images, "poses": poses, "Ks": Ks, "near": NEAR,
             "far": 6.0}
     cfg = ExpConfig(fine_model_and_render=ModelRenderConfig(stepsize=STEPSIZE),
                     fine_train=TrainStageConfig(N_rand=64))
     args = types.SimpleNamespace(tune_steps=1, tune_lr=1e-3)
-    with pytest.raises(NotImplementedError, match="fine_last_merged.*A14"):
-        pt.run_tune_pose(args, cfg, data, str(tmp_path), device="cpu", log_fn=lambda _: None)
+    pt.run_tune_pose(args, cfg, data, str(tmp_path), device="cpu", log_fn=lambda _: None)
+    shutil.rmtree(tmp_path / "fine_last_merged")
+    pt.run_tune_pose(args, cfg, data, str(tmp_path), device="cpu", log_fn=lambda _: None)
+    assert loads == ["fine_last_merged", "fine_last"]
     ri.export_checkpoint(str(tmp_path / "fine_last"), str(tmp_path / "run.tar"))
     for ft_path in (str(tmp_path / "run.tar"), str(tmp_path / "fine_last")):
         args.ft_path = ft_path

@@ -669,12 +669,16 @@ def test_run_render_ft_path_and_refusals(trained, tmp_path, monkeypatch):
     np.testing.assert_allclose(got.mean(0), target.mean(0), atol=0.02)
     assert out["test"]["color_tf"].shape == (4, 4)
     assert (tmp_path / "style_image.png").is_file()
-    os.makedirs(tmp_path / "fine_last_0")
-    (tmp_path / "fine_last_0" / "meta.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="block"):
-        render.run_render(ns(), cfg, data, str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render.run_render_blocks(ns(), cfg, data, exp_dir)
+    # block checkpoints are ported: without fine_last (and fine_last_merged)
+    # each block's fine_last_<b> renders its slice of the training views
+    os.symlink(os.path.join(exp_dir, "fine_last"), tmp_path / "fine_last_0")
+    out = render.run_render(ns(chunk=CHUNK), cfg, data, str(tmp_path), device="cpu",
+                            log_fn=lambda _: None)
+    assert [os.path.basename(p) for p in out["paths"]] == ["fine_last_0"]
+    assert out["views"][0].tolist() == np.asarray(data["i_train"]).tolist()
+    assert out["outs"][0]["rgbs"].shape[0] == len(data["i_train"])
+    assert render.run_render_blocks(ns(), cfg, data, exp_dir, device="cpu") == {
+        "paths": [], "views": [], "outs": []}
     # without a coarse_last the coarse export reads fine_last
     out = render.export_coarse_geometry(cfg, exp_dir, out_path=str(tmp_path / "vol.npz"),
                                         device="cpu", log_fn=lambda _: None)

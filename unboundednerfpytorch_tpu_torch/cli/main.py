@@ -13,9 +13,14 @@ against itself, which scores 1.0) and ``sfm`` (COLMAP on
 ``<datadir>/images``, skipped where ``sparse/0`` is whole, then
 ``poses_bounds.npy``; it runs before the data load, which needs it, and on
 no device). ``--ft_path`` may name a reference ``.tar`` checkpoint in
-``train``, ``render`` and ``tune_pose`` (``utils/reference_import.py``). The
-options ``--num_per_block`` > 0, ``--block_parallel`` and ``--grid_parallel``
-> 1 raise ``NotImplementedError`` naming the ROADMAP item they wait for.
+``train``, ``render`` and ``tune_pose`` (``utils/reference_import.py``).
+``--num_per_block`` > 0 cuts the training views into
+``max(1, len(i_train) // num_per_block)`` blocks; with more than one,
+``train`` trains them (``train.loop.run_train_blocks``: ``fine_last_<b>``
+and ``fine_last_merged``) and returns without a render, as the JAX command
+line does; ``--running_block_id`` is accepted and unused, as there. The
+options ``--block_parallel`` and ``--grid_parallel`` > 1 raise
+``NotImplementedError`` naming the ROADMAP item they wait for.
 ``--sample_num`` and ``--diffuse`` reach the waymo and mega loaders, as in
 the JAX command line.
 
@@ -64,7 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sample_num", type=int, default=-1,
                    help="truncate dataset for fast debugging")
     p.add_argument("--num_per_block", type=int, default=-1,
-                   help="images per block for block training (> 0 refused: not ported)")
+                   help="images per block for block training (-1: no blocks)")
     p.add_argument("--running_block_id", type=int, default=-1)
     p.add_argument("--block_parallel", action="store_true",
                    help="train all blocks concurrently (refused: not ported)")
@@ -143,9 +148,10 @@ def build_parser() -> argparse.ArgumentParser:
 # options of the JAX command line that wait for a later slice of the port, each
 # with the ROADMAP item it waits for
 REFUSED_OPTIONS = {
-    "num_per_block": (lambda v: v > 0, "block training and merge_blocks (ROADMAP A14)"),
-    "block_parallel": (bool, "block-parallel training (ROADMAP A14)"),
-    "grid_parallel": (lambda v: v > 1, "grids sharded over several devices (ROADMAP A18b)"),
+    "block_parallel": (bool, "block-parallel training over several devices (ROADMAP A18b, "
+                             "multi-device parallelism)"),
+    "grid_parallel": (lambda v: v > 1, "grids sharded over several devices (ROADMAP A18b, "
+                                       "multi-device parallelism)"),
 }
 
 
@@ -176,6 +182,11 @@ def main(argv=None, device=None) -> int:
     dev = resolve_device(device)
     data_dict = load_everything(cfg, sample_num=args.sample_num, diffuse=args.diffuse)
 
+    # the block count of --num_per_block (run_FourierGrid.py:101-103)
+    block_num = 1
+    if args.num_per_block > 0:
+        block_num = max(1, len(data_dict["i_train"]) // args.num_per_block)
+
     exp_dir = os.path.join(cfg.basedir, cfg.expname)
     os.makedirs(exp_dir, exist_ok=True)
     with open(os.path.join(exp_dir, "args.txt"), "w") as f:
@@ -197,6 +208,12 @@ def main(argv=None, device=None) -> int:
     if args.program == "train":
         from unboundednerfpytorch_tpu_torch.train import loop
 
+        if block_num > 1:
+            loop.run_train_blocks(cfg, data_dict, block_num, exp_dir, seed=args.seed,
+                                  no_reload=args.no_reload, save_every=args.i_weights,
+                                  device=dev, log_every=args.i_print)
+            print(f"block training finished ({block_num} blocks)")
+            return 0
         _, _, _, psnr = loop.run_train(
             cfg, data_dict, seed=args.seed, device=dev, log_every=args.i_print,
             exp_dir=exp_dir, no_reload=args.no_reload,

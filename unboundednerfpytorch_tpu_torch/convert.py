@@ -1,5 +1,5 @@
-"""Carry model weights (FourierGrid, DVGO, DCVGO, DMPIGO) between the JAX
-package and the port.
+"""Carry model weights (FourierGrid, DVGO, DCVGO, DMPIGO, Block-NeRF)
+between the JAX package and the port.
 
 The JAX ``FourierGridParams`` is handed over as a nested dict of numpy
 arrays keyed by its field names, so this module needs nothing of JAX:
@@ -33,6 +33,16 @@ functions take the family (``"FourierGrid"``, ``"dvgo"``, ``"dcvgo"``,
 
 ``nn.Linear`` keeps its weight as ``[out, in]``, so the MLP kernels are
 transposed on the way in and back on the way out.
+
+A Block-NeRF block (the JAX ``BlockNeRFParams``) is the dict
+``{"xyz_layers", "xyz_final", "dir_layers", "sigma_head", "rgb_head",
+"vis_layers", "vis_head": {"weights": [[in, out], ...], "biases": [...]},
+"appearance": [n_images, appearance_dim]}``
+(:func:`block_nerf_tree_from_object` reads it off the JAX object, as
+``serialization.to_state_dict`` lays it out); :func:`block_nerf_from_numpy`
+makes the port's :class:`~unboundednerfpytorch_tpu_torch.models.block_nerf.model.BlockNeRF`
+of it, every size read off the arrays, and :func:`block_nerf_to_numpy` goes
+back.
 
 A whole checkpoint is carried over in a process that has both packages: the
 JAX package's ``load_model`` gives (config, params); :func:`tree_from_params_object`
@@ -342,3 +352,58 @@ def opt_state_tree_from_object(s) -> dict:
     return {"step": np.asarray(s.step),
             **{key: {name: sub(x) for name, x in getattr(s, key).items()}
                for key in ("exp_avg", "exp_avg_sq")}}
+
+
+BLOCK_NERF_MLPS = ("xyz_layers", "xyz_final", "dir_layers", "sigma_head", "rgb_head",
+                   "vis_layers", "vis_head")
+
+
+def block_nerf_tree_from_object(p) -> dict:
+    """The Block-NeRF dict (above) from an object shaped like the JAX
+    ``BlockNeRFParams`` (MLPs with ``.weights`` / ``.biases``)."""
+    tree = {name: {"weights": [np.asarray(w) for w in getattr(p, name).weights],
+                   "biases": [np.asarray(b) for b in getattr(p, name).biases]}
+            for name in BLOCK_NERF_MLPS}
+    tree["appearance"] = np.asarray(p.appearance)
+    return tree
+
+
+def block_nerf_from_numpy(tree: dict, device="cpu"):
+    """The port's ``BlockNeRF`` from the Block-NeRF dict: the depth, width,
+    skips, frequencies, appearance size and visibility width read off the
+    arrays' shapes."""
+    from unboundednerfpytorch_tpu_torch.models.block_nerf.model import BlockNeRF
+
+    xyz = [np.asarray(w) for w in tree["xyz_layers"]["weights"]]
+    in_xyz, W = xyz[0].shape
+    in_dir = np.asarray(tree["vis_layers"]["weights"][0]).shape[0] - in_xyz
+    n_app, app_dim = np.asarray(tree["appearance"]).shape
+    in_exp = np.asarray(tree["dir_layers"]["weights"][0]).shape[0] - W - in_dir - app_dim
+    model = BlockNeRF(n_appearance=n_app, D=len(xyz), W=W,
+                      skips=[i for i, w in enumerate(xyz) if i and w.shape[0] == W + in_xyz],
+                      xyz_freqs=in_xyz // 6, dir_freqs=in_dir // 6, exposure_freqs=in_exp // 2,
+                      appearance_dim=app_dim,
+                      vis_width=np.asarray(tree["vis_layers"]["weights"][0]).shape[1],
+                      device=device)
+    with torch.no_grad():
+        for name in BLOCK_NERF_MLPS:
+            mod = getattr(model, name)
+            layers = mod if name == "xyz_layers" else mod.layers
+            sub = tree[name]
+            for lin, w, b in zip(layers, sub["weights"], sub["biases"], strict=True):
+                lin.weight.copy_(_tensor(np.asarray(w).T, device))
+                lin.bias.copy_(_tensor(b, device))
+        model.appearance.copy_(_tensor(tree["appearance"], device))
+    return model
+
+
+def block_nerf_to_numpy(model) -> dict:
+    """Inverse of :func:`block_nerf_from_numpy`."""
+    tree = {}
+    for name in BLOCK_NERF_MLPS:
+        mod = getattr(model, name)
+        layers = mod if name == "xyz_layers" else mod.layers
+        tree[name] = {"weights": [lin.weight.detach().cpu().numpy().T.copy() for lin in layers],
+                      "biases": [lin.bias.detach().cpu().numpy() for lin in layers]}
+    tree["appearance"] = model.appearance.detach().cpu().numpy()
+    return tree

@@ -12,11 +12,12 @@ Paeth, whose predictor reads the pixel just decoded, pixel by pixel, which
 takes about half a second for a 411x618 view). Every other file then goes to
 ``imageio``, imported when one is met; without it the error names it.
 :func:`write_png` writes what :func:`read_png` reads, each row with a chosen
-filter.
+filter; :func:`encode_png` and :func:`imdecode` do the same in memory.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import struct
 import zlib
@@ -56,7 +57,7 @@ def imread(path: str) -> np.ndarray:
 _PIL_AS_IS = ("L", "LA", "RGB", "RGBA", "I", "I;16", "F")
 
 
-def _pil_read(Image, path: str) -> np.ndarray:
+def _pil_read(Image, path) -> np.ndarray:
     with Image.open(path) as im:
         if im.mode in _PIL_AS_IS:
             return np.asarray(im)
@@ -81,11 +82,25 @@ def _chunks(data: bytes):
         pos += 12 + length
 
 
+def imdecode(data: bytes, name: str = "image") -> np.ndarray:
+    """An encoded image (the bytes of a PNG or JPEG file) as :func:`imread`
+    gives the file: through PIL, else a PNG through :func:`decode_png`."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return decode_png(data, name)
+    return _pil_read(Image, io.BytesIO(data))
+
+
 def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit, non-interlaced, palette-free PNG. Raises
+    """Decode an 8-bit, non-interlaced, palette-free PNG file. Raises
     ``NotImplementedError`` for other PNG kinds."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "image") -> np.ndarray:
+    """:func:`read_png` of a PNG file's bytes; ``path`` names it in errors."""
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     header, idat = None, []
@@ -149,6 +164,14 @@ def write_png(path: str, img, filters=1) -> None:
     """Write a uint8 image ([H, W] grey, or [H, W, C] with C of 1-4) as an
     8-bit PNG. ``filters``: one filter type (0-4) for every row, or one per
     row."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(encode_png(img, filters))
+    os.replace(tmp, path)
+
+
+def encode_png(img, filters=1) -> bytes:
+    """The bytes of :func:`write_png`'s file."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8 images, got {img.dtype}")
@@ -173,8 +196,5 @@ def write_png(path: str, img, filters=1) -> None:
             ">I", zlib.crc32(kind + body))
 
     header = struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0)
-    tmp = f"{path}.tmp"
-    with open(tmp, "wb") as f:
-        f.write(SIGNATURE + chunk(b"IHDR", header)
-                + chunk(b"IDAT", zlib.compress(scan.tobytes())) + chunk(b"IEND", b""))
-    os.replace(tmp, path)
+    return (SIGNATURE + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(scan.tobytes()))
+            + chunk(b"IEND", b""))

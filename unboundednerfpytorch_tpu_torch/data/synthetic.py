@@ -23,7 +23,15 @@ sequence in the LINEMOD (pvnet) and CO3D layouts. With ``alpha``,
 package's unbounded test scene on white, for the pose tuner's recovery.
 :func:`write_colmap_scene` writes a capture with the COLMAP sparse model of
 its known cameras and of surface points (:func:`forward_facing_points`), for
-``--program sfm`` and the COLMAP tooling.
+``--program sfm`` and the COLMAP tooling. :func:`street_scene` (the JAX
+``make_street_scene``, in torch on any device) drives cameras down a street
+of textured buildings, each view with its own exposure, for Block-NeRF;
+:func:`write_waymo_tfrecords` writes views as the Waymo Block-NeRF
+release's TFRecords (per-pixel ray origins and directions, intrinsics,
+camera, exposure, PNG bytes), which ``data/preprocess.py`` decodes, and
+:func:`write_block_nerf_scene` lays a decoded capture out as Block-NeRF
+reads it (``<split>/rgbs``, ``<split>_all_meta.json`` and the blocks of
+``preprocess.split_blocks``).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from __future__ import annotations
 import gzip
 import json
 import os
+import zlib
 
 import numpy as np
 
@@ -887,3 +896,194 @@ def write_colmap_scene(basedir: str, data: dict, points, factor: int = 1,
             for a, b in track:
                 f.write(struct.pack("<ii", a, b))
     return basedir
+
+
+# ---------------------------------------------------------------------------
+# the street scene of Block-NeRF and the Waymo release's records
+
+# the building boxes of the street: x centres, and each one's colour
+STREET_CENTERS = (-3.6, -1.2, 1.2, 3.6)
+STREET_PALETTES = ((0.85, 0.4, 0.3), (0.35, 0.6, 0.85), (0.5, 0.8, 0.4), (0.85, 0.75, 0.35))
+STREET_SKY = (0.65, 0.75, 0.9)
+
+
+def _street_density_color(pts):
+    """The JAX ``_street_density_color`` in torch: textured boxes on both
+    sides of the x axis and a ground slab (density 50 inside), their colours
+    averaged where they overlap."""
+    import torch
+
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    density = torch.zeros(pts.shape[:-1], dtype=pts.dtype, device=pts.device)
+    color = torch.zeros_like(pts)
+    wsum = torch.zeros_like(density)
+    for side in (-1.0, 1.0):
+        for cx, base in zip(STREET_CENTERS, STREET_PALETTES):
+            inside = ((torch.abs(x - cx) < 0.7) & (torch.abs(y - side * 1.8) < 0.5)
+                      & (z > -0.5) & (z < 1.0 + 0.3 * float(np.sin(3.0 * cx))))
+            f = inside.to(pts.dtype)
+            density = density + f * 50.0
+            tex = 0.5 + 0.5 * torch.sin(9.0 * x + 2.0 * side) * torch.sin(7.0 * z + 1.0)
+            col = torch.tensor(base, dtype=pts.dtype, device=pts.device) * (
+                0.4 + 0.6 * tex[..., None])
+            color = color + f[..., None] * col
+            wsum = wsum + f
+    gf = ((z > -0.62) & (z < -0.5)).to(pts.dtype)
+    density = density + gf * 50.0
+    check = 0.5 + 0.5 * torch.sin(6.0 * x) * torch.sin(6.0 * y)
+    color = color + gf[..., None] * torch.stack(
+        [0.3 + 0.3 * check, 0.3 + 0.3 * check, 0.32 + 0.2 * check], -1)
+    wsum = wsum + gf
+    return density, torch.clamp(color / torch.clamp(wsum[..., None], min=1.0), 0.0, 1.0)
+
+
+def street_scene(n_views: int = 16, H: int = 40, W: int = 56, near: float = 0.05,
+                 far: float = 14.0, n_steps: int = 448, device="cpu", chunk: int = 1 << 14):
+    """The JAX ``make_street_scene``: ``n_views`` cameras at x from -3.2 to
+    3.2 down the street, turned alternately to either side, each view's
+    exposure scaling its image. Returns (views, images): ``views[i]`` the
+    Block-NeRF metadata of a view (c2w [3][4], intrinsics [f, f], W, H,
+    equivalent_exposure, image_name ``street_<i>``), ``images[i]`` its
+    [H, W, 3] float32 image, rendered along the rays of
+    ``models/block_nerf/dataset.py`` by ``n_steps`` samples from ``near`` to
+    ``far``, ``chunk`` rays at a time on ``device``."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.models.block_nerf import dataset as D
+
+    focal = 0.8 * W
+    sky = torch.tensor(STREET_SKY, device=device)
+    t = torch.linspace(near, far, n_steps, device=device)
+    dt = t[1] - t[0]
+    K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]], np.float32)
+    views, images = [], []
+    for i in range(n_views):
+        xcam = -3.2 + 6.4 * i / max(n_views - 1, 1)
+        cam = np.array([xcam, 0.0, 0.55])
+        yaw = 0.55 if i % 2 == 0 else -0.55
+        c2w = look_at_pose(cam, np.array([xcam + 2.2, yaw * 2.0, 0.25]))
+        exposure = 0.85 + 0.3 * (i % 4) / 3.0
+        views.append({"c2w": c2w[:3].tolist(), "intrinsics": [focal, focal], "W": W, "H": H,
+                      "equivalent_exposure": exposure, "image_name": f"street_{i:03d}"})
+        ro, rd = D.get_rays(D.get_ray_directions(H, W, K), np.asarray(c2w[:3], np.float32))
+        ro = torch.as_tensor(np.ascontiguousarray(ro), device=device)
+        rd = torch.as_tensor(rd, device=device)
+        rgb = []
+        with torch.no_grad():
+            for k in range(0, ro.shape[0], chunk):
+                o, d = ro[k:k + chunk], rd[k:k + chunk]
+                density, color = _street_density_color(o[:, None] + d[:, None] * t[None, :, None])
+                alpha = 1.0 - torch.exp(-density * dt)
+                keep = 1 - alpha + 1e-10
+                w = torch.cumprod(keep, -1) / keep * alpha
+                rgb.append(torch.einsum("ns,nsc->nc", w, color)
+                           + (1 - w.sum(-1))[:, None] * sky)
+        img = torch.clamp(torch.cat(rgb).reshape(H, W, 3) * exposure, 0.0, 1.0)
+        images.append(img.float().cpu().numpy())
+    return views, images
+
+
+def split_street_blocks(views, overlap: float = 1.2) -> dict:
+    """The JAX ``split_street_blocks``: two overlapping blocks by camera x
+    about the median (the overlap at least 2.1 camera spacings), each
+    {"centroid", "elements": [(image name, view index)]}, the appearance ids
+    global."""
+    xs = np.array([np.asarray(v["c2w"])[0, 3] for v in views])
+    mid = float(np.median(xs))
+    if len(xs) > 1:
+        overlap = max(overlap, 2.1 * float(np.max(np.diff(np.sort(xs)))))
+    split = {}
+    for name, keep in (("block_0", xs <= mid + overlap / 2), ("block_1", xs >= mid - overlap / 2)):
+        ids = np.nonzero(keep)[0]
+        split[name] = {
+            "centroid": np.mean([np.asarray(views[i]["c2w"])[:3, 3] for i in ids],
+                                axis=0).tolist(),
+            "elements": [(views[i]["image_name"], int(i)) for i in ids],
+        }
+    return split
+
+
+def waymo_frame(info: dict, image, cam_idx: int) -> dict:
+    """The tf.Example features of one view as the Waymo Block-NeRF release
+    holds them: the image as PNG bytes, its size, intrinsics [fx, fy],
+    camera, exposure, and every pixel's ray origin and unit direction (the
+    pixel-centre rays of ``models/block_nerf/dataset.py`` through ``c2w``)."""
+    from unboundednerfpytorch_tpu_torch.data.png import encode_png
+    from unboundednerfpytorch_tpu_torch.models.block_nerf import dataset as D
+
+    H, W = int(info["H"]), int(info["W"])
+    fx, fy = (float(f) for f in info["intrinsics"][:2])
+    K = np.array([[fx, 0, W / 2], [0, fy, H / 2], [0, 0, 1]], np.float32)
+    ro, rd = D.get_rays(D.get_ray_directions(H, W, K), np.asarray(info["c2w"], np.float32))
+    return {
+        "image_hash": [zlib.crc32(str(info.get("image_name", "")).encode())],
+        "cam_idx": [int(cam_idx)],
+        "equivalent_exposure": np.array([info["equivalent_exposure"]], np.float32),
+        "height": [H],
+        "width": [W],
+        "image": encode_png(_to8(image)),
+        "ray_origins": np.asarray(ro, np.float32).reshape(-1),
+        "ray_dirs": np.asarray(rd, np.float32).reshape(-1),
+        "intrinsics": np.array([fx, fy], np.float32),
+    }
+
+
+def write_waymo_tfrecords(path: str, views, images, cam_idxs, compress: bool = True) -> str:
+    """Views as one TFRecord file of :func:`waymo_frame` records (gzipped by
+    default, as the release is). A file whose name holds ``validation`` is
+    the val split to ``preprocess.decode_waymo_tfrecords``."""
+    from unboundednerfpytorch_tpu_torch.data import tfrecord
+
+    tfrecord.write_records(path, [tfrecord.encode_example(waymo_frame(v, im, c))
+                                  for v, im, c in zip(views, images, cam_idxs)],
+                           compress=compress)
+    return path
+
+
+def write_block_nerf_scene(decoded_dir: str, out_dir: str, radius: float = 2.0,
+                           overlap: float = 0.5) -> dict:
+    """A capture decoded by ``preprocess.decode_waymo_tfrecords`` laid out
+    as Block-NeRF reads it: ``<split>/rgbs/<name>.png`` (each view's image,
+    named by its file), ``<split>/<split>_all_meta.json`` ({name: c2w [3][4],
+    intrinsics [fx, fy], W, H, equivalent_exposure, image_name, cam_idx,
+    origin_pos}) and ``<split>/split_block_<split>.json``: the training
+    views' blocks by ``preprocess.split_blocks(radius, overlap)``, and for
+    the val split the val views within ``radius`` of each such block's
+    centroid. Returns the blocks of the train split."""
+    import shutil
+
+    from unboundednerfpytorch_tpu_torch.data import preprocess
+
+    with open(os.path.join(decoded_dir, "metadata.json")) as f:
+        decoded = json.load(f)
+    metas = {}
+    for split, m in decoded.items():
+        os.makedirs(os.path.join(out_dir, split, "rgbs"), exist_ok=True)
+        meta = {}
+        for k, path in enumerate(m["file_path"]):
+            name = os.path.splitext(os.path.basename(path))[0]
+            shutil.copyfile(os.path.join(decoded_dir, path),
+                            os.path.join(out_dir, split, "rgbs", name + ".png"))
+            K = np.asarray(m["K"][k])
+            meta[name] = {"c2w": np.asarray(m["cam2world"][k])[:3].tolist(),
+                          "intrinsics": [float(K[0, 0]), float(K[1, 1])],
+                          "W": int(m["width"][k]), "H": int(m["height"][k]),
+                          "equivalent_exposure": float(m["equivalent_exposure"][k]),
+                          "image_name": name, "cam_idx": int(m["cam_idx"][k]),
+                          "origin_pos": list(m["position"][k])}
+        metas[split] = meta
+        with open(os.path.join(out_dir, split, f"{split}_all_meta.json"), "w") as f:
+            json.dump(meta, f)
+    blocks = preprocess.split_blocks({n: v["origin_pos"] for n, v in metas["train"].items()},
+                                     radius=radius, overlap=overlap)
+    preprocess.write_block_split(blocks, os.path.join(out_dir, "train", "split_block_train.json"))
+    if "val" in metas:
+        val = {}
+        for block, info in blocks.items():
+            c = np.asarray(info["centroid"])
+            names = [n for n, v in metas["val"].items()
+                     if np.linalg.norm(c - np.asarray(v["origin_pos"])) <= radius]
+            val[block] = {"centroid": info["centroid"],
+                          "elements": [[n, k] for k, n in enumerate(names)]}
+        preprocess.write_block_split(val, os.path.join(out_dir, "val", "split_block_val.json"))
+    return blocks

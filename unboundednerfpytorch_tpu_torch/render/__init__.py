@@ -5,7 +5,9 @@ FourierGrid, DVGO, DCVGO and DMPIGO families, with ``export_coarse_geometry``,
 a reference ``.tar`` as ``ft_path`` (the scene config's render knobs laid
 over it, ``utils.reference_import.overlay_render_knobs``), the
 occupancy-adaptive budgets of ``--auto_budget`` (:func:`auto_budgets`) and the
-ARF stylization of ``--style_root`` (``render/arf.py``). One departure: a view whose index
+ARF stylization of ``--style_root`` (``render/arf.py``), and the block
+checkpoints of ``--num_per_block`` (``fine_last_merged``, else each block's
+``fine_last_<b>`` through :func:`run_render_blocks`). One departure: a view whose index
 lies past the end of ``images`` (the generated test trajectories of the
 waymo and mega loaders) is rendered without ground truth and gets no
 metrics, where the JAX package's ``images[i_test]`` raises an
@@ -115,7 +117,8 @@ def _ground_truth(images, idx):
 def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) -> dict:
     """Post-train render program: load ``fine_last`` (or ``args.ft_path``),
     build the render cache, render the train/test/video splits, dump pngs and
-    videos, print PSNR. Returns ``{split: render_viewpoints' dict}``.
+    videos, print PSNR. Returns ``{split: render_viewpoints' dict}``, or
+    where only block checkpoints stand :func:`run_render_blocks`' dict.
 
     ``args`` is any object with the program's options as attributes
     (``render_train``, ``render_test``, ``render_video``, ``dump_images``,
@@ -138,15 +141,18 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
         if getattr(args, name, None):
             raise NotImplementedError(f"--{name} is not ported: {why}")
 
+    # as the JAX run_render: --ft_path, else the merged block checkpoint,
+    # else fine_last; without fine_last but with block checkpoints, each
+    # block renders its own slice of the training views
     path = os.path.join(exp_dir, "fine_last")
+    merged = os.path.join(exp_dir, "fine_last_merged")
     if getattr(args, "ft_path", ""):
         path = args.ft_path  # explicit checkpoint, e.g. a baked export
-    elif os.path.exists(os.path.join(exp_dir, "fine_last_merged", "meta.json")) or (
-            not os.path.exists(os.path.join(path, "meta.json"))
-            and os.path.exists(os.path.join(exp_dir, "fine_last_0", "meta.json"))):
-        raise NotImplementedError(
-            "block checkpoints (run_render_blocks, merge_blocks) are not ported "
-            "(ROADMAP A14)")
+    elif os.path.exists(os.path.join(merged, "meta.json")):
+        path = merged
+    elif not os.path.exists(os.path.join(path, "meta.json")) and os.path.exists(
+            os.path.join(exp_dir, "fine_last_0", "meta.json")):
+        return run_render_blocks(args, cfg, data_dict, exp_dir, device=dev, log_fn=log_fn)
     family, mcfg, params, _, _ = ckpt.load_model(path, device=dev, with_opt_state=False)
     if str(path).endswith(".tar"):
         # reference checkpoints carry no render-time knobs: the scene
@@ -248,8 +254,72 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
     return results
 
 
-def run_render_blocks(args, cfg, data_dict, exp_dir: str) -> None:
-    raise NotImplementedError("per-block rendering is not ported (ROADMAP A14)")
+def block_checkpoints(exp_dir: str) -> list:
+    """The ``fine_last_<b>`` directories of ``exp_dir`` in the order of their
+    block numbers. The JAX ``run_render_blocks`` sorts their names as strings,
+    which from eleven blocks on pairs ``fine_last_10`` with block 2's views;
+    that is not reproduced (ROADMAP C)."""
+    prefix = "fine_last_"
+    names = [n for n in os.listdir(exp_dir)
+             if n.startswith(prefix) and n[len(prefix):].isdigit()]
+    return [os.path.join(exp_dir, n)
+            for n in sorted(names, key=lambda n: int(n[len(prefix):]))]
+
+
+def run_render_blocks(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) -> dict:
+    """The JAX ``run_render_blocks``: each block's checkpoint (in
+    :func:`block_checkpoints`' order) renders its slice of the training
+    views, ``ceil(len(i_train) / blocks)`` a block, on the background of
+    ``white_bkgd`` (a FourierGrid block through its render cache); the frames
+    go to ``<exp_dir>/render_blocks.mp4`` at 15 fps. Returns {"paths": the
+    checkpoints, "views": each block's view indices, "outs": each block's
+    ``render_viewpoints`` dict}. ``device``: ``None`` -> ``cuda``."""
+    from unboundednerfpytorch_tpu_torch.device import resolve_device
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.train.loop import make_forward
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+    from unboundednerfpytorch_tpu_torch.utils import metrics as M
+
+    dev = resolve_device(device)
+    paths = block_checkpoints(exp_dir)
+    i_train = np.asarray(data_dict["i_train"])
+    per_block = int(np.ceil(len(i_train) / max(len(paths), 1)))
+    render_kwargs = {
+        "near": float(data_dict["near"]),
+        "far": float(data_dict["far"]),
+        "bg": 1.0 if cfg.data.white_bkgd else 0.0,
+        "stepsize": cfg.fine_model_and_render.stepsize,
+    }
+    result = {"paths": [], "views": [], "outs": []}
+    psnrs = []
+    for b, path in enumerate(paths):
+        idx = i_train[b * per_block:(b + 1) * per_block]
+        if idx.size == 0:
+            continue
+        family, mcfg, params, _, _ = ckpt.load_model(path, device=dev, with_opt_state=False)
+        params.requires_grad_(False)
+        cache = fg.build_render_cache(params, mcfg) if family == "FourierGrid" else None
+        fwd_core = make_forward(mcfg, render_kwargs)
+        out = render_viewpoints(
+            lambda aux, ro, rd, vd: fwd_core(aux[0], ro, rd, vd, None, cache=aux[1]),
+            poses=np.asarray(data_dict["poses"])[idx], HW=np.asarray(data_dict["HW"])[idx],
+            Ks=np.asarray(data_dict["Ks"])[idx],
+            gt_imgs=_ground_truth(data_dict.get("images"), idx),
+            ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
+            flip_y=cfg.data.flip_y, chunk=getattr(args, "chunk", DEFAULT_CHUNK),
+            verbose=False, aux=(params, cache), log_fn=log_fn, device=dev)
+        del params, cache
+        result["paths"].append(path)
+        result["views"].append(idx)
+        result["outs"].append(out)
+        psnrs.extend(out["psnrs"])
+        log_fn(f"block {b}: rendered {len(idx)} views")
+    if result["outs"]:
+        video = np.concatenate([out["rgbs"] for out in result["outs"]])
+        write_video(os.path.join(exp_dir, "render_blocks.mp4"), M.to8b(video), fps=15)
+        if psnrs:
+            log_fn(f"blocks: psnr {np.mean(psnrs):.2f}")
+    return result
 
 
 def export_coarse_geometry(cfg, exp_dir: str, out_path: str = "", device=None,
@@ -291,6 +361,8 @@ __all__ = [
     "depth_to_vis",
     "write_video",
     "run_render",
+    "run_render_blocks",
+    "block_checkpoints",
     "auto_budgets",
     "export_coarse_geometry",
 ]

@@ -29,7 +29,10 @@ names another checkpoint, ``no_reload`` starts afresh). A stage whose
 checkpoint stands at its last step trains nothing and builds no ray store.
 ``<exp_dir>/<stage>_metrics.jsonl`` gets a record of every scalar the step
 emits at each logged step, and the record of each ``pg_scale`` boundary.
-``render.run_render`` loads ``fine_last``.
+``render.run_render`` loads ``fine_last``. :func:`run_train_blocks` (the
+command line's ``--num_per_block``) trains contiguous blocks of the training
+views, each through :func:`run_train` in its own ``<exp_dir>/block_<b>``, and
+merges them into ``fine_last_merged``.
 
 With ``fine_train.i_panel`` (or ``coarse_train.i_panel``) the stage renders
 the first held-out view that has an image through the current model every
@@ -669,3 +672,47 @@ def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,
     return scene_rep_reconstruction(
         cfg, cfg.fine_model_and_render, cfg.fine_train, xyz_min, xyz_max, data_dict,
         stage="fine", coarse_mask_fn=coarse_mask_fn, **kw)
+
+
+def run_train_blocks(cfg: ExpConfig, data_dict: dict, block_num: int, exp_dir: str,
+                     seed: int = 777, log_fn=print, merge: bool = True, no_reload: bool = False,
+                     save_every: int = 0, device=None, log_every: int = 500) -> list:
+    """Block training (``--num_per_block``), as the JAX ``run_train_blocks``:
+    the training views cut into ``block_num`` contiguous slices of
+    ``ceil(len(i_train) / block_num)``; block ``b`` trains through
+    :func:`run_train` with ``seed + b`` in ``<exp_dir>/block_<b>``, which
+    resumes from its own checkpoints, then is saved without the optimizer's
+    state as ``<exp_dir>/fine_last_<b>``. A block whose ``fine_last_<b>``
+    stands is skipped unless ``no_reload``. With two blocks or more the
+    blocks are merged into ``<exp_dir>/fine_last_merged``
+    (``utils.checkpoint.merge_blocks``). Returns the ``fine_last_<b>``
+    paths. ``device``: ``None`` -> ``cuda``."""
+    dev = resolve_device(device)
+    i_train = np.asarray(data_dict["i_train"])
+    per_block = int(np.ceil(len(i_train) / block_num))
+    paths = []
+    for b in range(block_num):
+        ids = i_train[b * per_block:(b + 1) * per_block]
+        if ids.size == 0:
+            continue
+        path = os.path.join(exp_dir, f"fine_last_{b}")
+        if not no_reload and os.path.exists(os.path.join(path, "meta.json")):
+            log_fn(f"block {b}: already complete ({path}), skipping")
+            paths.append(path)
+            continue
+        log_fn(f"block {b}: training on {len(ids)} views")
+        family, mcfg, params, psnr = run_train(
+            cfg, {**data_dict, "i_train": ids}, seed=seed + b, log_fn=log_fn, device=dev,
+            log_every=log_every, exp_dir=os.path.join(exp_dir, f"block_{b}"),
+            no_reload=no_reload, save_every=save_every)
+        ckpt.save_model(path, family, mcfg, params)
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        paths.append(path)
+        log_fn(f"block {b}: psnr {psnr:.2f} -> {path}")
+    if merge and len(paths) > 1:
+        merged = os.path.join(exp_dir, "fine_last_merged")
+        ckpt.merge_blocks(paths, merged, device=dev)
+        log_fn(f"merged {len(paths)} blocks -> {merged}")
+    return paths

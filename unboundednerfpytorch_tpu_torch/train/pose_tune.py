@@ -152,9 +152,9 @@ def tune_poses(forward_fn: Callable, images, poses, Ks, *, steps: int = 400, lr:
 
 def run_tune_pose(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) -> str:
     """The command line's program: load the trained fine model (``--ft_path``,
-    a checkpoint directory or a reference ``.tar``, else ``<exp_dir>/fine_last``;
-    a merged block checkpoint ``fine_last_merged``, which the JAX package
-    prefers to ``fine_last``, is refused: ROADMAP A14), refine the training
+    a checkpoint directory or a reference ``.tar``, else the merged block
+    checkpoint ``<exp_dir>/fine_last_merged``, else ``<exp_dir>/fine_last``,
+    as the JAX package resolves it), refine the training
     views' poses (``--tune_steps`` steps at ``--tune_lr``, annealed to a
     thousandth of it, ``min(N_rand, 4096)`` pixels a step), and save
     ``tuned_poses.npy``, ``tuned_deltas.npy`` and ``tune_pose_history.json``
@@ -165,14 +165,13 @@ def run_tune_pose(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print)
     from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 
     dev = resolve_device(device)
-    # as run_render resolves it: --ft_path, else the merged block checkpoint
-    # (not ported), else fine_last
+    # as run_render resolves it: --ft_path, else the merged block
+    # checkpoint, else fine_last
     path = getattr(args, "ft_path", "")
     if not path:
-        if os.path.exists(os.path.join(exp_dir, "fine_last_merged", "meta.json")):
-            raise NotImplementedError("tune_pose on a merged block checkpoint "
-                                      "(fine_last_merged) is not ported (ROADMAP A14)")
-        path = os.path.join(exp_dir, "fine_last")
+        path = os.path.join(exp_dir, "fine_last_merged")
+        if not os.path.exists(os.path.join(path, "meta.json")):
+            path = os.path.join(exp_dir, "fine_last")
     is_ref_tar = os.path.isfile(path) and path.endswith(".tar")
     if not is_ref_tar and not os.path.exists(os.path.join(path, "meta.json")):
         raise FileNotFoundError(f"tune_pose needs a trained model at {path}: run --program "

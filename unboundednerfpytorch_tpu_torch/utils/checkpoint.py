@@ -25,7 +25,16 @@ stored as its 16-bit patterns (uint16), named with its dtype in
 ``meta.json``'s ``stored_dtypes``, and a float ``act_shift`` as float64.
 
 A reference ``.tar`` checkpoint loads through :func:`load_model` as well
-(``utils/reference_import.py``). Not ported yet: ``merge_blocks``.
+(``utils/reference_import.py``). :func:`merge_blocks` makes one checkpoint of
+the block checkpoints of ``--num_per_block`` training.
+
+A Block-NeRF block is saved by :func:`save_block_nerf` as ``params.npz`` (the
+layout of ``convert.block_nerf_to_numpy``, nested keys joined by ``/``) and
+``meta.json`` (the JAX entry point's block, steps and psnr, and the model's
+sizes), in the JAX package's directory layout. The JAX package writes flax
+msgpack (``params.msgpack``), which the port does not read: a JAX block is
+carried over in a process with flax (``serialization.from_bytes``, then
+``convert.block_nerf_tree_from_object``).
 """
 
 from __future__ import annotations
@@ -222,3 +231,46 @@ def load_model(path: str, device="cpu", with_opt_state: bool = True):
         opt_state = convert.opt_state_from_numpy(
             _unflatten(_read_npz(os.path.join(path, members["opt_state"]))), family)
     return family, cfg, params, int(meta["global_step"]), opt_state
+
+
+def merge_blocks(block_paths, out_path: str, device="cpu") -> None:
+    """The block checkpoints merged into one at ``out_path``: the elementwise
+    minimum of every block's ``density`` and ``k0`` grids (every bank, in
+    their stored dtype), the first block's other parameters and global step,
+    the family's ``update_occupancy_cache`` run on the result; no
+    optimizer state. As in the JAX package, a field without a lattice grid
+    (a TensoRF field) cannot be merged: ``AttributeError``."""
+    assert block_paths, "no blocks to merge"
+    family, cfg, params, step, _ = load_model(block_paths[0], device=device,
+                                              with_opt_state=False)
+    params.requires_grad_(False)
+    for path in block_paths[1:]:
+        family_i, _, params_i, _, _ = load_model(path, device=device, with_opt_state=False)
+        assert family_i == family
+        for name in ("density", "k0"):
+            field, other = getattr(params, name), getattr(params_i, name)
+            if not (field.dense and other.dense):
+                raise AttributeError(f"{path}: its {name} field has no lattice grid to merge "
+                                     f"({type(other).__name__})")
+            torch.minimum(field.grid.data, other.grid.data, out=field.grid.data)
+        del params_i
+    params = convert.FAMILIES[family].update_occupancy_cache(params, cfg)
+    save_model(out_path, family, cfg, params, global_step=step)
+
+
+def save_block_nerf(path: str, model, meta: dict) -> None:
+    """A Block-NeRF block's ``params.npz`` and ``meta.json`` (``meta`` and
+    ``model_kwargs``, the model's sizes) in the directory ``path``."""
+    os.makedirs(path, exist_ok=True)
+    _write_npz(os.path.join(path, "params.npz"), _flatten(convert.block_nerf_to_numpy(model)))
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({**meta, "model_kwargs": model.dims}, f, indent=2)
+
+
+def load_block_nerf(path: str, device="cpu"):
+    """(model on ``device``, meta) of a block saved by :func:`save_block_nerf`."""
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    model = convert.block_nerf_from_numpy(_unflatten(_read_npz(os.path.join(path, "params.npz"))),
+                                          device)
+    return model, meta
