@@ -277,13 +277,29 @@ Phases, each reported on its own line:
      gradients, card against CPU within ``BN_TOL``, and the composed frame
      against the host's blend of the same block renders; 13e both march
      kernels, masked Adam and ``tv_add_grad`` at every shape 13a and 13b gave
-     them.
+     them;
+ 14. multi-device parallelism on the one card: 14a the distributed code over
+     a real NCCL group of one rank, opened in this process on a localhost
+     TCP store: phase 4's model takes one ``DIST_N_RAND`` batch through the
+     train step without a mesh and through the data-parallel step (the loss
+     equal to the bit, every gradient by ``check_grad``), and the first test
+     view renders through phase 5's render cache without a mesh and
+     cooperatively (equal within 1e-6); 14b the sharded path at full width
+     in one process, at the grids of 13a's steps whose X ``HALO_WAYS`` cuts
+     (188^3 over 4 slabs, 238^3 over 2; bicycle_single's 199^3 stays whole,
+     as in the JAX package), the exchange emulated by copying the neighbour
+     planes: the halo sample's values and gradients against the unsharded
+     sample, ``tv_add_grad``'s halo launches against their plain version and
+     the slabs' TV, joined, against the whole grid's to the bit; the halo
+     launches' times join ``tv_add_grad``'s shape lines in the kernel table
+     (comparisons: they count on no path). Several cards are
+     ``probes/multi_gpu.py``'s, under ``torchrun``.
 
 ``--profile`` also traces the last train steps and one rendered view with
 ``torch.profiler`` and prints the device time by range and by kernel.
 ``--kernels-only`` stops after phase 3 and prints the kernel table without
 launch counts and without the last line (a quick check of a changed kernel).
-The kernel table's launches are those of phases 4 to 13 and of the probe run.
+The kernel table's launches are those of phases 4 to 14 and of the probe run.
 Near the end it prints the seconds and the GiB written (``/proc/self/io``) by
 phase: a chip call may write 45 GiB, deleted files included.
 
@@ -511,6 +527,17 @@ BLOCK_CONFIG = ROOT / "configs" / "waymo" / "waymo_block.py"
 BLOCK_VIEWS, BLOCK_VAL_IDS, BLOCK_OTHER_IDS, NUM_PER_BLOCK = 14, (4, 9), (2, 11), 5
 BN_RADIUS, BN_OVERLAP, BN_STEPS, BN_MIN_GAIN, BN_PSNR_WINDOW = 3.0, 0.3, 300, 3.0, 20
 BN_RAYS, BN_TOL, BN_MAX_FLIPPED = 4096, 1e-3, 0.01
+# phase 14: multi-device parallelism on one card. 14a: phase 4's step and a
+# phase-5 view through the distributed code over a real NCCL group of one
+# rank (DIST_N_RAND rays); 14b: the sharded path at full width in one
+# process, on the grid shapes 13a's steps reached that HALO_WAYS divides
+# (X -> ranks; bicycle_single's 199^3 divides by none and stays whole, as
+# in the JAX package), the exchange emulated by copying the neighbour
+# planes: the halo sample of HALO_QUERIES points a bank (f32 grids of the
+# path's channels, values within 1e-6 of the largest, gradients by
+# check_grad) and tv_add_grad's halo launches
+DIST_N_RAND = 4096
+HALO_WAYS, HALO_QUERIES = {188: 4, 238: 2}, 1 << 18
 # kernel launches of a train step and of a render chunk, by family
 TRAIN_PER_STEP = {"tv_add_grad": 2, "march_forward": 1, "march_backward": 1}
 DCVGO_PER_STEP = {**TRAIN_PER_STEP, "cumdist_thres": 1}
@@ -4801,7 +4828,7 @@ class GradGrab:
                       if p.grad is not None}
 
 
-def check_grad(name: str, got, ref) -> dict:
+def check_grad(name: str, got, ref, tag: str = "[12b]") -> dict:
     """A gradient of the two-stage step against the single-stage step's: every
     element within 1e-4 of its value plus 1e-6 of the largest (float32 sums
     in another order). A bfloat16 gradient (the grids') is one rounding of a
@@ -4822,7 +4849,7 @@ def check_grad(name: str, got, ref) -> dict:
         flips = int((~ok & (d <= step)).sum())
         ok = ok | (d <= step)
     if not bool(ok.all()) or flips > 1e-4 * max(nonzero, 1):
-        raise AssertionError(f"[12b] gradient {name}: {int((~ok).sum())} elements off, {flips} "
+        raise AssertionError(f"{tag} gradient {name}: {int((~ok).sum())} elements off, {flips} "
                              f"one bfloat16 step off of {nonzero}")
     return {"max_abs_diff": float(d.max()), "max_abs": big, "nonzero": nonzero,
             "bf16_step_flips": flips}
@@ -5553,6 +5580,223 @@ def phase_block_kernels(gen, kernels: list, shapes, floor: float, seen: set,
         torch.cuda.empty_cache()
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def phase_distributed(exp_dir: str, data, cfg, cfg_file: str, card: str) -> list:
+    """Phase 14a: the distributed code at world size 1 over a real NCCL group
+    (opened in this process on a localhost TCP store). Phase 4's model
+    (``load_phase5``) takes one ``DIST_N_RAND`` batch through the train step
+    without a mesh and through the data-parallel step over the group's mesh
+    (the optimizer replaced by ``GradGrab``, TV on): the loss equal, every
+    gradient by ``check_grad``; then the first test view renders through
+    phase 5's render cache without a mesh and cooperatively over the group:
+    equal within 1e-6. Returns the launch counts of the data-parallel step and
+    of the cooperative render."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
+    from unboundednerfpytorch_tpu_torch.render.renderer import render_image
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.train.step import TrainState, make_train_step
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_mod.make_mesh()
+        mcfg, params = load_phase5(exp_dir)
+        params.requires_grad_(True)
+        ft = cfg.fine_train
+        store = loop.gather_training_rays(cfg, data, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        idx = torch.randint(store["rgb"].shape[0], (DIST_N_RAND,), generator=gen, device="cuda")
+        batch = {k: v[idx] for k, v in store.items()}
+        del store
+        kw = {"near": float(data["near"]), "far": float(data["far"]), "bg": 0.0,
+              "rand_bkgd": False, "stepsize": cfg.fine_model_and_render.stepsize}
+        near_thres = 0.0
+        if ft.weight_nearclip > 0 and data.get("near_clip"):
+            near_thres = float(data["near_clip"]) / float(mcfg.scene_radius[0])
+        out, counts = {}, []
+        for tag, m in (("single", None), ("distributed", mesh)):
+            reset_counts()
+            step_fn = make_train_step(loop.make_forward(mcfg, kw), ft,
+                                      world_size_max=float(max(mcfg.world_size)),
+                                      near_thres=near_thres, lr_anchor=1, mesh=m)
+            grab = GradGrab(params)
+            metrics = step_fn(TrainState(params, grab, step=100), batch)
+            torch.cuda.synchronize()
+            out[tag] = ({k: float(v) for k, v in metrics.items()}, grab.grads)
+            counts.append(dict(build.LAUNCHES))
+        (m1, g1), (m2, g2) = out["single"], out["distributed"]
+        want = {"tv_add_grad": 2, "march_forward": 1, "march_backward": 1}
+        if counts[1] != want or m1["loss"] != m2["loss"] or m1["psnr"] != m2["psnr"]:
+            raise AssertionError(f"[14a] the data-parallel step: loss {m2['loss']} against "
+                                 f"{m1['loss']}, launches {counts[1]} != {want}")
+        for k in set(g2) - set(g1):  # the collective gives every parameter a grad
+            if bool(g2[k].any()):
+                raise AssertionError(f"[14a] {k}: a gradient where the step has none")
+        grads = {k: check_grad(k, g2[k], g1[k], tag="[14a]") for k in g1}
+        del out, g1, g2, batch
+        params.requires_grad_(False)
+        cache = fg.build_render_cache(params, mcfg)
+        fwd = loop.make_forward(mcfg, {**kw, "bg": 1.0 if cfg.data.white_bkgd else 0.0})
+        view = int(np.asarray(data["i_test"])[0])
+        H, W = (int(v) for v in np.asarray(data["HW"])[view])
+        args = (H, W, np.asarray(data["Ks"])[view], np.asarray(data["poses"])[view][:3, :4])
+        renders = []
+        for m in (None, mesh):
+            reset_counts()
+            t0 = time.perf_counter()
+            renders.append(render_image(lambda ro, rd, vd: fwd(params, ro, rd, vd, None,
+                                                               cache=cache), *args,
+                                        inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
+                                        flip_y=cfg.data.flip_y, device="cuda", mesh=m))
+            renders[-1] = (*renders[-1], (time.perf_counter() - t0) * 1e3)
+        counts.append(dict(build.LAUNCHES))
+        if set(counts[-1]) != {"march_forward"}:
+            raise AssertionError(f"[14a] the cooperative render launched {counts[-1]}")
+        diffs = [float(np.abs(a - b).max()) for a, b in zip(renders[0][:3], renders[1][:3])]
+        if max(diffs) > 1e-6:
+            raise AssertionError(f"[14a] the cooperative render differs by {diffs}")
+        log(json.dumps({"phase": "14a", "card": card, "world_size": dist.get_world_size(),
+                        "backend": dist.get_backend(), "n_rand": DIST_N_RAND,
+                        "loss": m2["loss"], "psnr": m2["psnr"], "grads": grads,
+                        "render_max_abs_diff": diffs, "render_ms": [renders[0][3],
+                                                                    renders[1][3]],
+                        "launches": counts}))
+        del params, cache
+        return counts[1:]
+    finally:
+        dist.destroy_process_group()
+
+
+def halo_sample_case(gen, shape, ways: int) -> dict:
+    """14b's sample: an f32 grid of ``shape`` cut into ``ways`` x-slabs, each
+    extended by a copy of its right neighbour's first plane (zeros for the
+    last), every shard's ``halo.partial_sample`` of the same queries summed
+    against the unsharded ``grid_sample_banks``, and the gradients of a
+    weighted sum, each shard's appended plane's added to its neighbour's
+    first plane as the exchange's backward does, joined, against the
+    unsharded gradient."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops import interp
+    from unboundednerfpytorch_tpu_torch.parallel import halo
+
+    B, X = shape[0], shape[1]
+    xs = X // ways
+    grid = torch.randn(shape, generator=gen, device="cuda")
+    # queries in and a little beyond the box, a share exactly on the slab edges
+    c01 = torch.rand((HALO_QUERIES, B, 3), generator=gen, device="cuda") * 1.1 - 0.05
+    n_edge = HALO_QUERIES // 8
+    edge = torch.randint(1, ways, (n_edge, B), generator=gen, device="cuda") * xs
+    edge -= torch.randint(0, 2, (n_edge, B), generator=gen, device="cuda")  # or the plane before
+    c01[:n_edge, :, 0] = edge.float() / (X - 1)
+    cot = torch.randn((HALO_QUERIES, shape[-1]), generator=gen, device="cuda")
+    whole = grid.clone().requires_grad_(True)
+    want = interp.grid_sample_banks(whole, c01)
+    (want * cot).sum().backward()
+    total, exts = None, []
+    for k in range(ways):
+        slab = grid[:, k * xs:(k + 1) * xs]
+        nxt = grid[:, (k + 1) * xs] if k + 1 < ways else torch.zeros_like(grid[:, 0])
+        ext = torch.cat([slab, nxt[:, None]], dim=1).requires_grad_(True)
+        part = halo.partial_sample(ext, c01, k, X)
+        (part * cot).sum().backward()
+        total = part.detach() if total is None else total + part.detach()
+        exts.append(ext.grad)
+    joined = torch.cat([e[:, :xs] for e in exts], dim=1)
+    for k in range(ways - 1):
+        joined[:, (k + 1) * xs] += exts[k][:, xs]
+    want = want.detach()
+    big = float(want.abs().max())
+    err = float((total - want).abs().max())
+    if not err <= 1e-6 * big:
+        raise AssertionError(f"[14b] the halo sample of {shape} over {ways}: {err} of {big}")
+    return {"values_max_abs_err": err, "values_max_abs": big,
+            "grad": check_grad(f"halo {shape}/{ways}", joined, whole.grad, tag="[14b]")}
+
+
+def phase_halo(gen, kernels: list, shapes, floor: float, card: str) -> None:
+    """Phase 14b: at each grid shape 13a's steps gave ``tv_add_grad`` whose X
+    ``HALO_WAYS`` cuts, the halo sample (``halo_sample_case``) and the TV of
+    each x-slab with its neighbours' boundary planes through the kernel's
+    halo launch: against the plain version of the same slab and planes, and
+    the slabs' results, joined, equal to the whole grid's launch to the bit,
+    sparse and dense. The halo launch of a middle slab is timed (in place,
+    dense, as the train step calls it) and its line joins ``tv_add_grad``'s
+    shapes; these launches are comparisons, so they count on no path."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import tv
+    from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms, time_ms
+
+    row = {k["name"]: k for k in kernels}["tv_add_grad"]
+    cases = sorted({(shape, dtype, w) for shape, dtype, w in shapes.tv
+                    if shape[1] in HALO_WAYS}, key=str)
+    if {shape[1] for shape, _, _ in cases} != set(HALO_WAYS):
+        raise AssertionError(f"[14b] 13a gave no grid of X in {sorted(HALO_WAYS)}: {cases}")
+    samples = {}
+    for shape, dtype, w in cases:
+        ways = HALO_WAYS[shape[1]]
+        xs = shape[1] // ways
+        samples[f"{shape}/{ways}"] = halo_sample_case(gen, shape, ways)
+        torch.cuda.empty_cache()
+        p = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(shape, generator=gen, device="cuda")
+        g = (g * (torch.rand(shape, generator=gen, device="cuda") > 0.4)).to(dtype)
+        slabs = []
+        for k in range(ways):
+            lo = p[:, k * xs - 1].contiguous() if k > 0 else None
+            hi = p[:, (k + 1) * xs].contiguous() if k + 1 < ways else None
+            slabs.append((p[:, k * xs:(k + 1) * xs].contiguous(),
+                          g[:, k * xs:(k + 1) * xs].contiguous(), lo, hi))
+        for dense in (False, True):
+            whole = tv.tv_add_grad(p, g, *w, 1.0, dense)
+            parts = []
+            for k, (ps, gs, lo, hi) in enumerate(slabs):
+                got = tv.tv_add_grad(ps, gs, *w, 1.0, dense, lo=lo, hi=hi)
+                ref = tv.tv_add_grad_plain(ps.float(), gs.float(), *w, 1.0, dense,
+                                           lo=None if lo is None else lo.float(),
+                                           hi=None if hi is None else hi.float())
+                torch.cuda.synchronize()
+                row["max_abs_err"] = max(row["max_abs_err"], check_each(
+                    f"tv halo {tuple(shape)} slab {k}/{ways} dense={dense}", got, ref, 1e-5,
+                    1e-6))
+                parts.append(got)
+                del ref
+            if not torch.equal(torch.cat(parts, dim=1), whole):
+                raise AssertionError(f"[14b] the slabs' TV of {shape} over {ways}, joined, is "
+                                     f"not the whole grid's (dense={dense})")
+            del whole, parts
+        ps, gs, lo, hi = slabs[1 if ways > 2 else 0]
+        lo = lo if lo is not None else hi
+        ms, call = kernel_ms(lambda: tv.tv_add_grad(ps, gs, *w, 1.0, True, out=gs, lo=lo, hi=hi))
+        # param, grad and out of the slab, and the two planes read
+        nbytes = (3 * ps.numel() + 2 * lo.numel()) * ps.element_size()
+        line = shape_line(f"[14b] tv_add_grad halo launch, slab {tuple(ps.shape)} of "
+                          f"{tuple(shape)} over {ways} {str(dtype)[6:]} in place", ms, call,
+                          bound_ms(nbytes, 25 * ps.numel())[0], floor)
+        line["plain_ms"] = time_ms(lambda: tv.tv_add_grad_plain(ps, gs, *w, 1.0, True, lo=lo,
+                                                                hi=hi), iters=5)
+        line["halo"] = True
+        row["shapes"].append(line)
+        del p, g, slabs, ps, gs, lo, hi
+        torch.cuda.empty_cache()
+    log(json.dumps({"phase": "14b", "card": card, "sample": samples,
+                    "tv_halo_shapes": [str(c[0]) for c in cases]}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -5690,6 +5934,8 @@ def main(argv=None) -> int:
             counts13, decoded = timed("13a,b", phase_waymo_blocks, tmp, card, shapes13)
             path_counts += counts13
             timed("13c,d", phase_block_nerf, tmp, card, decoded)
+            # phase 14: multi-device parallelism on one card (14b below)
+            path_counts += timed("14a", phase_distributed, exp_dir, data, cfg, cfg_file, card)
     # phase 3 held masked Adam at phase 4's grids already
     seen = {(tuple(s), torch.bfloat16, True, True, False) for s in tv_shapes.values()}
     timed("9c", phase_dvgo_kernels, gen, kernels,
@@ -5701,6 +5947,7 @@ def main(argv=None) -> int:
           (1, *tv_shapes["k0"][1:4], 3))
     timed("13e", phase_block_kernels, gen, kernels, shapes13, floor, seen,
           {(tuple(shape), dtype) for _, shape, dtype, _ in fam["tv"]})
+    timed("14b", phase_halo, gen, kernels, shapes13, floor, card)
     log(f"seconds by phase: { {k: round(v, 1) for k, v in seconds.items()} }, in all "
         f"{time.time() - t_start:.1f}")
     if written:
@@ -5727,7 +5974,8 @@ def main(argv=None) -> int:
         f"{path_counts[36:39]}, 12c {path_counts[39]}, 12b single and two-stage "
         f"{path_counts[40:42]}, 12e coarse head, view grid and embeddings "
         f"{path_counts[42:45]}, 13a block training {path_counts[45]}, 13b the merged and the "
-        f"block renders {path_counts[46:48]}, probes {probe_counts}")
+        f"block renders {path_counts[46:48]}, 14a the data-parallel step and the cooperative "
+        f"render {path_counts[48:50]}, probes {probe_counts}")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

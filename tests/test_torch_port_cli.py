@@ -140,26 +140,42 @@ def test_the_pose_programs_reach_their_config(program):
                                     ["--grid_parallel", "2"], ["--diffuse"]],
                          ids=lambda o: o[0])
 def test_options_not_ported_are_refused(option, tmp_path):
-    """``--block_parallel`` and ``--grid_parallel`` wait for ROADMAP A18b's
-    multi-device parallelism; ``--diffuse`` and ``--num_per_block`` are
-    ported: the first reaches the loader, the second trains (two blocks of
-    two views on a tiny waymo_block.py capture, and their merge)."""
+    """Every one of these options is ported now (ROADMAP A18b brought the
+    last two): ``--diffuse`` reaches the loader; ``--num_per_block`` trains
+    (two blocks of two views on a tiny waymo_block.py capture, and their
+    merge), and with ``--block_parallel`` too, in one process the blocks in
+    turn in their shared box; ``--grid_parallel 2`` trains and renders on
+    two gloo ranks (``parallel.spawn.run_main``, as ``torchrun`` would run
+    the command line), a config of 25^3 voxels whose 24-plane grids are cut
+    over both."""
     if option == ["--diffuse"]:  # ported: it reaches the loader, after the config
         with pytest.raises(FileNotFoundError, match="unused.py"):
             cli.main(["--config", "unused.py", *option], device="cpu")
         return
-    if option[0] == "--num_per_block":
+    exp_dir = tmp_path / "logs" / "tiny"
+    if option[0] in ("--num_per_block", "--block_parallel"):
         from test_torch_port_blocks import write_block_capture
 
         cfg = write_block_capture(tmp_path, steps=1)
-        assert cli.main(["--config", cfg, "--num_per_block", "2"], device="cpu") == 0
-        exp_dir = tmp_path / "logs" / "tiny"
+        extra = ["--block_parallel"] if option[0] == "--block_parallel" else []
+        assert cli.main(["--config", cfg, "--num_per_block", "2", *extra], device="cpu") == 0
         for name in ("block_0/fine_last", "block_1/fine_last", "fine_last_0", "fine_last_1",
                      "fine_last_merged"):
             assert (exp_dir / name / "meta.json").exists(), name
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A18b"):
-        cli.main(["--config", "unused.py", *option], device="cpu")
+    from unboundednerfpytorch_tpu_torch.parallel import spawn
+
+    synthetic.write_llff_scene(str(tmp_path / "scene"), synthetic.orbit_scene(6, 12, 16, seed=3))
+    cfg = _write_config(tmp_path / "cfg.py", tmp_path / "scene", tmp_path / "logs", 4)
+    text = pathlib.Path(cfg).read_text().replace("24**3", "25**3")
+    pathlib.Path(cfg).write_text(text)
+    argv = ["--config", cfg, *option, "--render_test", "--i_print", "1"]
+    assert spawn.run(spawn.run_main, 2, str(tmp_path / "store"),
+                     "unboundednerfpytorch_tpu_torch.cli.main", argv) == [0, 0]
+    _, mcfg, params, step, _ = ckpt.load_model(str(exp_dir / "fine_last"), device="cpu")
+    assert step == 4 and params.density.world_size == (24, 24, 24)
+    assert params.density.grid.shape[1] == 24  # saved whole
+    assert (exp_dir / "args.txt").read_text().count("grid_parallel = 2") == 1
 
 
 def test_every_flag_of_the_jax_command_line_parses():

@@ -238,5 +238,20 @@ def test_the_block_nerf_entry_points_train_and_compose_on_the_cpu(block_root, tm
     frame = png.imread(str(out / f"{shared[0]}.png"))
     assert frame.shape == (H // 2, W // 2, 3) and frame.dtype == np.uint8
     assert (out / "compose.mp4").exists() or (out / "compose_frames").is_dir()
-    with pytest.raises(NotImplementedError, match="A18b"):
-        train_block_nerf.main(common + ["--data_parallel", "2"], device="cpu")
+    # --data_parallel 2 (ported, ROADMAP A18b): the first block's run again on
+    # two gloo ranks, as torchrun would run it; the same parameters after its
+    # two steps (1e-5 / 1e-6: the gradient sums run in another order)
+    from unboundednerfpytorch_tpu_torch.parallel import spawn
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
+    first = next(iter(blocks))
+    argv = common + ["--block_index", first, "--steps", "2", "--batch_size", "32",
+                     "--n_samples", "4", "--n_importance", "4", "--data_parallel", "2",
+                     "--exp_name", "block_nerf_dp"]
+    assert spawn.run(spawn.run_main, 2, str(tmp_path / "store"),
+                     "unboundednerfpytorch_tpu_torch.tools.train_block_nerf", argv) == [0, 0]
+    dp, _ = ckpt.load_block_nerf(str(tmp_path / "logs" / "block_nerf_dp" / first))
+    one, _ = ckpt.load_block_nerf(str(tmp_path / "logs" / "block_nerf" / first))
+    for (name, got), want in zip(dp.state_dict().items(), one.state_dict().values()):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=name)

@@ -18,9 +18,19 @@ no device). ``--ft_path`` may name a reference ``.tar`` checkpoint in
 ``max(1, len(i_train) // num_per_block)`` blocks; with more than one,
 ``train`` trains them (``train.loop.run_train_blocks``: ``fine_last_<b>``
 and ``fine_last_merged``) and returns without a render, as the JAX command
-line does; ``--running_block_id`` is accepted and unused, as there. The
-options ``--block_parallel`` and ``--grid_parallel`` > 1 raise
-``NotImplementedError`` naming the ROADMAP item they wait for.
+line does; ``--running_block_id`` is accepted and unused, as there.
+
+Several GPUs: launched by ``torchrun --nproc_per_node N -m
+unboundednerfpytorch_tpu_torch.cli.main ...`` the command line joins the
+process group (``parallel.mesh.maybe_initialize_distributed``, as the JAX
+one calls its rendezvous) and trains data-parallel over the N ranks, with
+``--grid_parallel G`` on a (N / G, G) layout whose grids are cut over G
+ranks (the halo-exchange sample), and renders cooperatively; with
+``--num_per_block`` and ``--block_parallel`` the blocks train concurrently,
+one rank each (``train/block_parallel.py``). Rank 0 alone writes files.
+``device="cpu"`` joins a gloo group instead of NCCL. A plain launch on a
+node with several visible GPUs says which ``torchrun`` command would use
+them.
 ``--sample_num`` and ``--diffuse`` reach the waymo and mega loaders, as in
 the JAX command line.
 
@@ -72,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="images per block for block training (-1: no blocks)")
     p.add_argument("--running_block_id", type=int, default=-1)
     p.add_argument("--block_parallel", action="store_true",
-                   help="train all blocks concurrently (refused: not ported)")
+                   help="train the blocks concurrently, one rank each "
+                        "(train/block_parallel.py) instead of in turn")
     p.add_argument("--no_reload", action="store_true")
     p.add_argument("--no_reload_optimizer", action="store_true",
                    help="on resume, rebuild fresh Adam moments instead of "
@@ -132,7 +143,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "contract (refused: not ported)")
     p.add_argument("--grid_parallel", type=int, default=1,
                    help="shard voxel grids (+ Adam moments) spatially over "
-                        "this many devices (> 1 refused: not ported)")
+                        "this many ranks of the process group (torchrun)")
     p.add_argument("--visualize_poses", action="store_true",
                    help="debug pose-visualization mode (reference "
                         "waymo_base.py:11-27): 600-iter coarse run, flat "
@@ -145,25 +156,18 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# options of the JAX command line that wait for a later slice of the port, each
-# with the ROADMAP item it waits for
-REFUSED_OPTIONS = {
-    "block_parallel": (bool, "block-parallel training over several devices (ROADMAP A18b, "
-                             "multi-device parallelism)"),
-    "grid_parallel": (lambda v: v > 1, "grids sharded over several devices (ROADMAP A18b, "
-                                       "multi-device parallelism)"),
-}
-
-
 def main(argv=None, device=None) -> int:
     """Run one program. ``device``: None -> ``cuda`` (raises without a GPU),
     ``"cpu"`` for the plain PyTorch path."""
+    import sys
+
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
+
     args = build_parser().parse_args(argv)
     if args.render_only:
         args.program = "render"
-    for name, (refused, why) in REFUSED_OPTIONS.items():
-        if refused(getattr(args, name)):
-            raise NotImplementedError(f"--{name} is not ported yet: {why}")
 
     from unboundednerfpytorch_tpu_torch.configs.loader import load_config
     from unboundednerfpytorch_tpu_torch.data.common import load_everything
@@ -180,6 +184,13 @@ def main(argv=None, device=None) -> int:
         print(f"sfm: wrote {os.path.join(cfg.data.datadir, 'poses_bounds.npy')}")
         return 0
     dev = resolve_device(device)
+    mesh_mod.maybe_initialize_distributed(dev, log_fn=print)
+    if dev.type == "cuda":
+        hint = mesh_mod.launch_hint(torch.cuda.device_count(), "unboundednerfpytorch_tpu_torch"
+                                    ".cli.main", sys.argv[1:] if argv is None else argv)
+        if hint:
+            print(hint)
+    main_rank = mesh_mod.is_main()
     data_dict = load_everything(cfg, sample_num=args.sample_num, diffuse=args.diffuse)
 
     # the block count of --num_per_block (run_FourierGrid.py:101-103)
@@ -189,11 +200,12 @@ def main(argv=None, device=None) -> int:
 
     exp_dir = os.path.join(cfg.basedir, cfg.expname)
     os.makedirs(exp_dir, exist_ok=True)
-    with open(os.path.join(exp_dir, "args.txt"), "w") as f:
-        for k in sorted(vars(args)):
-            f.write(f"{k} = {getattr(args, k)}\n")
+    if main_rank:
+        with open(os.path.join(exp_dir, "args.txt"), "w") as f:
+            for k in sorted(vars(args)):
+                f.write(f"{k} = {getattr(args, k)}\n")
 
-    if args.save_train_imgs and data_dict.get("images") is not None:
+    if args.save_train_imgs and data_dict.get("images") is not None and main_rank:
         # the training images as loaded: resized, or swapped by --diffuse
         from unboundednerfpytorch_tpu_torch.data.png import write_png
 
@@ -209,17 +221,26 @@ def main(argv=None, device=None) -> int:
         from unboundednerfpytorch_tpu_torch.train import loop
 
         if block_num > 1:
-            loop.run_train_blocks(cfg, data_dict, block_num, exp_dir, seed=args.seed,
-                                  no_reload=args.no_reload, save_every=args.i_weights,
-                                  device=dev, log_every=args.i_print)
+            if args.block_parallel:
+                from unboundednerfpytorch_tpu_torch.train import block_parallel
+
+                block_parallel.run_train_blocks_parallel(
+                    cfg, data_dict, block_num, exp_dir, seed=args.seed,
+                    no_reload=args.no_reload, save_every=args.i_weights, device=dev,
+                    log_every=args.i_print)
+            else:
+                loop.run_train_blocks(cfg, data_dict, block_num, exp_dir, seed=args.seed,
+                                      no_reload=args.no_reload, save_every=args.i_weights,
+                                      device=dev, log_every=args.i_print)
             print(f"block training finished ({block_num} blocks)")
             return 0
         _, _, _, psnr = loop.run_train(
             cfg, data_dict, seed=args.seed, device=dev, log_every=args.i_print,
             exp_dir=exp_dir, no_reload=args.no_reload,
             no_reload_optimizer=args.no_reload_optimizer, save_every=args.i_weights,
-            ft_path=args.ft_path)
-        print(f"train finished: psnr {psnr:.2f}")
+            ft_path=args.ft_path, grid_parallel=args.grid_parallel)
+        if main_rank:
+            print(f"train finished: psnr {psnr:.2f}")
         args.program, args.ft_path = "render", ""  # render <exp_dir>/fine_last
 
     if args.program == "render":
@@ -234,8 +255,9 @@ def main(argv=None, device=None) -> int:
         xyz_min, xyz_max = bbox_mod.compute_bbox_by_cam_frustrm(
             cfg, data_dict, model_family_name(cfg), device=dev)
         out = args.export_bbox_and_cams_only or os.path.join(exp_dir, "cam.npz")
-        np.savez_compressed(out, xyz_min=np.asarray(xyz_min), xyz_max=np.asarray(xyz_max),
-                            poses=np.asarray(data_dict["poses"]))
+        if main_rank:
+            np.savez_compressed(out, xyz_min=np.asarray(xyz_min), xyz_max=np.asarray(xyz_max),
+                                poses=np.asarray(data_dict["poses"]))
         print(f"exported bbox+cams to {out}")
         return 0
     if args.program == "export_coarse":

@@ -69,6 +69,16 @@
 // tv_add_grad_simple_kernel serves rows too long for the ring to fit in shared
 // memory (Z*C above about 13,000 bf16 or 6,000 f32 elements) and can be forced
 // for testing.
+//
+// Halo planes. A grid cut along x over several GPUs (--grid_parallel) holds an
+// x-slab [B, xs, Y, Z, C] on each; the TV at plane x reads planes x - 1 and
+// x + 1, so a slab's first and last planes need the neighbours' boundary
+// planes. `lo` and `hi` ([B, Y, Z, C] each, or null at the whole grid's ends)
+// are the plane before the slab and the plane after it: with them the slab's
+// result is its part of the whole grid's, to the bit. They enter where the
+// whole-grid launch reads planes -1 and X: `lo` as the first plane's x-1
+// neighbour (the `prev` registers), `hi` staged into the ring as plane X.
+// With both null the launch is the single-grid one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -164,9 +174,9 @@ __host__ __device__ constexpr int slot_elems(int zc) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-tv_add_grad_kernel(const T* param, const T* grad, T* out, int B, int X, int Y, int Z, int C,
-                float wx, float wy, float wz, float gate, int dense, int spans, int nseg,
-                int seg_len) {
+tv_add_grad_kernel(const T* param, const T* grad, T* out, const T* lo_plane, const T* hi_plane,
+                int B, int X, int Y, int Z, int C, float wx, float wy, float wz, float gate,
+                int dense, int spans, int nseg, int seg_len) {
   constexpr int V = 16 / (int)sizeof(T);
   constexpr int L = kSpanBytes / (int)sizeof(T);
   constexpr int kPerThread = L / kThreads;
@@ -209,13 +219,18 @@ tv_add_grad_kernel(const T* param, const T* grad, T* out, int B, int X, int Y, i
   const int hbeg = s - zc;
   const int hlen = own + 2 * zc;
 
-  // start staging the span of plane x with its halo; returns its lead
+  // planes past the slab's ends: x = -1 from lo_plane, x = X from hi_plane
+  const int x_end = X + (hi_plane != nullptr ? 1 : 0);
+  // start staging the span of plane x (x = X: hi_plane) with its halo;
+  // returns its lead
   auto stage = [&](T* buf, int x) {
-    const long long off = ((long long)b * X + x) * pyz;
-    const T* pl = param + off;
+    const bool past = x == X;
+    const long long off = past ? (long long)b * pyz : ((long long)b * X + x) * pyz;
+    const T* pl = (past ? hi_plane : param) + off;
+    const long long all = past ? (long long)B * pyz : total;
     const int lead = lead_of(pl, hbeg);
     const int lo = (int)max(-off, -(1LL << 30));
-    const int hi = (int)min(total - off, 1LL << 30);
+    const int hi = (int)min(all - off, 1LL << 30);
     load_span(buf, pl, hbeg, hlen, lead, lo, hi);
     return lead;
   };
@@ -234,10 +249,12 @@ tv_add_grad_kernel(const T* param, const T* grad, T* out, int B, int X, int Y, i
   for (int k = 0; k < kPerThread; ++k) {
     const int p = tid + k * kThreads;
     prev[k] = (x0 > 0 && p < own)
-                  ? to_f(param[((long long)b * X + x0 - 1) * pyz + s + p]) : 0.0f;
+                  ? to_f(param[((long long)b * X + x0 - 1) * pyz + s + p])
+                  : ((lo_plane != nullptr && p < own) ? to_f(lo_plane[(long long)b * pyz + s + p])
+                                                      : 0.0f);
   }
   int lc = stage(bc, x0);
-  int ln = x0 + 1 < X ? stage(bn, x0 + 1) : 0;
+  int ln = x0 + 1 < x_end ? stage(bn, x0 + 1) : 0;
   int lf = 0;
   int lg = stage_grad(gc, x0);
   int lgn = 0;
@@ -245,10 +262,10 @@ tv_add_grad_kernel(const T* param, const T* grad, T* out, int B, int X, int Y, i
   cp_async_wait_all();
   __syncthreads();
   for (int x = x0; x < x1; ++x) {
-    const bool has_next = x + 1 < X;
-    const bool has_prev = x > 0;
+    const bool has_next = x + 1 < x_end;
+    const bool has_prev = x > 0 || lo_plane != nullptr;
     if (x + 1 < x1) {  // what the next step needs arrives during this one
-      if (x + 2 < X) lf = stage(bf, x + 2);
+      if (x + 2 < x_end) lf = stage(bf, x + 2);
       lgn = stage_grad(gn, x + 1);
     }
     cp_async_commit();
@@ -313,7 +330,8 @@ tv_add_grad_kernel(const T* param, const T* grad, T* out, int B, int X, int Y, i
 }
 
 template <typename T>
-__global__ void tv_add_grad_simple_kernel(const T* __restrict__ param, const T* grad, T* out, int X,
+__global__ void tv_add_grad_simple_kernel(const T* __restrict__ param, const T* grad, T* out,
+                                 const T* lo_plane, const T* hi_plane, int X,
                                  int Y, int Z, int C, float wx, float wy, float wz, float gate,
                                  int dense) {
   const int per_bank = X * Y * Z * C;
@@ -323,6 +341,8 @@ __global__ void tv_add_grad_simple_kernel(const T* __restrict__ param, const T* 
   T* o = out + base;
   const int zc = Z * C;
   const int yzc = Y * zc;
+  const T* lo = lo_plane != nullptr ? lo_plane + (long long)blockIdx.y * yzc : nullptr;
+  const T* hi = hi_plane != nullptr ? hi_plane + (long long)blockIdx.y * yzc : nullptr;
   for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < per_bank;
        j += gridDim.x * blockDim.x) {
     int r = j / C;
@@ -331,8 +351,10 @@ __global__ void tv_add_grad_simple_kernel(const T* __restrict__ param, const T* 
     const int y = r % Y;
     const int x = r / Y;
     const float pc = to_f(p[j]);
-    const float ax = (x < X - 1 ? clip1(pc - to_f(p[j + yzc])) : 0.0f) +
-                     (x > 0 ? clip1(pc - to_f(p[j - yzc])) : 0.0f);
+    const float ax =
+        (x < X - 1 ? clip1(pc - to_f(p[j + yzc]))
+                   : (hi != nullptr ? clip1(pc - to_f(hi[j - x * yzc])) : 0.0f)) +
+        (x > 0 ? clip1(pc - to_f(p[j - yzc])) : (lo != nullptr ? clip1(pc - to_f(lo[j])) : 0.0f));
     const float ay = (y < Y - 1 ? clip1(pc - to_f(p[j + zc])) : 0.0f) +
                      (y > 0 ? clip1(pc - to_f(p[j - zc])) : 0.0f);
     const float az = (z < Z - 1 ? clip1(pc - to_f(p[j + C])) : 0.0f) +
@@ -356,8 +378,9 @@ int sm_count() {
 }
 
 template <typename T>
-int launch(const void* param, const void* grad, void* out, int B, int X, int Y, int Z, int C,
-           float wx, float wy, float wz, float gate, int dense, int simple, void* stream) {
+int launch(const void* param, const void* grad, void* out, const void* lo, const void* hi, int B,
+           int X, int Y, int Z, int C, float wx, float wy, float wz, float gate, int dense,
+           int simple, void* stream) {
   constexpr int L = kSpanBytes / (int)sizeof(T);
   const long long zc = (long long)Z * C;
   const long long pyz = zc * Y;
@@ -383,7 +406,8 @@ int launch(const void* param, const void* grad, void* out, int B, int X, int Y, 
     if (nb < 1) nb = 1;
     dim3 grid((unsigned)nb, (unsigned)B);
     tv_add_grad_simple_kernel<T><<<grid, threads, 0, (cudaStream_t)stream>>>(
-        (const T*)param, (const T*)grad, (T*)out, X, Y, Z, C, wx, wy, wz, gate, dense);
+        (const T*)param, (const T*)grad, (T*)out, (const T*)lo, (const T*)hi, X, Y, Z, C, wx, wy,
+        wz, gate, dense);
     return (int)cudaGetLastError();
   }
   // above 48 KB, shared memory is dynamic and opted into (per device, so every time)
@@ -391,8 +415,8 @@ int launch(const void* param, const void* grad, void* out, int B, int X, int Y, 
       tv_add_grad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   tv_add_grad_kernel<T><<<(unsigned)blocks, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      (const T*)param, (const T*)grad, (T*)out, B, X, Y, Z, C, wx, wy, wz, gate, dense,
-      (int)spans, (int)nseg, seg_len);
+      (const T*)param, (const T*)grad, (T*)out, (const T*)lo, (const T*)hi, B, X, Y, Z, C, wx,
+      wy, wz, gate, dense, (int)spans, (int)nseg, seg_len);
   return (int)cudaGetLastError();
 }
 
@@ -400,18 +424,19 @@ int launch(const void* param, const void* grad, void* out, int B, int X, int Y, 
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. simple != 0 forces the one-thread-an-element
-// kernel. Returns the cudaError_t of the launch.
-int tv_add_grad(const void* param, const void* grad, void* out, int dtype, int B, int X,
-                int Y, int Z, int C, float wx, float wy, float wz, float gate, int dense,
-                int simple, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. lo and hi: the planes [B, Y, Z, C] before and
+// after a slab of a grid cut along x, or null. simple != 0 forces the
+// one-thread-an-element kernel. Returns the cudaError_t of the launch.
+int tv_add_grad(const void* param, const void* grad, void* out, const void* lo, const void* hi,
+                int dtype, int B, int X, int Y, int Z, int C, float wx, float wy, float wz,
+                float gate, int dense, int simple, void* stream) {
   if ((long long)B * X * Y * Z * C == 0) return 0;
   if (dtype == 0)
-    return launch<float>(param, grad, out, B, X, Y, Z, C, wx, wy, wz, gate, dense, simple,
-                         stream);
+    return launch<float>(param, grad, out, lo, hi, B, X, Y, Z, C, wx, wy, wz, gate, dense,
+                         simple, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(param, grad, out, B, X, Y, Z, C, wx, wy, wz, gate, dense,
-                                 simple, stream);
+    return launch<__nv_bfloat16>(param, grad, out, lo, hi, B, X, Y, Z, C, wx, wy, wz, gate,
+                                 dense, simple, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
+from unboundednerfpytorch_tpu_torch.parallel import halo
 
 
 def _norm01(xyz: torch.Tensor, xyz_min, xyz_max) -> torch.Tensor:
@@ -43,7 +44,13 @@ class FourierGrid(nn.Module):
     ``dense`` says that the field's values are its lattice ``grid`` itself,
     which the TV kernel, the packed render cache, the near-camera mask-out
     and the bf16 storage work on; a decomposed field (TensoRF) has none and
-    says False. Every field gives ``get_dense_grid``."""
+    says False. Every field gives ``get_dense_grid``.
+
+    ``shard`` (a :class:`..parallel.halo.GridShard`, set by
+    ``parallel.mesh.shard_params``) says that ``grid`` holds one x-slab of
+    the lattice, ``[B, X / count, Y, Z, C]``: queries then go through the
+    halo-exchange sample and every rank of the grid group must make them
+    together; ``world_size`` stays the whole lattice's."""
 
     dense = True
 
@@ -58,13 +65,19 @@ class FourierGrid(nn.Module):
         self.xyz_min = tuple(float(v) for v in xyz_min)
         self.xyz_max = tuple(float(v) for v in xyz_max)
         self.num_freqs = int(num_freqs)
+        self.shard = None
 
     def forward(self, xyz: torch.Tensor) -> torch.Tensor:
         coords = _norm01(xyz, self.xyz_min, self.xyz_max) * 2.0 - 1.0
         B = self.grid.shape[0]
         if self.num_freqs > 0:
             c01 = (nerf_pos_embed_coords(coords, self.num_freqs) + 1.0) * 0.5
+            if self.shard is not None:
+                return halo.sharded_grid_sample(self.grid, c01, self.shard) / B
             return interp.grid_sample_banks(self.grid, c01) / B
+        if self.shard is not None:
+            return halo.sharded_grid_sample(self.grid, ((coords + 1.0) * 0.5)[..., None, :],
+                                            self.shard)
         return interp.grid_sample_3d(self.grid[0], (coords + 1.0) * 0.5)
 
     @torch.no_grad()
@@ -74,6 +87,8 @@ class FourierGrid(nn.Module):
         same dtype, and the old one is dropped. A bank at a time, in f32,
         rounded once to the grid's dtype: at full width the f32 image of
         all banks together would be several GB."""
+        if self.shard is not None:
+            raise ValueError("scale_volume_grid needs the whole grid: unshard it first")
         size = tuple(int(s) for s in new_world_size)
         old = self.grid.detach()
         new = torch.empty((old.shape[0], *size, old.shape[-1]), dtype=old.dtype,
@@ -84,10 +99,14 @@ class FourierGrid(nn.Module):
 
     @property
     def world_size(self) -> tuple:
+        if self.shard is not None:
+            return (self.shard.X, *self.grid.shape[2:4])
         return tuple(self.grid.shape[1:4])
 
     def get_dense_grid(self) -> torch.Tensor:
         """The lattice, every bank: [B, X, Y, Z, C] (the JAX ``grid``)."""
+        if self.shard is not None:
+            raise ValueError("get_dense_grid needs the whole grid: unshard it first")
         return self.grid
 
 
@@ -102,10 +121,15 @@ class DenseGrid(FourierGrid):
                          device=device, grid=grid)
 
     def forward(self, xyz: torch.Tensor) -> torch.Tensor:
-        return interp.grid_sample_3d(self.grid[0], _norm01(xyz, self.xyz_min, self.xyz_max))
+        c01 = _norm01(xyz, self.xyz_min, self.xyz_max)
+        if self.shard is not None:
+            return halo.sharded_grid_sample(self.grid, c01[..., None, :], self.shard)
+        return interp.grid_sample_3d(self.grid[0], c01)
 
     def get_dense_grid(self) -> torch.Tensor:
         """The values at the lattice's nodes, [X, Y, Z, C]."""
+        if self.shard is not None:
+            raise ValueError("get_dense_grid needs the whole grid: unshard it first")
         return self.grid[0]
 
 

@@ -209,10 +209,11 @@ def oversample_mask(cfg: DCVGOConfig, pts: torch.Tensor, inner: torch.Tensor,
 def query_fields(params: DCVGOParams, pts: torch.Tensor):
     """(density [N, S], k0 [N, S, k0_dim]) in f32 from the grids. On one
     lattice (always, but after a mask-only change) the corners are found once
-    for both grids; a field without a voxel grid (TensoRF) is queried
-    itself."""
+    for both grids; a field without a voxel grid (TensoRF) or whose grid is
+    cut over a grid group (the halo sample) is queried itself."""
     if not (params.density.dense and params.k0.dense) or \
-            params.density.world_size != params.k0.world_size:
+            params.density.world_size != params.k0.world_size or \
+            params.density.shard is not None or params.k0.shard is not None:
         return params.density(pts)[..., 0], params.k0(pts)
     dg, kg = params.density.grid, params.k0.grid
     c01 = _norm01(pts, params.density.xyz_min, params.density.xyz_max)

@@ -512,7 +512,13 @@ def _baked_density_dims(cfg: FourierGridConfig, device: torch.device) -> tuple |
 
 def _fused_banks(params: FourierGridParams) -> bool:
     """Density and k0 can share one gathered row when their bank structure
-    and resolution match, single-bank (num_freqs == 0) models included."""
+    and resolution match, single-bank (num_freqs == 0) models included.
+    Never for grids cut over a grid group: as the JAX forward with a
+    spatial mesh, each field is then queried through the halo sample, and
+    the fused, packed and two-stage paths, which all need this test, are
+    off."""
+    if params.density.shard is not None or params.k0.shard is not None:
+        return False
     dg, kg = params.density.grid, params.k0.grid
     return params.k0.num_freqs == params.density.num_freqs and dg.shape[:4] == kg.shape[:4]
 

@@ -30,7 +30,14 @@ def trilerp_corners(xyz01: torch.Tensor, dims: tuple):
     """
     X, Y, Z = (int(d) for d in dims)
     scale = torch.tensor([X - 1, Y - 1, Z - 1], dtype=xyz01.dtype, device=xyz01.device)
-    c = xyz01 * scale
+    return corners_at(xyz01 * scale, dims)
+
+
+def corners_at(c: torch.Tensor, dims: tuple):
+    """:func:`trilerp_corners` of a point given in voxel units, ``c`` [..., 3]
+    (``xyz01 * (dims - 1)``): a shard of a grid cut along x finds its corners
+    at ``c`` less its first plane, with the global weights to the bit."""
+    X, Y, Z = (int(d) for d in dims)
     c0 = torch.floor(c)
     f = c - c0
     c0i = c0.to(torch.int64)
@@ -47,7 +54,7 @@ def trilerp_corners(xyz01: torch.Tensor, dims: tuple):
                 zi = c0i[..., 2] + dz
                 wz = f[..., 2] if dz else 1.0 - f[..., 2]
                 vz = (zi >= 0) & (zi < Z)
-                w = wx * wy * wz * (vx & vy & vz).to(xyz01.dtype)
+                w = wx * wy * wz * (vx & vy & vz).to(c.dtype)
                 flat = (
                     xi.clamp(0, X - 1) * (Y * Z)
                     + yi.clamp(0, Y - 1) * Z

@@ -232,10 +232,10 @@ def run_tv(gen, emit) -> None:
     def launch(lib, simple):
         fn = lib.tv_add_grad
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        err = fn(p.data_ptr(), g.data_ptr(), g.data_ptr(), 1, *K0_SHAPE, 0.05, 0.03, 0.02, 1.0, 1,
-                 simple, torch.cuda.current_stream().cuda_stream)
+        err = fn(p.data_ptr(), g.data_ptr(), g.data_ptr(), None, None, 1, *K0_SHAPE, 0.05, 0.03,
+                 0.02, 1.0, 1, simple, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"tv_add_grad: CUDA error {err}")
 

@@ -7,7 +7,10 @@ over it, ``utils.reference_import.overlay_render_knobs``), the
 occupancy-adaptive budgets of ``--auto_budget`` (:func:`auto_budgets`) and the
 ARF stylization of ``--style_root`` (``render/arf.py``), and the block
 checkpoints of ``--num_per_block`` (``fine_last_merged``, else each block's
-``fine_last_<b>`` through :func:`run_render_blocks`). One departure: a view whose index
+``fine_last_<b>`` through :func:`run_render_blocks`). Inside a process group
+every view renders cooperatively over all its ranks (the JAX render's
+``mesh``, ``renderer.render_image(mesh=...)``) and rank 0 alone writes the
+images and videos. One departure: a view whose index
 lies past the end of ``images`` (the generated test trajectories of the
 waymo and mega loaders) is rendered without ground truth and gets no
 metrics, where the JAX package's ``images[i_test]`` raises an
@@ -153,6 +156,9 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
     elif not os.path.exists(os.path.join(path, "meta.json")) and os.path.exists(
             os.path.join(exp_dir, "fine_last_0", "meta.json")):
         return run_render_blocks(args, cfg, data_dict, exp_dir, device=dev, log_fn=log_fn)
+    mesh, writer = _render_mesh(log_fn)
+    if not writer:
+        log_fn = lambda *a, **k: None  # noqa: E731: rank 0 alone logs
     family, mcfg, params, _, _ = ckpt.load_model(path, device=dev, with_opt_state=False)
     if str(path).endswith(".tar"):
         # reference checkpoints carry no render-time knobs: the scene
@@ -228,7 +234,7 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
             lpips_nets=tuple(net for net, on in (
                 ("alex", getattr(args, "eval_lpips", False)),
                 ("vgg", getattr(args, "eval_lpips_vgg", False))) if on) or ("alex",),
-            aux=aux, log_fn=log_fn, device=dev,
+            aux=aux, log_fn=log_fn, device=dev, mesh=mesh,
             render_factor=getattr(args, "render_video_factor", 0) if is_video else 0,
             render_video_flipy=getattr(args, "render_video_flipy", False) if is_video else False,
             render_video_rot90=getattr(args, "render_video_rot90", 0) if is_video else 0,
@@ -238,6 +244,8 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
             rgbs, color_tf = stylizer.match_colors_for_image_set(rgbs, exp_dir)
             out = {**out, "rgbs": rgbs, "color_tf": color_tf}
         results[name] = out
+        if not writer:
+            continue
         if getattr(args, "dump_images", False):
             outdir = os.path.join(exp_dir, f"render_{name}")
             os.makedirs(outdir, exist_ok=True)
@@ -252,6 +260,20 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
         if out["psnrs"]:
             log_fn(f"{name}: psnr {np.mean(out['psnrs']):.2f}")
     return results
+
+
+def _render_mesh(log_fn):
+    """(the data mesh of all ranks or None, whether this rank writes)."""
+    from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
+
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return None, True
+    mesh = mesh_mod.make_mesh()
+    if mesh.rank == 0:
+        log_fn(f"render: cooperative over {mesh.data} devices")
+    return mesh, mesh.rank == 0
 
 
 def block_checkpoints(exp_dir: str) -> list:
@@ -292,6 +314,9 @@ def run_render_blocks(args, cfg, data_dict, exp_dir: str, device=None, log_fn=pr
     }
     result = {"paths": [], "views": [], "outs": []}
     psnrs = []
+    mesh, writer = _render_mesh(log_fn)
+    if not writer:
+        log_fn = lambda *a, **k: None  # noqa: E731: rank 0 alone logs
     for b, path in enumerate(paths):
         idx = i_train[b * per_block:(b + 1) * per_block]
         if idx.size == 0:
@@ -307,14 +332,14 @@ def run_render_blocks(args, cfg, data_dict, exp_dir: str, device=None, log_fn=pr
             gt_imgs=_ground_truth(data_dict.get("images"), idx),
             ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
             flip_y=cfg.data.flip_y, chunk=getattr(args, "chunk", DEFAULT_CHUNK),
-            verbose=False, aux=(params, cache), log_fn=log_fn, device=dev)
+            verbose=False, aux=(params, cache), log_fn=log_fn, device=dev, mesh=mesh)
         del params, cache
         result["paths"].append(path)
         result["views"].append(idx)
         result["outs"].append(out)
         psnrs.extend(out["psnrs"])
         log_fn(f"block {b}: rendered {len(idx)} views")
-    if result["outs"]:
+    if result["outs"] and writer:
         video = np.concatenate([out["rgbs"] for out in result["outs"]])
         write_video(os.path.join(exp_dir, "render_blocks.mp4"), M.to8b(video), fps=15)
         if psnrs:

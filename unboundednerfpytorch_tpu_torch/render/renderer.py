@@ -10,7 +10,12 @@ so a view costs one synchronisation and not one per chunk.
 The JAX module's ``_batched_renderer`` and ``aux_format`` keep multi-GB
 tables out of compiled executables and negotiate their layouts; eager
 PyTorch has neither problem, so they have no counterpart, and ``aux`` is
-simply handed to ``forward_fn``. ``mesh=`` (several devices) is not ported.
+simply handed to ``forward_fn``. With ``mesh`` (a
+:class:`..parallel.mesh.Mesh`, the JAX ``mesh=``) a view renders
+cooperatively: each chunk's rays are shared out over the data axis, every
+rank renders its share of every chunk, and one all-gather a view puts the
+image together on every rank. Rays are independent, so the image is the
+single-device one.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from unboundednerfpytorch_tpu_torch.device import resolve_device
@@ -44,6 +50,7 @@ def render_image(
     aux=None,
     rays_fn=None,
     device=None,
+    mesh=None,
 ):
     """Render one view. ``forward_fn(ro, rd, vd)`` (or, with ``aux``,
     ``forward_fn(aux, ro, rd, vd)``) returns a RenderResult. Returns
@@ -54,9 +61,14 @@ def render_image(
     (rgb, depth, alphainv_last) tensors.
 
     ``device``: ``None`` -> ``cuda`` (raises without a GPU); ``"cpu"`` for the
-    plain path.
+    plain path. ``mesh``: the cooperative render (module doc); every rank of
+    its data axis must call it for the view.
     """
     dev = resolve_device(device)
+    ranks = 1 if mesh is None or mesh.data_group is None else mesh.data
+    if ranks > 1 and rays_fn is not None:
+        raise ValueError("a cooperative render takes no whole-image rays_fn")
+    chunk = -(-chunk // ranks) * ranks  # a chunk shares out evenly
     with torch.no_grad():
         with record_function("render/rays"):
             # K may arrive as float64 (render_viewpoints); rays are float32
@@ -73,16 +85,20 @@ def render_image(
         if rays_fn is not None:
             rgbs, depths, bgws = rays_fn(ro, rd, vd)
         else:
+            share = chunk // ranks
+            first = 0 if ranks == 1 else mesh.data_index * share
             outs = []
             for a in range(0, ro.shape[0], chunk):
                 with record_function("render/chunk"):
-                    sl = slice(a, a + chunk)
+                    sl = slice(a + first, a + first + share)
                     if aux is not None:
                         res = forward_fn(aux, ro[sl], rd[sl], vd[sl])
                     else:
                         res = forward_fn(ro[sl], rd[sl], vd[sl])
                     outs.append((res.rgb_marched, res.depth, res.alphainv_last))
             rgbs, depths, bgws = (torch.cat(parts) for parts in zip(*outs))
+            if ranks > 1:
+                rgbs, depths, bgws = _gather_shares(mesh, share, rgbs, depths, bgws)
         # one device-to-host copy per image
         packed = torch.cat([rgbs.reshape(-1, 3)[:n], depths.reshape(-1, 1)[:n],
                             bgws.reshape(-1, 1)[:n]], dim=1).cpu().numpy()
@@ -90,6 +106,16 @@ def render_image(
     depth = np.ascontiguousarray(packed[:, 3]).reshape(H, W)
     bgw = np.ascontiguousarray(packed[:, 4]).reshape(H, W)
     return rgb, depth, bgw
+
+
+def _gather_shares(mesh, share: int, rgbs, depths, bgws):
+    """Every rank's share of every chunk, put back in ray order."""
+    mine = torch.cat([rgbs.reshape(-1, 3), depths.reshape(-1, 1), bgws.reshape(-1, 1)], dim=1)
+    parts = [torch.empty_like(mine) for _ in range(mesh.data)]
+    dist.all_gather(parts, mine.contiguous(), group=mesh.data_group)
+    # [ranks, chunks, share, 5] -> [chunks, ranks, share, 5]
+    whole = torch.stack(parts).reshape(mesh.data, -1, share, 5).transpose(0, 1).reshape(-1, 5)
+    return whole[:, :3], whole[:, 3], whole[:, 4]
 
 
 def render_viewpoints(
@@ -115,6 +141,7 @@ def render_viewpoints(
     render_video_rot90: int = 0,
     image_fn=None,
     device=None,
+    mesh=None,
 ):
     """Render a split of poses and (optionally) evaluate against ground truth.
 
@@ -122,7 +149,8 @@ def render_viewpoints(
     gets no metrics). ``render_factor``: downsample H/W/K by this factor for
     fast previews; GT metrics are skipped (sizes differ). ``render_video_flipy`` /
     ``render_video_rot90``: post-transforms of the rendered stack.
-    ``image_fn(H, W, K, c2w)``: whole-image override.
+    ``image_fn(H, W, K, c2w)``: whole-image override. ``mesh``: each view
+    renders cooperatively over its data axis (:func:`render_image`).
 
     Returns dict(rgbs, depths, bgmaps, psnrs, ssims, lpips, seconds);
     ``lpips`` is a list of per-view {net: value} dicts, ``seconds`` the host
@@ -148,7 +176,7 @@ def render_viewpoints(
         else:
             rgb, depth, bgw = render_image(
                 forward_fn, H, W, K, c2w[:3, :4], ndc=ndc, inverse_y=inverse_y,
-                flip_x=flip_x, flip_y=flip_y, chunk=chunk, aux=aux, device=device)
+                flip_x=flip_x, flip_y=flip_y, chunk=chunk, aux=aux, device=device, mesh=mesh)
         seconds.append(time.perf_counter() - t0)
         rgbs.append(rgb)
         depths.append(depth)

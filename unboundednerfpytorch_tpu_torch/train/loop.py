@@ -79,6 +79,8 @@ from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
 from unboundednerfpytorch_tpu_torch.ops import rays as ray_ops
 from unboundednerfpytorch_tpu_torch.optim import factory as opt_factory
 from unboundednerfpytorch_tpu_torch.optim.masked_adam import make_per_lr
+from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
+from unboundednerfpytorch_tpu_torch.parallel.blocks import my_blocks
 from unboundednerfpytorch_tpu_torch.train import bbox as bbox_mod
 from unboundednerfpytorch_tpu_torch.train.step import (
     FlattenSampler, HostRayStoreSampler, RandomSampler, TrainState, create_train_state,
@@ -213,7 +215,7 @@ def tv_axis_scale(family: str, mcfg) -> tuple | None:
 
 def pg_scale_boundary(state: TrainState, mcfg, cfg_model: ModelRenderConfig,
                       cfg_train: TrainStageConfig, global_step: int, deferred_budget: int = 0,
-                      report: dict | None = None):
+                      report: dict | None = None, mesh: mesh_mod.Mesh | None = None):
     """The work of the ``pg_scale`` boundary at ``global_step``, which must be
     one of ``cfg_train.pg_scale``. Returns (new train state, new model config,
     record).
@@ -235,7 +237,10 @@ def pg_scale_boundary(state: TrainState, mcfg, cfg_model: ModelRenderConfig,
     (``occupancy``), the budget in force before and after, and the seconds of
     resize, refresh and rebuild. ``report``, if given, receives what the
     family's ``scale_volume_grid`` reports (FourierGrid's pooled alpha of the
-    refresh included)."""
+    refresh included). With ``mesh``, grids cut over its grid group are
+    joined first, so that the resize and the occupancy refresh see the whole
+    grids, and the resized grids are cut again before the optimizer is
+    built."""
     pg_scale = [int(b) for b in cfg_train.pg_scale]
     n_rest = len(pg_scale) - pg_scale.index(global_step) - 1
     cur_vox_density = int(cfg_model.num_voxels_density / (2**n_rest))
@@ -247,10 +252,12 @@ def pg_scale_boundary(state: TrainState, mcfg, cfg_model: ModelRenderConfig,
         p.grad = None
     report = {} if report is None else report
     budget_before = getattr(mcfg, "sample_budget", 0)
+    mesh_mod.unshard_params(params)
     _, mcfg = scale_model(family_of(mcfg), params, mcfg, cur_vox_density, cur_vox_rgb,
                           report=report)
     seconds = {part: report[part] for part in ("resize", "refresh")}
     params.act_shift -= cfg_train.decay_after_scale
+    cut = None if mesh is None else mesh_mod.shard_params(mesh, params)
     if deferred_budget:
         # the cache was just refreshed from trained density: cutting every
         # ray to a fixed budget of occupied samples is safe from here on
@@ -268,6 +275,8 @@ def pg_scale_boundary(state: TrainState, mcfg, cfg_model: ModelRenderConfig,
         "sample_budget": getattr(mcfg, "sample_budget", 0),
         "seconds": seconds,
     }
+    if cut is not None:
+        record["sharded"] = cut  # the fields cut over the grid axis
     return state, mcfg, record
 
 
@@ -350,6 +359,7 @@ def scene_rep_reconstruction(
     no_reload_optimizer: bool = False,
     save_every: int = 0,
     ft_path: str = "",
+    mesh: mesh_mod.Mesh | None = None,
 ):
     """One training stage; returns (family, model config, params, psnr).
 
@@ -382,6 +392,14 @@ def scene_rep_reconstruction(
     the whole stage where ``pg_scale`` is empty). ``callback(step, metrics)``
     runs after every step; at a boundary's step ``metrics["pg_scale"]`` is
     the record of :func:`pg_scale_boundary`.
+
+    ``mesh`` (a :class:`..parallel.mesh.Mesh` over the process group): the
+    stage trains data-parallel over its data axis where that divides
+    ``N_rand`` (else every rank trains the whole batch alone, the JAX
+    loop's single-device fallback, with its log line), with the density and
+    k0 grids cut over its grid axis (:func:`..parallel.mesh.shard_params`)
+    where that is larger than 1; rank 0 alone writes the checkpoints, the
+    metrics and the panels. The stage hands on whole grids.
     """
     n_iters = cfg_train.N_iters
     if cfg_train.ray_sampler not in ("flatten", "random", "in_maskcache"):
@@ -393,6 +411,23 @@ def scene_rep_reconstruction(
         shift = (xyz_max - xyz_min) * (cfg_model.world_bound_scale - 1) / 2
         xyz_min = xyz_min - shift
         xyz_max = xyz_max + shift
+
+    dp = None  # the mesh this stage trains over
+    if mesh is not None:
+        if cfg_train.N_rand % mesh.data == 0:
+            dp = mesh
+            if mesh.grid > 1:
+                log_fn(f"{stage}: 2D mesh {{'data': {mesh.data}, 'grid': {mesh.grid}}} — grids "
+                       "sharded spatially (halo-exchange sampling), rays data-parallel")
+            else:
+                log_fn(f"{stage}: DP over {mesh.data} devices (mesh axis 'data')")
+        elif mesh.grid > 1:
+            raise ValueError(f"{stage}: N_rand={cfg_train.N_rand} does not divide over "
+                             f"{mesh.data} data ranks of the --grid_parallel mesh")
+        else:
+            log_fn(f"{stage}: N_rand={cfg_train.N_rand} not divisible by {mesh.data} devices "
+                   "— training single-device")
+    writer = mesh is None or mesh.rank == 0  # the rank that writes files
 
     # implicit resume from the stage's last checkpoint; ft_path wins over it
     reload_path = None
@@ -464,6 +499,11 @@ def scene_rep_reconstruction(
         report = apply_pervoxel_lr(state, mcfg, cfg_train, store, data_dict, render_kwargs)
         log_fn(f"{stage}: pervoxel_lr from {report['views']} views, "
                f"{report['seconds']:.2f} s; occupancy {report['occupancy']:.4f}")
+    if dp is not None and dp.grid > 1:
+        cut = mesh_mod.shard_params(dp, state.params, state.optimizer)
+        log_fn(f"{stage}: grids cut over {dp.grid} ranks: {cut or 'none'} (a grid whose X "
+               f"{dp.grid} does not divide stays whole)")
+    part = None if dp is None else dp.batch_slice(cfg_train.N_rand)
     # a device generator for the per-step draws (ray indices or backgrounds);
     # the host store draws its indices with numpy, as the JAX package's does
     gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -471,7 +511,7 @@ def scene_rep_reconstruction(
     if host:
         sampler = HostRayStoreSampler(
             store, cfg_train.N_rand, seed, device,
-            bg_generator=gen if render_kwargs["rand_bkgd"] else None, mode=mode)
+            bg_generator=gen if render_kwargs["rand_bkgd"] else None, mode=mode, part=part)
         next_batch = sampler.next_batch
     else:
         sampler = (RandomSampler if mode == "random" else FlattenSampler)(
@@ -480,6 +520,8 @@ def scene_rep_reconstruction(
 
         def next_batch():
             idx, bg = sampler.next_batch()
+            if part is not None:  # this rank's slice of the global batch
+                idx, bg = idx[part], None if bg is None else bg[part]
             return {k: v[idx] for k, v in store.items()}, bg
 
     sampler.fast_forward(start_step)
@@ -517,15 +559,23 @@ def scene_rep_reconstruction(
             make_forward(mcfg_now, render_kwargs), cfg_train,
             world_size_max=float(max(mcfg_now.world_size)), near_thres=near_thres,
             tv_axis_scale=tv_axis_scale(family, mcfg_now), lr_anchor=lr_anchor_now,
-            lr_decay_enabled=lr_decay_enabled)
+            lr_decay_enabled=lr_decay_enabled, mesh=dp)
 
     def save(step: int) -> None:
-        # never persist a deferral-zeroed budget: a resume must re-enter the
-        # deferral with the configured one
-        ckpt.save_model(os.path.join(exp_dir, f"{stage}_last"), family, undeferred(mcfg),
-                        state.params, global_step=step, opt_state=state.optimizer.state_dict())
+        # a sharded run saves whole grids and moments (every rank joins them)
+        cut = mesh_mod.unshard_params(state.params, state.optimizer)
+        if writer:
+            # never persist a deferral-zeroed budget: a resume must re-enter
+            # the deferral with the configured one
+            ckpt.save_model(os.path.join(exp_dir, f"{stage}_last"), family, undeferred(mcfg),
+                            state.params, global_step=step,
+                            opt_state=state.optimizer.state_dict())
+        if cut:
+            mesh_mod.shard_params(dp, state.params, state.optimizer)
 
     def record(rec: dict) -> None:
+        if not writer:
+            return
         with open(os.path.join(exp_dir, f"{stage}_metrics.jsonl"), "a") as f:
             f.write(json.dumps(_jsonable(rec)) + "\n")
 
@@ -552,6 +602,8 @@ def scene_rep_reconstruction(
             np.asarray(data_dict["Ks"])[view], np.asarray(data_dict["poses"])[view][:3, :4],
             ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
             flip_y=cfg.data.flip_y, chunk=min(DEFAULT_CHUNK, H * W), device=device)
+        if not writer:
+            return
         psnr = observability.record_panel(exp_dir, stage, step_now,
                                           np.asarray(data_dict["images"][view]), rgb, depth,
                                           bgmap)
@@ -573,7 +625,7 @@ def scene_rep_reconstruction(
         boundary = None
         if global_step in pg_scale:
             state, mcfg, boundary = pg_scale_boundary(state, mcfg, cfg_model, cfg_train,
-                                                      global_step, deferred_budget)
+                                                      global_step, deferred_budget, mesh=dp)
             deferred_budget = 0
             if deferred_survivors and global_step == max(pg_scale):
                 mcfg = dataclasses.replace(mcfg, train_survivor_budget=deferred_survivors)
@@ -602,16 +654,21 @@ def scene_rep_reconstruction(
             if exp_dir is not None:
                 record({"step": global_step, "elapsed_s": elapsed,
                         **{k: v for k, v in metrics.items() if k != "pg_scale"}})
+        # a sharded model renders on every rank of its grid groups together
         if i_panel and exp_dir is not None and (global_step % i_panel == 0
-                                                 or global_step == n_iters):
+                                                 or global_step == n_iters) and \
+                (writer or mesh_mod.sharded_fields(state.params)):
             write_eval_panel(mcfg, global_step)
         if save_every and exp_dir is not None and global_step % save_every == 0 \
                 and global_step < n_iters:
             save(global_step)
         if callback is not None:
             callback(global_step, metrics)
+    mesh_mod.unshard_params(state.params, state.optimizer)
     if exp_dir is not None and n_iters > start_step:
         save(n_iters)
+    if mesh is not None:
+        mesh_mod.barrier()  # the checkpoint stands before any rank reads it
     # never hand on a deferral-zeroed budget
     return family, undeferred(mcfg), state.params, last_psnr
 
@@ -619,7 +676,8 @@ def scene_rep_reconstruction(
 def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,
               device=None, log_every: int = 500, callback=None, coarse_mask_fn=None,
               exp_dir: str | None = None, no_reload: bool = False,
-              no_reload_optimizer: bool = False, save_every: int = 0, ft_path: str = ""):
+              no_reload_optimizer: bool = False, save_every: int = 0, ft_path: str = "",
+              grid_parallel: int = 1, use_mesh: bool | None = None, bbox=None):
     """The recipe: the coarse stage where ``coarse_train.N_iters`` > 0 (the
     DVGO configs of ``nerf/`` and the like, and the DMPIGO ones of
     ``custom/``), then the fine stage. Returns the fine stage's (family,
@@ -646,13 +704,36 @@ def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,
     resume of each stage (see scene_rep_reconstruction; ``ft_path`` reaches
     both stages, as in the JAX package); nothing is saved where ``exp_dir``
     is None.
+
+    Inside a process group (``parallel.mesh.maybe_initialize_distributed``,
+    e.g. under ``torchrun``) the stages train over a mesh of its ranks, as the
+    JAX ``run_train`` over the visible chips: data-parallel, and with
+    ``grid_parallel`` > 1 on a (data, grid) layout with the grids cut over
+    the grid axis (see :func:`scene_rep_reconstruction`); only rank 0 logs.
+    ``use_mesh=False`` trains on this rank alone whatever the group (the
+    JAX ``use_mesh``). ``bbox`` = (xyz_min, xyz_max): the box the first
+    stage trains in, in place of the camera-frustum box (block-parallel
+    training shares one).
     """
     dev = resolve_device(device)
     family = model_family_name(cfg)
-    xyz_min, xyz_max = bbox_mod.compute_bbox_by_cam_frustrm(cfg, data_dict, family, device=dev)
+    mesh = None
+    auto = mesh_mod.world_size() > 1 if use_mesh is None else bool(use_mesh)
+    if auto and torch.distributed.is_initialized():
+        mesh = mesh_mod.make_mesh(grid_parallel)
+        if mesh.rank != 0:
+            log_fn = lambda *a, **k: None  # noqa: E731: rank 0 alone logs
+    elif grid_parallel > 1:
+        raise ValueError(f"--grid_parallel {grid_parallel} needs a process group of a "
+                         "multiple of that many ranks (torchrun --nproc_per_node N)")
+    if bbox is None:
+        xyz_min, xyz_max = bbox_mod.compute_bbox_by_cam_frustrm(cfg, data_dict, family,
+                                                                device=dev)
+    else:
+        xyz_min, xyz_max = (np.asarray(b) for b in bbox)
     kw = dict(device=dev, seed=seed, log_every=log_every, log_fn=log_fn, callback=callback,
               exp_dir=exp_dir, no_reload=no_reload, no_reload_optimizer=no_reload_optimizer,
-              save_every=save_every, ft_path=ft_path)
+              save_every=save_every, ft_path=ft_path, mesh=mesh)
     if cfg.coarse_train.N_iters > 0:
         _, mcfg_c, params_c, _ = scene_rep_reconstruction(
             cfg, cfg.coarse_model_and_render, cfg.coarse_train, xyz_min, xyz_max, data_dict,
@@ -676,7 +757,8 @@ def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,
 
 def run_train_blocks(cfg: ExpConfig, data_dict: dict, block_num: int, exp_dir: str,
                      seed: int = 777, log_fn=print, merge: bool = True, no_reload: bool = False,
-                     save_every: int = 0, device=None, log_every: int = 500) -> list:
+                     save_every: int = 0, device=None, log_every: int = 500, bbox=None,
+                     parallel: bool = False) -> list:
     """Block training (``--num_per_block``), as the JAX ``run_train_blocks``:
     the training views cut into ``block_num`` contiguous slices of
     ``ceil(len(i_train) / block_num)``; block ``b`` trains through
@@ -686,8 +768,17 @@ def run_train_blocks(cfg: ExpConfig, data_dict: dict, block_num: int, exp_dir: s
     stands is skipped unless ``no_reload``. With two blocks or more the
     blocks are merged into ``<exp_dir>/fine_last_merged``
     (``utils.checkpoint.merge_blocks``). Returns the ``fine_last_<b>``
-    paths. ``device``: ``None`` -> ``cuda``."""
+    paths. ``device``: ``None`` -> ``cuda``. ``bbox``: the box every block
+    trains in (None: each its own camera box).
+
+    Inside a process group each block trains over all its ranks
+    (:func:`run_train`'s mesh) and rank 0 writes; with ``parallel``
+    (``train/block_parallel.py``) block ``b`` trains on rank ``b % world``
+    alone, with no collective, and rank 0 merges once every rank is done."""
     dev = resolve_device(device)
+    world, me = mesh_mod.world_size(), mesh_mod.rank()
+    mine = set(my_blocks(block_num, me, world)) if parallel else set(range(block_num))
+    writes = parallel or me == 0
     i_train = np.asarray(data_dict["i_train"])
     per_block = int(np.ceil(len(i_train) / block_num))
     paths = []
@@ -696,23 +787,28 @@ def run_train_blocks(cfg: ExpConfig, data_dict: dict, block_num: int, exp_dir: s
         if ids.size == 0:
             continue
         path = os.path.join(exp_dir, f"fine_last_{b}")
+        paths.append(path)
+        if b not in mine:
+            continue
         if not no_reload and os.path.exists(os.path.join(path, "meta.json")):
             log_fn(f"block {b}: already complete ({path}), skipping")
-            paths.append(path)
             continue
         log_fn(f"block {b}: training on {len(ids)} views")
         family, mcfg, params, psnr = run_train(
             cfg, {**data_dict, "i_train": ids}, seed=seed + b, log_fn=log_fn, device=dev,
             log_every=log_every, exp_dir=os.path.join(exp_dir, f"block_{b}"),
-            no_reload=no_reload, save_every=save_every)
-        ckpt.save_model(path, family, mcfg, params)
+            no_reload=no_reload, save_every=save_every, bbox=bbox,
+            use_mesh=False if parallel else None)
+        if writes:
+            ckpt.save_model(path, family, mcfg, params)
         del params
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        paths.append(path)
         log_fn(f"block {b}: psnr {psnr:.2f} -> {path}")
-    if merge and len(paths) > 1:
+    mesh_mod.barrier()  # every block stands before the merge
+    if merge and len(paths) > 1 and me == 0:
         merged = os.path.join(exp_dir, "fine_last_merged")
         ckpt.merge_blocks(paths, merged, device=dev)
         log_fn(f"merged {len(paths)} blocks -> {merged}")
+    mesh_mod.barrier()
     return paths

@@ -11,9 +11,21 @@ gradient of its smooth-L1 TV loss (:func:`..ops.tv.tensorf_tv_grads`)
 instead, as in the JAX package.
 
 The step's phases run under ``torch.profiler.record_function`` ranges
-(``train_step/forward_loss``, ``/backward``, ``/tv``, ``/adam``), so a
-profiler trace attributes device time to them; without an active profiler
-a range costs a few microseconds of host time.
+(``train_step/forward_loss``, ``/backward``, ``/allreduce``, ``/tv``,
+``/adam``), so a profiler trace attributes device time to them; without an
+active profiler a range costs a few microseconds of host time.
+
+Data parallelism (``mesh``, a :class:`..parallel.mesh.Mesh`): the JAX step
+is one program over the global batch, so a rank's step must add up to the
+single-device step on it. Each rank holds ``1 / mesh.data`` of the global
+batch; the loss terms that are means over the rays (the MSE, the Fourier
+MSE, the entropy, the distortion and rgbper, which divide by the *local*
+ray count) enter its backward scaled by that share, the near-clip term,
+a plain sum, unscaled; the gradients are then summed over the data group;
+TV takes the global ray count (``weight / N_rand``) and sees the summed
+gradient, as masked Adam's skip mask does. Grids cut over a grid group get
+their neighbours' boundary planes for TV (the kernel's halo launch). The
+metrics are the global batch's (one all-reduce of a few scalars a step).
 """
 
 from __future__ import annotations
@@ -33,6 +45,8 @@ from unboundednerfpytorch_tpu_torch.ops.cuda.tv import tv_add_grad
 from unboundednerfpytorch_tpu_torch.ops.tv import tensorf_tv_grads
 from unboundednerfpytorch_tpu_torch.optim import factory
 from unboundednerfpytorch_tpu_torch.optim.masked_adam import MaskedAdam
+from unboundednerfpytorch_tpu_torch.parallel import halo
+from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
 
 
 @dataclasses.dataclass
@@ -62,6 +76,7 @@ def make_train_step(
     tv_axis_scale: tuple | None = None,
     lr_anchor: int = 1,
     lr_decay_enabled: bool = True,
+    mesh: mesh_mod.Mesh | None = None,
 ):
     """Build ``train_step(state, batch, bg_color=None) -> metrics``.
 
@@ -73,8 +88,10 @@ def make_train_step(
     max(X, Y), mpi_depth) / 128``); ``near_thres`` is the near-clip
     threshold in contracted units (0 disables); ``lr_anchor`` is the step at
     which the lr equals the base lr. Metrics are detached device scalars, so
-    a step forces no host sync.
+    a step forces no host sync. ``mesh``: data parallelism (module doc);
+    ``batch`` is then this rank's slice of the global batch.
     """
+    share = 1.0 if mesh is None else 1.0 / mesh.data
 
     def loss_fn(params, batch, bg_color):
         # a batch of the ray store carries each ray's view (the appearance
@@ -114,9 +131,25 @@ def make_train_step(
             # the two-stage training forward: the share of rays with more
             # survivors than its budget (their far tail was dropped)
             metrics["overflow_frac"] = res.color_overflow_frac.detach()
+        if share != 1.0:
+            # this rank's share of the global loss: every term but the
+            # near-clip sum is a mean over the local rays
+            near = components.get("loss_nearclip")
+            loss = loss * share
+            if near is not None:
+                loss = loss + (1.0 - share) * train_cfg.weight_nearclip * near
         return loss, metrics
 
+    def global_metrics(metrics: dict) -> dict:
+        """The global batch's metrics: the ranks' shares summed (a mean over
+        rays is the mean of equal shares; the near-clip term is 0)."""
+        out = mesh_mod.all_reduce_sum({k: v * share for k, v in metrics.items()
+                                       if k != "psnr"}, mesh.data_group)
+        out["psnr"] = L.mse2psnr(out["mse"])
+        return out
+
     def add_tv_grads(params, step: int, n_rays: int) -> None:
+        """``n_rays``: the global batch's rays."""
         """TV injection between backward and the optimizer, in place."""
         gate = (step < train_cfg.tv_before) and (step > train_cfg.tv_after) and (
             step % train_cfg.tv_every == 0)
@@ -143,8 +176,11 @@ def make_train_step(
             grid = sub.grid
             if grid.grad is None:
                 grid.grad = torch.zeros_like(grid)
+            lo = hi = None
+            if sub.shard is not None:  # an x-slab: the neighbours' planes
+                lo, hi = halo.exchange_boundary_planes(grid.detach(), sub.shard)
             tv_add_grad(grid.detach(), grid.grad, w * sx, w * sy, w * sz, 1.0, dense,
-                        out=grid.grad)
+                        out=grid.grad, lo=lo, hi=hi)
 
     def train_step(state: TrainState, batch: dict, bg_color: torch.Tensor | None = None):
         step = state.step + 1
@@ -155,8 +191,14 @@ def make_train_step(
             loss, metrics = loss_fn(params, batch, bg_color)
         with record_function("train_step/backward"):
             loss.backward()
+        n_rays = batch["rgb"].shape[0]
+        if mesh is not None:
+            with record_function("train_step/allreduce"):
+                mesh_mod.all_reduce_grads(params, mesh)
+                metrics = global_metrics(metrics)
+            n_rays *= mesh.data
         with record_function("train_step/tv"):
-            add_tv_grads(params, step, batch["rgb"].shape[0])
+            add_tv_grads(params, step, n_rays)
         lr_scale = 1.0
         if lr_decay_enabled:
             lr_scale = factory.lr_decay_scale(float(max(step - lr_anchor, 0)),
@@ -243,12 +285,15 @@ class HostRayStoreSampler:
     :class:`FlattenSampler` draws it), so :meth:`fast_forward` replays both
     streams and a resumed run draws what the uninterrupted one draws. A
     store with ``img_index`` hands each batch its rays' views too (through a
-    second, int32 staging buffer), as the device sampler does."""
+    second, int32 staging buffer), as the device sampler does. ``part``
+    (data parallelism): the draws are the global batch's, and only the rows
+    of this slice of it are gathered and copied."""
 
     COLUMNS = {"rgb": (0, 3), "rays_o": (3, 6), "rays_d": (6, 9), "viewdirs": (9, 12)}
 
     def __init__(self, store: dict, n_rand: int, seed: int, device: torch.device,
-                 bg_generator: torch.Generator | None = None, mode: str = "flatten"):
+                 bg_generator: torch.Generator | None = None, mode: str = "flatten",
+                 part: slice | None = None):
         if mode not in ("flatten", "random"):
             raise ValueError(f"unknown sampler mode {mode!r}")
         self.mode = mode
@@ -262,10 +307,12 @@ class HostRayStoreSampler:
         self._rng = np.random.default_rng(seed)
         self._perm = None
         self._cursor = 0
+        self.part = slice(0, self.n_rand) if part is None else part
+        n_part = len(range(self.n_rand)[self.part])
         pinned = self.device.type == "cuda"
-        self._stage = torch.empty((self.n_rand, 12), dtype=torch.float32, pin_memory=pinned)
+        self._stage = torch.empty((n_part, 12), dtype=torch.float32, pin_memory=pinned)
         self._stage_idx = (None if self.img_index is None else
-                           torch.empty((self.n_rand,), dtype=torch.int32, pin_memory=pinned))
+                           torch.empty((n_part,), dtype=torch.int32, pin_memory=pinned))
         self._copied = None  # event recorded after the last copy out of the stage
 
     def next_indices(self) -> np.ndarray:
@@ -286,7 +333,7 @@ class HostRayStoreSampler:
     def next_batch(self) -> tuple[dict, torch.Tensor | None]:
         """(batch of rgb, rays_o, rays_d, viewdirs [n_rand, 3] (and img_index
         [n_rand]) on the device, background colours [n_rand, 3] or None)."""
-        idx = self.next_indices()
+        idx = self.next_indices()[self.part]
         if self._copied is not None:
             self._copied.synchronize()
         stage = self._stage.numpy()
@@ -302,7 +349,8 @@ class HostRayStoreSampler:
         batch = {key: rows[:, a:b] for key, (a, b) in self.COLUMNS.items()}
         if self._stage_idx is not None:
             batch["img_index"] = views
-        return batch, self._next_bg()
+        bg = self._next_bg()
+        return batch, None if bg is None else bg[self.part]
 
     def fast_forward(self, n: int) -> None:
         for _ in range(n):
