@@ -46,11 +46,15 @@ Phases, each reported on its own line:
      views); its bound counts the 32-byte DRAM sectors
      that hold a non-zero g (p's of 32 / element size, m's and v's of 8
      elements), which is what the memory moves (the count by element is
-     printed beside it as ``bound_ms_elementwise``). The four gather-probe
-     kernels are driven through their entry point (``probes.gather.main``),
+     printed beside it as ``bound_ms_elementwise``). The six gather-probe
+     kernels (the vector and the row-loop forms of the two row gathers,
+     ``box_gather8``, ``box_sum``) are driven through their entry point
+     (``probes.gather.main``),
      which holds each against its plain version at every one of its shapes (indexed copies bit-equal, ``box_sum``
-     within 1e-3 relative) and times it; that one run, counted from 0, also
-     gives these kernels' launches;
+     within 1e-3 relative) and times it, always by many launches in one CUDA
+     graph, and ``torch.index_select`` alike; a row gather's bound counts the
+     source rows its indices touch, ``box_gather8``'s the 32-byte runs; that
+     one run, counted from 0, also gives these kernels' launches;
   4. the scene and the trainer: a seeded synthetic 20-view 411x618 scene (the
      size of bicycle at factor 8) is written in the on-disk layout of a
      Mip-NeRF-360 capture (``poses_bounds.npy`` and ``images_8/*.png``) and
@@ -1106,20 +1110,77 @@ def phase_march(gen, shape, shift: float, interval: float, floor: float,
     ]
 
 
-# TPU kernel sites that each gather-probe kernel replaces
+# the TPU kernel site that each gather-probe kernel replaces
 PROBE_REPLACES = {
-    "gather_tile_rows": "tools/probe_dynamic_gather.py:50, tools/probe_kernel_gather.py:54",
-    "gather_rows": "tools/probe_pallas_gather.py:53, tools/probe_pallas_gather.py:81",
+    "gather_tile_rows": "tools/probe_dynamic_gather.py:50",
+    "gather_tile_rows_loop": "tools/probe_kernel_gather.py:54",
+    "gather_rows": "tools/probe_pallas_gather.py:53",
+    "gather_rows_loop": "tools/probe_pallas_gather.py:81",
     "box_gather8": "tools/probe_vreg_gather.py:72",
     "box_sum": "tools/probe_kernel_gather.py:119",
 }
 
 
+# the row loops of bulk copies beyond the probe's shapes: rows of 16, 48, 256
+# and 512 bytes, N no multiple of a stage's rows (N, and tile or 0)
+LOOP_EDGE_ROWS = (("float32", 4), ("bfloat16", 24), ("bfloat16", 128), ("float32", 128))
+LOOP_EDGE_SHAPES = ((1, 0), (17, 0), (4001, 0), (1037, 100), (7, 7), (64 * 9 + 5, 64))
+
+
+def loop_edge_cases() -> int:
+    """Each row-loop kernel bit-equal to its plain version at
+    ``LOOP_EDGE_ROWS`` x ``LOOP_EDGE_SHAPES`` with int32 and int64 indices,
+    a seventh of them out of range, and on a table view that starts inside
+    its storage on a 16-byte boundary; a 24-byte row and a view off a 16-byte
+    boundary refused. Returns the cases held."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import gather_probe as gp
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    held = 0
+    for dtype, C in LOOP_EDGE_ROWS:
+        for n, tile in LOOP_EDGE_SHAPES:
+            for idx_dtype in (torch.int32, torch.int64):
+                rows = n if tile else 300
+                buf = torch.randn(((rows + 1) * C,), generator=gen, device="cuda").to(
+                    getattr(torch, dtype))
+                table = buf[C:].view(rows, C)  # one row into its storage
+                hi = tile or rows
+                idx = torch.randint(-3, hi + 3, (n,), generator=gen, device="cuda",
+                                    dtype=idx_dtype)
+                if tile:
+                    got = gp.gather_tile_rows_loop(table, idx, tile)
+                    want = gp.gather_tile_rows_plain(table, idx, tile)
+                else:
+                    got = gp.gather_rows_loop(table, idx)
+                    want = gp.gather_rows_plain(table, idx)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"row loop {dtype} C={C} n={n} tile={tile} "
+                                         f"{idx_dtype}: kernel and plain version disagree")
+                held += 1
+    idx = torch.zeros(4, dtype=torch.int32, device="cuda")
+    for bad in (torch.zeros((8, 12), dtype=torch.bfloat16, device="cuda"),
+                torch.zeros(66, device="cuda")[2:].view(8, 8)):
+        try:
+            gp.gather_rows_loop(bad, idx)
+        except ValueError:
+            continue
+        raise AssertionError(f"gather_rows_loop took a {tuple(bad.shape)} {bad.dtype} table "
+                             f"at {bad.data_ptr() % 16} bytes past a 16-byte boundary")
+    log(f"[3] row loops of bulk copies: {held} edge cases bit-equal to the plain versions, "
+        "a 24-byte row and an unaligned view refused")
+    return held
+
+
 def phase_probes(floor: float):
     """The probe entry point as a user runs it, its launches counted from 0:
-    the four gather-probe kernels at every one of its shapes, each against
+    the six gather-probe kernels at every one of its shapes, each against
     its plain version (the probe raises on a disagreement), then the times.
-    A kernel's entry sums its shapes. Returns (entries, launch counts)."""
+    A kernel's entry sums its shapes; each shape's line also has its
+    ``torch.index_select`` time where there is one. Returns (entries,
+    launch counts)."""
     from unboundednerfpytorch_tpu_torch.ops.cuda import build
     from unboundednerfpytorch_tpu_torch.probes import gather
 
@@ -1130,6 +1191,7 @@ def phase_probes(floor: float):
     log(f"[3] probes.gather.main in {time.time() - t0:.1f} s; launches {counts}")
     if set(counts) != set(PROBE_REPLACES) or min(counts.values()) < 1:
         raise AssertionError(f"probe launch counts {counts}: want each of {set(PROBE_REPLACES)}")
+    loop_edge_cases()  # after the count: comparisons, not the probe's launches
     out = []
     for name, site in PROBE_REPLACES.items():
         recs = [r for r in records if r["kernel"] == name and "bound_ms" in r]
@@ -1143,8 +1205,14 @@ def phase_probes(floor: float):
                  "plain_ms": sum(r["plain_ms"] for r in recs),
                  "bound_ms": sum(r["bound_ms"] for r in recs), "bound_by": "bytes",
                  "library_ms": None if None in lib else sum(lib), "floor_ms": floor,
-                 "shapes": [shape_line(f"{name} {r['probe']} {r['shape']}", r["ms"],
-                                       r["call_ms"], r["bound_ms"], floor) for r in recs]}
+                 "shapes": [dict(shape_line(f"{name} {r['probe']} {r['shape']}", r["ms"],
+                                            r["call_ms"], r["bound_ms"], floor),
+                                 library_ms=r["library_ms"]) for r in recs]}
+        for r in recs:
+            if r["library_ms"] is not None:
+                log(f"[3] {name} {r['probe']} {r['shape']}: {r['ms']:.4f} ms against "
+                    f"torch.index_select's {r['library_ms']:.4f} ms "
+                    f"({r['library_ms'] / r['ms']:.2f}x)")
         log(f"[3] {name} over {len(recs)} shapes: {entry['ms']:.4f} ms, plain "
             f"{entry['plain_ms']:.4f} ms, library call {entry['library_ms']}, bound "
             f"{entry['bound_ms']:.4f} ms (bytes)")

@@ -1,4 +1,4 @@
-"""The four gather-probe functions of the port.
+"""The gather-probe functions of the port.
 
 The TPU probes of the JAX package (``tools/probe_*.py``) build their inputs
 inside functions that print and return nothing, so they cannot be called for
@@ -6,14 +6,17 @@ outputs; their kernels' bodies state the functions, and those statements are
 written out here as numpy index expressions (the spot check of
 ``probe_vreg_gather.py`` is copied as it stands). The plain versions are also
 held against JAX on the same seeded arrays, in the expressions of the tools'
-own XLA baselines (``jnp.take``, sums of ``jax.lax.dynamic_slice``). On the
-CPU a wrapper runs
+own XLA baselines (``jnp.take``, sums of ``jax.lax.dynamic_slice``), and the
+row loops against the bodies of the tools' row-loop kernels themselves
+(``kernel2`` and ``p1_rowloop``, copied as they stand), run by
+``pl.pallas_call(..., interpret=True)``. On the CPU a wrapper runs
 its plain PyTorch version, which is what the CUDA kernel is held against on
 the card. Indexed copies must be bit-equal; ``box_sum`` is a float32 sum in
 another order, held to 1e-3 relative as on the card. Tests marked ``cuda``
 launch the kernels and skip without a GPU.
 """
 
+import functools
 import json
 
 import jax
@@ -21,6 +24,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from unboundednerfpytorch_tpu_torch.ops.cuda import build
 from unboundednerfpytorch_tpu_torch.ops.cuda import gather_probe as gp
@@ -121,24 +126,113 @@ def _np32(a):
     return np.asarray(jnp.asarray(a, jnp.float32))
 
 
+ROWS = {"vector": gp.gather_rows, "loop": gp.gather_rows_loop}
+TILE_ROWS = {"vector": gp.gather_tile_rows, "loop": gp.gather_tile_rows_loop}
+
+
+@pytest.mark.parametrize("wrapper", ["vector", "loop"])
 @pytest.mark.parametrize("T,C,N", [(64, 128, 300), (17, 12, 40)])
-def test_gather_rows_plain_matches_jnp_take(T, C, N):
+def test_gather_rows_plain_matches_jnp_take(T, C, N, wrapper):
     """``xla_take`` of tools/probe_pallas_gather.py: jnp.take(table, idx, axis=0)."""
     table, idx_t, idx = _rows_case(T, C, N, 10, "bfloat16")
     jt = jnp.asarray(table.float().numpy(), jnp.bfloat16)
     want = jnp.take(jt, jnp.asarray(idx), axis=0)
-    np.testing.assert_array_equal(gp.gather_rows(table, idx_t).float().numpy(), _np32(want))
+    np.testing.assert_array_equal(ROWS[wrapper](table, idx_t).float().numpy(), _np32(want))
 
 
+@pytest.mark.parametrize("wrapper", ["vector", "loop"])
 @pytest.mark.parametrize("A,C,n_blocks", [(8, 128, 5), (16, 256, 3)])
-def test_gather_tile_rows_plain_matches_jnp_take(A, C, n_blocks):
+def test_gather_tile_rows_plain_matches_jnp_take(A, C, n_blocks, wrapper):
     """The body of tools/probe_dynamic_gather.py's kernel, block by block:
     jnp.take(tile, idx_of_tile, axis=0)."""
     table, idx_t, idx = _tile_case(A, C, n_blocks, 11)
     jt = jnp.asarray(table.float().numpy(), jnp.bfloat16).reshape(n_blocks, A, C)
     want = jax.vmap(lambda t, i: jnp.take(t, i, axis=0))(jt, jnp.asarray(idx).reshape(n_blocks, A))
-    np.testing.assert_array_equal(gp.gather_tile_rows(table, idx_t, A).float().numpy(),
+    np.testing.assert_array_equal(TILE_ROWS[wrapper](table, idx_t, A).float().numpy(),
                                   _np32(want).reshape(-1, C))
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel2_out(T, C, N, BLK):
+    """``kernel2`` of tools/probe_pallas_gather.py (``vmem_rowloop``) and its
+    ``pallas_call`` as they stand, in interpret mode, on the inputs of
+    ``_rows_case``."""
+    table_t, _, idx = _rows_case(T, C, N, 14, "bfloat16")
+    table = jnp.asarray(table_t.float().numpy(), jnp.bfloat16)
+
+    def kernel2(idx_ref, table_ref, out_ref):
+        def body(i, _):
+            out_ref[i, :] = table_ref[idx_ref[i], :]
+            return 0
+        jax.lax.fori_loop(0, BLK, body, 0)
+
+    gathered2 = pl.pallas_call(
+        kernel2,
+        grid=(N // BLK,),
+        in_specs=[
+            pl.BlockSpec((BLK,), lambda i: (i,), memory_space=pltpu.VMEM),
+            pl.BlockSpec((T, C), lambda i: (0, 0), memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((BLK, C), lambda i: (i, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((N, C), table.dtype),
+        interpret=True,
+    )
+    return _np32(gathered2(jnp.asarray(idx), table))
+
+
+@functools.lru_cache(maxsize=None)
+def _p1_rowloop_out(A, C, n_blocks):
+    """The kernel of tools/probe_kernel_gather.py's ``p1_rowloop`` and its
+    ``pallas_call`` as they stand, in interpret mode, on the inputs of
+    ``_tile_case``."""
+    table_t, _, idx = _tile_case(A, C, n_blocks, 15)
+    N = n_blocks * A
+    dtype = jnp.bfloat16
+    table = jnp.asarray(table_t.float().numpy(), dtype)
+
+    def kernel(idx_ref, tile_ref, out_ref):
+        def body(i, _):
+            out_ref[i, :] = tile_ref[idx_ref[i], :]
+            return 0
+
+        jax.lax.fori_loop(0, A, body, 0, unroll=8)
+
+    call = pl.pallas_call(
+        kernel,
+        grid=(n_blocks,),
+        in_specs=[
+            pl.BlockSpec((A,), lambda i: (i,), memory_space=pltpu.SMEM),
+            pl.BlockSpec((A, C), lambda i: (i, 0), memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((A, C), lambda i: (i, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((N, C), dtype),
+        interpret=True,
+    )
+    return _np32(call(jnp.asarray(idx), table))
+
+
+@pytest.mark.parametrize("wrapper", ["loop", "vector"])
+@pytest.mark.parametrize("T,C,N,BLK", [(16, 128, 32, 8), (40, 64, 48, 16)])
+def test_gather_rows_matches_kernel2_in_interpret_mode(T, C, N, BLK, wrapper):
+    """``gather_rows_loop`` (and the vector wrapper) bit-equal to the TPU
+    row loop ``kernel2`` itself."""
+    table, idx_t, _ = _rows_case(T, C, N, 14, "bfloat16")
+    got = ROWS[wrapper](table, idx_t)
+    assert got.dtype == torch.bfloat16 and got.shape == (N, C)
+    np.testing.assert_array_equal(got.float().numpy(), _kernel2_out(T, C, N, BLK))
+
+
+@pytest.mark.parametrize("wrapper", ["loop", "vector"])
+@pytest.mark.parametrize("A,C,n_blocks", [(8, 128, 3), (16, 64, 2)])
+def test_gather_tile_rows_matches_p1_rowloop_in_interpret_mode(A, C, n_blocks, wrapper):
+    """``gather_tile_rows_loop`` (and the vector wrapper) bit-equal to the
+    TPU row loop of ``p1_rowloop`` itself."""
+    table, idx_t, _ = _tile_case(A, C, n_blocks, 15)
+    got = TILE_ROWS[wrapper](table, idx_t, A)
+    assert got.dtype == torch.bfloat16 and got.shape == (n_blocks * A, C)
+    np.testing.assert_array_equal(got.float().numpy(), _p1_rowloop_out(A, C, n_blocks))
 
 
 def test_box_gather8_plain_matches_dynamic_slice():
@@ -210,11 +304,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         gp.box_gather8(m(32, 8, 128), m(4, dtype=torch.int32), 4)
     with pytest.raises(ValueError, match="GPU"):
         gp.box_sum(m(4, 4, 4, 8, dtype=torch.bfloat16), m(1, 3, dtype=torch.int32), (2, 2, 2))
+    with pytest.raises(ValueError, match="GPU"):
+        gp.gather_rows_loop(m(4, 8), m(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="GPU"):
+        gp.gather_tile_rows_loop(m(4, 8), m(4, dtype=torch.int32), 2)
     assert not build.LAUNCHES
     assert set(gp.__dict__) >= {"gather_rows_plain", "gather_tile_rows_plain",
                                 "box_gather8_plain", "box_sum_plain"}
-    assert set(build.KERNELS) >= {"gather_rows", "gather_tile_rows", "box_gather8", "box_sum"}
+    assert set(build.KERNELS) >= {"gather_rows", "gather_tile_rows", "gather_rows_loop",
+                                  "gather_tile_rows_loop", "box_gather8", "box_sum"}
     assert build.SOURCES["gather_probe"].is_file()
+
+
+def test_row_loop_wrappers_clamp_as_the_plain_versions_on_the_cpu():
+    """On the CPU the row-loop wrappers are the plain versions: out-of-range
+    indices clamp alike, and a view that starts off a 16-byte boundary is
+    taken (only the kernel needs the boundary)."""
+    buf = torch.arange(40.0)
+    table = buf[2:38].view(6, 6)  # 8 bytes past the storage's start
+    idx = torch.tensor([-4, 99, 2], dtype=torch.int64)
+    np.testing.assert_array_equal(gp.gather_rows_loop(table, idx).numpy(),
+                                  table[[0, 5, 2]].numpy())
+    tidx = torch.tensor([5, -1, 0, 0, 0, 9], dtype=torch.int32)
+    np.testing.assert_array_equal(gp.gather_tile_rows_loop(table, tidx, 3).numpy(),
+                                  gp.gather_tile_rows_plain(table, tidx, 3).numpy())
+    assert not build.LAUNCHES
 
 
 def test_probe_entry_point_on_cpu():
@@ -229,15 +343,20 @@ def test_probe_entry_point_on_cpu():
     assert probes.count("p2_boxdma") == 2 and probes.count("torch_index_select_slices") == 4
     assert probes.count("k0_layout") == 2 and "vreg_gather_f32" in probes
     kernels = {r["kernel"] for r in records}
-    assert kernels == {"gather_rows", "gather_tile_rows", "box_gather8", "box_sum", None}
+    assert kernels == {"gather_rows", "gather_tile_rows", "gather_rows_loop",
+                       "gather_tile_rows_loop", "box_gather8", "box_sum", None}
     for r in records:
         assert r["ok"] and r["ms"] > 0 and "cpu" in r["timed_on"]
         if "bound_ms" in r:
             assert r["bound_by"] == "bytes" and r["bound_ms"] > 0 and r["max_abs_err"] <= 1e-3
         if r["probe"] in gather.ROW_LOOPS:
-            assert r["shape"]["lanes_per_row"] == 1
+            assert r["kernel"] in ("gather_rows_loop", "gather_tile_rows_loop")
+            assert "lanes_per_row" not in r["shape"]
         elif r["kernel"] in ("gather_rows", "gather_tile_rows") and "shape" in r:
             assert r["shape"]["lanes_per_row"] == gp.default_lanes(r["shape"]["C"] * 2)
+    assert {r["kernel"] for r in records if r["probe"] == "p1_rowloop"} == {
+        "gather_tile_rows_loop"}
+    assert {r["kernel"] for r in records if r["probe"] == "vmem_rowloop"} == {"gather_rows_loop"}
     assert not build.LAUNCHES
 
 
@@ -263,6 +382,18 @@ def test_probe_entry_point_raises_without_cuda(monkeypatch):
         gather.run_all()
 
 
+def test_gather_bytes_counts_the_rows_touched():
+    """A row gather's bound reads each source row its indices touch once:
+    a table row drawn twice is read once, a row never drawn not at all."""
+    table = torch.zeros((10, 128), dtype=torch.bfloat16)
+    flat = torch.tensor([3, 3, 3, 7], dtype=torch.int64)
+    assert gather.gather_bytes(table, flat) == 2 * 256 + 4 * 256 + 4 * 4
+    recs = {r["probe"]: r for r in gather.run_all("cpu") if "bound_ms" in r}
+    A, C, n_blocks = (recs["p1_rowloop"]["shape"][k] for k in ("A", "C", "n_blocks"))
+    whole = timing.bound_ms(2 * A * n_blocks * C * 2 + A * n_blocks * 4, 0)[0]
+    assert recs["p1_rowloop"]["bound_ms"] < whole
+
+
 def test_probe_records_keep_call_and_launch_time_apart():
     """On the CPU both are the host clock; the keys are what chip_smoke reads."""
     recs = [r for r in gather.run_all("cpu") if "bound_ms" in r]
@@ -271,13 +402,14 @@ def test_probe_records_keep_call_and_launch_time_apart():
 
 @pytest.mark.parametrize("make,n", [(variants.tv_variants, 5), (variants.march_variants, 8),
                                     (variants.march_backward_variants, 13),
-                                    (variants.cumdist_variants, 11)])
+                                    (variants.cumdist_variants, 11),
+                                    (variants.gather_loop_variants, 9)])
 def test_kernel_variants_still_find_their_text(make, n):
     """A variant is the committed source with one constant replaced: every
     substitution finds its text, and one variant is the source as committed."""
     made = make()
     assert len(made) == n and len(set(made.values())) == n
-    committed = {build.SOURCES[k].read_text() for k in ("tv", "march", "ub360")}
+    committed = {build.SOURCES[k].read_text() for k in ("tv", "march", "ub360", "gather_probe")}
     assert sum(text in committed for text in made.values()) == 1
 
 
@@ -321,3 +453,59 @@ def test_box_kernels_match_plain(cuda):
     got = gp.box_sum(table.cuda(), org.cuda(), (16, 16, 8)).cpu()
     want = gp.box_sum_plain(table, org, (16, 16, 8))
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * float(want.abs().max()))
+
+
+# rows of 16, 48, 256 and 512 bytes
+LOOP_ROWS = [("float32", 4), ("bfloat16", 24), ("bfloat16", 128), ("float32", 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("dtype,C", LOOP_ROWS)
+@pytest.mark.parametrize("T,N", [(64, 3000), (1700, 4001), (5, 1), (300, 17)])
+def test_gather_rows_loop_kernel_matches_plain(cuda, T, N, dtype, C, idx_dtype):
+    """Ragged N (no multiple of a stage's rows), out-of-range indices."""
+    table, idx, _ = _rows_case(T, C, N, 16, dtype, idx_dtype)
+    idx[::7] = torch.tensor([-5, T, 2 * T + 3])[torch.arange(len(idx[::7])) % 3].to(idx.dtype)
+    build.reset_launch_counts()
+    got = gp.gather_rows_loop(table.cuda(), idx.cuda())
+    assert build.LAUNCHES["gather_rows_loop"] == 1
+    assert torch.equal(got.cpu(), gp.gather_rows_plain(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("dtype,C", LOOP_ROWS)
+@pytest.mark.parametrize("A,n", [(64, 64 * 9), (100, 1037), (7, 7)])
+def test_gather_tile_rows_loop_kernel_matches_plain(cuda, A, n, dtype, C, idx_dtype):
+    """Ragged tiles and N, out-of-range indices."""
+    rng = np.random.default_rng(17)
+    table = torch.from_numpy(rng.standard_normal((n, C)).astype(np.float32)).to(
+        getattr(torch, dtype))
+    idx = torch.from_numpy(rng.integers(-3, A + 3, n).astype(idx_dtype))
+    build.reset_launch_counts()
+    got = gp.gather_tile_rows_loop(table.cuda(), idx.cuda(), A)
+    assert build.LAUNCHES["gather_tile_rows_loop"] == 1
+    assert torch.equal(got.cpu(), gp.gather_tile_rows_plain(table, idx, A))
+
+
+@pytest.mark.cuda
+def test_row_loop_kernels_refuse_what_a_bulk_copy_cannot_move(cuda):
+    """A 24-byte row and a view off a 16-byte boundary raise, with no
+    fallback to another kernel or to the plain version."""
+    build.reset_launch_counts()
+    idx = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        gp.gather_rows_loop(torch.zeros((8, 12), dtype=torch.bfloat16, device="cuda"), idx)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        gp.gather_tile_rows_loop(torch.zeros((4, 6), device="cuda"), idx, 2)
+    buf = torch.zeros(8 * 8 + 2, device="cuda")
+    view = buf[2:].view(8, 8)  # 32-byte rows starting 8 bytes in
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        gp.gather_rows_loop(view, idx)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        gp.gather_tile_rows_loop(view, torch.zeros(8, dtype=torch.int32, device="cuda"), 4)
+    assert not build.LAUNCHES
+    # an aligned view is taken
+    got = gp.gather_rows_loop(buf[:64].view(8, 8), idx)
+    assert torch.equal(got, buf[:64].view(8, 8)[idx.long()])

@@ -3,19 +3,21 @@
 // render engine's memory paths can be chosen on the card's own numbers.
 //
 // Replaces the TPU kernels of
-//   tools/probe_pallas_gather.py  kernel / kernel2  -> gather_rows
-//   tools/probe_dynamic_gather.py run               -> gather_tile_rows
-//   tools/probe_kernel_gather.py  p1_rowloop        -> gather_tile_rows
-//   tools/probe_vreg_gather.py    kernel            -> box_gather8
-//   tools/probe_kernel_gather.py  p2_boxdma         -> box_sum
+//   tools/probe_pallas_gather.py  kernel (vmem_take)      -> gather_rows
+//   tools/probe_pallas_gather.py  kernel2 (vmem_rowloop)  -> gather_rows_loop
+//   tools/probe_dynamic_gather.py run                     -> gather_tile_rows
+//   tools/probe_kernel_gather.py  p1_rowloop              -> gather_tile_rows_loop
+//   tools/probe_vreg_gather.py    kernel                  -> box_gather8
+//   tools/probe_kernel_gather.py  p2_boxdma               -> box_sum
 // (two pairs of TPU kernels compute one function by two mechanisms: a vector
-// dynamic_gather against a scalar loop over SMEM indices. The GPU form of
-// that question is how many threads share a row: neighbouring lanes copying
-// it together in vectors, against one thread walking the whole row. Both
-// are launch shapes of the same kernel, chosen by `lanes`.)
+// gather (jnp.take, dynamic_gather) against a scalar loop that copies one row
+// an iteration from indices held in scalar memory. Each mechanism has its
+// kernel here: lanes copying a row together in vectors, and a row loop of
+// bulk copies.)
 //
 //   gather_rows      out[i, :] = table[idx[i], :]
 //   gather_tile_rows out[b*A + i, :] = table[b*A + idx[b*A + i], :], idx in [0, A)
+//   (the *_loop entry points compute the same two functions)
 //   box_gather8      out[r, 0:8] = box[r / R][dx*16 + dy][dz*8 : dz*8 + 8],
 //                    code[r] = dx*256 + dy*16 + dz, box b a 16x16x16x8 f32 cube
 //                    (128 KB), R requests per box
@@ -24,17 +26,54 @@
 //
 // What bounds them: all four move bytes and compute next to nothing, so the
 // bound is bytes over the memory rate. Where the source stays in the 50 MB L2
-// (the 8 MB table of gather_rows, each A x C tile of gather_tile_rows after
-// its first touch) the HBM traffic is the output and the indices, and the
-// bound of "each input once, each output once" is generous.
+// (the 8 MB table of gather_rows, each 512 KB-1 MB A x C tile of
+// gather_tile_rows after its first touch) the HBM traffic is the output, the
+// indices and the sources once, and the bound of "each input once, each
+// output once" is generous.
 //
 // Design:
-//   row gathers: a row is copied by `lanes` threads (a power of two, at
-//   most 32). The wrapper's default is the smallest that covers the row in
-//   vectors, so a 256-byte row takes half a warp and a 24-byte row one lane
-//   per 8-byte vector, and neighbouring lanes read neighbouring addresses;
-//   lanes = 1 is the row loop, one thread per row. The vector width is the
-//   largest of 16/8/4/2 bytes that divides the row. All offsets are 64-bit.
+//   row gathers, vector form: a row is copied by `lanes` threads (a power of
+//   two, at most 32). The wrapper's default is the smallest that covers the
+//   row in vectors, so a 256-byte row takes half a warp and a 24-byte row one
+//   lane per 8-byte vector, and neighbouring lanes read neighbouring
+//   addresses. The vector width is the largest of 16/8/4/2 bytes that
+//   divides the row. All offsets are 64-bit. (lanes = 1, one thread walking
+//   a whole row, was the first row loop: a warp-wide load then touches 32
+//   rows 256 bytes apart and uses 16 bytes of each, each store lands in 32
+//   partial sectors, and each thread keeps little in flight: 11.7 % and
+//   20.4 % of the bound on an H100, slower than torch.index_select.)
+//   row gathers, row loop (gather_rows_loop_kernel): the TPU kernels' design,
+//   rows brought into fast memory by a scalar loop and the block written back
+//   whole, in the card's own terms. Every warp of a block issues, with its
+//   own ring of kLoopStages stages of R rows (R * row_bytes about
+//   kLoopStageBytes, R <= 32) in dynamic shared memory, and walks its groups
+//   of R consecutive output rows with a grid stride. For a group, its 32
+//   lanes load the R indices in one coalesced load (issued a group ahead, as
+//   the TPU's scalar prefetch, so no index load stands between two copies),
+//   clamp them and leave the source addresses in shared memory; lane 0 sets
+//   the stage's mbarrier to expect R * row_bytes bytes and issues R bulk
+//   copies (cp.async.bulk), one a row, into consecutive slots of the stage.
+//   When a stage's barrier completes, lane 0 writes its R rows, which lie
+//   one after another in the output, with one bulk store (a bulk group), and
+//   waits for its store to have read the stage before it fills it again.
+//   The copy engine moves whole lines in and whole lines out; the threads
+//   only issue, and the bytes in flight are kLoopAhead stages x R rows x the
+//   issuing warps. A bulk copy takes its addresses from uniform registers, so
+//   one warp's copies go out one after another, some 130 cycles each on an
+//   H100 SXM (csrc/ub360.cu): one issuing warp moves about 2 bytes a cycle
+//   of 256-byte rows, where the bound needs about 14 a cycle on each SM. So
+//   a block has kLoopWarps = 8 issuing warps, one block an SM. Measured on
+//   an H100 (probes/variants.py --only gather_loop): 2 issuers an SM are
+//   issue-bound (twice the time); 8 to 32 reach the same time within 4 % on
+//   the 8 MB table. On p1_rowloop's 256 MB of tiles a second block an SM (16
+//   or 32 issuers) is 6-9 % slower than one (a wider window of tiles in
+//   flight at once), and 16 warps of one block with half the stage read as
+//   8 do (PERF.md gives the times).
+//   Designs not taken (timed by that probe): one issuing lane a block,
+//   16 to 32 issuing warps an SM, other R and stage counts, and the vector
+//   kernel at lanes = 1.
+//   Stages are written and read only by the async proxy (bulk copy in, bulk
+//   store out), so no proxy fence stands between them.
 //   box_gather8: one block per box; the 128 KB box is staged in dynamic
 //   shared memory (opt-in above 48 KB), then every request is two 16-byte
 //   shared-memory reads and one coalesced 32-byte store.
@@ -52,6 +91,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -116,6 +157,174 @@ int launch_gather(const void* table, const void* idx, int idx64, long long n_out
 #undef LAUNCH
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// the row loop of bulk copies
+
+constexpr int kLoopWarps = 8;          // issuing warps a block
+constexpr int kLoopStageBytes = 4096;  // a stage holds R = this / row_bytes rows (1 to 32)
+constexpr int kLoopStages = 3;         // stages in each warp's ring
+constexpr int kLoopAhead = 2;          // groups whose copies are in flight before a store
+constexpr int kLoopMaxBlocksPerSm = 1;  // 8 issuers an SM
+constexpr int kLoopMaxRowBytes = 8192;
+static_assert(kLoopAhead >= 1 && kLoopAhead < kLoopStages, "a stage to store, one to fill");
+// per warp: kLoopStages mbarriers and 32 source addresses; then the rings
+constexpr int kLoopBarBytes = kLoopWarps * kLoopStages * 8;
+constexpr int kLoopHeadBytes = (kLoopBarBytes + kLoopWarps * 32 * 8 + 127) / 128 * 128;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one arrival on bar, and bytes more that its phase waits for
+__device__ __forceinline__ void bar_arrive_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// the bytes [src, src + bytes) (both ends 16-byte aligned) into dst, counted
+// on bar as they land
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the bytes [src, src + bytes) of shared memory to dst, as one bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Warp w of block b takes the groups g = b*kLoopWarps + w + k*(warps in the
+// grid) of R output rows each. Iteration k stores group k - kLoopAhead, then
+// fills stage k % kLoopStages with group k; the last iterations only store.
+template <bool kTiled>
+__global__ void __launch_bounds__(kLoopWarps * 32)
+gather_rows_loop_kernel(const char* __restrict__ table, const void* __restrict__ idx, int idx64,
+                        long long n_out, long long n_rows, long long tile, int row_bytes, int R,
+                        char* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const unsigned stage_bytes = (unsigned)R * (unsigned)row_bytes;
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem) + warp * kLoopStages;
+  const char** src_of = reinterpret_cast<const char**>(smem + kLoopBarBytes) + warp * 32;
+  unsigned char* ring = smem + kLoopHeadBytes + (size_t)warp * kLoopStages * stage_bytes;
+  if (lane == 0) {
+    for (int s = 0; s < kLoopStages; ++s) bar_init(bars + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+
+  const long long groups = (n_out + R - 1) / R;
+  const long long first = (long long)blockIdx.x * kLoopWarps + warp;
+  const long long stride = (long long)gridDim.x * kLoopWarps;
+  const long long n_iter = first < groups ? (groups - 1 - first) / stride + 1 : 0;
+  // this lane's index of the group it fills next, loaded a group ahead
+  long long next = 0;
+  if (n_iter > 0 && lane < R && first * R + lane < n_out)
+    next = load_index(idx, idx64, first * R + lane);
+
+  for (long long k = 0; k < n_iter + kLoopAhead; ++k) {
+    if (k >= kLoopAhead && lane == 0) {
+      const long long j = k - kLoopAhead;
+      const int s = (int)(j % kLoopStages);
+      const long long row0 = (first + j * stride) * R;
+      const unsigned rows = (unsigned)min((long long)R, n_out - row0);
+      bar_wait(bars + s, (unsigned)(j / kLoopStages) & 1u);
+      bulk_store(out + (size_t)row0 * row_bytes, ring + (size_t)s * stage_bytes,
+                 rows * (unsigned)row_bytes);
+    }
+    if (k >= n_iter) continue;
+    const long long row0 = (first + k * stride) * R;
+    const int rows = (int)min((long long)R, n_out - row0);
+    if (lane < rows) {
+      const long long row = row0 + lane;
+      long long src = next;
+      if (kTiled) src = (row / tile) * tile + clampll(src, 0, tile - 1);
+      src = clampll(src, 0, n_rows - 1);
+      src_of[lane] = table + (size_t)src * row_bytes;
+    }
+    const long long row1 = row0 + stride * R + lane;
+    if (k + 1 < n_iter && lane < R && row1 < n_out) next = load_index(idx, idx64, row1);
+    __syncwarp();
+    if (lane == 0) {
+      const int s = (int)(k % kLoopStages);
+      // the store that last read this stage, group k - kLoopStages, has
+      // kLoopStages - kLoopAhead stores issued after it
+      if (k >= kLoopStages) bulk_wait_read<kLoopStages - kLoopAhead>();
+      unsigned char* dst = ring + (size_t)s * stage_bytes;
+      bar_arrive_expect(bars + s, (unsigned)rows * (unsigned)row_bytes);
+      for (int r = 0; r < rows; ++r)
+        bulk_load(dst + (size_t)r * row_bytes, src_of[r], (unsigned)row_bytes, bars + s);
+    }
+    __syncwarp();
+  }
+  if (lane == 0) bulk_wait_all();
+}
+
+template <bool kTiled>
+int launch_gather_loop(const void* table, const void* idx, int idx64, long long n_out,
+                       long long n_rows, long long tile, int row_bytes, void* out,
+                       cudaStream_t stream) {
+  if (n_out <= 0) return 0;
+  if (row_bytes <= 0 || row_bytes % 16 || row_bytes > kLoopMaxRowBytes ||
+      ((uintptr_t)table | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int R = std::max(1, std::min(32, kLoopStageBytes / row_bytes));
+  const int smem = kLoopHeadBytes + kLoopWarps * kLoopStages * R * row_bytes;
+  auto kernel = gather_rows_loop_kernel<kTiled>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kLoopWarps * 32, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long groups = (n_out + R - 1) / R;
+  const long long blocks = std::min((groups + kLoopWarps - 1) / kLoopWarps,
+                                    (long long)std::min(per_sm, kLoopMaxBlocksPerSm) * sms);
+  kernel<<<(unsigned)blocks, kLoopWarps * 32, smem, stream>>>(
+      (const char*)table, idx, idx64, n_out, n_rows, tile, row_bytes, R, (char*)out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 
 constexpr int kBoxFloats = 16 * 16 * 16 * 8;  // 32768 floats = 128 KB
 constexpr int kBoxThreads = 512;
@@ -204,6 +413,21 @@ int gather_tile_rows(const void* table, const void* idx, int idx64, long long n_
                      long long tile, int row_bytes, int lanes, void* out, void* stream) {
   return launch_gather<true>(table, idx, idx64, n_out, n_out, tile, row_bytes, lanes, out,
                              (cudaStream_t)stream);
+}
+
+// The row loop of bulk copies: the same two functions. cudaErrorInvalidValue
+// for rows that are no multiple of 16 bytes or over kLoopMaxRowBytes, and for
+// a table or out not 16-byte aligned.
+int gather_rows_loop(const void* table, const void* idx, int idx64, long long n_out,
+                     long long n_rows, int row_bytes, void* out, void* stream) {
+  return launch_gather_loop<false>(table, idx, idx64, n_out, n_rows, 0, row_bytes, out,
+                                   (cudaStream_t)stream);
+}
+
+int gather_tile_rows_loop(const void* table, const void* idx, int idx64, long long n_out,
+                          long long tile, int row_bytes, void* out, void* stream) {
+  return launch_gather_loop<true>(table, idx, idx64, n_out, n_out, tile, row_bytes, out,
+                                  (cudaStream_t)stream);
 }
 
 int box_gather8(const void* box, const void* code, long long n_req, int req_per_box,

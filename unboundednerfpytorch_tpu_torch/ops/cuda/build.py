@@ -51,8 +51,8 @@ NVCC_FLAGS = (
 # masked_adam's launches with a per-element lr count as masked_adam_per_lr,
 # tv_add_grad's with halo planes as tv_add_grad_halo)
 KERNELS = ("tv_add_grad", "tv_add_grad_halo", "march_forward", "march_backward", "cumdist_thres",
-           "gather_rows", "gather_tile_rows", "box_gather8", "box_sum", "masked_adam",
-           "masked_adam_per_lr")
+           "gather_rows", "gather_tile_rows", "gather_rows_loop", "gather_tile_rows_loop",
+           "box_gather8", "box_sum", "masked_adam", "masked_adam_per_lr")
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -10,6 +10,9 @@ indexing that the kernel is held against:
   gather_tile_rows(table [nA, C], idx [nA], A)  out[bA+i] = table[bA + idx[bA+i]]
     (both take ``lanes``, the threads that copy one row together: the
     default covers the row in vectors, ``lanes=1`` is one thread per row)
+  gather_rows_loop, gather_tile_rows_loop       the same two functions by a
+    row loop of bulk copies (the TPU probes' ``kernel2`` and ``p1_rowloop``),
+    for rows of a multiple of 16 bytes on 16-byte aligned tables
   box_gather8(box [nb*32, 8, 128] f32, code [nb*R] int32, R)
                                                 out[r] = 8 floats of request r
   box_sum(table [X, Y, Z, C] bf16, org [n, 3] int32, (BX, BY, BZ))
@@ -112,6 +115,29 @@ def _gather_tile_rows_op(table: Tensor, idx: Tensor, tile: int, lanes: int) -> T
     return out
 
 
+@torch.library.custom_op("unerf_kernels::gather_rows_loop", mutates_args=())
+def _gather_rows_loop_op(table: Tensor, idx: Tensor) -> Tensor:
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
+    lib, fn = _fn("gather_rows_loop", [_P, _P, _I, _LL, _LL, _I, _P, _P])
+    err = fn(table.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64), idx.shape[0],
+             table.shape[0], table.shape[1] * table.element_size(), out.data_ptr(),
+             _stream(table))
+    build.check(lib, err, "gather_rows_loop")
+    build.LAUNCHES["gather_rows_loop"] += 1
+    return out
+
+
+@torch.library.custom_op("unerf_kernels::gather_tile_rows_loop", mutates_args=())
+def _gather_tile_rows_loop_op(table: Tensor, idx: Tensor, tile: int) -> Tensor:
+    out = torch.empty_like(table)
+    lib, fn = _fn("gather_tile_rows_loop", [_P, _P, _I, _LL, _LL, _I, _P, _P])
+    err = fn(table.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64), idx.shape[0],
+             tile, table.shape[1] * table.element_size(), out.data_ptr(), _stream(table))
+    build.check(lib, err, "gather_tile_rows_loop")
+    build.LAUNCHES["gather_tile_rows_loop"] += 1
+    return out
+
+
 @torch.library.custom_op("unerf_kernels::box_gather8", mutates_args=())
 def _box_gather8_op(box: Tensor, code: Tensor, req_per_box: int) -> Tensor:
     out = torch.empty((code.shape[0], 8), dtype=torch.float32, device=box.device)
@@ -151,8 +177,9 @@ def default_lanes(row_bytes: int) -> int:
     return lanes
 
 
-def _check_rows(name: str, table: Tensor, idx: Tensor, lanes: int | None) -> int:
-    """Refuses what the kernel does not take; returns the lanes per row."""
+def _check_tensors(name: str, table: Tensor, idx: Tensor) -> int:
+    """Refuses a table and indices that no row gather takes; returns the
+    row's bytes."""
     if not (table.is_cuda and idx.is_cuda):
         raise ValueError(f"{name}: tensors must be on the GPU")
     if table.ndim != 2 or idx.ndim != 1:
@@ -162,8 +189,15 @@ def _check_rows(name: str, table: Tensor, idx: Tensor, lanes: int | None) -> int
         raise TypeError(f"{name}: idx must be int32 or int64, got {idx.dtype}")
     if not (table.is_contiguous() and idx.is_contiguous()):
         raise ValueError(f"{name}: tensors must be contiguous")
-    row_bytes = table.shape[1] * table.element_size()
-    if row_bytes % 2 or row_bytes == 0 or table.shape[0] == 0:
+    if table.shape[0] == 0:
+        raise ValueError(f"{name}: the table has no row")
+    return table.shape[1] * table.element_size()
+
+
+def _check_rows(name: str, table: Tensor, idx: Tensor, lanes: int | None) -> int:
+    """Refuses what the vector kernel does not take; returns the lanes per row."""
+    row_bytes = _check_tensors(name, table, idx)
+    if row_bytes % 2 or row_bytes == 0:
         raise ValueError(f"{name}: rows of {row_bytes} bytes are not supported (the kernel "
                          "copies 2-, 4-, 8- or 16-byte vectors)")
     if lanes is None:
@@ -171,6 +205,21 @@ def _check_rows(name: str, table: Tensor, idx: Tensor, lanes: int | None) -> int
     if lanes not in (1, 2, 4, 8, 16, 32):
         raise ValueError(f"{name}: lanes must be a power of two up to 32, got {lanes}")
     return int(lanes)
+
+
+LOOP_MAX_ROW_BYTES = 8192  # csrc/gather_probe.cu kLoopMaxRowBytes
+
+
+def _check_loop(name: str, table: Tensor, idx: Tensor) -> None:
+    """Refuses what the row loop of bulk copies does not take: a bulk copy
+    moves 16-byte aligned runs of a multiple of 16 bytes."""
+    row_bytes = _check_tensors(name, table, idx)
+    if row_bytes % 16 or not 0 < row_bytes <= LOOP_MAX_ROW_BYTES:
+        raise ValueError(f"{name}: rows of {row_bytes} bytes are not supported (a bulk copy "
+                         f"moves a multiple of 16 bytes, at most {LOOP_MAX_ROW_BYTES} a row)")
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name}: the table does not start on a 16-byte boundary (a view "
+                         "into its storage?); a bulk copy needs one")
 
 
 def gather_rows(table: Tensor, idx: Tensor, lanes: int | None = None) -> Tensor:
@@ -192,6 +241,28 @@ def gather_tile_rows(table: Tensor, idx: Tensor, tile: int, lanes: int | None = 
     if idx.shape[0] != table.shape[0] or tile <= 0:
         raise ValueError("gather_tile_rows: idx must have one entry per table row, tile > 0")
     return _gather_tile_rows_op(table, idx, int(tile), lanes)
+
+
+def gather_rows_loop(table: Tensor, idx: Tensor) -> Tensor:
+    """out[i, :] = table[idx[i], :], as :func:`gather_rows`, by a row loop of
+    bulk copies: rows of a multiple of 16 bytes (at most
+    ``LOOP_MAX_ROW_BYTES``), a table on a 16-byte boundary."""
+    if table.device.type == "cpu":
+        return gather_rows_plain(table, idx)
+    _check_loop("gather_rows_loop", table, idx)
+    return _gather_rows_loop_op(table, idx)
+
+
+def gather_tile_rows_loop(table: Tensor, idx: Tensor, tile: int) -> Tensor:
+    """out[b*A + i, :] = table[b*A + idx[b*A + i], :], as
+    :func:`gather_tile_rows`, by the row loop of :func:`gather_rows_loop`."""
+    if table.device.type == "cpu":
+        return gather_tile_rows_plain(table, idx, tile)
+    _check_loop("gather_tile_rows_loop", table, idx)
+    if idx.shape[0] != table.shape[0] or tile <= 0:
+        raise ValueError("gather_tile_rows_loop: idx must have one entry per table row, "
+                         "tile > 0")
+    return _gather_tile_rows_loop_op(table, idx, int(tile))
 
 
 def box_gather8(box: Tensor, code: Tensor, req_per_box: int) -> Tensor:

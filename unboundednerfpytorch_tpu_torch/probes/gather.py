@@ -5,23 +5,25 @@ copy cost at the render engine's shapes.
 
 Counterpart of the JAX package's ``tools/probe_dynamic_gather.py``,
 ``probe_pallas_gather.py``, ``probe_vreg_gather.py`` and
-``probe_kernel_gather.py``, at their shapes, with the four hand-written
+``probe_kernel_gather.py``, at their shapes, with the six hand-written
 kernels of ``csrc/gather_probe.cu``. One JSON line per probe, as the tools
-print: the kernel's device time (``ms``; a call under 0.2 ms is timed as many
-launches in one CUDA graph) and the time of a call through its wrapper
-(``call_ms``), the plain PyTorch version's, the time of the one
-PyTorch call that computes the same function where there is one
-(``torch.index_select``: a yardstick, used nowhere in the port), the bound
-(each input read once, each output written once, over the card's memory
-rate) and the rate. Every kernel output is first held against its plain
+print: the kernel's device time (``ms``, many launches in one CUDA graph) and
+the time of a call through its wrapper (``call_ms``), the plain PyTorch
+version's, the device time of the one PyTorch call that computes the same
+function where there is one (``torch.index_select``: a yardstick, used
+nowhere in the port), the bound (the bytes the function must move over the
+card's memory rate: for a row gather each source row its indices touch read
+once, each output written once) and the rate. Every kernel output is first held against its plain
 version on the same inputs: indexed copies bit-equal, ``box_sum`` within
 1e-3 relative of the f32 plain sum.
 
 Two pairs of the TPU kernels compute one function by two mechanisms, a
-vector gather against a scalar loop over rows. On a GPU that question is how
-many threads share a row, so the row gathers are timed at two launch shapes:
-lanes copying a row together in vectors (``vmem_take``, ``dynamic_gather``),
-and one thread per row (``vmem_rowloop``, ``p1_rowloop``).
+vector gather against a scalar loop over rows. Each has its kernel here:
+lanes copying a row together in vectors (``gather_rows`` and
+``gather_tile_rows`` for ``vmem_take`` and ``dynamic_gather``), and a row loop
+that issues one bulk copy a row into shared memory and stores the staged rows
+whole (``gather_rows_loop`` and ``gather_tile_rows_loop`` for
+``vmem_rowloop`` and ``p1_rowloop``).
 
 The XLA baselines of the tools (``xla_take``, ``p3_slice_gather``) become
 ``torch.index_select`` timings, printed as such. The last probes time the
@@ -45,7 +47,8 @@ from unboundednerfpytorch_tpu_torch.device import resolve_device
 from unboundednerfpytorch_tpu_torch.ops import interp
 from unboundednerfpytorch_tpu_torch.ops import packed as packed_ops
 from unboundednerfpytorch_tpu_torch.ops.cuda import gather_probe as gp
-from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms
+from unboundednerfpytorch_tpu_torch.probes.timing import (MANY_LAUNCHES, bound_ms, kernel_ms,
+                                                           time_ms)
 
 # the shapes of the JAX package's tools
 TILE_SHAPES = (  # (probe, A, C, n_blocks)
@@ -64,17 +67,24 @@ SLICE_SHAPE = (1 << 22, 128, 1 << 19)  # table rows, channels, slices
 K0_BANK = (199, 199, 199, 12)  # one k0 bank of bicycle_single
 K0_QUERIES = 8192 * 32  # one render chunk's color_budget survivors
 TINY = 64  # divisor of the sizes above for a CPU run
-ROW_LOOPS = ("p1_rowloop", "vmem_rowloop")  # probes launched with one thread per row
+ROW_LOOPS = ("p1_rowloop", "vmem_rowloop")  # probes of the row loop of bulk copies
 
 
 def _timer(device):
     """(ms a launch, ms a call through the wrapper) of a function: on the
     card ``timing.kernel_ms`` (CUDA events; a call under 0.2 ms is timed again
-    as many launches in one CUDA graph), on the CPU the host clock for both."""
+    as many launches in one CUDA graph), or with ``graph=True`` the launch
+    always by many launches in one graph; on the CPU the host clock for both."""
     if device.type == "cuda":
-        return kernel_ms
+        def gpu_ms(fn, iters=20, warmup=3, graph=False):
+            if not graph:
+                return kernel_ms(fn, iters, warmup)
+            return (time_ms(fn, iters, warmup, launches=MANY_LAUNCHES),
+                    time_ms(fn, iters, warmup))
 
-    def host_ms(fn, iters=3, warmup=1):
+        return gpu_ms
+
+    def host_ms(fn, iters=3, warmup=1, graph=False):
         for _ in range(warmup):
             fn()
         t0 = time.perf_counter()
@@ -105,9 +115,9 @@ def _record(probe, kernel, ctx, run, plain, library, n_bytes, exact, shape, unit
     """Check ``run()`` against ``plain()``, then time run, plain and library."""
     device, timer = ctx
     err = _compare(probe, shape, run, plain, exact)
-    ms, call_ms = timer(run)
+    ms, call_ms = timer(run, graph=True)
     plain_ms = timer(plain, iters=3, warmup=1)[0]
-    lib_ms = timer(library)[0] if library is not None else None
+    lib_ms = timer(library, graph=True)[0] if library is not None else None
     bnd, by = bound_ms(n_bytes, 0)
     rec = {"probe": probe, "kernel": kernel, "shape": shape, "ok": True,
            "timed_on": "gpu" if device.type == "cuda" else "cpu (plain version)",
@@ -118,9 +128,19 @@ def _record(probe, kernel, ctx, run, plain, library, n_bytes, exact, shape, unit
     return rec
 
 
+def gather_bytes(table, flat_idx) -> int:
+    """Bytes a row gather must move: each distinct row of ``table`` that
+    ``flat_idx`` (the flat row index of every output row) touches read once,
+    each output row written once, the int32 indices read once. A tile's A random
+    draws out of its A rows touch about 1 - 1/e of them."""
+    row = table.shape[1] * table.element_size()
+    n = flat_idx.numel()
+    return int(torch.unique(flat_idx).numel()) * row + n * row + n * 4
+
+
 def probe_tile_rows(ctx, gen, scale=1):
     """Rows 4 and 7a of the kernel table: the tile-local row gather, by lanes
-    that share a row (``dynamic_gather``) and by one thread per row
+    that share a row (``dynamic_gather``) and by the row loop of bulk copies
     (``p1_rowloop``)."""
     device, timer = ctx
     out = []
@@ -130,14 +150,15 @@ def probe_tile_rows(ctx, gen, scale=1):
         table = torch.randn((n, C), generator=gen, device=device).to(torch.bfloat16)
         idx = torch.randint(0, A, (n,), generator=gen, device=device, dtype=torch.int32)
         flat = (torch.arange(n, device=device) // A * A + idx).long()
-        lanes = 1 if probe in ROW_LOOPS else gp.default_lanes(C * 2)
+        shape = {"A": A, "C": C, "n_blocks": n_blocks}
+        if probe in ROW_LOOPS:
+            kernel, run = "gather_tile_rows_loop", lambda: gp.gather_tile_rows_loop(table, idx, A)
+        else:
+            lanes = shape["lanes_per_row"] = gp.default_lanes(C * 2)
+            kernel, run = "gather_tile_rows", lambda: gp.gather_tile_rows(table, idx, A, lanes)
         out.append(_record(
-            probe, "gather_tile_rows", ctx,
-            lambda: gp.gather_tile_rows(table, idx, A, lanes),
-            lambda: gp.gather_tile_rows_plain(table, idx, A),
-            lambda: torch.index_select(table, 0, flat),
-            2 * n * C * 2 + n * 4, True,
-            {"A": A, "C": C, "n_blocks": n_blocks, "lanes_per_row": lanes},
+            probe, kernel, ctx, run, lambda: gp.gather_tile_rows_plain(table, idx, A),
+            lambda: torch.index_select(table, 0, flat), gather_bytes(table, flat), True, shape,
             {"M_rows_per_s": n}))
         del table, idx, flat
     return out
@@ -147,24 +168,28 @@ def probe_rows(ctx, gen, scale=1):
     """Rows 5a and 5b: the row gather from a table small enough to stay in
     the L2 cache (8 MB), and the tools' ``xla_take`` baseline as the library
     call. The two TPU kernels compute one function by two mechanisms: here
-    lanes that share a row (``vmem_take``) and one thread per row
-    (``vmem_rowloop``). The bound counts the table once, the output and the
-    indices."""
+    lanes that share a row (``vmem_take``) and the row loop of bulk copies
+    (``vmem_rowloop``). The bound counts the table rows the indices touch once
+    (nearly all of them), the output and the indices."""
     device, timer = ctx
     T, C, N = ROWS_SHAPE[0] // scale, ROWS_SHAPE[1], ROWS_SHAPE[2] // scale
     table = torch.randn((T, C), generator=gen, device=device).to(torch.bfloat16)
     idx = torch.randint(0, T, (N,), generator=gen, device=device, dtype=torch.int32)
+    lanes = gp.default_lanes(C * 2)
+    n_bytes = gather_bytes(table, idx)
+    runs = (("vmem_take", "gather_rows", lambda: gp.gather_rows(table, idx, lanes),
+             {"lanes_per_row": lanes}),
+            ("vmem_rowloop", "gather_rows_loop", lambda: gp.gather_rows_loop(table, idx), {}))
     return [_record(
-        probe, "gather_rows", ctx,
-        lambda: gp.gather_rows(table, idx, lanes), lambda: gp.gather_rows_plain(table, idx),
-        lambda: torch.index_select(table, 0, idx),
-        T * C * 2 + N * C * 2 + N * 4, True,
-        {"T": T, "C": C, "N": N, "lanes_per_row": lanes}, {"M_rows_per_s": N})
-        for probe, lanes in (("vmem_take", gp.default_lanes(C * 2)), ("vmem_rowloop", 1))]
+        probe, kernel, ctx, run, lambda: gp.gather_rows_plain(table, idx),
+        lambda: torch.index_select(table, 0, idx), n_bytes, True,
+        {"T": T, "C": C, "N": N, **extra}, {"M_rows_per_s": N})
+        for probe, kernel, run, extra in runs]
 
 
 def probe_box_gather8(ctx, gen, scale=1):
-    """Row 6: 8-channel requests into a box staged in shared memory."""
+    """Row 6: 8-channel requests into a box staged in shared memory. The
+    bound counts the 32-byte runs of the boxes that the requests touch."""
     device, timer = ctx
     n_boxes, R = max(1, BOX8_SHAPE[0] // scale), BOX8_SHAPE[1] // min(scale, 16)
     box = torch.randn((n_boxes * gp.BOX_ROWS, 8, 128), generator=gen, device=device)
@@ -172,10 +197,12 @@ def probe_box_gather8(ctx, gen, scale=1):
                          dtype=torch.int32)
     code = dxyz[:, 0] * 256 + dxyz[:, 1] * 16 + dxyz[:, 2]
     n = code.shape[0]
+    # a request reads one 32-byte run of its box: the runs touched, once each
+    touched = torch.unique(torch.arange(n, device=device) // R * 4096 + code).numel()
     return [_record(
         "vreg_gather_f32", "box_gather8", ctx,
         lambda: gp.box_gather8(box, code, R), lambda: gp.box_gather8_plain(box, code, R),
-        None, box.numel() * 4 + n * 4 + n * 32, True, {"n_boxes": n_boxes, "R": R},
+        None, touched * 32 + n * 4 + n * 32, True, {"n_boxes": n_boxes, "R": R},
         {"M_req_per_s": n})]
 
 

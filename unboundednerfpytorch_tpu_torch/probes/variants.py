@@ -1,6 +1,7 @@
 """Design variants of the redesigned kernels, timed against each other.
 
     python -m unboundednerfpytorch_tpu_torch.probes.variants [--only cumdist]
+    python -m unboundednerfpytorch_tpu_torch.probes.variants --only gather_loop
 
 Each variant is the committed source of ``csrc/tv.cu`` or ``csrc/march.cu``
 with one constant replaced (a substitution that no longer finds its text
@@ -26,7 +27,22 @@ lanes a ray, each walking its share of the samples from 0 at once, then a
 fix-up that re-walks each share in order from the true incoming sum until
 the true walk and the speculative one reset at the same sample (from there
 on the two agree). Every variant's flags are held equal to the plain
-version's. Needs a GPU and ``nvcc``.
+version's.
+
+The row loop of bulk copies (``gather_rows_loop`` and
+``gather_tile_rows_loop`` of ``csrc/gather_probe.cu``) is timed at the gather
+probe's row-loop shapes (``vmem_rowloop``: 524288 rows from an 8 MB table of
+32768 x 128 bf16; ``p1_rowloop``: tiles of 2048 and 4096 rows, 2^20 rows
+each): the committed design with other issuing warps a block and a
+multiprocessor, other stage sizes, stage counts and copies in flight, and
+one issuing lane a block (a block of one warp, two blocks a
+multiprocessor), against the vector kernel launched with one thread a row
+(the earlier row loop), with 16 lanes a row, and ``torch.index_select``.
+Whether the time follows the issuers a multiprocessor says if the bulk
+copies' issue or the copy engine and the memory bound a row loop of
+256-byte copies. Each is timed as many launches in one CUDA graph, whatever
+its length. Every variant's output is held equal to the plain version's.
+Needs a GPU and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -41,7 +57,7 @@ import torch
 
 from unboundednerfpytorch_tpu_torch.device import resolve_device
 from unboundednerfpytorch_tpu_torch.ops.cuda import build, march
-from unboundednerfpytorch_tpu_torch.probes.timing import MANY_LAUNCHES, time_ms
+from unboundednerfpytorch_tpu_torch.probes.timing import MANY_LAUNCHES, bound_ms, time_ms
 
 K0_SHAPE = (7, 199, 199, 199, 12)  # bicycle_single's k0 grid, bf16
 MARCH_SHAPES = ((2048, 96, True), (8192, 96, False))  # N, S, residuals kept
@@ -137,6 +153,35 @@ def cumdist_variants() -> dict[str, str]:
     out["no chain (a sample's flag from its own distance; wrong values)"] = _sub(
         src, ("const float c = __fadd_rn(cum, x[k]);", "const float c = x[k];"))
     return out
+
+
+def gather_loop_variants() -> dict[str, str]:
+    src = build.SOURCES["gather_probe"].read_text()
+    consts = {"warps": "kLoopWarps = {};", "stage": "kLoopStageBytes = {};",
+              "stages": "kLoopStages = {};", "ahead": "kLoopAhead = {};",
+              "per_sm": "kLoopMaxBlocksPerSm = {};"}
+    committed = {"warps": 8, "stage": 4096, "stages": 3, "ahead": 2, "per_sm": 1}
+
+    def variant(**kw):
+        return _sub(src, *((f"constexpr int {consts[k].format(committed[k])}",
+                            f"constexpr int {consts[k].format(v)}") for k, v in kw.items()))
+
+    # issuers a multiprocessor at 256-byte rows; "as many blocks as fit" is
+    # set by the shared memory each block takes (227 KB a multiprocessor)
+    return {
+        "as committed: 8 issuing warps a block, stages of 16 rows, 3 stages, 2 ahead, "
+        "one block an SM (8 issuers)": src,
+        "as many blocks as fit (2 an SM: 16 issuers)": variant(per_sm=32),
+        "4 warps a block (4 issuers)": variant(warps=4),
+        "16 warps a block, stages of 8 rows (16 issuers)": variant(warps=16, stage=2048),
+        "16 warps a block, stages of 8 rows, as many blocks as fit (2: 32 issuers)": variant(
+            warps=16, stage=2048, per_sm=32),
+        "stages of 8 rows, 4 stages, 3 ahead (8 issuers)": variant(stage=2048, stages=4, ahead=3),
+        "2 stages, 1 ahead (8 issuers)": variant(stages=2, ahead=1),
+        "stages of 32 rows, 2 stages, 1 ahead (8 issuers)": variant(stage=8192, stages=2, ahead=1),
+        "one issuing lane a block: a block of one warp, 8 stages of 32 rows, 6 ahead, "
+        "2 blocks an SM (2 issuers)": variant(warps=1, stage=8192, stages=8, ahead=6, per_sm=2),
+    }
 
 
 # the design not taken for cumdist_thres: k lanes a ray (k divides 32, the
@@ -383,14 +428,92 @@ def run_cumdist(gen, emit) -> None:
                       "ms": time_ms(lambda: launch(fn), launches=MANY_LAUNCHES)})
 
 
+def gather_loop_cases(gen) -> list:
+    """(probe, table, idx, tile or 0, bytes of the bound): the gather
+    probe's row-loop shapes and inputs."""
+    from unboundednerfpytorch_tpu_torch.probes import gather
+
+    out = []
+    T, C, N = gather.ROWS_SHAPE
+    table = torch.randn((T, C), generator=gen, device="cuda").to(torch.bfloat16)
+    idx = torch.randint(0, T, (N,), generator=gen, device="cuda", dtype=torch.int32)
+    out.append(("vmem_rowloop", table, idx, 0, gather.gather_bytes(table, idx)))
+    for probe, A, C, n_blocks in gather.TILE_SHAPES:
+        if probe in gather.ROW_LOOPS:
+            n = A * n_blocks
+            table = torch.randn((n, C), generator=gen, device="cuda").to(torch.bfloat16)
+            idx = torch.randint(0, A, (n,), generator=gen, device="cuda", dtype=torch.int32)
+            flat = torch.arange(n, device="cuda") // A * A + idx
+            out.append((probe, table, idx, A, gather.gather_bytes(table, flat)))
+    return out
+
+
+def run_gather_loop(gen, emit) -> None:
+    from unboundednerfpytorch_tpu_torch.ops.cuda import gather_probe as gp
+
+    libs = compile_all(gather_loop_variants(), "gather_probe")
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for lib in libs.values():
+        for name in ("gather_rows_loop", "gather_tile_rows_loop"):
+            getattr(lib, name).restype = I
+            getattr(lib, name).argtypes = [P, P, I, LL, LL, I, P, P]
+        for name in ("gather_rows", "gather_tile_rows"):
+            getattr(lib, name).restype = I
+            getattr(lib, name).argtypes = [P, P, I, LL, LL, I, I, P, P]
+    vector = libs[next(iter(libs))]  # the committed source's vector kernel
+    for probe, table, idx, tile, n_bytes in gather_loop_cases(gen):
+        n, row_bytes = idx.shape[0], table.shape[1] * 2
+        want = (gp.gather_tile_rows_plain(table, idx, tile) if tile
+                else gp.gather_rows_plain(table, idx))
+        out = torch.empty_like(want)
+        # the flat gather takes the table's rows, the tiled one the tile
+        head = (table.data_ptr(), idx.data_ptr(), 0, n, tile or table.shape[0], row_bytes)
+        loop = "gather_tile_rows_loop" if tile else "gather_rows_loop"
+        vec = "gather_tile_rows" if tile else "gather_rows"
+
+        def stream():
+            return torch.cuda.current_stream().cuda_stream
+
+        runs = {f"row loop of bulk copies: {name}":
+                (lambda lib=lib: getattr(lib, loop)(*head, out.data_ptr(), stream()))
+                for name, lib in libs.items()}
+        for lanes, label in ((1, "one thread a row (the earlier row loop)"),
+                             (gp.default_lanes(row_bytes), "16 lanes a row")):
+            runs[f"vector kernel, {label}"] = (
+                lambda lanes=lanes: getattr(vector, vec)(*head, lanes, out.data_ptr(), stream()))
+        flat = ((torch.arange(n, device="cuda") // tile * tile + idx).long() if tile
+                else idx)
+        bnd = bound_ms(n_bytes, 0)[0]
+
+        def launch(fn):
+            err = fn()
+            if err != 0:
+                raise RuntimeError(f"gather loop variant: CUDA error {err}")
+
+        for rnd in range(2):
+            for name, fn in runs.items():
+                out.zero_()
+                launch(fn)
+                torch.cuda.synchronize()
+                ms = time_ms(lambda: launch(fn), launches=MANY_LAUNCHES)
+                emit({"kernel": loop, "probe": probe, "shape": list(table.shape), "N": n,
+                      "tile": tile, "variant": name, "round": rnd,
+                      "equal_to_plain": bool(torch.equal(out, want)), "ms": ms,
+                      "bound_ms": bnd, "share_of_bound": bnd / ms})
+            ms = time_ms(lambda: torch.index_select(table, 0, flat), launches=MANY_LAUNCHES)
+            emit({"kernel": loop, "probe": probe, "shape": list(table.shape), "N": n,
+                  "tile": tile, "variant": "torch.index_select", "round": rnd, "ms": ms,
+                  "bound_ms": bnd, "share_of_bound": bnd / ms})
+
+
 RUNS = {"tv": run_tv, "march": run_march, "march_backward": run_march_backward,
-        "cumdist": run_cumdist}
+        "cumdist": run_cumdist, "gather_loop": run_gather_loop}
 
 
 def main(argv=None) -> list:
     """Prints one JSON line per variant and round and returns the records.
-    ``--only cumdist`` (or ``tv``, ``march``, ``march_backward``) runs one
-    kernel's variants."""
+    ``--only cumdist`` (or ``tv``, ``march``, ``march_backward``,
+    ``gather_loop``) runs one kernel's variants."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=sorted(RUNS), action="append")
     args = ap.parse_args([] if argv is None else argv)
