@@ -53,8 +53,14 @@ Phases, each reported on its own line:
      which holds each against its plain version at every one of its shapes (indexed copies bit-equal, ``box_sum``
      within 1e-3 relative) and times it, always by many launches in one CUDA
      graph, and ``torch.index_select`` alike; a row gather's bound counts the
-     source rows its indices touch, ``box_gather8``'s the 32-byte runs; that
-     one run, counted from 0, also gives these kernels' launches;
+     source rows its indices touch, ``box_gather8``'s the 32-byte runs
+     (its library call: ``torch.index_select`` of the boxes as rows of 8
+     floats); that one run, counted from 0, also gives these kernels'
+     launches. After it, the row loops and ``box_gather8`` are held
+     bit-equal to their plain versions at edge shapes (ragged rows and tiles;
+     R of 1 to 5000, a short last box, codes out of range), and
+     ``box_gather8`` and its ``index_select`` are timed once more each after
+     a 256 MB fill of the L2 cache;
   4. the scene and the trainer: a seeded synthetic 20-view 411x618 scene (the
      size of bicycle at factor 8) is written in the on-disk layout of a
      Mip-NeRF-360 capture (``poses_bounds.npy`` and ``images_8/*.png``) and
@@ -1174,12 +1180,79 @@ def loop_edge_cases() -> int:
     return held
 
 
+# box_gather8 beyond the probe's shape: requests a box, and boxes, each with
+# every box full and with a last box of fewer than R requests
+BOX8_EDGE_R = (1, 7, 100, 4096, 5000)
+BOX8_EDGE_BOXES = (1, 3)
+
+
+def box8_edge_cases() -> int:
+    """``box_gather8`` bit-equal to its plain version at ``BOX8_EDGE_R`` x
+    ``BOX8_EDGE_BOXES``, with a full and a short last box (for R = 1 with 1
+    box, no request at all), codes in [-5000, 9000); a box view off a
+    16-byte boundary refused. Returns the cases held."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import gather_probe as gp
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    held = 0
+    for R in BOX8_EDGE_R:
+        for n_boxes in BOX8_EDGE_BOXES:
+            box = torch.randn((n_boxes * gp.BOX_ROWS, 8, 128), generator=gen, device="cuda")
+            for n in (n_boxes * R, n_boxes * R - (R + 1) // 2):
+                code = torch.randint(-5000, 9000, (n,), generator=gen, device="cuda",
+                                     dtype=torch.int32)
+                got = gp.box_gather8(box, code, R)
+                want = gp.box_gather8_plain(box, code, R)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"box_gather8 R={R} boxes={n_boxes} n={n}: kernel and "
+                                         "plain version disagree")
+                held += 1
+    buf = torch.zeros(gp.BOX_ROWS * 8 * 128 + 1, device="cuda")
+    try:
+        gp.box_gather8(buf[1:].view(gp.BOX_ROWS, 8, 128), torch.zeros(4, dtype=torch.int32,
+                                                                       device="cuda"), 4)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("box_gather8 took a box 4 bytes past a 16-byte boundary")
+    log(f"[3] box_gather8: {held} edge cases bit-equal to the plain version, an unaligned box "
+        "refused")
+    return held
+
+
+def box8_cold() -> tuple:
+    """(kernel ms, ``torch.index_select`` ms) of ``box_gather8`` at the
+    probe's shape and inputs, each one launch just after a 256 MB fill of
+    the L2 cache (``timing.cold_ms``): the probe's graph of 50 launches may
+    find part of the 32 MB of boxes still in the 50 MB cache."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.ops.cuda import gather_probe as gp
+    from unboundednerfpytorch_tpu_torch.probes import gather
+    from unboundednerfpytorch_tpu_torch.probes.timing import cold_ms
+
+    n_boxes, R = gather.BOX8_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    box, code = gather.box8_inputs(gen, torch.device("cuda"), n_boxes, R)
+    runs = gather.box8_runs(code, R)
+    rows = box.view(-1, 8)
+    ms = cold_ms(lambda: gp.box_gather8(box, code, R))
+    lib = cold_ms(lambda: torch.index_select(rows, 0, runs))
+    log(f"[3] box_gather8 {gather.BOX8_SHAPE} after an L2 flush: {ms:.4f} ms against "
+        f"torch.index_select's {lib:.4f} ms ({lib / ms:.2f}x)")
+    return ms, lib
+
+
 def phase_probes(floor: float):
     """The probe entry point as a user runs it, its launches counted from 0:
     the six gather-probe kernels at every one of its shapes, each against
     its plain version (the probe raises on a disagreement), then the times.
     A kernel's entry sums its shapes; each shape's line also has its
-    ``torch.index_select`` time where there is one. Returns (entries,
+    ``torch.index_select`` time where there is one; ``box_gather8``'s entry
+    has its cold times (``box8_cold``) beside them. Returns (entries,
     launch counts)."""
     from unboundednerfpytorch_tpu_torch.ops.cuda import build
     from unboundednerfpytorch_tpu_torch.probes import gather
@@ -1192,6 +1265,8 @@ def phase_probes(floor: float):
     if set(counts) != set(PROBE_REPLACES) or min(counts.values()) < 1:
         raise AssertionError(f"probe launch counts {counts}: want each of {set(PROBE_REPLACES)}")
     loop_edge_cases()  # after the count: comparisons, not the probe's launches
+    box8_edge_cases()
+    box8_cold_ms, box8_library_cold_ms = box8_cold()
     out = []
     for name, site in PROBE_REPLACES.items():
         recs = [r for r in records if r["kernel"] == name and "bound_ms" in r]
@@ -1208,6 +1283,8 @@ def phase_probes(floor: float):
                  "shapes": [dict(shape_line(f"{name} {r['probe']} {r['shape']}", r["ms"],
                                             r["call_ms"], r["bound_ms"], floor),
                                  library_ms=r["library_ms"]) for r in recs]}
+        if name == "box_gather8":
+            entry.update(cold_ms=box8_cold_ms, library_cold_ms=box8_library_cold_ms)
         for r in recs:
             if r["library_ms"] is not None:
                 log(f"[3] {name} {r['probe']} {r['shape']}: {r['ms']:.4f} ms against "
@@ -2562,31 +2639,6 @@ def lr_inputs(seed: int, shape):
     return count / count.max().clamp_min(1.0)
 
 
-def cold_ms(fn, iters: int = 20) -> float:
-    """Device ms of ``fn`` (one launch) with the 50 MB L2 cache flushed
-    before each call, as the train step leaves it for its one update of a
-    grid: CUDA events around each call just after a 256 MB fill, the mean
-    over ``iters`` after a warm-up. A spin of about a millisecond between
-    the fill and the first event keeps the card busy while the host makes
-    the call, so the events time the kernel and not the host's launch."""
-    import torch
-
-    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
-    total = 0.0
-    for i in range(iters + 2):
-        flush.fill_(float(i))
-        torch.cuda._sleep(2_000_000)  # cycles: about 1 ms at the H100's clock
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        if i >= 2:
-            total += start.elapsed_time(end)
-    del flush
-    return total / iters
-
-
 def adam_case(label: str, shape, dtype, skip: bool, grad: bool = True,
               offsets=(0, 0, 0, 0, 0), per_lr: bool = False) -> int:
     """``masked_adam`` over a whole tensor of ``shape`` (its leading axis a
@@ -2683,7 +2735,8 @@ def adam_time(row: dict, label: str, shape, dtype, skip: bool, per_lr: bool,
     import torch
 
     from unboundednerfpytorch_tpu_torch.ops.cuda import adam
-    from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms, time_ms
+    from unboundednerfpytorch_tpu_torch.probes.timing import (bound_ms, cold_ms, kernel_ms,
+                                                               time_ms)
 
     banks, bank = shape[0], tuple(shape[1:])
     p, g, m, v = (torch.empty(shape, dtype=dt, device="cuda")

@@ -249,6 +249,85 @@ def test_box_gather8_plain_matches_dynamic_slice():
     np.testing.assert_array_equal(gp.box_gather8(box_t, code_t, R).numpy(), np.asarray(want))
 
 
+@functools.lru_cache(maxsize=None)
+def _vreg_kernel_out(n_boxes, BLK):
+    """``kernel`` of tools/probe_vreg_gather.py and its ``pallas_call`` as
+    they stand, ``BLK`` requests a box (the tool's 4096 made a parameter),
+    in interpret mode, on the inputs of ``_box8_case``."""
+    box_np, _, _, code_t = _box8_case(n_boxes, BLK, 18)
+    NV = 32
+    box = jnp.asarray(box_np)
+
+    def kernel(code_ref, box_ref, out_ref):
+        lane = jax.lax.broadcasted_iota(jnp.int32, (8, 128), 1)
+        sub = jax.lax.broadcasted_iota(jnp.int32, (8, 128), 0)
+        lane_mod8 = lane % 8
+
+        def group(g, _):
+            acc = jnp.zeros((8, 128), jnp.float32)
+
+            def one(i, acc):
+                r = g * 8 + i
+                code = code_ref[r]
+                dx = code // 256
+                dy = (code // 16) % 16
+                dz = code % 16
+                v = box_ref[dx * 2 + dy // 8]  # [8, 128] f32 vreg
+                r1 = jnp.take_along_axis(
+                    v, jnp.broadcast_to(dy % 8, (8, 128)), axis=0
+                )
+                idx2 = dz * 8 + lane_mod8
+                r2 = jnp.take_along_axis(r1, idx2, axis=1)
+                sel = (sub == i) & (lane < 8)
+                return jnp.where(sel, r2, acc)
+
+            acc = jax.lax.fori_loop(0, 8, one, acc, unroll=8)
+            out_ref[pl.ds(g * 8, 8), :] = acc
+            return 0
+
+        jax.lax.fori_loop(0, BLK // 8, group, 0)
+
+    call = pl.pallas_call(
+        kernel,
+        grid=(n_boxes,),
+        in_specs=[
+            pl.BlockSpec((BLK,), lambda i: (i,), memory_space=pltpu.SMEM),
+            pl.BlockSpec((NV, 8, 128), lambda i: (i, 0, 0),
+                         memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((BLK, 128), lambda i: (i, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((n_boxes * BLK, 128), jnp.float32),
+        interpret=True,
+    )
+    return np.asarray(call(jnp.asarray(code_t.numpy()), box))
+
+
+@pytest.mark.parametrize("n_boxes,BLK", [(2, 64), (3, 16)])
+def test_box_gather8_matches_vreg_kernel_in_interpret_mode(n_boxes, BLK):
+    """``box_gather8`` bit-equal to the TPU kernel of probe_vreg_gather.py
+    itself: its lanes 0-7 are the request's 8 floats, lanes 8-127 zero."""
+    _, _, box_t, code_t = _box8_case(n_boxes, BLK, 18)
+    want = _vreg_kernel_out(n_boxes, BLK)
+    got = gp.box_gather8(box_t, code_t, BLK)
+    assert got.dtype == torch.float32 and got.shape == (n_boxes * BLK, 8)
+    np.testing.assert_array_equal(got.numpy(), want[:, :8])
+    assert not want[:, 8:].any()
+
+
+@pytest.mark.parametrize("n_boxes,R,n", [(1, 1, 1), (3, 7, 20), (3, 100, 263), (2, 5000, 7000),
+                                         (1, 4096, 4096)])
+def test_index_select_yardstick_is_box_gather8(n_boxes, R, n):
+    """The probe's library call for row 6, ``torch.index_select`` of the boxes
+    as rows of 8 floats at ``gather.box8_runs``, computes ``box_gather8``'s
+    function: codes out of range and negative, a short last box."""
+    rng = np.random.default_rng(19)
+    box = torch.from_numpy(rng.standard_normal((n_boxes * 32, 8, 128)).astype(np.float32))
+    code = torch.from_numpy(rng.integers(-5000, 9000, n).astype(np.int32))
+    got = torch.index_select(box.view(-1, 8), 0, gather.box8_runs(code, R))
+    assert torch.equal(got, gp.box_gather8_plain(box, code, R))
+    assert torch.equal(got, gp.box_gather8(box, code, R))
+
 @pytest.mark.parametrize("shape,box", [((9, 10, 11, 16), (4, 4, 8)),
                                        ((20, 18, 17, 8), (16, 16, 16))])
 def test_box_sum_plain_matches_dynamic_slice_sum(shape, box):
@@ -357,6 +436,8 @@ def test_probe_entry_point_on_cpu():
     assert {r["kernel"] for r in records if r["probe"] == "p1_rowloop"} == {
         "gather_tile_rows_loop"}
     assert {r["kernel"] for r in records if r["probe"] == "vmem_rowloop"} == {"gather_rows_loop"}
+    box8 = [r for r in records if r["kernel"] == "box_gather8"]
+    assert len(box8) == 1 and box8[0]["library_ms"] > 0
     assert not build.LAUNCHES
 
 
@@ -403,7 +484,8 @@ def test_probe_records_keep_call_and_launch_time_apart():
 @pytest.mark.parametrize("make,n", [(variants.tv_variants, 5), (variants.march_variants, 8),
                                     (variants.march_backward_variants, 13),
                                     (variants.cumdist_variants, 11),
-                                    (variants.gather_loop_variants, 9)])
+                                    (variants.gather_loop_variants, 9),
+                                    (variants.box_gather8_variants, 13)])
 def test_kernel_variants_still_find_their_text(make, n):
     """A variant is the committed source with one constant replaced: every
     substitution finds its text, and one variant is the source as committed."""
@@ -509,3 +591,32 @@ def test_row_loop_kernels_refuse_what_a_bulk_copy_cannot_move(cuda):
     # an aligned view is taken
     got = gp.gather_rows_loop(buf[:64].view(8, 8), idx)
     assert torch.equal(got, buf[:64].view(8, 8)[idx.long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("short", [False, True])
+@pytest.mark.parametrize("n_boxes", [1, 3])
+@pytest.mark.parametrize("R", [1, 7, 100, 4096, 5000])
+def test_box_gather8_kernel_edge_cases(cuda, R, n_boxes, short):
+    """Any R (not a power of two, above 4096), one or three boxes, a last
+    box of fewer than R requests, codes in [-5000, 9000): bit-equal."""
+    rng = np.random.default_rng(20)
+    box = torch.from_numpy(rng.standard_normal((n_boxes * 32, 8, 128)).astype(np.float32))
+    n = n_boxes * R - ((R + 1) // 2 if short else 0)
+    code = torch.from_numpy(rng.integers(-5000, 9000, n).astype(np.int32))
+    build.reset_launch_counts()
+    got = gp.box_gather8(box.cuda(), code.cuda(), R)
+    assert build.LAUNCHES["box_gather8"] == 1
+    assert torch.equal(got.cpu(), gp.box_gather8_plain(box, code, R))
+
+
+@pytest.mark.cuda
+def test_box_gather8_refuses_an_unaligned_box(cuda):
+    """The kernel reads 16-byte vectors: a box view off a 16-byte boundary
+    raises, with no fallback."""
+    build.reset_launch_counts()
+    buf = torch.zeros(32 * 8 * 128 + 1, device="cuda")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        gp.box_gather8(buf[1:].view(32, 8, 128), torch.zeros(4, dtype=torch.int32,
+                                                             device="cuda"), 4)
+    assert not build.LAUNCHES

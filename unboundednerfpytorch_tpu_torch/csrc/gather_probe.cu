@@ -74,16 +74,42 @@
 //   kernel at lanes = 1.
 //   Stages are written and read only by the async proxy (bulk copy in, bulk
 //   store out), so no proxy fence stands between them.
-//   box_gather8: one block per box; the 128 KB box is staged in dynamic
-//   shared memory (opt-in above 48 KB), then every request is two 16-byte
-//   shared-memory reads and one coalesced 32-byte store.
+//   box_gather8: no staging. The TPU kernel brings a box into VMEM because
+//   its vector unit reads nothing else; here the 50 MB L2 cache plays that
+//   part. A request's 8 floats are one aligned 32-byte run of its box (float
+//   offset 8 * (code & 4095)), one L2 sector, read by two lanes with one
+//   16-byte load each, so HBM is read only for the runs that requests touch
+//   (1 - 1/e of them at 4096 random requests a box) and a run asked for again
+//   is an L2 hit. Consecutive requests go to consecutive lane pairs (a warp's
+//   store is 512 contiguous bytes); each lane loads one code of a chunk of 32
+//   requests (coalesced) and hands the run to its lane pair by a shuffle; a
+//   warp has kBoxChunks chunks of loads in flight before its stores; the grid
+//   is one warp per kBoxChunks * 32 requests, in request order, so the boxes
+//   in flight are few and consecutive. No shared memory: an SM holds as many
+//   blocks as their registers allow. Request indices are 32-bit where n_req
+//   allows (a 64-bit division a request is 5 % slower).
+//   Measured on an H100 (probes/variants.py --only box_gather8): about 66 %
+//   of the bound, within 10 % of a copy_ of as many bytes; more chunks in
+//   flight (2 to 8) or other block sizes are no faster, nor are loads that
+//   ask the L2 for 64 to 256 bytes, a 32-byte L2 fetch hint or streaming
+//   stores; its loads alone and its stores alone take about half the time
+//   each (PERF.md gives the times).
+//   Designs not taken (timed by that probe): the earlier one, a 512-thread
+//   block a box staging all 128 KB by its threads (one block an SM, two
+//   waves at the probe's 256 boxes, no overlap of a box's load and its
+//   stores: 1.6x slower); the TPU's, the box brought in by bulk copies
+//   (cp.async.bulk) on one mbarrier, which frees the threads but keeps one
+//   block an SM and reads whole boxes (4 % slower by graph, 5 % faster after
+//   an L2 flush); and a cluster of 2 or 4 blocks a box, each staging its
+//   part by bulk copies and reading its peers' parts through distributed
+//   shared memory (1.3x slower).
 //   box_sum: a box (0.5-1 MB) is larger than shared memory, so it is
 //   streamed: the innermost contiguous run is BZ*C elements; each thread owns
 //   one 16-byte vector of that run and walks the BX*BY rows with f32
 //   accumulators, then a fixed-order reduction through shared memory (no
 //   atomics: the sum's order is the same in every run).
-// Left for later: TMA box loads (cp.async.bulk.tensor) for box_sum and
-// box_gather8, which would take the address arithmetic off the threads.
+// Left for later: TMA box loads (cp.async.bulk.tensor) for box_sum, which
+// would take the address arithmetic off the threads.
 //
 // Indices are clamped into range (row ids into the table or tile, box codes
 // modulo 4096, box origins into the table), so a bad index reads a wrong row
@@ -326,27 +352,58 @@ int launch_gather_loop(const void* table, const void* idx, int idx64, long long 
 
 // ---------------------------------------------------------------------------
 
-constexpr int kBoxFloats = 16 * 16 * 16 * 8;  // 32768 floats = 128 KB
-constexpr int kBoxThreads = 512;
+constexpr int kBoxRuns = 4096;    // 32-byte runs (8 f32) in a 128 KB box
+constexpr int kBoxThreads = 256;  // threads a block
+constexpr int kBoxChunks = 1;     // chunks of 32 requests a warp has in flight
 
-__global__ void box_gather8_kernel(const float* __restrict__ box, const int* __restrict__ code,
-                                   long long n_req, int req_per_box, float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  const long long b = blockIdx.x;
-  const float4* src = reinterpret_cast<const float4*>(box + (size_t)b * kBoxFloats);
-  for (int v = threadIdx.x; v < kBoxFloats / 4; v += blockDim.x) smem4[v] = src[v];
-  __syncthreads();
-  const long long first = b * (long long)req_per_box;
-  float4* dst = reinterpret_cast<float4*>(out);
-  // two threads per request: one 16-byte half of its 8 floats each
-  for (int w = threadIdx.x; w < 2 * req_per_box; w += blockDim.x) {
-    const long long r = first + (w >> 1);
-    if (r >= n_req) break;
-    const int c = code[r] & 4095;  // dx*256 + dy*16 + dz
-    // float offset in the box: (dx*16 + dy)*128 + dz*8 = (c >> 4)*128 + (c & 15)*8
-    const int f4 = ((c >> 4) * 128 + (c & 15) * 8) / 4 + (w & 1);
-    dst[(size_t)r * 2 + (w & 1)] = smem4[f4];
+// Warp w serves the kBoxChunks * 32 requests from w * kBoxChunks * 32 on.
+// Lane l loads the code of request 32k + l of each chunk k (one coalesced
+// load a chunk) and resolves its run; then each half of the chunk's 16
+// requests is served by lane pairs, lanes 2j and 2j + 1 taking one 16-byte
+// half of request j's run, so that a warp's store covers 512 contiguous
+// bytes. I is the request index's type (32 bits where n_req allows).
+template <typename I>
+__global__ void __launch_bounds__(kBoxThreads)
+box_gather8_kernel(const float4* __restrict__ box, const int* __restrict__ code, I n_req,
+                   I req_per_box, float4* __restrict__ out) {
+  const int lane = threadIdx.x % 32;
+  const I first = ((I)blockIdx.x * (kBoxThreads / 32) + threadIdx.x / 32) * (kBoxChunks * 32);
+  long long run[kBoxChunks];  // box * kBoxRuns + (code & 4095), of request first + 32k + lane
+#pragma unroll
+  for (int k = 0; k < kBoxChunks; ++k) {
+    const I r = first + k * 32 + lane;
+    // code = dx*256 + dy*16 + dz; its float offset in the box,
+    // (dx*16 + dy)*128 + dz*8, is 8 * (code & 4095): run code & 4095
+    run[k] = r < n_req
+                 ? (long long)(r / req_per_box) * kBoxRuns + (__ldg(code + r) & (kBoxRuns - 1))
+                 : 0;
   }
+  float4 v[2 * kBoxChunks];
+#pragma unroll
+  for (int k = 0; k < kBoxChunks; ++k)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long src = __shfl_sync(0xffffffffu, run[k], h * 16 + lane / 2);
+      v[2 * k + h] = __ldg(box + src * 2 + (lane & 1));
+    }
+#pragma unroll
+  for (int k = 0; k < kBoxChunks; ++k)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const I r = first + k * 32 + h * 16 + lane / 2;
+      if (r < n_req) out[(size_t)r * 2 + (lane & 1)] = v[2 * k + h];
+    }
+}
+
+template <typename I>
+int launch_box_gather8(const void* box, const void* code, long long n_req, int req_per_box,
+                       void* out, cudaStream_t stream) {
+  const long long per_block = (long long)kBoxThreads / 32 * kBoxChunks * 32;
+  const long long blocks = (n_req + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  box_gather8_kernel<I><<<(unsigned)blocks, kBoxThreads, 0, stream>>>(
+      (const float4*)box, (const int*)code, (I)n_req, (I)req_per_box, (float4*)out);
+  return (int)cudaGetLastError();
 }
 
 __device__ __forceinline__ void add_bf16x8(const uint4& v, float* acc) {
@@ -433,14 +490,12 @@ int gather_tile_rows_loop(const void* table, const void* idx, int idx64, long lo
 int box_gather8(const void* box, const void* code, long long n_req, int req_per_box,
                 void* out, void* stream) {
   if (n_req <= 0) return 0;
-  const int smem = kBoxFloats * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(box_gather8_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n_req + req_per_box - 1) / req_per_box;
-  box_gather8_kernel<<<(unsigned)blocks, kBoxThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)box, (const int*)code, n_req, req_per_box, (float*)out);
-  return (int)cudaGetLastError();
+  if (req_per_box <= 0 || ((uintptr_t)box | (uintptr_t)out) % 16) return (int)cudaErrorInvalidValue;
+  // 32-bit request indices while a warp's last request, n_req + 32 * kBoxChunks, fits
+  if (n_req < (1LL << 31))
+    return launch_box_gather8<unsigned>(box, code, n_req, req_per_box, out, (cudaStream_t)stream);
+  return launch_box_gather8<unsigned long long>(box, code, n_req, req_per_box, out,
+                                                (cudaStream_t)stream);
 }
 
 int box_sum(const void* table, const void* org, int n_boxes, int X, int Y, int Z, int C,

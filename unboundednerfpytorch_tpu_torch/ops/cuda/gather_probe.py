@@ -13,8 +13,9 @@ indexing that the kernel is held against:
   gather_rows_loop, gather_tile_rows_loop       the same two functions by a
     row loop of bulk copies (the TPU probes' ``kernel2`` and ``p1_rowloop``),
     for rows of a multiple of 16 bytes on 16-byte aligned tables
-  box_gather8(box [nb*32, 8, 128] f32, code [nb*R] int32, R)
-                                                out[r] = 8 floats of request r
+  box_gather8(box [nb*32, 8, 128] f32, code [n <= nb*R] int32, R)
+                                                out[r] = 8 floats of request r,
+    from box r // R (on a 16-byte boundary), cell code & 4095
   box_sum(table [X, Y, Z, C] bf16, org [n, 3] int32, (BX, BY, BZ))
                                                 out[b] = f32 sum over the box
 
@@ -284,6 +285,9 @@ def box_gather8(box: Tensor, code: Tensor, req_per_box: int) -> Tensor:
                          f"need more than the {n_boxes} boxes given")
     if not (box.is_contiguous() and code.is_contiguous()):
         raise ValueError("box_gather8: tensors must be contiguous")
+    if box.data_ptr() % 16:
+        raise ValueError("box_gather8: the box does not start on a 16-byte boundary (a view "
+                         "into its storage?); the kernel reads 16-byte vectors")
     return _box_gather8_op(box, code, int(req_per_box))
 
 

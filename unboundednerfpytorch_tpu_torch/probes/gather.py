@@ -187,23 +187,47 @@ def probe_rows(ctx, gen, scale=1):
         for probe, kernel, run, extra in runs]
 
 
-def probe_box_gather8(ctx, gen, scale=1):
-    """Row 6: 8-channel requests into a box staged in shared memory. The
-    bound counts the 32-byte runs of the boxes that the requests touch."""
-    device, timer = ctx
-    n_boxes, R = max(1, BOX8_SHAPE[0] // scale), BOX8_SHAPE[1] // min(scale, 16)
+def box8_inputs(gen, device, n_boxes: int, R: int):
+    """(box [n_boxes*32, 8, 128] f32, code [n_boxes*R] int32) of the probe:
+    normal values, cells drawn uniformly."""
     box = torch.randn((n_boxes * gp.BOX_ROWS, 8, 128), generator=gen, device=device)
     dxyz = torch.randint(0, 16, (n_boxes * R, 3), generator=gen, device=device,
                          dtype=torch.int32)
-    code = dxyz[:, 0] * 256 + dxyz[:, 1] * 16 + dxyz[:, 2]
+    return box, dxyz[:, 0] * 256 + dxyz[:, 1] * 16 + dxyz[:, 2]
+
+
+def box8_runs(code, R: int):
+    """The 32-byte run each request of ``box_gather8`` reads, as a row of
+    ``box.view(-1, 8)``: box r // R, run ``code & 4095`` of it (the cell's
+    float offset (dx*16 + dy)*128 + dz*8 is 8 * code). int64, the index that
+    ``torch.index_select`` takes."""
     n = code.shape[0]
-    # a request reads one 32-byte run of its box: the runs touched, once each
-    touched = torch.unique(torch.arange(n, device=device) // R * 4096 + code).numel()
+    return torch.arange(n, device=code.device) // R * 4096 + (code.long() & 4095)
+
+
+def box8_bytes(runs) -> int:
+    """Bytes ``box_gather8`` must move: each 32-byte run that ``runs`` (from
+    :func:`box8_runs`) touches read once, the int32 codes, the output."""
+    n = runs.numel()
+    return int(torch.unique(runs).numel()) * 32 + n * 4 + n * 32
+
+
+def probe_box_gather8(ctx, gen, scale=1):
+    """Row 6: 8-channel requests into 128 KB boxes, each request's 32 bytes
+    read straight from global memory. The bound counts the 32-byte runs of
+    the boxes that the requests touch. The library call is
+    ``torch.index_select`` of the boxes as rows of 8 floats, the flat run
+    index (:func:`box8_runs`) made outside the timed call."""
+    device, timer = ctx
+    n_boxes, R = max(1, BOX8_SHAPE[0] // scale), BOX8_SHAPE[1] // min(scale, 16)
+    box, code = box8_inputs(gen, device, n_boxes, R)
+    runs = box8_runs(code, R)
+    rows = box.view(-1, 8)
     return [_record(
         "vreg_gather_f32", "box_gather8", ctx,
         lambda: gp.box_gather8(box, code, R), lambda: gp.box_gather8_plain(box, code, R),
-        None, touched * 32 + n * 4 + n * 32, True, {"n_boxes": n_boxes, "R": R},
-        {"M_req_per_s": n})]
+        lambda: torch.index_select(rows, 0, runs), box8_bytes(runs), True,
+        {"n_boxes": n_boxes, "R": R}, {"M_req_per_s": code.shape[0]})]
 
 
 def probe_box_sum(ctx, gen, scale=1):

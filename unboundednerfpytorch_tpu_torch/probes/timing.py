@@ -57,6 +57,29 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, launches: int = 1) -> float:
     return statistics.median(times) / launches
 
 
+
+def cold_ms(fn, iters: int = 20) -> float:
+    """Device ms of ``fn`` (one launch) with the 50 MB L2 cache flushed
+    before each call, as the train step leaves it for its one update of a
+    grid: CUDA events around each call just after a 256 MB fill, the mean
+    over ``iters`` after a warm-up. A spin of about a millisecond between
+    the fill and the first event keeps the card busy while the host makes
+    the call, so the events time the kernel and not the host's launch."""
+    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
+    total = 0.0
+    for i in range(iters + 2):
+        flush.fill_(float(i))
+        torch.cuda._sleep(2_000_000)  # cycles: about 1 ms at the H100's clock
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            total += start.elapsed_time(end)
+    del flush
+    return total / iters
+
 def kernel_ms(fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
     """(device ms a launch, ms a call through the wrapper) of ``fn``. They
     are one measurement for a call of ``SHORT_KERNEL_MS`` or more; a shorter

@@ -2,6 +2,7 @@
 
     python -m unboundednerfpytorch_tpu_torch.probes.variants [--only cumdist]
     python -m unboundednerfpytorch_tpu_torch.probes.variants --only gather_loop
+    python -m unboundednerfpytorch_tpu_torch.probes.variants --only box_gather8
 
 Each variant is the committed source of ``csrc/tv.cu`` or ``csrc/march.cu``
 with one constant replaced (a substitution that no longer finds its text
@@ -42,6 +43,18 @@ Whether the time follows the issuers a multiprocessor says if the bulk
 copies' issue or the copy engine and the memory bound a row loop of
 256-byte copies. Each is timed as many launches in one CUDA graph, whatever
 its length. Every variant's output is held equal to the plain version's.
+``box_gather8`` is timed at the gather probe's shape (256 boxes of 128 KB,
+4096 requests a box), by 50 launches in one CUDA graph and by one launch
+after a 256 MB fill of the L2 cache (``timing.cold_ms``): the committed
+design (each request's 32 bytes read straight from global memory, the L2
+cache holding the boxes) with other chunks in flight, block sizes, index
+widths, L2 fetch sizes and streaming stores, and its loads and its stores
+alone, against the designs that stage a box in shared memory
+(``BOX_STAGED_SOURCE``): the earlier one, whose threads copy the box in,
+and the TPU's with bulk copies, into one block or cut over a cluster of 2
+or 4 blocks that read each other's part through distributed shared memory;
+then a ``copy_`` of as many bytes (the card's copy rate) and
+``torch.index_select`` of the boxes as rows of 8 floats.
 Needs a GPU and ``nvcc``.
 """
 
@@ -57,7 +70,8 @@ import torch
 
 from unboundednerfpytorch_tpu_torch.device import resolve_device
 from unboundednerfpytorch_tpu_torch.ops.cuda import build, march
-from unboundednerfpytorch_tpu_torch.probes.timing import MANY_LAUNCHES, bound_ms, time_ms
+from unboundednerfpytorch_tpu_torch.probes.timing import (MANY_LAUNCHES, bound_ms, cold_ms,
+                                                           time_ms)
 
 K0_SHAPE = (7, 199, 199, 199, 12)  # bicycle_single's k0 grid, bf16
 MARCH_SHAPES = ((2048, 96, True), (8192, 96, False))  # N, S, residuals kept
@@ -183,6 +197,197 @@ def gather_loop_variants() -> dict[str, str]:
         "2 blocks an SM (2 issuers)": variant(warps=1, stage=8192, stages=8, ahead=6, per_sm=2),
     }
 
+
+BOX_STORE = "if (r < n_req) out[(size_t)r * 2 + (lane & 1)] = v[2 * k + h];"
+BOX_LOAD = "v[2 * k + h] = __ldg(box + src * 2 + (lane & 1));"
+
+
+def box_gather8_variants() -> dict[str, str]:
+    """The committed design (requests straight from global memory through
+    the L2 cache, no staging) with other chunks in flight and block sizes,
+    with loads that ask the L2 to fetch 64 to 256 bytes
+    (``ld.global.nc.L2::128B``), and with streaming stores
+    (``st.global.cs``: the output evicted first, so the boxes' lines stay in
+    the L2); and, to see which traffic sets the time, its loads alone and its
+    stores alone (wrong values)."""
+    src = build.SOURCES["gather_probe"].read_text()
+    chunks = "constexpr int kBoxChunks = {};"
+    threads = "constexpr int kBoxThreads = {};"
+
+    def variant(c=1, t=256):
+        return _sub(src, (chunks.format(1), chunks.format(c)),
+                    (threads.format(256), threads.format(t)))
+
+    def load(asm):
+        return _sub(src, (BOX_LOAD, "{ float4 t; asm(" + asm + " : \"=f\"(t.x), \"=f\"(t.y), "
+                          "\"=f\"(t.z), \"=f\"(t.w) : \"l\"(box + src * 2 + (lane & 1))); "
+                          "v[2 * k + h] = t; }"))
+
+    out = {"no staging, as committed: 256 threads a block, 1 chunk of 32 requests a warp in "
+           "flight": src}
+    for c in (2, 4, 8):
+        out[f"no staging, {c} chunks of 32 requests a warp in flight"] = variant(c=c)
+    for t in (128, 512):
+        out[f"no staging, {t} threads a block"] = variant(t=t)
+    out["no staging, the loads only (a store only where a value is 12345; wrong values)"] = _sub(
+        src, (BOX_STORE, BOX_STORE.replace("if (r < n_req)",
+                                           "if (r < n_req && v[2 * k + h].x == 12345.f)")))
+    out["no staging, the stores only (no box read; wrong values)"] = _sub(
+        src, (BOX_LOAD, "v[2 * k + h] = make_float4((float)src, 0.f, 0.f, 0.f);"))
+    out["no staging, 64-bit request indices (a 64-bit division a request)"] = _sub(
+        src, ("if (n_req < (1LL << 31))", "if (false)"))
+    for fetch in (64, 128, 256):
+        out[f"no staging, loads that ask the L2 to fetch {fetch} bytes"] = load(
+            f'"ld.global.nc.L2::{fetch}B.v4.f32 {{%0, %1, %2, %3}}, [%4];"')
+    out["no staging, streaming stores (st.global.cs)"] = _sub(
+        src, (BOX_STORE, BOX_STORE.replace("out[(size_t)r * 2 + (lane & 1)] = v[2 * k + h];",
+                                           "__stcs(out + (size_t)r * 2 + (lane & 1), "
+                                           "v[2 * k + h]);")))
+    return out
+
+
+# the designs of box_gather8 that stage a box in shared memory: the earlier
+# one (the threads copy the whole box in, then serve its requests), and the
+# TPU's with bulk copies, the box cut over a cluster of `cluster` blocks (1,
+# 2 or 4) that read each other's part through distributed shared memory
+BOX_STAGED_SOURCE = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+constexpr int kBoxBytes = 131072;
+constexpr int kPiece = 32768;  // bytes a bulk copy
+constexpr int kThreads = 512;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// the earlier kernel as it stood: one block a box, the threads stage it whole
+__global__ void box_gather8_threads(const float* __restrict__ box, const int* __restrict__ code,
+                                    long long n_req, int req_per_box, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const long long b = blockIdx.x;
+  const float4* src = reinterpret_cast<const float4*>(box + (size_t)b * (kBoxBytes / 4));
+  for (int v = threadIdx.x; v < kBoxBytes / 16; v += blockDim.x) smem4[v] = src[v];
+  __syncthreads();
+  const long long first = b * (long long)req_per_box;
+  float4* dst = reinterpret_cast<float4*>(out);
+  for (int w = threadIdx.x; w < 2 * req_per_box; w += blockDim.x) {
+    const long long r = first + (w >> 1);
+    if (r >= n_req) break;
+    const int c = code[r] & 4095;
+    const int f4 = ((c >> 4) * 128 + (c & 15) * 8) / 4 + (w & 1);
+    dst[(size_t)r * 2 + (w & 1)] = smem4[f4];
+  }
+}
+
+// block `rank` of a box's cluster stages part `rank` of the box (kBoxBytes /
+// CL bytes) by bulk copies counted on one mbarrier, and serves part `rank`
+// of the box's requests, reading each run from the block that holds it
+template <int CL>
+__global__ void __launch_bounds__(kThreads)
+box_gather8_bulk(const char* __restrict__ box, const int* __restrict__ code, long long n_req,
+                 int req_per_box, float4* __restrict__ out) {
+  constexpr int kPart = kBoxBytes / CL;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem + kPart);
+  int rank = 0;
+  if constexpr (CL > 1) rank = (int)cg::this_cluster().block_rank();
+  const long long b = blockIdx.x / CL;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+                 "r"(kPart) : "memory");
+    const char* src = box + (size_t)b * kBoxBytes + (size_t)rank * kPart;
+    for (int p = 0; p < kPart; p += kPiece)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];\n" ::"r"(smem_addr(smem + p)), "l"(src + p), "r"(min(kPiece, kPart - p)),
+          "r"(smem_addr(bar)) : "memory");
+  }
+  __syncthreads();
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], 0;\n"
+      "@!done bra LAB_WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)) : "memory");
+  if constexpr (CL > 1) cg::this_cluster().sync();  // every part of the box has landed
+  const long long first = b * (long long)req_per_box;
+  const long long last = min(first + req_per_box, n_req);
+  const long long share = (last - first + CL - 1) / CL;
+  const long long lo = first + rank * share, hi = min(last, lo + share);
+  for (long long w = 2 * lo + threadIdx.x; w < 2 * hi; w += kThreads) {
+    const int off = (code[w >> 1] & 4095) * 32 + (int)(w & 1) * 16;  // byte in the box
+    const unsigned char* part = smem;
+    if constexpr (CL > 1) part = cg::this_cluster().map_shared_rank(smem, off / kPart);
+    out[w] = *reinterpret_cast<const float4*>(part + off % kPart);
+  }
+  if constexpr (CL > 1) cg::this_cluster().sync();  // no block leaves while a peer reads it
+}
+
+template <int CL>
+int launch_bulk(const void* box, const void* code, long long n_req, int R, void* out,
+                cudaStream_t stream) {
+  const int smem = kBoxBytes / CL + 16;
+  auto kernel = box_gather8_bulk<CL>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(CL * ((n_req + R - 1) / R)));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const char*)box, (const int*)code, n_req, R,
+                           (float4*)out);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int box_gather8_threads_launch(const void* box, const void* code, long long n_req,
+                                          int R, void* out, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(box_gather8_threads,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kBoxBytes);
+  if (err != cudaSuccess) return (int)err;
+  box_gather8_threads<<<(unsigned)((n_req + R - 1) / R), kThreads, kBoxBytes,
+                        (cudaStream_t)stream>>>((const float*)box, (const int*)code, n_req, R,
+                                                (float*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int box_gather8_bulk_launch(const void* box, const void* code, long long n_req,
+                                       int R, int cluster, void* out, void* stream) {
+  auto s = (cudaStream_t)stream;
+  switch (cluster) {
+    case 1: return launch_bulk<1>(box, code, n_req, R, out, s);
+    case 2: return launch_bulk<2>(box, code, n_req, R, out, s);
+    case 4: return launch_bulk<4>(box, code, n_req, R, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the L2 cache's fetch granularity hint for this process's context
+extern "C" int l2_fetch_granularity(int bytes) {
+  size_t old = 0;
+  cudaDeviceGetLimit(&old, cudaLimitMaxL2FetchGranularity);
+  if (bytes > 0) cudaDeviceSetLimit(cudaLimitMaxL2FetchGranularity, (size_t)bytes);
+  return (int)old;
+}
+"""
+BOX_CLUSTERS = (1, 2, 4)
 
 # the design not taken for cumdist_thres: k lanes a ray (k divides 32, the
 # lanes of a ray neighbours in a warp), distances and flags straight from and
@@ -506,14 +711,93 @@ def run_gather_loop(gen, emit) -> None:
                   "bound_ms": bnd, "share_of_bound": bnd / ms})
 
 
+
+def run_box_gather8(gen, emit) -> None:
+    from unboundednerfpytorch_tpu_torch.ops.cuda import gather_probe as gp
+    from unboundednerfpytorch_tpu_torch.probes import gather
+
+    libs = compile_all(box_gather8_variants(), "gather_probe")
+    staged = compile_all({"staged": BOX_STAGED_SOURCE}, "box_staged")["staged"]
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for lib in libs.values():
+        lib.box_gather8.restype = I
+        lib.box_gather8.argtypes = [P, P, LL, I, P, P]
+    staged.box_gather8_threads_launch.restype = I
+    staged.box_gather8_threads_launch.argtypes = [P, P, LL, I, P, P]
+    staged.box_gather8_bulk_launch.restype = I
+    staged.box_gather8_bulk_launch.argtypes = [P, P, LL, I, I, P, P]
+    staged.l2_fetch_granularity.restype = I
+    staged.l2_fetch_granularity.argtypes = [I]
+
+    n_boxes, R = gather.BOX8_SHAPE
+    box, code = gather.box8_inputs(gen, torch.device("cuda"), n_boxes, R)
+    n = code.shape[0]
+    flat = gather.box8_runs(code, R)
+    want = gp.box_gather8_plain(box, code, R)
+    out = torch.empty_like(want)
+    bnd = bound_ms(gather.box8_bytes(flat), 0)[0]
+    head = (box.data_ptr(), code.data_ptr(), n, R)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    # name: (launch, L2 fetch granularity to set around it, or 0)
+    runs = {name: ((lambda lib=lib: lib.box_gather8(*head, out.data_ptr(), stream())), 0)
+            for name, lib in libs.items()}
+    committed = libs[next(iter(libs))]
+    runs["no staging, as committed, L2 fetch granularity hint 32 bytes"] = (
+        lambda: committed.box_gather8(*head, out.data_ptr(), stream()), 32)
+    runs["the earlier design: a block a box, 512 threads stage it whole"] = (
+        lambda: staged.box_gather8_threads_launch(*head, out.data_ptr(), stream()), 0)
+    for cl in BOX_CLUSTERS:
+        label = ("the box by bulk copies into one block" if cl == 1 else
+                 f"a cluster of {cl} blocks a box, each a {128 // cl} KB part by bulk copies, "
+                 "read through distributed shared memory")
+        runs[label] = (lambda cl=cl: staged.box_gather8_bulk_launch(*head, cl, out.data_ptr(),
+                                                                    stream()), 0)
+
+    def launch(fn):
+        err = fn()
+        if err != 0:
+            raise RuntimeError(f"box_gather8 variant: CUDA error {err}")
+
+    shape = {"n_boxes": n_boxes, "R": R}
+    for rnd in range(2):
+        for name, (fn, fetch) in runs.items():
+            old = staged.l2_fetch_granularity(fetch) if fetch else 0
+            out.zero_()
+            launch(fn)
+            torch.cuda.synchronize()
+            ms = time_ms(lambda: launch(fn), launches=MANY_LAUNCHES)
+            cold = cold_ms(lambda: launch(fn))
+            if fetch:
+                staged.l2_fetch_granularity(old)
+            emit({"kernel": "box_gather8", "shape": shape, "variant": name, "round": rnd,
+                  "equal_to_plain": bool(torch.equal(out, want)), "ms": ms, "cold_ms": cold,
+                  "bound_ms": bnd, "share_of_bound": bnd / ms})
+        # the card's copy rate on as many bytes (not the function)
+        copy = torch.empty_like(box)
+        emit({"kernel": "box_gather8", "shape": shape, "round": rnd,
+              "variant": "reference: copy_ of the 33.5 MB of boxes (another function)",
+              "ms": time_ms(lambda: copy.copy_(box), launches=MANY_LAUNCHES),
+              "cold_ms": cold_ms(lambda: copy.copy_(box)), "bound_ms": bnd})
+        del copy
+        lib_out = torch.index_select(box.view(-1, 8), 0, flat)
+        ms = time_ms(lambda: torch.index_select(box.view(-1, 8), 0, flat),
+                     launches=MANY_LAUNCHES)
+        cold = cold_ms(lambda: torch.index_select(box.view(-1, 8), 0, flat))
+        emit({"kernel": "box_gather8", "shape": shape, "variant": "torch.index_select",
+              "round": rnd, "equal_to_plain": bool(torch.equal(lib_out, want)), "ms": ms,
+              "cold_ms": cold, "bound_ms": bnd, "share_of_bound": bnd / ms})
+
 RUNS = {"tv": run_tv, "march": run_march, "march_backward": run_march_backward,
-        "cumdist": run_cumdist, "gather_loop": run_gather_loop}
+        "cumdist": run_cumdist, "gather_loop": run_gather_loop, "box_gather8": run_box_gather8}
 
 
 def main(argv=None) -> list:
     """Prints one JSON line per variant and round and returns the records.
     ``--only cumdist`` (or ``tv``, ``march``, ``march_backward``,
-    ``gather_loop``) runs one kernel's variants."""
+    ``gather_loop``, ``box_gather8``) runs one kernel's variants."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=sorted(RUNS), action="append")
     args = ap.parse_args([] if argv is None else argv)
