@@ -303,13 +303,34 @@ Phases, each reported on its own line:
      the slabs' TV, joined, against the whole grid's to the bit; the halo
      launches' times join ``tv_add_grad``'s shape lines in the kernel table
      (comparisons: they count on no path). Several cards are
-     ``probes/multi_gpu.py``'s, under ``torchrun``.
+     ``probes/multi_gpu.py``'s, under ``torchrun``;
+ 15. the rest of the package. 15a traces through ``utils.profiling.trace``,
+     each printed as device busy per step against the unprofiled step, by
+     range and by kernel: ``voxel_count_views`` of 9a's first training view
+     (traced and untraced, the counts equal but for voxels whose sum lies
+     within rounding of 1), ``TRACE_STEPS`` more steps of 10c's TensoRF run after its timed
+     ones, ``BN_TRACE_STEPS`` Block-NeRF steps of 13c's block_0 after 13d,
+     and 9a's DVGO fine step in the last steps of 15b's third resume. 15b: 9a's
+     lego model with Adam's state written in the JAX package's layout (flax
+     msgpack, by the port's own writer) and read back (seconds and GB),
+     ``--render_only --ft_path`` of it equal to the bit to 9a's render, and
+     ``RESUME_STEPS`` steps resumed from it and from the native checkpoint
+     under deterministic algorithms, every loss equal to the bit; 13c's
+     blocks saved in the JAX entry point's layout and composed by
+     ``tools.eval_block_nerf`` equal to the bit to the native blocks' view.
+     15c ``cameras.pixels_to_rays`` of a ``CAM_H`` x ``CAM_W`` OPENCV and
+     fisheye view, card against CPU within ``CAM_TOL``; 15d the GTK
+     regression, card against CPU within ``GTK_TOL``; 15e 13a's records split
+     by the native framing (host C++, built in phase 2), equal to the Python
+     framing's, both timed. 11a also takes its ``.tar`` through the two
+     migration command lines and renders the imported directory, equal to
+     the bit to the ``.tar``'s render.
 
 ``--profile`` also traces the last train steps and one rendered view with
-``torch.profiler`` and prints the device time by range and by kernel.
+``utils.profiling.trace`` and prints the device time by range and by kernel.
 ``--kernels-only`` stops after phase 3 and prints the kernel table without
 launch counts and without the last line (a quick check of a changed kernel).
-The kernel table's launches are those of phases 4 to 14 and of the probe run.
+The kernel table's launches are those of phases 4 to 15 and of the probe run.
 Near the end it prints the seconds and the GiB written (``/proc/self/io``) by
 phase: a chip call may write 45 GiB, deleted files included.
 
@@ -451,6 +472,19 @@ CO3D_COARSE_STEPS, CO3D_FINE_STEPS, CO3D_PG_SCALE = 1000, 9, (2, 3, 4, 5)
 # 10c: the six boundaries at steps 2-7, ending at 384^3; one 800x800 test
 # view, uncached: every sample of a ray goes through the TensoRF fields
 SHIP_FINE_STEPS, SHIP_PG_SCALE = 11, (2, 3, 4, 5, 6, 7)
+# phase 15a: the steps traced after a run's timed steps (10c) or of a resume
+# (15b's DVGO fine step); Block-NeRF's steps after 13d
+TRACE_STEPS, BN_TRACE_STEPS = 2, 3
+# phase 15b: the steps of each resume from lego's checkpoints
+RESUME_STEPS = 3
+# phase 15c: a view of bicycle's size at factor 4, its focal length; the
+# card against the CPU within CAM_TOL (absolute, relative), the tolerance of
+# tests/test_torch_port_cameras.py against JAX
+CAM_H, CAM_W, CAM_F = 822, 1237, 1100.0
+CAM_TOL = (2e-6, 1e-5)
+# phase 15d: the predictions' tolerance, then the losses' (absolute,
+# relative), those of tests/test_torch_port_gtk.py against JAX
+GTK_TOL = (2e-5, 1e-5, 1e-4)
 # 10d: Madoka at factor 2: 12 views of 540x960; DMPIGO's planes start at equal
 # weight, so its coarse PSNR passes 30 within 50 steps, but the alpha of its
 # free space sinks slowly (the median of the nearest plane 0.0049 at step 300,
@@ -777,6 +811,10 @@ def phase_build() -> None:
     t0 = time.time()
     logs = build.build(ptxas_verbose=True)
     log(f"[2] built {sorted(build.SOURCES)} in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    build.load_host("tfrecord_io")  # host code: the TFRecord framing (phases 13a, 15e)
+    log(f"[2] built and loaded the host library tfrecord_io with {build.host_compiler()} in "
+        f"{time.time() - t0:.1f} s")
     for name, text in sorted(logs.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1334,12 +1372,38 @@ def profile_summary(tag: str, prof, n_units: int, unit: str, unit_ms: float, ran
             f"{e.count / n_units:6.1f}x  {e.key[:110]}")
 
 
-def make_profiler():
-    import torch
+class TraceWindow:
+    """``utils.profiling.trace`` into ``log_dir``, opened by ``start`` and
+    closed by ``stop`` (a window of steps inside a step callback); it reads
+    as the profiler (``key_averages``). The profiler is made at ``start``
+    only: an unused profiler object crashes the interpreter at exit
+    ("Requested callback is not found", torch 2.11)."""
 
-    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                              torch.profiler.ProfilerActivity.CUDA],
-                                  acc_events=True)
+    def __init__(self, log_dir):
+        from unboundednerfpytorch_tpu_torch.utils import profiling
+
+        self.path = os.path.join(str(log_dir), profiling.TRACE_FILE)
+        self._cm = profiling.trace(str(log_dir), device="cuda")
+        self.prof = None
+
+    def start(self) -> None:
+        self.prof = self._cm.__enter__()
+
+    def stop(self) -> None:
+        self._cm.__exit__(None, None, None)
+
+    def key_averages(self):
+        return self.prof.key_averages()
+
+    def report(self, tag: str, n_units: int, unit: str, unit_ms: float, ranges=()) -> None:
+        """``profile_summary`` of the window, and the trace file's size."""
+        profile_summary(tag, self, n_units, unit, unit_ms, ranges)
+        log(f"{tag} trace {os.path.relpath(self.path, tempfile.gettempdir())} in the temporary "
+            f"directory: {os.path.getsize(self.path) / 1e6:.1f} MB")
+
+
+def make_profiler(log_dir):
+    return TraceWindow(log_dir)
 
 
 def phase_scene(tmp: pathlib.Path, views: int):
@@ -1416,7 +1480,7 @@ def phase_train(cfg, steps: int, data, profile: bool, exp_dir: str, card: str,
     first_profiled = steps - PROFILED_STEPS + 1 if profile else steps + 1
     # made only when asked for: an unused profiler object crashes the
     # interpreter at exit ("Requested callback is not found", torch 2.11)
-    prof = make_profiler() if profile else None
+    prof = make_profiler(os.path.join(exp_dir, "trace")) if profile else None
 
     def callback(step, metrics):
         loss = float(metrics["loss"])  # synchronises the step
@@ -1889,7 +1953,7 @@ def phase_render(cfg, data, exp_dir: str, cfg_file: str, profile: bool,
             aux=(params, baked), inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
             flip_y=cfg.data.flip_y)
         view()
-        prof = make_profiler()
+        prof = make_profiler(os.path.join(exp_dir, "trace_render"))
         prof.start()
         for _ in range(2):
             view()
@@ -3512,6 +3576,37 @@ def phase_cli_lego(cfg_file: str, card: str) -> list:
         run_cli(["--config", cfg_file, "--i_print", "1", "--render_test"])
     total_s = time.time() - t0
     found = report_dvgo_spies("[9a]", *spies)
+    # phase 15a: voxel_count_views over the first training view, once untimed
+    # by the trace and once traced (a call over every view writes a trace of
+    # some 560 MB: 69 chunks a view, some 28 launches a chunk)
+    from unboundednerfpytorch_tpu_torch.models import dvgo
+
+    vcv = spies[0].calls[0]
+    params_v, cfg_v, rays_o, rays_d = vcv.args[:4]
+
+    def one_view():
+        return dvgo.voxel_count_views(params_v, cfg_v, rays_o[:1], rays_d[:1], *vcv.args[4:],
+                                      **vcv.kwargs)
+
+    t0 = time.perf_counter()
+    counts_one = one_view()
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    window = TraceWindow(os.path.join(exp_dir, "trace_voxel_count_views"))
+    window.start()
+    again = one_view()
+    window.stop()
+    # a voxel whose weight sum lies within rounding of 1 may count otherwise
+    # (index_add_ sums in another order each run): a few at most
+    moved = int((again != counts_one).sum())
+    if moved > 1e-3 * again.numel() or float(again.max()) > 1:
+        raise AssertionError(f"[15a] voxel_count_views of one view: {moved} voxels counted "
+                             f"otherwise, the most {float(again.max())}")
+    log(f"[15a] voxel_count_views of 9a's first training view, untraced {one_ms:.1f} ms, then "
+        f"traced: {moved} of {again.numel()} voxels counted otherwise (a weight sum within "
+        f"rounding of 1)")
+    window.report("[15a] 9a's voxel_count_views (one view)", 1, "call", one_ms)
+    del vcv, again, counts_one, params_v, rays_o, rays_d
     render = renders.calls[-1]
     out = render.result["test"]
     n_test = LEGO_HELD
@@ -3556,6 +3651,7 @@ def phase_cli_lego(cfg_file: str, card: str) -> list:
     coarse_ms = stage_ms(exp_dir, "coarse", 3, ct.N_iters)
     first = ft.pg_scale[-1] + 1 + WARMUP_STEPS
     fine_ms = stage_ms(exp_dir, "fine", first, ft.N_iters)
+    SHARED["9a"]["fine_ms"] = float(np.median(fine_ms))
     log(f"[9a] lego.py on {card}: coarse ms/step (steps 3 to {ct.N_iters}) median "
         f"{float(np.median(coarse_ms)):.2f}, min {min(coarse_ms):.2f}; fine grids {tuple(ws)} "
         f"from step {ft.pg_scale[-1]}, ms/step "
@@ -3913,7 +4009,8 @@ def phase_ship(tmp: pathlib.Path, card: str, lego_file: str, paths: dict) -> lis
     lego = loader.load_config(lego_file)
     cfg_file = compressed(SHIP_CONFIG, tmp, "ship_tensorf", f"dict(datadir={lego.data.datadir!r})",
                           coarse_train=dict(N_iters=lego.coarse_train.N_iters),
-                          fine_train=dict(N_iters=SHIP_FINE_STEPS, pg_scale=list(SHIP_PG_SCALE),
+                          fine_train=dict(N_iters=SHIP_FINE_STEPS + TRACE_STEPS,
+                                          pg_scale=list(SHIP_PG_SCALE),
                                           decay_after_scale=COMPRESSED_DECAY))
     cfg = loader.load_config(cfg_file)
     ft, fm = cfg.fine_train, cfg.fine_model_and_render
@@ -3933,6 +4030,8 @@ def phase_ship(tmp: pathlib.Path, card: str, lego_file: str, paths: dict) -> lis
         f"{list(ft.pg_scale)}, decay_after_scale {own.fine_train.decay_after_scale} -> "
         f"{ft.decay_after_scale}; 9a's capture loaded in {load_s:.2f} s")
     stamps, bounds = [], []
+    # phase 15a: the TRACE_STEPS steps after the timed ones, traced
+    window = TraceWindow(os.path.join(exp_dir, "trace"))
 
     def callback(step, metrics):
         if not np.isfinite(float(metrics["loss"])):  # synchronises the step
@@ -3941,6 +4040,10 @@ def phase_ship(tmp: pathlib.Path, card: str, lego_file: str, paths: dict) -> lis
         torch.cuda.reset_peak_memory_stats()
         if "pg_scale" in metrics:
             bounds.append(metrics["pg_scale"])
+        if step == SHIP_FINE_STEPS:
+            window.start()
+        elif step == ft.N_iters:
+            window.stop()
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3966,12 +4069,16 @@ def phase_ship(tmp: pathlib.Path, card: str, lego_file: str, paths: dict) -> lis
     peaks = [p for _, p in stamps]
     first = ft.pg_scale[-1] + 1 + WARMUP_STEPS
     n_samples = loop.FAMILIES[family].n_samples(mcfg, fm.stepsize)
+    step_ms = float(np.median(dts[first - 1:SHIP_FINE_STEPS]))
     log(f"[10c] ship.tensorf.py on {card}: fields at {mcfg.world_size} ({n_samples} samples a "
         f"ray) from step {ft.pg_scale[-1]}; ms/step {[round(float(t), 1) for t in dts]} (the "
-        f"first with the stage's set-up), at full width median "
-        f"{float(np.median(dts[first - 1:])):.1f}; peak memory by step "
+        f"first with the stage's set-up, the last {TRACE_STEPS} traced), at full width median "
+        f"{step_ms:.1f} (steps {first} to {SHIP_FINE_STEPS}); peak memory by step "
         f"{[round(x, 2) for x in peaks]} GB; in_maskcache kept {rep['kept']} of {rep['rays']} "
         f"rays; launches {counts}")
+    window.report("[15a] 10c's TensoRF step", TRACE_STEPS, "step", step_ms,
+                  ("train_loop/batch", "train_step/forward_loss", "train_step/tv",
+                   "train_step/adam"))
     # one test view, uncached (a TensoRF model has no render cache)
     params.requires_grad_(False)
     if loop.FAMILIES[family].build_render_cache(params, mcfg) is not None:
@@ -4422,6 +4529,7 @@ def phase_tar_cli(tmp: pathlib.Path, card: str, lego_file: str, paths: dict) -> 
     if render_counts != {"march_forward": n_test * chunks}:
         raise AssertionError(f"[11a] render of the .tar: launches {render_counts}")
     raw = views.calls[0].result["rgbs"]
+    SHARED["11a"] = {"rgbs": raw}
     line = close_rays("[11a] the .tar's test views against 9a's", raw, SHARED["9a"]["rgbs"])
     log(f"[11a] lego.tar on {card}: exported from fine_last (step {step}) in {export_s:.2f} s, "
         f"{os.path.getsize(tar) / 1e9:.3f} GB on disk; imported onto the card in "
@@ -5574,13 +5682,34 @@ def phase_block_nerf(tmp: pathlib.Path, card: str, decoded: str) -> None:
         view = overlap[0]
         out = str(tmp / "block_nerf_compose")
         t0 = time.time()
-        with Spy(compose, "render_block") as renders:
+        with Spy(compose, "render_block") as renders, Spy(compose, "compose_view") as composed:
             if eval_block_nerf.main(["--root_dir", root, "--ckpt_dir", "logs/block_nerf",
                                      "--out_dir", out, "--cam_begin", view,
                                      "--cam_end", view]) != 0:
                 raise AssertionError("[13c] eval_block_nerf")
         compose_s = time.time() - t0
         frame = png.imread(os.path.join(out, f"{view}.png"))
+        # phase 15b: the blocks in the JAX entry point's layout (params.msgpack)
+        for block in blocks:
+            model, meta_b = ckpt.load_block_nerf(os.path.join("logs", "block_nerf", block))
+            ckpt.save_jax_block_nerf(os.path.join("logs", "block_nerf_jax", block), model,
+                                     {k: meta_b[k] for k in ("block", "steps", "psnr")})
+        with Spy(compose, "compose_view") as composed_jax:
+            if eval_block_nerf.main(["--root_dir", root, "--ckpt_dir", "logs/block_nerf_jax",
+                                     "--out_dir", out + "_jax", "--cam_begin", view,
+                                     "--cam_end", view]) != 0:
+                raise AssertionError("[15b] eval_block_nerf of the JAX-layout blocks")
+        native_rgb, jax_rgb = (c.calls[0].result[0] for c in (composed, composed_jax))
+        if sorted(native_rgb) != sorted(jax_rgb) or not all(
+                np.array_equal(native_rgb[k], jax_rgb[k]) for k in native_rgb):
+            raise AssertionError("[15b] the JAX-layout blocks composed another view")
+        msgpack_mb = sum(os.path.getsize(os.path.join("logs", "block_nerf_jax", b, ckpt.JAX_PARAMS))
+                         for b in blocks) / 1e6
+        log(f"[15b] the Block-NeRF blocks saved in the JAX entry point's layout "
+            f"({msgpack_mb:.2f} MB of params.msgpack), then eval_block_nerf --ckpt_dir "
+            f"logs/block_nerf_jax: view "
+            f"{view} and each block's render equal to the bit to the native blocks' "
+            f"({sorted(native_rgb)})")
     finally:
         os.chdir(cwd)
     H, W = WAYMO_H // 4, WAYMO_W // 4
@@ -5665,6 +5794,32 @@ def phase_block_nerf(tmp: pathlib.Path, card: str, decoded: str) -> None:
             n_batch_flips > BN_MAX_FLIPPED * 1024:
         raise AssertionError(f"[13d] {worst}: {errs[worst]} > {BN_TOL}, or {n_flips} and "
                              f"{n_batch_flips} rays with fine depths in another bin")
+
+    # phase 15a: train steps of block_0's model, 2 untraced, then BN_TRACE_STEPS traced
+    del cpu_model, grads
+    dev_store = {k: torch.as_tensor(v, device="cuda") for k, v in store.items()}
+    optimizer, scheduler = training.make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    window = TraceWindow(tmp / "trace_block_nerf")
+
+    def step():
+        idx = torch.randint(0, dev_store["rgbs"].shape[0], (1024,), generator=gen,
+                            device="cuda")
+        metrics = training.train_step(model, optimizer, scheduler,
+                                      {k: v[idx] for k, v in dev_store.items()}, generator=gen,
+                                      **kw)
+        if not torch.isfinite(metrics["loss"]):
+            raise AssertionError(f"[15a] Block-NeRF step: loss {float(metrics['loss'])}")
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    window.start()
+    for _ in range(BN_TRACE_STEPS):
+        step()
+    window.stop()
+    window.report("[15a] 13c's Block-NeRF step", BN_TRACE_STEPS, "step",
+                  trained["block_0"]["step_ms"])
 
 
 def phase_block_kernels(gen, kernels: list, shapes, floor: float, seen: set,
@@ -5918,6 +6073,268 @@ def phase_halo(gen, kernels: list, shapes, floor: float, card: str) -> None:
                     "tv_halo_shapes": [str(c[0]) for c in cases]}))
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the rest of the package: traces (15a, inside 9a, 10c and 13d),
+# JAX-format checkpoints (15b), cameras (15c), the GTK regression (15d), the
+# native TFRecord framing (15e), and 11a's migration command lines
+
+
+def phase_jax_checkpoint(tmp: pathlib.Path, card: str, lego_file: str) -> list:
+    """Phase 15b, and 15a's DVGO fine step: 9a's nerf/lego.py model (DVGO at
+    full width, with Adam's state) written by ``save_jax_model`` in the JAX
+    package's layout (flax msgpack) and read back (seconds and GB of each,
+    the native checkpoint's read beside them; every tensor equal); the
+    command line's ``--render_only --ft_path <JAX dir>``, whose test views
+    must be 9a's render to the bit; then ``run_train`` resumed for
+    ``RESUME_STEPS`` steps from each checkpoint, deterministic algorithms on,
+    each loss equal to the bit; and a third resume from the native one,
+    with the algorithms as a run takes them, whose last ``TRACE_STEPS``
+    steps are traced. Returns [the render's counts, the traced resume's]."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch import render as render_mod
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import common
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.optim import factory
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
+    lego = loader.load_config(lego_file)
+    native = os.path.join(lego.basedir, lego.expname, "fine_last")
+    jax_dir = str(tmp / "lego_jax_fine_last")
+    t0 = time.perf_counter()
+    family, mcfg, params, step, opt = ckpt.load_model(native, device="cuda")
+    torch.cuda.synchronize()
+    native_read_s = time.perf_counter() - t0
+    optim = factory.make_optimizer(params, lego.fine_train)
+    optim.load_state_dict(opt)
+    t0 = time.perf_counter()
+    ckpt.save_jax_model(jax_dir, family, mcfg, params, step, optim.state_dict())
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fam2, mcfg2, params2, step2, opt2 = ckpt.load_model(jax_dir, device="cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    same = (fam2, mcfg2, step2) == (family, mcfg, step) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in
+        zip(params.state_dict().values(), params2.state_dict().values()))
+    for key in ("exp_avg", "exp_avg_sq"):
+        same = same and all(np.array_equal(np.asarray(a), np.asarray(b))
+                            for g in opt[key] for a, b in zip(opt[key][g], opt2[key][g]))
+    if not same or opt2["step"] != opt["step"]:
+        raise AssertionError("[15b] the JAX-layout checkpoint read back other values")
+    log(f"[15b] lego.py's fine_last (DVGO {tuple(mcfg.world_size)}, step {step}, with Adam's "
+        f"state) on {card}: written in the JAX layout by save_jax_model in {write_s:.2f} s, "
+        f"{dir_gb(jax_dir):.3f} GB; read onto the card in {read_s:.2f} s (the native "
+        f"checkpoint, {dir_gb(native):.3f} GB: {native_read_s:.2f} s); every tensor and moment "
+        f"equal to the native checkpoint's")
+    del params, params2, optim, opt, opt2
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    t0 = time.time()
+    with render_spy() as renders, Spy(render_mod, "render_viewpoints") as views:
+        run_cli(["--config", lego_file, "--render_only", "--render_test", "--ft_path", jax_dir])
+    render_s = time.time() - t0
+    rgbs = views.calls[0].result["rgbs"]
+    if not np.array_equal(rgbs, SHARED["9a"]["rgbs"]):
+        raise AssertionError(f"[15b] the JAX-layout checkpoint's render is not 9a's: largest "
+                             f"difference {float(np.abs(rgbs - SHARED['9a']['rgbs']).max())}")
+    render_counts = renders.calls[0].launches
+    log(f"[15b] --render_only --ft_path <the JAX-layout directory>: {len(rgbs)} test views of "
+        f"{LEGO_H}x{LEGO_W} equal to the bit to 9a's render of its native checkpoint (the "
+        f"command {render_s:.1f} s); launches {render_counts}")
+
+    cfg_file = tmp / "lego_resume.py"
+    cfg_file.write_text(f"_base_ = {lego_file!r}\nexpname = 'lego_resume'\n"
+                        f"coarse_train = dict(N_iters=0)\n"
+                        f"fine_train = dict(N_iters={step + RESUME_STEPS}, i_panel=0)\n")
+    cfg = loader.load_config(str(cfg_file))
+    data = common.load_everything(cfg)
+
+    def resume(ft_path: str, deterministic: bool, window=None):
+        losses = []
+
+        def callback(k, metrics):
+            losses.append(float(metrics["loss"]))
+            if window is not None and k == step + RESUME_STEPS - TRACE_STEPS:
+                window.start()
+            elif window is not None and k == step + RESUME_STEPS:
+                window.stop()
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # cuBLAS under deterministic algorithms
+            torch.use_deterministic_algorithms(deterministic, warn_only=True)
+            try:
+                t0 = time.time()
+                loop.run_train(cfg, data, device="cuda", log_fn=lambda _: None,
+                               callback=callback, ft_path=ft_path)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        return losses, time.time() - t0
+
+    got = {name: resume(path, True) for name, path in (("native", native), ("jax", jax_dir))}
+    if got["native"][0] != got["jax"][0] or len(got["jax"][0]) != RESUME_STEPS:
+        raise AssertionError(f"[15b] resumed losses {got}")
+    reset_counts()
+    window = TraceWindow(tmp / "trace_lego_resume")
+    losses, traced_s = resume(native, False, window)
+    counts = dict(build.LAUNCHES)
+    log(f"[15b] run_train resumed from each for {RESUME_STEPS} steps (deterministic "
+        f"algorithms, {got['native'][1]:.1f} and {got['jax'][1]:.1f} s): losses "
+        f"{got['jax'][0]} from the JAX layout, equal to the bit to the native checkpoint's; "
+        f"a third resume as a run takes the algorithms: {[round(x, 6) for x in losses]} "
+        f"({traced_s:.1f} s, launches {counts})")
+    window.report("[15a] 9a's DVGO fine step (15b's resume)", TRACE_STEPS, "step",
+                  SHARED["9a"]["fine_ms"],
+                  ("train_loop/batch", "train_step/forward_loss", "train_step/tv",
+                   "train_step/adam"))
+    return [render_counts, counts]
+
+
+def phase_migration_cli(tmp: pathlib.Path, card: str) -> list:
+    """Phase 11a's migration command lines: 11a's lego.tar through
+    ``tools.import_reference_ckpt`` onto the card into a checkpoint
+    directory, that directory back through ``tools.export_reference_ckpt``
+    (every tensor of the two .tar files equal), and the command line's
+    render of the imported directory, equal to the bit to 11a's render of
+    the .tar. Returns [the render's counts]."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch import render as render_mod
+    from unboundednerfpytorch_tpu_torch.tools import export_reference_ckpt, import_reference_ckpt
+
+    tar, out, back = str(tmp / "lego.tar"), str(tmp / "lego_imported"), str(tmp / "lego_back.tar")
+    lego_file = str(tmp / "lego_tar.py")  # 11a's config: lego.py with its own expname
+    t0 = time.time()
+    with contextlib.redirect_stdout(Tee(sys.stdout)):
+        if import_reference_ckpt.main([tar, "--out", out]) != 0:
+            raise AssertionError("[11a] import_reference_ckpt")
+        import_s = time.time() - t0
+        if export_reference_ckpt.main([out, "--out", back]) != 0:
+            raise AssertionError("[11a] export_reference_ckpt")
+    a, b = (torch.load(p, map_location="cpu", weights_only=False) for p in (tar, back))
+    if a["global_step"] != b["global_step"] or a["model_state_dict"].keys() != \
+            b["model_state_dict"].keys() or not all(
+                torch.equal(v, b["model_state_dict"][k]) for k, v in a["model_state_dict"].items()):
+        raise AssertionError("[11a] the .tar exported from the imported directory differs")
+    reset_counts()
+    with render_spy() as renders, Spy(render_mod, "render_viewpoints") as views:
+        run_cli(["--config", lego_file, "--program", "render", "--render_test", "--ft_path", out])
+    rgbs = views.calls[0].result["rgbs"]
+    if not np.array_equal(rgbs, SHARED["11a"]["rgbs"]):
+        raise AssertionError("[11a] the imported directory renders otherwise than the .tar")
+    log(f"[11a] migration command lines on {card}: import_reference_ckpt lego.tar -> "
+        f"{dir_gb(out):.3f} GB directory in {import_s:.1f} s, export_reference_ckpt back to a "
+        f".tar equal tensor for tensor ({time.time() - t0 - import_s:.1f} s with the render); "
+        f"--program render --ft_path <the directory>: {len(rgbs)} views equal to the bit to "
+        f"the .tar's render; launches {renders.calls[0].launches}")
+    return [renders.calls[0].launches]
+
+
+def phase_cameras(card: str) -> None:
+    """Phase 15c: ``cameras.pixels_to_rays`` of a whole CAM_H x CAM_W view
+    (bicycle's size at factor 4) of an OPENCV and an OPENCV_FISHEYE camera
+    with a pose, on the card against the CPU, within ``CAM_TOL`` (the CPU
+    tests' tolerance against JAX); its time on the card."""
+    import numpy as np
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.data import cameras
+
+    ys, xs = np.meshgrid(np.arange(CAM_H), np.arange(CAM_W), indexing="ij")
+    pixtocam = np.linalg.inv(cameras.intrinsic_matrix(CAM_F, CAM_F, CAM_W / 2, CAM_H / 2))
+    rng = np.random.default_rng(15)
+    q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+    c2w = np.concatenate([q * np.sign(np.linalg.det(q)), rng.standard_normal((3, 1))], 1)
+    lines = []
+    for model, lens in (("OPENCV", (-0.05, 0.01, 1e-3, -5e-4)),
+                        ("OPENCV_FISHEYE", (0.02, -0.01, 2e-3, -1e-3))):
+        params, camtype = cameras.colmap_distortion_params(
+            model, [CAM_F, CAM_F, CAM_W / 2, CAM_H / 2, *lens])
+
+        def call(dev):
+            return cameras.pixels_to_rays(xs, ys, pixtocam, c2w, distortion_params=params,
+                                          camtype=camtype, device=dev)
+
+        ref = call("cpu")
+        call("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = call("cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        worst = 0.0
+        for name, g, r in zip(("origins", "directions", "viewdirs", "radii", "imageplane"),
+                              got, ref):
+            diff = (g.cpu() - r).abs()
+            worst = max(worst, float(diff.max()))
+            if tuple(g.shape) != tuple(r.shape) or \
+                    float((diff - (CAM_TOL[0] + CAM_TOL[1] * r.abs())).max()) > 0:
+                raise AssertionError(f"[15c] {model} {name}: off the CPU by more than {CAM_TOL}")
+        lines.append(f"{model} {ms:.2f} ms (largest difference {worst:.2e})")
+    log(f"[15c] cameras.pixels_to_rays of a {CAM_H}x{CAM_W} view on {card} (10 Newton steps, "
+        f"the +dx and +dy bundles, from numpy pixel grids): {'; '.join(lines)}; within "
+        f"{CAM_TOL[0]:g} + {CAM_TOL[1]:g} x |value| of the CPU")
+
+
+def phase_gtk(card: str) -> None:
+    """Phase 15d: the GTK paper's 1-D regression (``cli/gtk_analysis.py``,
+    150 Adam steps of each operator at grid_len 10 and 3 bands) on the card
+    against the CPU, within the CPU tests' tolerance against JAX."""
+    import numpy as np
+
+    from unboundednerfpytorch_tpu_torch.cli import gtk_analysis
+
+    t0 = time.time()
+    ref = gtk_analysis.regression_experiment(device="cpu")
+    t1 = time.time()
+    got = gtk_analysis.regression_experiment(device="cuda")
+    t2 = time.time()
+    errs = {k: float(np.abs(got[k] - ref[k]).max()) for k in ("y_voxel", "y_fourier")}
+    for k in ("hist_voxel", "hist_fourier"):
+        g, r = np.array(got[k]), np.array(ref[k])
+        errs[k] = float(np.abs(g - r).max())
+        if g.shape != r.shape or not np.allclose(g, r, rtol=GTK_TOL[2], atol=GTK_TOL[1]):
+            raise AssertionError(f"[15d] {k}: largest difference {errs[k]}")
+    if max(errs["y_voxel"], errs["y_fourier"]) > GTK_TOL[0]:
+        raise AssertionError(f"[15d] the predictions: {errs}")
+    log(f"[15d] gtk_analysis.regression_experiment on {card} in {t2 - t1:.2f} s (CPU "
+        f"{t1 - t0:.2f} s): test losses VoxelGrid {got['hist_voxel'][-1][1]:.6f}, FourierGrid "
+        f"{got['hist_fourier'][-1][1]:.6f}; largest differences from the CPU {errs}")
+
+
+def phase_framing(tmp: pathlib.Path) -> None:
+    """Phase 15e: 13a's TFRecords were split by the native framing (the
+    count of ``tfrecord.FRAMINGS``), and each file's records by the native
+    framing equal the Python framing's, the CRCs checked; the seconds of
+    each."""
+    from unboundednerfpytorch_tpu_torch.data import tfrecord
+
+    if tfrecord.FRAMINGS["python"] or tfrecord.FRAMINGS["native"] < 2:
+        raise AssertionError(f"[15e] 13a's decode split its records by {dict(tfrecord.FRAMINGS)}")
+    lines = []
+    for name in ("waymo_train.tfrecord", "waymo_validation.tfrecord"):
+        with open(tmp / name, "rb") as f:
+            buf = f.read()
+        t0 = time.perf_counter()
+        native = tfrecord.split_records_native(buf, verify_crc=True)
+        t1 = time.perf_counter()
+        python = tfrecord.split_records_python(buf, verify_crc=True)
+        t2 = time.perf_counter()
+        if native != python:
+            raise AssertionError(f"[15e] {name}: the native framing split other records")
+        lines.append(f"{name} ({len(buf) / 1e6:.1f} MB, {len(native)} records): native "
+                     f"{t1 - t0:.4f} s, Python {t2 - t1:.3f} s")
+    log(f"[15e] TFRecord framing, CRCs checked, on the card's host: {'; '.join(lines)}; 13a's "
+        f"decode took the native framing ({dict(tfrecord.FRAMINGS)})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -6057,6 +6474,13 @@ def main(argv=None) -> int:
             timed("13c,d", phase_block_nerf, tmp, card, decoded)
             # phase 14: multi-device parallelism on one card (14b below)
             path_counts += timed("14a", phase_distributed, exp_dir, data, cfg, cfg_file, card)
+            # phase 15: 11a's migration command lines, the JAX-format
+            # checkpoints, cameras, the GTK regression, the native framing
+            path_counts += timed("11a'", phase_migration_cli, tmp, card)
+            path_counts += timed("15b", phase_jax_checkpoint, tmp, card, lego_file)
+            timed("15c", phase_cameras, card)
+            timed("15d", phase_gtk, card)
+            timed("15e", phase_framing, tmp)
     # phase 3 held masked Adam at phase 4's grids already
     seen = {(tuple(s), torch.bfloat16, True, True, False) for s in tv_shapes.values()}
     timed("9c", phase_dvgo_kernels, gen, kernels,
@@ -6096,7 +6520,9 @@ def main(argv=None) -> int:
         f"{path_counts[40:42]}, 12e coarse head, view grid and embeddings "
         f"{path_counts[42:45]}, 13a block training {path_counts[45]}, 13b the merged and the "
         f"block renders {path_counts[46:48]}, 14a the data-parallel step and the cooperative "
-        f"render {path_counts[48:50]}, probes {probe_counts}")
+        f"render {path_counts[48:50]}, 11a the imported directory's render {path_counts[50]}, "
+        f"15b the JAX-layout checkpoint's render and the traced resume {path_counts[51:53]}, "
+        f"probes {probe_counts}")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

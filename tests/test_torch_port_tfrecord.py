@@ -9,6 +9,12 @@ release's gzipped TFRecords (``write_waymo_tfrecords``), a training file of
 two cameras and a validation file. Both packages decode them;
 ``write_block_nerf_scene`` lays the port's decode out as Block-NeRF reads it.
 
+The native framing (``csrc/tfrecord_io.cpp``, built by the host's compiler;
+its cases skip where none is found) against the Python framing and the JAX
+package's native one: the same records and the same errors, on valid
+streams, every truncation and a sweep of byte mutations (the JAX package's
+``tests/test_tfrecord.py`` fuzz).
+
 Tolerances: bytes, CRCs, JSON and images equal; the decode's camera-to-world
 matrices within 1e-5 (least squares through a float32 SVD; the rest of the
 metadata equal); the ray stores and generated trajectories equal, the same
@@ -84,6 +90,73 @@ def test_a_corrupted_crc_is_detected(tmp_path):
     assert tfrecord.read_records(path) == jtfr.read_records(path)
     with pytest.raises(ValueError, match="truncated"):
         tfrecord.split_records(bytes(raw[:-3]))
+
+
+@pytest.fixture
+def native_framing():
+    """The native framing's library; the test skips where no host C++
+    compiler is found to build it."""
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+
+    if build.host_compiler() is None:
+        pytest.skip("no host C++ compiler to build the native framing")
+    return tfrecord.native_framing()
+
+
+def _outcome(split, buf, verify):
+    try:
+        return "ok", split(buf, verify)
+    except ValueError as e:
+        return "err", str(e)
+
+
+def _stream(sizes, seed=0):
+    rng = np.random.default_rng(seed)
+    payloads = [bytes(rng.integers(0, 256, n, dtype=np.uint8)) for n in sizes]
+    out = b""
+    for p in payloads:
+        length = int(len(p)).to_bytes(8, "little")
+        out += length + tfrecord.masked_crc(length).to_bytes(4, "little") + p + \
+            tfrecord.masked_crc(p).to_bytes(4, "little")
+    return payloads, out
+
+
+@pytest.mark.parametrize("verify", [False, True])
+def test_the_native_framing_equals_the_python_framing_on_corrupt_streams(native_framing, verify):
+    """Every truncation point and every 5th byte flipped: the native
+    framing's records, or its error message, are the Python framing's, and
+    it rejects the same streams as the JAX package's native framing."""
+    _, data = _stream((0, 1, 37, 300))
+    jnat = jtfr._native_lib()
+    cases = [data[:cut] for cut in range(len(data) + 1)]
+    for pos in range(0, len(data), 5):
+        mutated = bytearray(data)
+        mutated[pos] ^= 0xA5
+        cases.append(bytes(mutated))
+    for buf in cases:
+        py = _outcome(tfrecord.split_records_python, buf, verify)
+        assert _outcome(tfrecord.split_records_native, buf, verify) == py
+        if jnat is not None:
+            assert _outcome(jtfr._split_records_native, buf, verify)[0] == py[0]
+        if py[0] == "ok":
+            assert all(0 <= o and o + n <= len(buf) for o, n in py[1])
+
+
+def test_read_records_splits_natively(native_framing, tmp_path):
+    payloads, data = _stream((1, 100, 4096, 0, 70_000), seed=3)
+    huge = int(2**64 - 8).to_bytes(8, "little")
+    for verify in (False, True):  # a length near 2^64 does not wrap the bounds check
+        bad = huge + tfrecord.masked_crc(huge).to_bytes(4, "little") + bytes(64)
+        assert _outcome(tfrecord.split_records_native, bad, verify) == \
+            _outcome(tfrecord.split_records_python, bad, verify)
+        assert tfrecord.split_records_native(data, verify) == \
+            tfrecord.split_records_python(data, verify) == \
+            [(int(o), int(n)) for o, n in jtfr._split_records_python(data, verify)]
+    path = str(tmp_path / "r.tfrecord")
+    tfrecord.write_records(path, payloads, compress=True)
+    before = dict(tfrecord.FRAMINGS)
+    assert tfrecord.read_records(path, verify_crc=True) == payloads
+    assert tfrecord.FRAMINGS["native"] == before.get("native", 0) + 1
 
 
 @pytest.fixture(scope="module")

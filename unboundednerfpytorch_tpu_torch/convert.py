@@ -44,13 +44,17 @@ makes the port's :class:`~unboundednerfpytorch_tpu_torch.models.block_nerf.model
 of it, every size read off the arrays, and :func:`block_nerf_to_numpy` goes
 back.
 
-A whole checkpoint is carried over in a process that has both packages: the
-JAX package's ``load_model`` gives (config, params); :func:`tree_from_params_object`
-turns the params into the dict above (it reads attributes and imports no
-JAX), :func:`config_from_dict` turns ``dataclasses.asdict(config)`` into the
-port's config, and the port's ``utils.checkpoint.save_model`` writes them.
-The other way, :func:`config_to_dict` and :func:`params_to_numpy`
-give what the JAX package's config class and ``params.replace`` take.
+A JAX checkpoint directory is read by the port's own ``utils/checkpoint.py``
+``load_model`` (no flax, no ``msgpack`` package): the msgpack's arrays, with
+the bounds and frequency counts of the model its config builds, make the
+dict above, and :func:`params_from_numpy` the port's params;
+``save_jax_model`` writes the other way. In a process that has both packages,
+the JAX package's ``load_model`` gives (config, params);
+:func:`tree_from_params_object` turns the params into the dict above (it
+reads attributes and imports no JAX) and :func:`config_from_dict` turns
+``dataclasses.asdict(config)`` into the port's config. The other way,
+:func:`config_to_dict` and :func:`params_to_numpy` give what the JAX
+package's config class and ``params.replace`` take.
 
 The optimizer's state travels the same way, in the layout of the JAX
 ``MaskedAdamState``:
@@ -63,14 +67,14 @@ The optimizer's state travels the same way, in the layout of the JAX
 (``vd`` a grid's ``{"grid": m}`` and ``img_embeddings`` the moment array
 itself, where the model trains them.)
 
-The JAX package's ``load_model`` gives a checkpoint's ``opt_state.msgpack``
-as bytes; its ``restore_opt_state`` (with the template of its
-``create_train_state``) makes the ``MaskedAdamState``, and
-:func:`opt_state_tree_from_object` the dict above, which
-:func:`opt_state_from_numpy` turns into the port's ``MaskedAdam.state_dict``.
-:func:`opt_state_to_numpy` goes back; the JAX side rebuilds its state with
-``MaskedAdamState(step, exp_avg=..., exp_avg_sq=...)`` and ``.replace`` on its
-template's subtrees.
+A JAX checkpoint's ``opt_state.msgpack`` decodes to the dict above, which
+:func:`opt_state_from_numpy` turns into the port's ``MaskedAdam.state_dict``
+(``utils/checkpoint.py``). With both packages, the JAX package's
+``restore_opt_state`` (with the template of its ``create_train_state``) makes
+the ``MaskedAdamState``, and :func:`opt_state_tree_from_object` the dict
+above. :func:`opt_state_to_numpy` goes back; the JAX side rebuilds its state
+with ``MaskedAdamState(step, exp_avg=..., exp_avg_sq=...)`` and ``.replace``
+on its template's subtrees.
 """
 
 from __future__ import annotations

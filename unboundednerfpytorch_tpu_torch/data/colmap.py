@@ -472,8 +472,9 @@ def scene_process(data_dir: str):
     Returns (scene_manager, names, poses, pixtocam, distortion_params,
     camtype): poses are [N, 3, 4] camera-to-world in the NeRF frame
     (right, up, back); pixtocam is the shared inverse intrinsic matrix;
-    distortion_params is a kwargs dict for cameras.undistort (or None for
-    distortion-free models); camtype is cameras.ProjectionType.
+    distortion_params is a kwargs dict for the port's ``cameras.undistort``
+    and ``cameras.pixels_to_rays`` (``data/cameras.py``; None for
+    distortion-free models); camtype is ``cameras.ProjectionType``.
     """
     from unboundednerfpytorch_tpu_torch.data import cameras as cameras_mod
 

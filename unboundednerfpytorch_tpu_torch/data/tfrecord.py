@@ -11,16 +11,22 @@ Waymo Block-NeRF release (``data/preprocess.py``):
   kinds (BytesList, FloatList, Int64List); packed floats are decoded with
   ``np.frombuffer``.
 
-The framing is Python here. The JAX package splits records through a C++
-extension (``native/tfrecord_io.cpp``) where a compiler is at hand, with
-the same result: a host speed-up that ROADMAP lists as still to come. The
-CRC-32C of a long payload (a frame's per-pixel rays: some 15 MB at 640x960)
-runs in numpy, all of its chunks a byte at a time together, instead of the
-whole payload a byte at a time in Python.
+Records are split by the port's copy of the JAX package's C++ framing
+(``csrc/tfrecord_io.cpp``, built by the host's compiler at first use:
+``ops/cuda/build.py::load_host``) wherever a host C++ compiler is found, as
+the JAX package splits them; a build that fails raises. Without a compiler
+the Python framing splits them, with the same records and the same errors
+on a truncated or corrupted stream. ``FRAMINGS`` counts the streams split
+by each (``"native"``, ``"python"``). The Python CRC-32C of a long payload
+(a frame's per-pixel rays: some 15 MB at 640x960) runs in numpy, all of its
+chunks a byte at a time together, instead of the whole payload a byte at a
+time in Python.
 """
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import gzip
 import io
 import struct
@@ -106,10 +112,57 @@ def masked_crc(data: bytes) -> int:
     return (((crc >> 15) | (crc << 17)) + _CRC_MASK_DELTA) & 0xFFFFFFFF
 
 
+FRAMINGS: collections.Counter = collections.Counter()
+# the native framing's codes for the Python framing's errors
+_NATIVE_ERRORS = {-1: "truncated TFRecord header", -4: "truncated TFRecord payload",
+                  -3: "TFRecord length crc mismatch", -5: "TFRecord payload crc mismatch"}
+
+
+def native_framing():
+    """The native framing's library, or None where no host C++ compiler is
+    found (a compiler whose build fails raises)."""
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+
+    if build.host_compiler() is None:
+        return None
+    lib = build.load_host("tfrecord_io")
+    lib.tfr_split_records.restype = ctypes.c_longlong
+    lib.tfr_split_records.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int]
+    return lib
+
+
+def split_records_native(buf: bytes, verify_crc: bool = False, lib=None) -> list:
+    """:func:`split_records_python`'s records and errors, split by the C++
+    framing."""
+    lib = lib or native_framing()
+    buf = bytes(buf)
+    cap = max(16, len(buf) // 32)
+    while True:
+        offs, lens = np.empty(cap, np.uint64), np.empty(cap, np.uint64)
+        n = lib.tfr_split_records(buf, len(buf), offs.ctypes.data, lens.ctypes.data, cap,
+                                  1 if verify_crc else 0)
+        if n == -2:  # more records than room
+            cap *= 4
+            continue
+        if n < 0:
+            raise ValueError(_NATIVE_ERRORS.get(n, f"corrupt TFRecord stream (code {n})"))
+        return list(zip(offs[:n].tolist(), lens[:n].tolist()))
+
+
 def split_records(buf: bytes, verify_crc: bool = False) -> list:
-    """(offset, length) of each record's payload in a TFRecord stream;
-    ``ValueError`` on a truncated stream or, with ``verify_crc``, a CRC that
-    does not match."""
+    """(offset, length) of each record's payload in a TFRecord stream, split
+    natively where a host compiler is found; ``ValueError`` on a truncated
+    stream or, with ``verify_crc``, a CRC that does not match."""
+    lib = native_framing()
+    FRAMINGS["python" if lib is None else "native"] += 1
+    if lib is None:
+        return split_records_python(buf, verify_crc)
+    return split_records_native(buf, verify_crc, lib)
+
+
+def split_records_python(buf: bytes, verify_crc: bool = False) -> list:
+    """(offset, length) of each record's payload, split in Python."""
     out, pos, n = [], 0, len(buf)
     while pos < n:
         if pos + 12 > n:

@@ -12,6 +12,9 @@ Builds go to ``build/torch_kernels/`` at the repository root (listed in
 together. A library's file name carries a hash of its source and flags, so
 an edited source is never served by a stale build.
 
+Host code (``HOST_SOURCES``: the TFRecord framing) is built the same way by
+the host's C++ compiler into ``build/host/`` (:func:`load_host`).
+
 ``LAUNCHES`` counts kernel launches by wrapper name. Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels.
@@ -38,6 +41,9 @@ SOURCES = {
     "ub360": CSRC_DIR / "ub360.cu",
     "adam": CSRC_DIR / "adam.cu",
 }
+HOST_BUILD_DIR = PACKAGE_DIR.parent / "build" / "host"
+HOST_SOURCES = {"tfrecord_io": CSRC_DIR / "tfrecord_io.cpp"}
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -137,3 +143,35 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+def host_compiler() -> str | None:
+    """The host's C++ compiler (``$CXX``, else ``g++`` or ``c++`` on the
+    path), None where there is none."""
+    return shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host library ``name`` of ``HOST_SOURCES``, built at first use
+    (its file name carries a hash of its source and flags). Raises where
+    there is no compiler or the build fails."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        src = HOST_SOURCES[name]
+        digest = hashlib.sha256(src.read_bytes() + " ".join(HOST_FLAGS).encode()).hexdigest()[:12]
+        out = HOST_BUILD_DIR / f"lib{name}_{digest}.so"
+        if not out.exists():
+            cxx = host_compiler()
+            if cxx is None:
+                raise RuntimeError(f"no host C++ compiler to build {src.name} (set CXX)")
+            HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+            proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{cxx} failed for {src.name}:\n{proc.stdout}")
+            os.replace(tmp, out)
+        lib = _LIBS[name] = ctypes.CDLL(str(out))
+        return lib

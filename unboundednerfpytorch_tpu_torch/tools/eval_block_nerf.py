@@ -4,7 +4,8 @@
 
 The port's counterpart of ``eval_block_nerf_tpu.py``, with its options and
 defaults: every block of ``<root_dir>/train/split_block_train.json`` that has
-a checkpoint ``<ckpt_dir>/<block>/`` (written by ``train_block_nerf``), the
+a checkpoint ``<ckpt_dir>/<block>/`` (written by ``train_block_nerf``, or by
+the JAX package's ``train_block_nerf_tpu.py``: ``params.msgpack``), the
 training views from ``--cam_begin`` to ``--cam_end`` (or all of them), each
 composed from the blocks that hold it (``models/block_nerf/compose.py``,
 rendered in chunks of ``--chunk`` rays with the renderer's defaults, as the
@@ -54,7 +55,7 @@ def main(argv=None, device=None) -> int:
     models, centroids = {}, {}
     for block in block_split:
         path = os.path.join(args.ckpt_dir, block)
-        if not os.path.exists(os.path.join(path, "params.npz")):
+        if not ckpt.has_block_nerf(path):
             continue
         models[block], _ = ckpt.load_block_nerf(path, device=dev)
         models[block].requires_grad_(False)

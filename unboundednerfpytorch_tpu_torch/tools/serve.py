@@ -36,10 +36,12 @@ import numpy as np
 
 class RenderService:
     """Loads the checkpoint once; renders look-at views on demand.
+    ``stepsize``: the march's step (default: the checkpoint's config's).
     ``device``: ``None`` -> ``cuda`` (raises without a GPU); ``"cpu"`` for
     the plain path."""
 
-    def __init__(self, ckpt_path: str, near: float = 0.05, bg: float = 1.0, device=None):
+    def __init__(self, ckpt_path: str, near: float = 0.05, bg: float = 1.0,
+                 stepsize: float | None = None, device=None):
         from unboundednerfpytorch_tpu_torch.convert import FAMILIES
         from unboundednerfpytorch_tpu_torch.device import resolve_device
         from unboundednerfpytorch_tpu_torch.train.loop import make_forward
@@ -64,7 +66,7 @@ class RenderService:
             "near": near,
             "far": 1e9,
             "bg": bg,
-            "stepsize": getattr(mcfg, "stepsize", 1.0),
+            "stepsize": stepsize or getattr(mcfg, "stepsize", 1.0),
         }
         self.cache = FAMILIES[family].build_render_cache(params, mcfg, log_fn=print)
         fwd_core = make_forward(mcfg, self.render_kwargs, cache=self.cache)
@@ -146,7 +148,8 @@ def make_handler(service: RenderService):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt", required=True,
-                    help="checkpoint dir (fine_last / baked_last) or a reference .tar")
+                    help="checkpoint dir (fine_last / baked_last, the port's or the JAX "
+                         "package's) or a reference .tar")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--near", type=float, default=0.05)

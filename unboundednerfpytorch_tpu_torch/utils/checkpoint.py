@@ -5,12 +5,10 @@ the optimizer's state.
 Counterpart of ``unboundednerfpytorch_tpu/utils/checkpoint.py`` for the
 FourierGrid, DVGO, DCVGO and DMPIGO families: the same ``meta.json`` keys
 (global_step, family, model_kwargs, has_opt_state, format_version), so the
-model can be re-instantiated from the files alone. The JAX package writes
-flax msgpack; the port imports neither, and writes numpy archives of the JAX
-layouts (nested keys joined by ``/``): the parameters as
-``convert.params_to_numpy`` gives them, the optimizer's state as
+model can be re-instantiated from the files alone. The port writes numpy
+archives of the JAX layouts (nested keys joined by ``/``): the parameters
+as ``convert.params_to_numpy`` gives them, the optimizer's state as
 ``convert.opt_state_to_numpy`` (step count and both Adam moments).
-``convert.py`` says how a JAX checkpoint is carried over.
 
 Format 3 names its members by step (``params-<step>.npz``,
 ``opt_state-<step>.npz``) and lists them in ``meta.json``. A save writes the
@@ -24,6 +22,18 @@ grids stored as float32 values) still load. Since format 2 a bfloat16 grid is
 stored as its 16-bit patterns (uint16), named with its dtype in
 ``meta.json``'s ``stored_dtypes``, and a float ``act_shift`` as float64.
 
+The JAX package's own checkpoints load as well, with neither flax nor the
+``msgpack`` package (``utils/flax_msgpack.py``): a directory with the JAX
+``meta.json`` (format 1, no ``members``), ``params.msgpack`` and
+``opt_state.msgpack`` (a ``fine_last``, a ``fine_last_merged``, a block of
+``--num_per_block``). The msgpack holds the state dict of the JAX params
+(their arrays, in their stored dtype: a bfloat16 grid stays bfloat16); the
+bounds and frequency counts that the JAX dataclasses keep static come from
+the model the config builds, as the JAX ``load_model`` takes them from its
+template. :func:`save_jax_model` writes that layout, its msgpack bytes those
+of ``flax.serialization.to_bytes`` of the JAX tree, so that a run of the port
+goes back to the JAX package.
+
 A reference ``.tar`` checkpoint loads through :func:`load_model` as well
 (``utils/reference_import.py``). :func:`merge_blocks` makes one checkpoint of
 the block checkpoints of ``--num_per_block`` training.
@@ -31,10 +41,9 @@ the block checkpoints of ``--num_per_block`` training.
 A Block-NeRF block is saved by :func:`save_block_nerf` as ``params.npz`` (the
 layout of ``convert.block_nerf_to_numpy``, nested keys joined by ``/``) and
 ``meta.json`` (the JAX entry point's block, steps and psnr, and the model's
-sizes), in the JAX package's directory layout. The JAX package writes flax
-msgpack (``params.msgpack``), which the port does not read: a JAX block is
-carried over in a process with flax (``serialization.from_bytes``, then
-``convert.block_nerf_tree_from_object``).
+sizes), in the JAX package's directory layout. :func:`load_block_nerf` also
+reads the JAX entry point's block (``params.msgpack`` and its ``meta.json``),
+and :func:`save_jax_block_nerf` writes one.
 """
 
 from __future__ import annotations
@@ -47,10 +56,13 @@ import numpy as np
 import torch
 
 from unboundednerfpytorch_tpu_torch import convert
+from unboundednerfpytorch_tpu_torch.fields.grids import TENSORF_LEAVES, DenseGrid, TensoRFGrid
+from unboundednerfpytorch_tpu_torch.utils import flax_msgpack
 
 FAMILIES = tuple(convert.CONFIGS)
 FORMAT_VERSION = 3
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_PARAMS, JAX_OPT_STATE = "params.msgpack", "opt_state.msgpack"
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -77,15 +89,7 @@ def _unflatten(flat: dict) -> dict:
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = val
-
-    def lists(node):
-        if not isinstance(node, dict):
-            return node
-        if node and all(k.isdigit() for k in node):
-            return [lists(node[str(i)]) for i in range(len(node))]
-        return {k: lists(v) for k, v in node.items()}
-
-    return lists(tree)
+    return flax_msgpack.lists(tree)
 
 
 def _write_npz(path: str, arrays: dict) -> None:
@@ -198,9 +202,11 @@ def load_model(path: str, device="cpu", with_opt_state: bool = True):
     (family, cfg, params, global_step, opt_state), as the JAX package does;
     ``opt_state`` is None where the checkpoint holds none or
     ``with_opt_state`` is false (a render needs none), else a state for
-    ``MaskedAdam.load_state_dict`` whose moments are numpy arrays. A path to
-    a reference ``.tar`` file is imported transparently
-    (``utils/reference_import.py``), without the optimizer's state."""
+    ``MaskedAdam.load_state_dict`` whose moments are numpy arrays. A JAX
+    checkpoint directory loads with its optimizer's state, its grids in the
+    dtype they were stored in. A path to a reference ``.tar`` file is
+    imported transparently (``utils/reference_import.py``), without the
+    optimizer's state."""
     if os.path.isfile(path) and path.endswith(".tar"):
         # a reference checkpoint, converted in memory: --ft_path run.tar
         # migrates a reference run; it carries no optimizer state
@@ -212,6 +218,8 @@ def load_model(path: str, device="cpu", with_opt_state: bool = True):
         meta = json.load(f)
     family = meta["family"]
     _check_family(family)
+    if is_jax_checkpoint(path, meta):
+        return _load_jax_model(path, meta, device, with_opt_state)
     version = meta.get("format_version", 1)
     if version not in (1, 2, FORMAT_VERSION):
         raise ValueError(f"{path}: checkpoint format {version} is unknown")
@@ -267,10 +275,171 @@ def save_block_nerf(path: str, model, meta: dict) -> None:
         json.dump({**meta, "model_kwargs": model.dims}, f, indent=2)
 
 
+def has_block_nerf(path: str) -> bool:
+    """Whether ``path`` holds a Block-NeRF block of either package."""
+    return any(os.path.isfile(os.path.join(path, name)) for name in ("params.npz", JAX_PARAMS))
+
+
 def load_block_nerf(path: str, device="cpu"):
-    """(model on ``device``, meta) of a block saved by :func:`save_block_nerf`."""
+    """(model on ``device``, meta) of a block saved by :func:`save_block_nerf`
+    or by the JAX entry point (``params.msgpack``; the port's own
+    ``params.npz`` wins where a directory holds both)."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
-    model = convert.block_nerf_from_numpy(_unflatten(_read_npz(os.path.join(path, "params.npz"))),
-                                          device)
-    return model, meta
+    npz = os.path.join(path, "params.npz")
+    if os.path.isfile(npz):
+        tree = _unflatten(_read_npz(npz))
+    else:
+        tree = flax_msgpack.lists(flax_msgpack.read(os.path.join(path, JAX_PARAMS)))
+    return convert.block_nerf_from_numpy(tree, device), meta
+
+
+def save_jax_block_nerf(path: str, model, meta: dict) -> None:
+    """A Block-NeRF block in the JAX entry point's layout: ``params.msgpack``
+    (the bytes of ``flax.serialization.to_bytes`` of the JAX
+    ``BlockNeRFParams``) and ``meta.json`` (``meta``, as the JAX entry point
+    writes its block, steps and psnr)."""
+    os.makedirs(path, exist_ok=True)
+    _write_msgpack(os.path.join(path, JAX_PARAMS),
+                   _state_dict(convert.block_nerf_to_numpy(model)))
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's checkpoints (flax msgpack)
+
+
+def is_jax_checkpoint(path: str, meta: dict) -> bool:
+    """A directory the JAX package's ``save_model`` wrote: its
+    ``params.msgpack`` and a ``meta.json`` that names no port members."""
+    return "members" not in meta and os.path.isfile(os.path.join(path, JAX_PARAMS))
+
+
+def _state_dict(tree):
+    """flax's state dict of a tree in ``convert``'s layouts: lists as maps
+    keyed ``"0"``, ``"1"``, ..."""
+    if isinstance(tree, dict):
+        return {k: _state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def _write_msgpack(path: str, tree) -> None:
+    with open(path + ".tmp", "wb") as f:
+        flax_msgpack.write(f, tree)
+    os.replace(path + ".tmp", path)
+
+
+def _jax_field(field):
+    """The state dict of a field as the JAX package lays it out: a lattice
+    grid (``[X, Y, Z, C]`` for a dense one, the banks for a Fourier one) in
+    its dtype, or a TensoRF field's leaves (``f_vec`` nil where it has none)."""
+    if field is None:
+        return None
+    if isinstance(field, TensoRFGrid):
+        leaves = field.leaves()
+        return {k: (leaves[k].detach() if k in leaves else None) for k in TENSORF_LEAVES}
+    grid = field.grid.detach()
+    return {"grid": grid[0] if isinstance(field, DenseGrid) else grid}
+
+
+def jax_params_state_dict(family: str, params) -> dict:
+    """The state dict that flax gives the JAX params of ``family`` (its
+    dataclass fields in order), the arrays the port's own tensors."""
+    rgbnet = None
+    if params.rgbnet is not None:
+        rgbnet = {"weights": [lin.weight.detach().t() for lin in params.rgbnet.layers],
+                  "biases": [lin.bias.detach() for lin in params.rgbnet.layers]}
+    shift = params.act_shift
+    shift = (shift.detach().float() if isinstance(shift, torch.Tensor)
+             else np.asarray(np.float32(shift)))
+    tree = {"density": _jax_field(params.density), "k0": _jax_field(params.k0),
+            "rgbnet": rgbnet}
+    if family == "FourierGrid":
+        emb = params.img_embeddings
+        tree["vd"] = _jax_field(params.vd)
+        tree["img_embeddings"] = None if emb is None else emb.detach()
+    tree["act_shift"] = shift
+    tree["mask_cache"] = {"mask": params.mask_cache.mask}
+    return _state_dict(tree)
+
+
+def jax_opt_state_state_dict(state: dict, family: str) -> dict:
+    """The state dict of the JAX ``MaskedAdamState`` of a port optimizer's
+    ``state_dict()``: the step as int32, each moment tree keyed by group in
+    sorted order (the JAX state's trees are made by ``jax.tree.map``, which
+    sorts a dict's keys), a TensoRF group's ``f_vec`` nil where it has none."""
+    tree = convert.opt_state_to_numpy(state, family)
+    out = {"step": np.asarray(np.int32(tree["step"]))}
+    for key in ("exp_avg", "exp_avg_sq"):
+        groups = {}
+        for name in sorted(tree[key]):
+            sub = tree[key][name]
+            if isinstance(sub, dict) and "xy_plane" in sub:
+                sub = {k: sub.get(k) for k in TENSORF_LEAVES}
+            groups[name] = sub
+        out[key] = groups
+    return _state_dict(out)
+
+
+def save_jax_model(path: str, family: str, cfg, params, global_step: int = 0,
+                   opt_state: dict | None = None) -> None:
+    """The JAX package's checkpoint layout in the directory ``path``:
+    ``params.msgpack`` (and with ``opt_state``, a ``MaskedAdam.state_dict()``,
+    ``opt_state.msgpack``), each the bytes of ``flax.serialization.to_bytes``
+    of the JAX tree, and its ``meta.json`` (format 1, the port's config as
+    ``model_kwargs``: the JAX ``load_model`` drops the fields its config
+    lacks). Each array is written from host memory a tensor at a time."""
+    _check_family(family)
+    os.makedirs(path, exist_ok=True)
+    _write_msgpack(os.path.join(path, JAX_PARAMS), jax_params_state_dict(family, params))
+    opt_path = os.path.join(path, JAX_OPT_STATE)
+    if opt_state is not None:
+        _write_msgpack(opt_path, jax_opt_state_state_dict(opt_state, family))
+    elif os.path.exists(opt_path):
+        os.remove(opt_path)
+    meta = {"global_step": int(global_step), "family": family,
+            "model_kwargs": convert.config_to_dict(cfg), "has_opt_state": opt_state is not None,
+            "format_version": 1}
+    with open(os.path.join(path, "meta.json.tmp"), "w") as f:
+        json.dump(meta, f, indent=2)
+    os.replace(os.path.join(path, "meta.json.tmp"), os.path.join(path, "meta.json"))
+
+
+def _with_statics(sub, template):
+    """A field's arrays from the msgpack with the bounds, frequencies and
+    channels the JAX dataclasses keep static, from the config's model."""
+    if sub is None:
+        return None
+    if template is None:
+        raise ValueError("the checkpoint holds a field that its config's model does not have")
+    out = {k: v for k, v in sub.items() if v is not None}
+    out.update(xyz_min=template.xyz_min, xyz_max=template.xyz_max)
+    if isinstance(template, TensoRFGrid):
+        out["channels"] = template.channels
+    elif hasattr(template, "num_freqs") and not isinstance(template, DenseGrid):
+        out["num_freqs"] = template.num_freqs
+    return out
+
+
+def _load_jax_model(path: str, meta: dict, device, with_opt_state: bool):
+    family = meta["family"]
+    cfg = convert.config_from_dict(meta["model_kwargs"], family)
+    template = convert.FAMILIES[family].create(cfg, None, device="meta")
+    tree = flax_msgpack.lists(flax_msgpack.read(os.path.join(path, JAX_PARAMS)))
+    tree["mask_cache"] = _with_statics(tree["mask_cache"], template.mask_cache)
+    for name in ("density", "k0", "vd"):
+        if name in tree:
+            tree[name] = _with_statics(tree[name], getattr(template, name, None))
+    if (tree["rgbnet"] is None) != (template.rgbnet is None):
+        raise ValueError(f"{path}: rgbnet {'absent' if tree['rgbnet'] is None else 'present'} "
+                         "against the config's model")
+    params = convert.params_from_numpy(family, tree, device)
+    opt_state = None
+    opt_path = os.path.join(path, JAX_OPT_STATE)
+    if with_opt_state and meta.get("has_opt_state") and os.path.exists(opt_path):
+        opt_state = convert.opt_state_from_numpy(flax_msgpack.lists(flax_msgpack.read(opt_path)),
+                                                 family)
+    return family, cfg, params, int(meta["global_step"]), opt_state

@@ -304,17 +304,23 @@ def _check_shapes(template, params) -> None:
                                                f"{want.get(k)}" for k in diff))
 
 
-def convert_reference_ckpt(ckpt: dict, device=None):
+def convert_reference_ckpt(ckpt: dict, family: str | None = None,
+                           overrides: dict | None = None, device=None):
     """In-memory conversion of a loaded reference checkpoint dict, onto
     ``device`` (``None`` -> ``cuda``, raising without a GPU; ``"cpu"`` for
-    the plain path). Returns ``(family, cfg, params, global_step)``."""
+    the plain path). ``family`` overrides the detection from its
+    ``model_kwargs``; ``overrides`` sets config fields that the reference's
+    checkpoints do not store (render-time knobs such as ``stepsize`` and
+    ``t_boundary``). Returns ``(family, cfg, params, global_step)``."""
     from unboundednerfpytorch_tpu_torch.device import resolve_device
 
     device = resolve_device(device)
     kw = dict(ckpt["model_kwargs"])
     sd = dict(ckpt["model_state_dict"])
-    family = detect_family(kw)
-    cfg = convert.CONFIGS[family](**_CONFIG_FIELDS[family](kw, sd))
+    family = family or detect_family(kw)
+    if family not in _CONFIG_FIELDS:
+        raise ValueError(f"unknown model family {family!r}")
+    cfg = convert.CONFIGS[family](**{**_CONFIG_FIELDS[family](kw, sd), **(overrides or {})})
     template = convert.FAMILIES[family].create(cfg, None, device="meta")
     if family == "dmpigo":
         act_shift = _np(sd["act_shift.grid"]).reshape(-1).astype(np.float32)
@@ -522,11 +528,22 @@ def export_checkpoint(ckpt_dir: str, out_tar: str) -> dict:
     return ref
 
 
-def import_checkpoint(tar_path: str, device=None):
+def import_checkpoint(tar_path: str, out_dir: str | None = None, family: str | None = None,
+                      overrides: dict | None = None, device=None):
     """Load a reference ``.tar`` checkpoint and convert it onto ``device``
-    (``None`` -> ``cuda``). Returns ``(family, cfg, params, global_step)``."""
+    (``None`` -> ``cuda``); ``family`` and ``overrides`` as
+    :func:`convert_reference_ckpt` takes them. With ``out_dir``, also write
+    it there as one of the port's checkpoint directories, which loads
+    wherever a native checkpoint does. Returns ``(family, cfg, params,
+    global_step)``."""
     # reference ckpts carry numpy arrays inside model_kwargs (get_kwargs
     # stores xyz_min/xyz_max as .numpy()), so full unpickling is required;
     # only import checkpoints you trust, exactly as with the reference
     ckpt = torch.load(tar_path, map_location="cpu", weights_only=False)
-    return convert_reference_ckpt(ckpt, device=device)
+    family, cfg, params, step = convert_reference_ckpt(ckpt, family=family, overrides=overrides,
+                                                       device=device)
+    if out_dir is not None:
+        from unboundednerfpytorch_tpu_torch.utils.checkpoint import save_model
+
+        save_model(out_dir, family, cfg, params, global_step=step)
+    return family, cfg, params, step
