@@ -582,6 +582,16 @@ BN_RAYS, BN_TOL, BN_MAX_FLIPPED = 4096, 1e-3, 0.01
 # check_grad) and tv_add_grad's halo launches
 DIST_N_RAND = 4096
 HALO_WAYS, HALO_QUERIES = {188: 4, 238: 2}, 1 << 18
+# phase 16: --grid_parallel 2 at waymo_block.py's width, whose lattices' X
+# are GRID_SIZES (188 and 238 divide over 2, 299 does not), emulated in one
+# process; FourierGrid's refreshed mask may flip a voxel whose pooled alpha
+# lies within GRID_FLIP_BAND of the threshold (the banks' partial samples
+# summed in another order), at most GRID_MAX_FLIPS of them; the step on the
+# joined grids within GRID_LOSS_RTOL of one rank's; the save and the resume
+# at GRID_SAVE_VOX voxels (about 0.45 GiB with Adam's state: the disk)
+GRID_WAYS, GRID_SIZES = 2, (188, 238, 299)
+GRID_FLIP_BAND, GRID_MAX_FLIPS, GRID_LOSS_RTOL = 1e-6, 1e-5, 1e-4
+GRID_SAVE_VOX = 121**3  # a lattice of 120^3
 # kernel launches of a train step and of a render chunk, by family
 TRAIN_PER_STEP = {"tv_add_grad": 2, "march_forward": 1, "march_backward": 1}
 DCVGO_PER_STEP = {**TRAIN_PER_STEP, "cumdist_thres": 1}
@@ -6010,12 +6020,13 @@ def phase_halo(gen, kernels: list, shapes, floor: float, card: str) -> None:
     halo launch: against the plain version of the same slab and planes, and
     the slabs' results, joined, equal to the whole grid's launch to the bit,
     sparse and dense. The halo launch of a middle slab is timed (in place,
-    dense, as the train step calls it) and its line joins ``tv_add_grad``'s
-    shapes; these launches are comparisons, so they count on no path."""
+    dense, as the train step calls it; by many launches in one CUDA graph,
+    its call beside) and its line joins ``tv_add_grad``'s shapes; these
+    launches are comparisons, so they count on no path."""
     import torch
 
     from unboundednerfpytorch_tpu_torch.ops.cuda import tv
-    from unboundednerfpytorch_tpu_torch.probes.timing import bound_ms, kernel_ms, time_ms
+    from unboundednerfpytorch_tpu_torch.probes.timing import MANY_LAUNCHES, bound_ms, time_ms
 
     row = {k["name"]: k for k in kernels}["tv_add_grad"]
     cases = sorted({(shape, dtype, w) for shape, dtype, w in shapes.tv
@@ -6057,7 +6068,13 @@ def phase_halo(gen, kernels: list, shapes, floor: float, card: str) -> None:
             del whole, parts
         ps, gs, lo, hi = slabs[1 if ways > 2 else 0]
         lo = lo if lo is not None else hi
-        ms, call = kernel_ms(lambda: tv.tv_add_grad(ps, gs, *w, 1.0, True, out=gs, lo=lo, hi=hi))
+        def launch():
+            tv.tv_add_grad(ps, gs, *w, 1.0, True, out=gs, lo=lo, hi=hi)
+
+        # device time by MANY_LAUNCHES launches in one CUDA graph, as the
+        # probe's rows: a call of 0.2 ms or more keeps its dispatch otherwise
+        call = time_ms(launch)
+        ms = time_ms(launch, launches=MANY_LAUNCHES)
         # param, grad and out of the slab, and the two planes read
         nbytes = (3 * ps.numel() + 2 * lo.numel()) * ps.element_size()
         line = shape_line(f"[14b] tv_add_grad halo launch, slab {tuple(ps.shape)} of "
@@ -6335,6 +6352,369 @@ def phase_framing(tmp: pathlib.Path) -> None:
         f"decode took the native framing ({dict(tfrecord.FRAMINGS)})")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: --grid_parallel 2 at waymo_block.py's full width, grids that stay
+# cut through a boundary, a save and a resume
+
+
+def grid_peak(fn, *args):
+    """(fn's result, the GB of device memory it held at its peak, its
+    seconds): the card's peak statistic reset just before."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 1e9, time.perf_counter() - t0
+
+
+def grid_rank_params(mcfg, host: dict, k: int, mask=None, shift=None):
+    """Emulated rank ``k``'s FourierGrid: built on the host from the whole
+    grids ``host`` ({"density", "k0"}), cut there to its x-slab by
+    ``mesh.shard_params`` as a resume cuts a checkpoint, then moved to the
+    card (the resume's path): only its slabs reach the card. ``k`` None: the
+    whole model (one rank)."""
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
+
+    params = fg.create(mcfg, torch.Generator().manual_seed(16), device="cpu")
+    for name in ("density", "k0"):
+        getattr(params, name).grid.data.copy_(host[name])
+    if mask is not None:
+        params.mask_cache.mask = mask.cpu().clone()
+    if shift is not None:
+        params.act_shift = shift
+    if k is not None:
+        mesh = mesh_mod.Mesh(data=1, grid=GRID_WAYS, rank=k, data_group=None, grid_group=None,
+                             grid_ranks=tuple(range(GRID_WAYS)))
+        assert mesh_mod.shard_params(mesh, params) == ["density", "k0"]
+    return params.to("cuda")
+
+
+def grid_step(params, mcfg, ft, batch):
+    """One train step of ``params`` (a fresh optimizer) on ``batch``; its loss."""
+    from unboundednerfpytorch_tpu_torch.train import loop
+    from unboundednerfpytorch_tpu_torch.train.step import create_train_state, make_train_step
+
+    kw = {"near": 0.0, "far": 1e9, "bg": 0.0, "rand_bkgd": False, "stepsize": mcfg.stepsize}
+    step = make_train_step(loop.make_forward(mcfg, kw), ft,
+                           world_size_max=float(max(mcfg.world_size)), lr_anchor=1)
+    return float(step(create_train_state(params, ft), batch)["loss"])
+
+
+def phase_grid_parallel(tmp: pathlib.Path, card: str) -> list:
+    """Phase 16: ``--grid_parallel 2`` at waymo_block.py's full width (7
+    banks, density 1 and k0 3 channels, bf16) through the boundary code, in
+    one process: NCCL takes one rank a card, and gloo's point-to-point
+    operations carry no CUDA tensor, so the two ranks run in turn on the one
+    card, each with only its own slabs on it (cut on the host), and what a
+    neighbour would send (its edge planes, its partial samples, its slab for
+    the one join) is copied from where that rank left it. The exchanges
+    themselves run on gloo ranks in the CPU tests and on four cards in
+    ``probes/multi_gpu.py``.
+
+    A seeded scene (``imprint_scene`` on a dark base) at 188^3 crosses the
+    188^3 -> 238^3 boundary, which keeps both grids cut: each rank's slabs,
+    resized from its own planes and the neighbours' planes
+    (``halo.resize_source``), joined, must equal the one-rank boundary's
+    grids to the bit, and the refreshed mask, from the halo sample's partial
+    samples summed over the ranks, the one-rank mask up to flips whose
+    pooled alpha lies within ``GRID_FLIP_BAND`` of the threshold (counted).
+    The 238^3 -> 299^3 boundary joins them (299 is odd: the JAX rule) and
+    must equal the one-rank grids to the bit; then a step on the joined
+    grids against the one-rank step. A save and a resume at
+    ``GRID_SAVE_VOX`` (the disk): rank 0 copies its slabs and moments to its
+    host and the other rank's through one slab's buffer on its card, and
+    writes the one checkpoint (``ckpt.save_model`` through
+    ``mesh.gather_to_host``), which each rank reads on the host, cuts, and
+    moves to the card: its slabs and moments equal to the bit.
+    Prints each rank's peak device GB over each part against the one rank's,
+    and the seconds of resize, refresh and save. Returns the launch counts
+    of its steps."""
+    from unittest import mock
+
+    import torch
+
+    from unboundednerfpytorch_tpu_torch.configs import loader
+    from unboundednerfpytorch_tpu_torch.data import synthetic
+    from unboundednerfpytorch_tpu_torch.fields import grids as grids_mod
+    from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+    from unboundednerfpytorch_tpu_torch.ops import interp
+    from unboundednerfpytorch_tpu_torch.ops.cuda import build
+    from unboundednerfpytorch_tpu_torch.parallel import halo
+    from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
+    from unboundednerfpytorch_tpu_torch.train.step import create_train_state
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
+    def host_copy(t):
+        return t.detach().to("cpu", copy=True)
+
+    cfg = loader.load_config(str(BLOCK_CONFIG))
+    fm, ft = cfg.fine_model_and_render, cfg.fine_train
+    box = ((-1.0,) * 3, (1.0,) * 3)
+    nv = [(int(fm.num_voxels_density / 2**n), int(fm.num_voxels_rgb / 2**n)) for n in (2, 1, 0)]
+    cfgs = [fg.config_from(fm, *box, *v) for v in nv]
+    sizes = [c.world_size_density for c in cfgs]
+    if [s[0] for s in sizes] != list(GRID_SIZES) or any(
+            c.world_size_rgb != c.world_size_density for c in cfgs):
+        raise AssertionError(f"[16] waymo_block.py's lattices {sizes}, want X {GRID_SIZES}")
+    w = GRID_WAYS
+    out = {"phase": "16", "card": card, "config": str(BLOCK_CONFIG.relative_to(ROOT)),
+           "grid_parallel": w, "emulated": "one process, the ranks in turn",
+           "banks": 2 * fm.fourier_freq_num + 1, "sizes": [list(s) for s in sizes],
+           "grid_dtype": fm.grid_dtype}
+    torch.cuda.empty_cache()
+    # the seeded scene at 188^3, whole on the host
+    seed = fg.create(cfgs[0], torch.Generator().manual_seed(16), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    with torch.no_grad():
+        d = seed.density.grid
+        d.copy_((torch.randn(d.shape, generator=gen, device="cuda") * 0.5 - 5.0).to(d.dtype))
+        synthetic.imprint_scene(seed, cfgs[0].scene_center, cfgs[0].scene_radius, seed=16)
+    host = {n: host_copy(getattr(seed, n).grid) for n in ("density", "k0")}
+    shift = seed.act_shift
+    del seed, d
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() / 1e9
+    rays = torch.Generator(device="cuda").manual_seed(17)
+    n = ft.N_rand
+    ro = (torch.rand((n, 3), generator=rays, device="cuda") - 0.5) * 0.4
+    rd = torch.nn.functional.normalize(torch.randn((n, 3), generator=rays, device="cuda"), dim=-1)
+    batch = {"rays_o": ro, "rays_d": rd, "viewdirs": rd,
+             "rgb": torch.rand((n, 3), generator=rays, device="cuda")}
+
+    def boundary(params, i):
+        # the boundary's resize and refresh, then its rebuild (new moments);
+        # what the rank holds after it (grids, moments, mask) in "resident_gb"
+        report = {}
+        fg.scale_volume_grid(params, cfgs[i], *nv[i + 1], report=report)
+        state = create_train_state(params, ft)
+        torch.cuda.synchronize()
+        report["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+        del state
+        return report
+
+    # one rank: both boundaries and the step, on whole grids
+    reset_counts()
+    one = grid_rank_params(cfgs[0], host, None, shift=shift)
+    rep1, gb1, _ = grid_peak(boundary, one, 0)
+    want238 = {n: host_copy(getattr(one, n).grid) for n in ("density", "k0")}
+    mask238, pooled238 = host_copy(one.mask_cache.mask), host_copy(rep1["pooled_alpha"])
+    rep2, gb2, _ = grid_peak(boundary, one, 1)
+    want299 = {n: host_copy(getattr(one, n).grid) for n in ("density", "k0")}
+    mask299 = host_copy(one.mask_cache.mask)
+    loss1, gbs1, _ = grid_peak(grid_step, one, cfgs[2], ft, batch)
+    out["one_rank"] = {
+        "boundary_188_238": {"peak_gb": gb1, "resident_gb": rep1["resident_gb"],
+                             "resize_s": rep1["resize"], "refresh_s": rep1["refresh"]},
+        "boundary_238_299": {"peak_gb": gb2, "resident_gb": rep2["resident_gb"],
+                             "resize_s": rep2["resize"], "refresh_s": rep2["refresh"]},
+        "step": {"peak_gb": gbs1}}
+    del one, rep1, rep2
+    torch.cuda.empty_cache()
+
+    # the two ranks at the 188 -> 238 boundary, in turn
+    X0, X1 = sizes[0][0], sizes[1][0]
+    xs0, xs1 = X0 // w, X1 // w
+    plan = halo.resize_plan(w, X0, X1)
+    names = {}  # a slab's data pointer -> its field's name
+
+    def source(slab, shard, x_new):
+        # halo.resize_source: the rank's slab and the planes its neighbours send
+        whole = host[names[slab.data_ptr()]]
+        _, _, a, b = plan[shard.index]
+        k = shard.index
+        lo, hi = min(a, k * xs0), max(b, (k + 1) * xs0)
+        parts = [whole[:, lo:k * xs0].cuda(), slab, whole[:, (k + 1) * xs0:hi].cuda()]
+        return torch.cat([p for p in parts if p.shape[1]], dim=1), lo
+
+    # the density plane that each rank's right neighbour appends to its slab
+    # in the halo sample (the neighbour's first new plane; zeros at the end)
+    nxt = []
+    for k in range(w):
+        if k + 1 < w:
+            first = (k + 1) * xs1
+            a, b = interp.resize_source_planes(X0, X1, first, first + 1)
+            nxt.append(grids_mod.resize_banks(host["density"][:, a:b].cuda(), sizes[1],
+                                              (a, X0, first, first + 1))[:, 0])
+        else:
+            nxt.append(torch.zeros_like(nxt[0]))
+    partials = {k: [] for k in range(w)}
+
+    def sampler(k, others):
+        pending = iter(others)
+
+        def sample(slab, c01, shard):
+            ext = torch.cat([slab, nxt[k][:, None]], dim=1)  # halo._Extend
+            part = halo.partial_sample(ext, c01, k, shard.X)
+            partials[k].append(part.cpu())
+            total = part.clone()  # halo._GridSum's buffer
+            for other in pending:
+                total += other.cuda()
+                break
+            return total
+        return sample
+
+    ranks, slabs238 = [], []
+    # rank 0 first (its sum waits on rank 1's partials), then rank 1 with
+    # rank 0's: a sum of two partials is the same on both (addition commutes)
+    for k, others in ((0, []), (1, None)):
+        others = partials[0] if others is None else others
+        p = grid_rank_params(cfgs[0], host, k, shift=shift)
+        names.update({p.density.grid.data_ptr(): "density", p.k0.grid.data_ptr(): "k0"})
+        with mock.patch.object(halo, "resize_source", source), \
+                mock.patch.object(halo, "sharded_grid_sample", sampler(k, others)):
+            rep, gb, _ = grid_peak(boundary, p, 0)
+        if [f.shard.X for f in (p.density, p.k0)] != [X1, X1] or p.density.grid.shape[1] != xs1:
+            raise AssertionError(f"[16] rank {k}: the 238 boundary did not keep its grids cut")
+        ranks.append({"boundary_188_238": {"peak_gb": gb, "resident_gb": rep["resident_gb"],
+                                           "resize_s": rep["resize"],
+                                           "refresh_s": rep["refresh"]}})
+        slabs238.append({n: host_copy(getattr(p, n).grid) for n in ("density", "k0")})
+        mask = host_copy(p.mask_cache.mask)
+        del p, rep
+        torch.cuda.empty_cache()
+    flips = int((mask != mask238).sum())
+    off = float((pooled238[mask != mask238] - cfgs[1].fast_color_thres).abs().max()) \
+        if flips else 0.0
+    for n in ("density", "k0"):
+        joined = torch.cat([s[n] for s in slabs238], dim=1)
+        if not torch.equal(joined, want238[n]):
+            raise AssertionError(f"[16] the ranks' 238^3 {n} slabs, joined, differ from one "
+                                 "rank's boundary")
+    if off > GRID_FLIP_BAND or flips > GRID_MAX_FLIPS * mask.numel():
+        raise AssertionError(f"[16] the 238^3 mask: {flips} flips, {off} off the threshold")
+    out["mask_238"] = {"flips": flips, "max_off_threshold": off, "voxels": mask.numel(),
+                       "occupancy": float(mask.float().mean())}
+
+    # rank 0 at the 238 -> 299 boundary: the one join, then a step
+    def gather(slab, shard):
+        name = names[slab.data_ptr()]
+        return torch.cat([slab] + [s[name].cuda() for s in slabs238[1:]], dim=1)
+
+    p = grid_rank_params(cfgs[1], {n: torch.cat([s[n] for s in slabs238], 1)
+                                   for n in ("density", "k0")}, 0, mask=mask, shift=shift)
+    names.update({p.density.grid.data_ptr(): "density", p.k0.grid.data_ptr(): "k0"})
+    with mock.patch.object(mesh_mod, "_gather_x", gather):
+        rep, gb, _ = grid_peak(boundary, p, 1)
+    for n in ("density", "k0"):
+        if getattr(p, n).shard is not None or not torch.equal(getattr(p, n).grid.cpu(),
+                                                              want299[n]):
+            raise AssertionError(f"[16] the joined 299^3 {n} differs from one rank's")
+    flips299 = int((p.mask_cache.mask.cpu() != mask299).sum())
+    if flips299 and not flips:
+        raise AssertionError(f"[16] the 299^3 mask: {flips299} flips from equal 238^3 masks")
+    loss, gbs, _ = grid_peak(grid_step, p, cfgs[2], ft, batch)
+    rel = abs(loss - loss1) / abs(loss1)
+    if not rel <= GRID_LOSS_RTOL:
+        raise AssertionError(f"[16] the step on the joined grids: loss {loss} against {loss1}")
+    ranks[0].update(boundary_238_299={"peak_gb": gb, "resident_gb": rep["resident_gb"],
+                                      "resize_s": rep["resize"], "refresh_s": rep["refresh"]},
+                    step={"peak_gb": gbs})
+    out.update(mask_299_flips=flips299, loss=[loss1, loss], loss_rel_diff=rel)
+    counts = dict(build.LAUNCHES)
+    want = {k: 2 * v for k, v in TRAIN_PER_STEP.items()}
+    want["masked_adam"] = adam_wanted("[16]", 2)
+    if counts != want:
+        raise AssertionError(f"[16] launches {counts} != {want}")
+    del p, rep
+    torch.cuda.empty_cache()
+
+    # the save and the resume at GRID_SAVE_VOX (the disk): seeded grids and
+    # moments, whole on the host
+    scfg = fg.config_from(fm, *box, GRID_SAVE_VOX, GRID_SAVE_VOX)
+    g = torch.Generator().manual_seed(18)
+    small = {n: torch.randn((out["banks"], *scfg.world_size_density, c), generator=g)
+             for n, c in (("density", 1), ("k0", scfg.k0_dim))}
+    moments = {n: torch.rand(t.shape, generator=g) for n, t in small.items()}
+    small = {n: t.to(torch.bfloat16) for n, t in small.items()}
+    path = str(tmp / "grid_parallel" / "fine_last")
+
+    def state_of(params):
+        st = create_train_state(params, ft, start_step=5)
+        for n in ("density", "k0"):
+            field = getattr(params, n)
+            m = mesh_mod.x_slab(moments[n], field.shard).cuda()
+            st.optimizer.exp_avg[field.grid].copy_(m)
+            st.optimizer.exp_avg_sq[field.grid].copy_(m * m)
+        return st
+
+    whole = grid_rank_params(scfg, small, None, shift=shift)
+    st = state_of(whole)
+    one_save = {"resident_gb": torch.cuda.memory_allocated() / 1e9}
+    del whole, st
+    torch.cuda.empty_cache()
+    host_slabs = {}
+
+    def to_host(slab, shard):
+        # mesh.gather_to_host: a rank sends its slab (kept here for rank 0,
+        # which runs last); rank 0 copies its own slab to its host, then each
+        # other slab through one slab's buffer on its card
+        if shard.index:
+            host_slabs.setdefault(shard.index, []).append(slab.detach().cpu())
+            return None
+        i = host_slabs.setdefault("calls", [0])[0]
+        host_slabs["calls"][0] += 1
+        parts = [slab.detach().cpu()]
+        for j in range(1, w):
+            buf = host_slabs[j][i].cuda()
+            parts.append(buf.cpu())
+            del buf
+        return torch.cat(parts, dim=1)
+
+    for k in range(w - 1, -1, -1):  # rank 0 last: it writes
+        p = grid_rank_params(scfg, small, k, shift=shift)
+        st = state_of(p)
+        resident = torch.cuda.memory_allocated() / 1e9
+        with mock.patch.object(mesh_mod, "gather_to_host", to_host):
+            _, gb, sec = grid_peak(ckpt.save_model, path, "FourierGrid", scfg, p, 5,
+                                   st.optimizer.state_dict())
+        ranks[k]["save"] = {"resident_gb": resident, "peak_gb": gb, "seconds": sec}
+        del p, st
+        torch.cuda.empty_cache()
+    gib = dir_gb(path) * 1e9 / 2**30
+
+    def resume(k):
+        # the loop's resume: one rank reads onto its card; under
+        # --grid_parallel a rank reads on the host, cuts, and moves its slabs
+        if k is None:
+            _, _, params, step, opt = ckpt.load_model(path, device="cuda")
+        else:
+            _, _, params, step, opt = ckpt.load_model(path, device="cpu")
+            mesh = mesh_mod.Mesh(data=1, grid=w, rank=k, data_group=None, grid_group=None,
+                                 grid_ranks=tuple(range(w)))
+            mesh_mod.shard_params(mesh, params)
+            opt = mesh_mod.shard_opt_state(params, opt)
+            params = params.to("cuda")
+        return params, create_train_state(params, ft, start_step=step, opt_state=opt)
+
+    for k in range(w):
+        (params, st), gbr, secr = grid_peak(resume, k)
+        for n in ("density", "k0"):
+            field = getattr(params, n)
+            m = mesh_mod.x_slab(moments[n], field.shard)
+            if not (torch.equal(field.grid.cpu(), mesh_mod.x_slab(small[n], field.shard))
+                    and torch.equal(st.optimizer.exp_avg[field.grid].cpu(), m)
+                    and torch.equal(st.optimizer.exp_avg_sq[field.grid].cpu(), m * m)):
+                raise AssertionError(f"[16] rank {k}'s resumed {n} or its moments differ")
+        ranks[k]["resume"] = {"peak_gb": gbr, "seconds": secr}
+        del params, st
+        torch.cuda.empty_cache()
+    loaded, gbo, seco = grid_peak(resume, None)
+    del loaded
+    torch.cuda.empty_cache()
+    one_save.update(resume_peak_gb=gbo, resume_s=seco)
+    out["one_rank"]["save"] = one_save
+    out.update(ranks=ranks, save_size=list(scfg.world_size_density), save_gib=gib,
+               base_gb=base)
+    log(json.dumps(out))
+    return [counts]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -6481,6 +6861,8 @@ def main(argv=None) -> int:
             timed("15c", phase_cameras, card)
             timed("15d", phase_gtk, card)
             timed("15e", phase_framing, tmp)
+            # phase 16: --grid_parallel grids that stay cut (one process)
+            path_counts += timed("16", phase_grid_parallel, tmp, card)
     # phase 3 held masked Adam at phase 4's grids already
     seen = {(tuple(s), torch.bfloat16, True, True, False) for s in tv_shapes.values()}
     timed("9c", phase_dvgo_kernels, gen, kernels,
@@ -6522,7 +6904,7 @@ def main(argv=None) -> int:
         f"block renders {path_counts[46:48]}, 14a the data-parallel step and the cooperative "
         f"render {path_counts[48:50]}, 11a the imported directory's render {path_counts[50]}, "
         f"15b the JAX-layout checkpoint's render and the traced resume {path_counts[51:53]}, "
-        f"probes {probe_counts}")
+        f"16 the steps on whole and joined grids {path_counts[53]}, probes {probe_counts}")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

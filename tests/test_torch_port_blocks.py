@@ -41,6 +41,7 @@ from unboundednerfpytorch_tpu_torch.cli import main as cli
 from unboundednerfpytorch_tpu_torch.data import synthetic
 from unboundednerfpytorch_tpu_torch.train import loop
 from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+from torch_threads import torch_threads  # noqa: F401: the workers' share of the cores
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 H, W = 12, 16

@@ -36,6 +36,7 @@ from unboundednerfpytorch_tpu_torch.configs.schema import exp_config_from_dict a
 from unboundednerfpytorch_tpu_torch.data import common, synthetic
 from unboundednerfpytorch_tpu_torch.train import loop
 from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+from torch_threads import torch_threads  # noqa: F401: the workers' share of the cores
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 H, W = 12, 16

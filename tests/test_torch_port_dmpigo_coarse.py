@@ -42,6 +42,7 @@ from unboundednerfpytorch_tpu_torch.data import synthetic
 from unboundednerfpytorch_tpu_torch.models import dmpigo, dvgo
 from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
 from unboundednerfpytorch_tpu_torch.train import bbox, loop
+from torch_threads import torch_threads  # noqa: F401: the workers' share of the cores
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CUSTOM = ["Madoka", "Madoka_long", "Otobai", "sm01_desktop", "sm02_multiple_desktop",

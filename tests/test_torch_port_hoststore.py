@@ -27,6 +27,7 @@ from unboundednerfpytorch_tpu_torch.data import synthetic
 from unboundednerfpytorch_tpu_torch.optim.masked_adam import MaskedAdam, ParamGroup
 from unboundednerfpytorch_tpu_torch.train import loop
 from unboundednerfpytorch_tpu_torch.train import step as tstep
+from torch_threads import torch_threads  # noqa: F401: the workers' share of the cores
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 COLUMNS = ("rgb", "rays_o", "rays_d", "viewdirs")

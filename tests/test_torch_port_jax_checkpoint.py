@@ -42,6 +42,7 @@ from unboundednerfpytorch_tpu_torch.optim import factory
 from unboundednerfpytorch_tpu_torch.train import loop
 from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 from unboundednerfpytorch_tpu_torch.utils import flax_msgpack
+from torch_threads import torch_threads  # noqa: F401: the workers' share of the cores
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 XYZ_MIN, XYZ_MAX = (-1.0, -1.2, -0.8), (1.1, 1.0, 1.2)

@@ -18,7 +18,16 @@ hands the results back:
   ``pg_scale`` boundary: the first grids, 19 planes in x, stay whole (the
   JAX rule), the resized 24^3 ones are cut; its checkpoint, and two resumes
   to one more step: of that checkpoint, and of a checkpoint that one
-  device wrote.
+  device wrote;
+* the same at 21^3 voxels, whose lattice of 16 planes the boundary takes to
+  20: both divide over 2, so the grids stay cut from the first step to the
+  end, under spies on the one join (``mesh._gather_x``) and on every
+  density and k0 tensor a rank makes or updates (the resize's source and
+  result, the halo sample's extended slab, each Adam step's parameters and
+  moments);
+* each family's ``pg_scale`` boundary (FourierGrid, DCVGO, DVGO, DMPIGO)
+  on grids cut over the grid axis: the slab resize and the occupancy
+  refresh.
 
 Held against, in this process: the single-device steps on the global batch
 (parameters 1e-5 relative / 1e-6 absolute: the sums run in another order,
@@ -28,12 +37,17 @@ to the bit; JAX's data-parallel step on a mesh of W CPU devices (the
 tolerance of ``test_torch_port_train.py``: 1e-4 / 2e-5); the single-device
 render (1e-6: the MLP's matrix products at other batch sizes); the
 single-device ``run_train`` (1e-5 / 1e-6 on every parameter, loaded on one
-device from the checkpoints the ranks wrote).
+device from the checkpoints the ranks wrote); each family's one-device
+boundary (the joined grids to the bit; the mask equal, but for FourierGrid,
+whose refresh sums the banks' partial samples over the grid group in another
+order: a flipped voxel must have a pooled alpha within 1e-6 of
+``fast_color_thres``, and the flips are counted).
 """
 
 import dataclasses
 import pathlib
 import shutil
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -44,9 +58,11 @@ from unboundednerfpytorch_tpu_torch import convert
 from unboundednerfpytorch_tpu_torch.configs import loader
 from unboundednerfpytorch_tpu_torch.configs.schema import TrainStageConfig
 from unboundednerfpytorch_tpu_torch.data import synthetic
+from unboundednerfpytorch_tpu_torch.fields import grids as grids_mod
 from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
+from unboundednerfpytorch_tpu_torch.optim.masked_adam import MaskedAdam
+from unboundednerfpytorch_tpu_torch.parallel import halo, spawn
 from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
-from unboundednerfpytorch_tpu_torch.parallel import spawn
 from unboundednerfpytorch_tpu_torch.render.renderer import render_image
 from unboundednerfpytorch_tpu_torch.train import loop
 from unboundednerfpytorch_tpu_torch.train import step as tstep
@@ -62,6 +78,15 @@ NEAR_THRES = 0.3
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 JAX_TOL = dict(rtol=1e-4, atol=2e-5)
 VIEW = dict(H=8, W=10, chunk=30)
+CUT_VOX = 21**3  # a lattice of 16^3 before the boundary, 20^3 after it
+# each family's boundary on grids cut over 2 or 4 ranks: (start, new) voxel
+# counts whose lattices' X the ranks divide (FourierGrid's start is the
+# fixture's 16^3), and the density's mean, which leaves the refreshed mask
+# neither full nor empty
+REFRESH_CASES = {"FourierGrid/2": (17**3, 21**3, None), "FourierGrid/4": (17**3, 21**3, None),
+                 "dcvgo/2": (17**3, 21**3, -8.0), "dvgo/2": (16**3, 18**3, -8.0),
+                 "dmpigo/2": (17**3, 20**3, -12.0)}
+FLIP_BAND = 1e-6  # a FourierGrid mask flip's pooled alpha, from fast_color_thres
 
 
 def _batches():
@@ -117,9 +142,10 @@ def _view():
     return K, pose[:3, :4]
 
 
-def _train_cfg(n_iters):
+def _train_cfg(n_iters, vox=25**3):
+    """bicycle_single cut to ``vox`` voxels (25^3: a lattice of 19^3 before
+    the boundary, 24^3 after it)."""
     cfg = loader.load_config(str(ROOT / "configs" / "nerf_unbounded" / "bicycle_single.py"))
-    vox = 25**3  # a lattice of 19^3 before the boundary, 24^3 after it
     # f32 grids: a bf16 grid's gradient is rounded once a rank before the sum
     # and once after it, so the runs would part by a bf16 rounding a step
     fm = dataclasses.replace(cfg.fine_model_and_render, num_voxels_density=vox,
@@ -134,7 +160,82 @@ def _run_train(cfg, data, exp_dir):
                           exp_dir=exp_dir)
 
 
-def _ranks(rank, world, np_params, tcfg, batches, data, work):
+def _spy(fn, take):
+    """``fn`` that hands its arguments and result to ``take``."""
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
+        take(args, out)
+        return out
+    return wrapped
+
+
+def _cut_run(data, work):
+    """run_train over (data 2, grid 2) at ``CUT_VOX``, 3 steps across the
+    boundary, then the resumes of its checkpoint and of one device's to a 4th
+    step, under the spies: the joins of a grid or a moment, and the x-widths
+    of every density and k0 tensor a rank makes or updates."""
+    joins, widths, boundary, logs = [], [], {}, []
+
+    def adam_widths(args, _):
+        opt = args[0]
+        for g in opt.groups:
+            if g.name in mesh_mod.SHARDED_FIELDS:
+                widths.extend(t.shape[1] for p in g.params
+                              for t in (p, opt.exp_avg[p], opt.exp_avg_sq[p]))
+
+    spies = (
+        mock.patch.object(mesh_mod, "_gather_x", _spy(
+            mesh_mod._gather_x, lambda a, _: joins.append(tuple(a[0].shape)))),
+        mock.patch.object(grids_mod, "resize_banks", _spy(
+            grids_mod.resize_banks, lambda a, out: widths.extend((a[0].shape[1],
+                                                                  out.shape[1])))),
+        mock.patch.object(halo, "partial_sample", _spy(
+            halo.partial_sample, lambda a, _: widths.append(a[0].shape[1]))),
+        mock.patch.object(MaskedAdam, "step", _spy(MaskedAdam.step, adam_widths)),
+    )
+    for s in spies:
+        s.start()
+    try:
+        _, _, params, _ = loop.run_train(
+            _train_cfg(3, CUT_VOX), data, seed=0, device="cpu", log_fn=logs.append,
+            exp_dir=f"{work}/cut", grid_parallel=2,
+            callback=lambda s, m: boundary.update(m.get("pg_scale", {})))
+        ends = [params.density.grid.shape[1], params.k0.grid.shape[1]]
+        mesh_mod.barrier()
+        if mesh_mod.rank() == 0:
+            shutil.copytree(f"{work}/cut/fine_last", f"{work}/cut3")
+        mesh_mod.barrier()
+        for name in ("cut", "single_cut"):
+            _, _, params, _ = loop.run_train(_train_cfg(4, CUT_VOX), data, seed=0, device="cpu",
+                                             log_fn=lambda *_: None, exp_dir=f"{work}/{name}",
+                                             grid_parallel=2)
+            ends += [params.density.grid.shape[1], params.k0.grid.shape[1]]
+    finally:
+        for s in spies:
+            s.stop()
+    return dict(joins=joins, widths=widths, ends=ends, boundary=boundary, logs=logs)
+
+
+def _refresh(fam):
+    """Each family's boundary (``loop.scale_model``) on its grids cut over
+    the grid axis of (data 2, grid 2) or (data 1, grid 4): the resized grids
+    joined, and the mask."""
+    meshes = {2: mesh_mod.make_mesh(grid_parallel=2), 4: mesh_mod.make_mesh(grid_parallel=4)}
+    out = {}
+    for case, (tree, cfg, nv) in fam.items():
+        family, ways = case.split("/")
+        mesh = meshes[int(ways)]
+        params = convert.params_from_numpy(family, tree, "cpu").requires_grad_(False)
+        assert mesh_mod.shard_params(mesh, params) == ["density", "k0"]
+        loop.scale_model(family, params, cfg, nv, nv, report={})
+        out[case] = {n: mesh_mod._gather_x(getattr(params, n).grid,
+                                           getattr(params, n).shard).numpy()
+                     for n in mesh_mod.sharded_names(params)}
+        out[case]["mask"] = params.mask_cache.mask.numpy()
+    return out
+
+
+def _ranks(rank, world, np_params, tcfg, batches, data, work, fam):
     out = {}
     # data-parallel at W = 2: ranks {0, 1} and {2, 3}, each pair a data group
     pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
@@ -174,6 +275,8 @@ def _ranks(rank, world, np_params, tcfg, batches, data, work):
     odd_logs = []
     _, _, params, _ = loop.run_train(odd, data, seed=0, device="cpu", log_fn=odd_logs.append)
     out["odd"] = (odd_logs, _as_numpy(params))
+    out["cut"] = _cut_run(data, work)
+    out["refresh"] = _refresh(fam)
     return out
 
 
@@ -188,12 +291,35 @@ def run(tmp_path_factory):
     batches = _batches()
     data = synthetic.orbit_scene(4, 16, 24, seed=0)
     work = tmp_path_factory.mktemp("parallel")
-    # one device's run: its 3-step checkpoint is the one a 4-rank resume takes
-    _run_train(_train_cfg(3), data, str(work / "single"))
-    shutil.copytree(work / "single" / "fine_last", work / "single3")
-    res = spawn.run(_ranks, 4, str(work / "store"), np_params, tcfg, batches, data, str(work))
+    # one device's runs: their 3-step checkpoints are the ones 4-rank resumes take
+    for name, vox in (("single", 25**3), ("single_cut", CUT_VOX)):
+        _run_train(_train_cfg(3, vox), data, str(work / name))
+        shutil.copytree(work / name / "fine_last", work / f"{name}3")
+    fam = _refresh_inputs(tcfg, np_params)
+    res = spawn.run(_ranks, 4, str(work / "store"), np_params, tcfg, batches, data, str(work),
+                    fam)
     return dict(jcfg=jcfg, jp=jp, tcfg=tcfg, np_params=np_params, batches=batches, data=data,
-                work=work, res=res)
+                work=work, res=res, fam=fam)
+
+
+def _refresh_inputs(tcfg, np_params) -> dict:
+    """{case: (its params as numpy, its config, the boundary's voxel
+    count)} of ``REFRESH_CASES``: the fixture's FourierGrid model, and DCVGO,
+    DVGO and DMPIGO models with N(mean, 4^2) densities (the pairs of their
+    parity tests)."""
+    from test_torch_port_dvgo import make_pair as dvgo_pair
+    from test_torch_port_families import make_pair as family_pair
+
+    fam = {}
+    for case, (start, nv, mean) in REFRESH_CASES.items():
+        family = case.split("/")[0]
+        kw = dict(num_voxels_density=start, num_voxels_rgb=start, offset=mean)
+        if family == "FourierGrid":
+            fam[case] = (np_params, tcfg, nv)
+            continue
+        _, _, cfg, params = dvgo_pair(**kw) if family == "dvgo" else family_pair(family, **kw)
+        fam[case] = (convert.params_to_numpy(params), cfg, nv)
+    return fam
 
 
 def _assert_params(got: dict, want: dict, **tol):
@@ -286,6 +412,7 @@ def test_grid_parallel_run_train_and_its_checkpoints(run):
     assert not res[1]["logs"]  # rank 0 alone logs
     assert tuple(res[0]["boundary"]["world_size_density"]) == (24, 24, 24)
     assert res[0]["boundary"]["sharded"] == ["density", "k0"]
+    assert res[0]["boundary"]["layout"] == {"density": "cut", "k0": "cut"}
     assert res[0]["resumed_steps"] == [4, 4]
     single4 = work / "single4"
     shutil.copytree(work / "single3", single4 / "fine_last")
@@ -299,6 +426,71 @@ def test_grid_parallel_run_train_and_its_checkpoints(run):
         assert got["density"].shape[1:4] == (24, 24, 24)
         np.testing.assert_array_equal(got.pop("mask"), want.pop("mask"))
         _assert_params(got, want, **STEP_TOL)
+
+
+def test_grid_parallel_keeps_cut_grids_cut(run):
+    """run_train(grid_parallel=2) at 21^3 voxels: its lattice of 16 planes
+    and the boundary's 20 both divide over 2, so the grids stay cut from the
+    first step to the end and through both resumes: no rank joins a grid or
+    a moment (the spy on ``mesh._gather_x``) or holds a density or k0 tensor
+    wider than its slab and two planes; the stage hands on its slabs. Its
+    checkpoints load on one device and equal one device's run at step 3 and
+    after the resumes to step 4 (of its own checkpoint and of one
+    device's)."""
+    work = run["work"]
+    for r in range(4):
+        cut = run["res"][r]["cut"]
+        assert cut["joins"] == [], f"rank {r}"
+        assert cut["widths"] and max(cut["widths"]) <= 20 // 2 + 2, f"rank {r}"
+        assert cut["ends"] == [10] * 6, f"rank {r}"
+    cut = run["res"][0]["cut"]
+    assert any("grids cut over 2 ranks: ['density', 'k0']" in line for line in cut["logs"])
+    assert tuple(cut["boundary"]["world_size_density"]) == (20, 20, 20)
+    assert cut["boundary"]["sharded"] == ["density", "k0"]
+    assert cut["boundary"]["layout"] == {"density": "kept cut", "k0": "kept cut"}
+    single4 = work / "single_cut4"
+    shutil.copytree(work / "single_cut3", single4 / "fine_last")
+    _run_train(_train_cfg(4, CUT_VOX), run["data"], str(single4))
+    for got_path, want_path, step in ((work / "cut3", work / "single_cut3", 3),
+                                      (work / "cut" / "fine_last", single4 / "fine_last", 4),
+                                      (work / "single_cut" / "fine_last", single4 / "fine_last",
+                                       4)):
+        got, got_step = _load(got_path)
+        want, want_step = _load(want_path)
+        assert got_step == want_step == step
+        assert got["density"].shape[1:4] == (20, 20, 20)
+        np.testing.assert_array_equal(got.pop("mask"), want.pop("mask"))
+        _assert_params(got, want, **STEP_TOL)
+
+
+@pytest.mark.parametrize("case", list(REFRESH_CASES))
+def test_sharded_boundary_matches_one_device(run, case):
+    """A family's boundary on grids cut over 2 (or 4) ranks: the slabs
+    resized with their neighbours' planes, joined, equal one device's resize
+    to the bit; the refreshed mask, whole on every rank, equals one device's
+    (FourierGrid: up to flips within ``FLIP_BAND`` of the threshold,
+    counted)."""
+    family = case.split("/")[0]
+    tree, cfg, nv = run["fam"][case]
+    params = convert.params_from_numpy(family, tree, "cpu").requires_grad_(False)
+    report = {}
+    _, new_cfg = loop.scale_model(family, params, cfg, nv, nv, report=report)
+    assert params.density.grid.shape[1] % 2 == 0
+    want_mask = params.mask_cache.mask.numpy()
+    assert 0 < want_mask.mean() < 1
+    for r in range(4):
+        got = run["res"][r]["refresh"][case]
+        for name in ("density", "k0"):
+            np.testing.assert_array_equal(
+                got[name], getattr(params, name).grid.numpy(), err_msg=f"{case} {name} rank {r}")
+        flips = got["mask"] != want_mask
+        if family != "FourierGrid":
+            assert not flips.any(), f"{case} rank {r}: {int(flips.sum())} flips"
+            continue
+        pooled = report["pooled_alpha"].numpy()
+        off = np.abs(pooled[flips] - new_cfg.fast_color_thres)
+        assert (off <= FLIP_BAND).all(), f"rank {r}: {int(flips.sum())} flips, {off.max()} off"
+        np.testing.assert_array_equal(got["mask"], run["res"][0]["refresh"][case]["mask"])
 
 
 def test_n_rand_that_does_not_divide_trains_single_device(run):

@@ -47,6 +47,7 @@ from unboundednerfpytorch_tpu_torch.train import step as tstep
 from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 from test_torch_port_model import MODEL_KW, XYZ_MIN, XYZ_MAX, jax_params_to_numpy, make_rays
 from test_torch_port_train import TRAIN_KW
+from torch_threads import torch_threads  # noqa: F401: the workers' share of the cores
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -71,6 +72,54 @@ def test_resize_grid_3d_matches_jax(size, dtype):
         got = interp.resize_grid_3d(tg, size)
         assert got.dtype == torch.float32 and got.shape == want.shape == (*size, shape[-1])
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("x_old,x_new", [(16, 24), (8, 28), (24, 16), (16, 23)])
+@pytest.mark.parametrize("ways", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slab_resize_joins_to_the_whole_resize(dtype, ways, x_old, x_new, monkeypatch):
+    """``FourierGrid.scale_volume_grid`` of a grid cut into ``ways``
+    x-slabs, each rank's field in turn in one process. Where ``ways``
+    divides the new X, each slab is resized from the planes that
+    ``halo.resize_source`` hands it (its own, and the neighbours' planes
+    that ``halo.resize_plan`` says it reads, taken here from the whole grid:
+    the exchange itself runs on gloo ranks in test_torch_port_parallel.py),
+    stays cut, and the slabs joined equal the whole grid's resize to the bit
+    (up, a fourfold up, down). Where it does not (16 -> 23), each rank joins
+    the old slabs (``mesh._gather_x``) and holds the whole resize."""
+    from unboundednerfpytorch_tpu_torch.fields.grids import FourierGrid, resize_banks
+    from unboundednerfpytorch_tpu_torch.parallel import halo
+    from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
+
+    rng = np.random.default_rng(x_old * 100 + x_new)
+    whole = torch.tensor(rng.standard_normal((3, x_old, 5, 6, 2)), dtype=torch.float32)
+    whole = whole.to(TORCH_DTYPE[dtype])
+    size = (x_new, 7, 4)
+    want = resize_banks(whole, size)
+    xs = x_old // ways
+
+    def source(slab, shard, n_new):
+        _, _, a, b = halo.resize_plan(shard.count, shard.X, n_new)[shard.index]
+        assert shard.index * xs - a <= xs and b - (shard.index + 1) * xs <= xs
+        return whole[:, a:b], a
+
+    monkeypatch.setattr(halo, "resize_source", source)
+    monkeypatch.setattr(mesh_mod, "_gather_x", lambda slab, shard: whole.clone())
+    got = []
+    for k in range(ways):
+        field = FourierGrid(2, (x_old, 5, 6), XYZ_MIN, XYZ_MAX, num_freqs=1,
+                            grid=whole[:, k * xs:(k + 1) * xs].clone())
+        field.shard = halo.GridShard(index=k, count=ways, X=x_old)
+        field.scale_volume_grid(size)
+        assert field.grid.dtype == whole.dtype and field.world_size == size
+        if x_new % ways:
+            assert field.shard is None and torch.equal(field.grid, want), k
+        else:
+            assert field.shard.X == x_new and field.grid.shape[1] == x_new // ways
+            got.append(field.grid)
+    if got:
+        assert torch.equal(torch.cat(got, dim=1), want)
+    assert torch.equal(want[0], interp.resize_grid_3d(whole[0], size).to(whole.dtype))
 
 
 @pytest.mark.parametrize("window", [3, 5])

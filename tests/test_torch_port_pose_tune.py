@@ -47,6 +47,7 @@ from unboundednerfpytorch_tpu_torch.data import synthetic
 from unboundednerfpytorch_tpu_torch.ops import rays
 from unboundednerfpytorch_tpu_torch.train import loop
 from unboundednerfpytorch_tpu_torch.train import pose_tune as pt
+from torch_threads import torch_threads  # noqa: F401: the workers' share of the cores
 
 XYZ_MIN, XYZ_MAX = (-1.0, -1.1, -0.9), (1.0, 1.0, 1.1)
 NEAR, STEPSIZE = 0.2, 0.5

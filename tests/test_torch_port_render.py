@@ -45,6 +45,7 @@ from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 from unboundednerfpytorch_tpu_torch.utils import metrics
 from test_torch_port_model import XYZ_MAX, XYZ_MIN, make_pair, make_rays
 from test_torch_port_train import ROOT, _tiny_bicycle
+from torch_threads import torch_threads  # noqa: F401: the workers' share of the cores
 
 TWO_STAGE = dict(color_budget=5)
 H, W, CHUNK = 17, 24, 128  # 408 rays: three full chunks and a padded one
@@ -652,8 +653,11 @@ def test_run_render_ft_path_and_refusals(trained, tmp_path, monkeypatch):
                                auto_budget=True), cfg, data, str(tmp_path), device="cpu",
                             log_fn=logs.append)
     assert out["test"]["rgbs"].shape[0] == 2 and any("auto budgets" in m for m in logs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render.run_render(ns(constant_baked="x"), cfg, data, exp_dir, device="cpu")
+    # --constant_baked renders, through the cached forward it would take anyway
+    logs = []
+    out = render.run_render(ns(chunk=CHUNK, constant_baked=True), cfg, data, exp_dir,
+                            device="cpu", log_fn=logs.append)
+    assert out["test"]["rgbs"].shape[0] == 2 and any("--constant_baked" in m for m in logs)
     # --style_root is ported: the test views take the style image's colours
     style = np.random.default_rng(1).random((20, 30, 3)) * np.array([0.3, 0.6, 0.9])
     from PIL import Image
@@ -692,6 +696,54 @@ def test_run_render_ft_path_and_refusals(trained, tmp_path, monkeypatch):
         render.run_render(ns(), cfg, data, exp_dir)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         renderer.render_viewpoints(None, data["poses"][:1], data["HW"][:1], data["Ks"][:1])
+
+
+def test_constant_baked_render_matches_jax(trained, tmp_path, monkeypatch):
+    """``--constant_baked`` on the trained FourierGrid, whose cache is
+    two-stage (``sample_budget`` 16, ``fast_color_thres``, ``color_budget``
+    6): the port's render program against the JAX command line's render
+    program with the flag, which renders through its staged renderer of
+    compile-time constant tables (``render/staged_const.py``, on the CPU),
+    on the same checkpoint in the JAX layout. Rendered images and depths
+    within 1e-5 (the render parity tolerance above). Both composite on the
+    data's background (white: ``white_bkgd``), where the render without the
+    flag composites on black, as the JAX package's does (ROADMAP C): the
+    same depths, and images that differ by the background's share of each
+    ray."""
+    from unboundednerfpytorch_tpu import render as jrender
+    from unboundednerfpytorch_tpu.configs import loader as jloader
+    from unboundednerfpytorch_tpu.render import staged_const
+
+    cfg, data, exp_dir, mcfg, params = trained
+    assert mcfg.sample_budget > 0 and mcfg.fast_color_thres > 0 and mcfg.color_budget > 0
+    ns = types.SimpleNamespace
+    got = render.run_render(ns(chunk=CHUNK, constant_baked=True), cfg, data, exp_dir,
+                            device="cpu", log_fn=lambda _: None)["test"]
+    plain = render.run_render(ns(chunk=CHUNK), cfg, data, exp_dir, device="cpu",
+                              log_fn=lambda _: None)["test"]
+    ckpt.save_jax_model(str(tmp_path / "fine_last"), "FourierGrid", mcfg, params, global_step=4)
+    staged, seen = [], []
+    monkeypatch.setattr(staged_const, "make_staged_renderer", _spied(
+        staged_const.make_staged_renderer, staged))
+    monkeypatch.setattr(jrender, "render_viewpoints", _spied(jrender.render_viewpoints, seen))
+    jcfg = jloader.load_config(str(ROOT / "configs" / "nerf_unbounded" / "bicycle_single.py"))
+    jrender.run_render(ns(constant_baked=True), jcfg, data, str(tmp_path))
+    assert staged and len(seen) == 1  # the staged renderer drew the test split
+    want = seen[0]
+    for key in ("rgbs", "depths"):
+        np.testing.assert_allclose(got[key], np.asarray(want[key]), rtol=0, atol=1e-5,
+                                   err_msg=key)
+    np.testing.assert_array_equal(got["depths"], plain["depths"])
+    assert cfg.data.white_bkgd and float((got["rgbs"] - plain["rgbs"]).min()) >= 0
+    assert float((got["rgbs"] - plain["rgbs"]).max()) > 0.1
+
+
+def _spied(fn, calls: list):
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
+        calls.append(out)
+        return out
+    return wrapped
 
 
 def test_imprint_scene_makes_a_scene(trained):

@@ -48,6 +48,7 @@ from unboundednerfpytorch_tpu_torch.ops.tv import tensorf_tv_grads
 from unboundednerfpytorch_tpu_torch.train import loop
 from unboundednerfpytorch_tpu_torch.train import step as tstep
 from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+from torch_threads import torch_threads  # noqa: F401: the workers' share of the cores
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 LO, HI = (-1.0, -1.2, -0.8), (1.0, 0.9, 1.1)

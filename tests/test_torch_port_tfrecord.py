@@ -34,6 +34,7 @@ from unboundednerfpytorch_tpu.models.block_nerf import dataset as jdataset
 from unboundednerfpytorch_tpu_torch.data import png, preprocess, synthetic, tfrecord
 from unboundednerfpytorch_tpu_torch.models.block_nerf import dataset
 from unboundednerfpytorch_tpu_torch.tools import eval_block_nerf, train_block_nerf
+from torch_threads import torch_threads  # noqa: F401: the workers' share of the cores
 
 H, W = 12, 16
 N_TRAIN, N_VAL = 8, 2

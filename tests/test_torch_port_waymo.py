@@ -62,6 +62,7 @@ from unboundednerfpytorch_tpu_torch.train import bbox, loop
 from unboundednerfpytorch_tpu_torch.train import step as tstep
 from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
 from test_torch_port_model import jax_params_to_numpy
+from torch_threads import torch_threads  # noqa: F401: the workers' share of the cores
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 H, W = 12, 16

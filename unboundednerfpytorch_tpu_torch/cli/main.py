@@ -152,7 +152,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "cameras and coarse geometry")
     p.add_argument("--constant_baked", action="store_true",
                    help="the JAX command line's render tables as compile-time "
-                        "constants; no counterpart here (refused)")
+                        "constants; here the kernels take them as arguments, and "
+                        "a two-stage FourierGrid render composites on the data's "
+                        "background, as the JAX staged renderer does")
     return p
 
 

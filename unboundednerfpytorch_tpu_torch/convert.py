@@ -189,11 +189,11 @@ def params_from_numpy(family: str, tree: dict, device):
     raise NotImplementedError(f"the {family} family is not ported yet")
 
 
-def _grid_to_numpy(g, bf16_bits: bool) -> dict:
+def _grid_to_numpy(g, bf16_bits: bool, t: torch.Tensor | None = None) -> dict:
     if isinstance(g, TensoRFGrid):
         return {**{k: v.detach().float().cpu().numpy() for k, v in g.leaves().items()},
                 "xyz_min": g.xyz_min, "xyz_max": g.xyz_max, "channels": g.channels}
-    t = g.grid.detach()
+    t = g.grid.detach() if t is None else t
     if isinstance(g, DenseGrid):
         t = t[0]
     if bf16_bits and t.dtype == torch.bfloat16:
@@ -206,11 +206,13 @@ def _grid_to_numpy(g, bf16_bits: bool) -> dict:
     return out
 
 
-def params_to_numpy(params, bf16_bits: bool = False) -> dict:
+def params_to_numpy(params, bf16_bits: bool = False, grids: dict | None = None) -> dict:
     """Inverse of :func:`params_from_numpy` (the family read off the params).
     A bfloat16 grid comes as float32 values, or with ``bf16_bits`` as the
     uint16 array of its bit patterns (half the bytes; ``bf16_from_bits``
-    undoes it)."""
+    undoes it). ``grids`` ({"density" or "k0": tensor [B, X, Y, Z, C]})
+    stands in for those fields' own grids (a cut grid assembled whole)."""
+    grids = grids or {}
     rgbnet = None
     if params.rgbnet is not None:
         rgbnet = {
@@ -219,8 +221,8 @@ def params_to_numpy(params, bf16_bits: bool = False) -> dict:
         }
     shift = params.act_shift
     tree = {
-        "density": _grid_to_numpy(params.density, bf16_bits),
-        "k0": _grid_to_numpy(params.k0, bf16_bits),
+        "density": _grid_to_numpy(params.density, bf16_bits, grids.get("density")),
+        "k0": _grid_to_numpy(params.k0, bf16_bits, grids.get("k0")),
         "rgbnet": rgbnet,
         "act_shift": (shift.detach().cpu().numpy() if isinstance(shift, torch.Tensor)
                       else np.float32(shift)),

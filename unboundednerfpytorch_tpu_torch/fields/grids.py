@@ -12,12 +12,15 @@ planes ``[A, B, R]`` and vectors ``[A, R]``, channel-last.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 from torch import nn
 
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
 from unboundednerfpytorch_tpu_torch.parallel import halo
+from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
 
 
 def _norm01(xyz: torch.Tensor, xyz_min, xyz_max) -> torch.Tensor:
@@ -86,15 +89,30 @@ class FourierGrid(nn.Module):
         align-corners), in place: ``grid`` becomes a new parameter of the
         same dtype, and the old one is dropped. A bank at a time, in f32,
         rounded once to the grid's dtype: at full width the f32 image of
-        all banks together would be several GB."""
-        if self.shard is not None:
-            raise ValueError("scale_volume_grid needs the whole grid: unshard it first")
+        all banks together would be several GB.
+
+        A cut grid stays cut where its group's size divides the new X: each
+        rank resizes its own slab, with the neighbours' planes that the
+        resize reads (``halo.resize_source``), to the bit the whole grid's
+        planes, and ``shard`` describes the new lattice. Elsewhere the old
+        slabs are joined on every rank (``parallel.mesh``'s one join, the JAX
+        rule's replicated placement) and the whole grid is resized."""
         size = tuple(int(s) for s in new_world_size)
-        old = self.grid.detach()
-        new = torch.empty((old.shape[0], *size, old.shape[-1]), dtype=old.dtype,
-                          device=old.device)
-        for b in range(old.shape[0]):
-            new[b] = interp.resize_grid_3d(old[b], size)
+        src, shard, x_range = self.grid.detach(), self.shard, None
+        if shard is not None:
+            if size[0] % shard.count == 0:
+                src, a = halo.resize_source(src, shard, size[0])
+                self.shard = dataclasses.replace(shard, X=size[0])
+                first = self.shard.index * self.shard.xs
+                x_range = (a, shard.X, first, first + self.shard.xs)
+            else:
+                src = mesh_mod._gather_x(src, shard)
+                self.shard = None
+            # the old slab goes before the new grid is made: ``src`` holds
+            # what the resize reads
+            self.grid.data = src.new_empty(0)
+        new = resize_banks(src, size, x_range)
+        del src
         self.grid = nn.Parameter(new, requires_grad=self.grid.requires_grad)
 
     @property
@@ -108,6 +126,19 @@ class FourierGrid(nn.Module):
         if self.shard is not None:
             raise ValueError("get_dense_grid needs the whole grid: unshard it first")
         return self.grid
+
+
+def resize_banks(grid: torch.Tensor, size, x_slab: tuple | None = None) -> torch.Tensor:
+    """Every bank of ``grid`` [B, X, Y, Z, C] resized to ``size`` by
+    ``interp.resize_grid_3d`` (with its ``x_slab``: output planes
+    [first, stop) alone, from old planes [a, ...)), a bank at a time in f32,
+    rounded once to the grid's dtype."""
+    X = size[0] if x_slab is None else x_slab[3] - x_slab[2]
+    new = torch.empty((grid.shape[0], X, *size[1:], grid.shape[-1]), dtype=grid.dtype,
+                      device=grid.device)
+    for b in range(grid.shape[0]):
+        new[b] = interp.resize_grid_3d(grid[b], size, x_slab=x_slab)
+    return new
 
 
 class DenseGrid(FourierGrid):

@@ -36,6 +36,7 @@ from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
 from unboundednerfpytorch_tpu_torch.ops import packed as packed_ops
 from unboundednerfpytorch_tpu_torch.ops.cuda.ub360 import cumdist_thres
+from unboundednerfpytorch_tpu_torch.parallel import halo
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,7 +319,13 @@ def resize_and_refresh(params, cfg, new_cfg, alpha_of, report: dict | None = Non
     ``fast_color_thres``; above that it stays as it is. ``report``, if given,
     receives the seconds of "resize" and "refresh" and "carried", the share
     of the new lattice that the old mask holds (the mask's own share where it
-    is kept). DMPIGO's boundary is this one with its own alpha."""
+    is kept). DMPIGO's boundary is this one with its own alpha.
+
+    A density cut along x over a grid group (``--grid_parallel``) refreshes
+    slab by slab: each rank takes the alpha of its slab, pools it with its
+    neighbours' edge planes (``halo.max_pool_3x3_slab``), thresholds it, and
+    the slabs of the bool mask are gathered on every rank; the mask stays
+    whole, and equal to the whole grid's to the bit."""
     ws = new_cfg.world_size
     dev = params.mask_cache.mask.device
     t0 = time.perf_counter()
@@ -329,8 +336,14 @@ def resize_and_refresh(params, cfg, new_cfg, alpha_of, report: dict | None = Non
     if int(np.prod(ws)) <= REFRESH_MAX_VOXELS:
         with torch.no_grad():
             carried = params.mask_cache(lattice(cfg.xyz_min, cfg.xyz_max, ws, dev))
-            pooled = interp.max_pool_3d_same(alpha_of(params.density.get_dense_grid()[..., 0]))
-            new_mask = carried & (pooled > new_cfg.fast_color_thres)
+            shard = getattr(params.density, "shard", None)
+            if shard is None:
+                alive = interp.max_pool_3d_same(alpha_of(params.density.get_dense_grid()[..., 0]))
+                alive = alive > new_cfg.fast_color_thres
+            else:
+                pooled = halo.max_pool_3x3_slab(alpha_of(params.density.grid[0, ..., 0]), shard)
+                alive = halo.all_gather_x(pooled > new_cfg.fast_color_thres, shard, axis=0)
+            new_mask = carried & alive
         params.mask_cache = MaskGrid(ws, cfg.xyz_min, cfg.xyz_max, mask=new_mask)
         share = float(carried.float().mean())
     else:

@@ -39,6 +39,7 @@ from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
 from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
 from unboundednerfpytorch_tpu_torch.ops import packed as packed_ops
+from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,7 +295,7 @@ def maskout_near_cam_vox(params: DVGOParams, cfg: DVGOConfig, cam_o,
     distance to the nearest camera is kept a camera at a time, not for all
     at once ([X, Y, Z, C] would be GBs at 100^3 and a hundred views). A
     TensoRF density has no dense grid to set: it raises, as the JAX
-    version does."""
+    version does. A density cut along x sets its own slab's nodes."""
     if not params.density.dense:
         raise TypeError(f"maskout_near_cam_vox needs a DenseGrid density, not "
                         f"{type(params.density).__name__}")
@@ -306,7 +307,7 @@ def maskout_near_cam_vox(params: DVGOParams, cfg: DVGOConfig, cam_o,
         s = diff[..., 0] ** 2 + diff[..., 1] ** 2 + diff[..., 2] ** 2
         d2 = s if d2 is None else torch.minimum(d2, s)
     near = torch.sqrt(d2) <= near_clip
-    grid.data[0][near] = -100.0
+    grid.data[0][mesh_mod.x_slab(near, params.density.shard, axis=0)] = -100.0
     return params
 
 

@@ -58,6 +58,7 @@ from unboundednerfpytorch_tpu_torch.models import common
 from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
 from unboundednerfpytorch_tpu_torch.ops import packed as packed_ops
+from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1051,9 +1052,15 @@ def _dense_alpha_chunked(params: FourierGridParams, cfg: FourierGridConfig, ws,
     and rows; a slab of 2M nodes about 1.3 GB. The values do not depend on
     the slab, which is why it may be smaller here than the JAX package's
     default of 1 << 24 nodes: eager PyTorch holds every intermediate of the
-    query at once, where a compiled query fuses them."""
+    query at once, where a compiled query fuses them. On a density cut over
+    a grid group every rank queries the whole lattice (the halo sample), in
+    slabs of ``max_pts_per_slab`` over the group's size, so that a rank's
+    transient shrinks with its share of the grid."""
     X, Y, Z = (int(v) for v in ws)
     dev = params.density.grid.device
+    shard = params.density.shard
+    if shard is not None:
+        max_pts_per_slab //= shard.count
     slab = max(1, min(X, max_pts_per_slab // max(Y * Z, 1)))
     xs = _linspace(cfg.xyz_min[0], cfg.xyz_max[0], X, dev)
     ys = _linspace(cfg.xyz_min[1], cfg.xyz_max[1], Y, dev)
@@ -1096,7 +1103,13 @@ def scale_volume_grid(params: FourierGridParams, cfg: FourierGridConfig,
     "refresh"), each ended by a device synchronise, "carried": the share
     of the new lattice's nodes that the old mask holds, which the refresh can
     only lower, and "pooled_alpha": the tensor [X, Y, Z] that the refresh held
-    against ``fast_color_thres``."""
+    against ``fast_color_thres``.
+
+    Grids cut along x over a grid group (``--grid_parallel``) are resized
+    slab by slab (``FourierGrid.scale_volume_grid``), and the refresh's
+    queries go through the halo sample that the forward takes on a cut
+    grid: every rank of the group makes them together and gets the whole
+    alpha, so the mask stays whole on every rank."""
     new_cfg = cfg.with_num_voxels(num_voxels_density, num_voxels_rgb)
     dev = params.density.grid.device
     t0 = time.perf_counter()
@@ -1156,5 +1169,6 @@ def maskout_near_cam_vox(params: FourierGridParams, cfg: FourierGridConfig, cam_
             diff = xyz - c
             s = diff[..., 0] ** 2 + diff[..., 1] ** 2 + diff[..., 2] ** 2
             d2 = s if d2 is None else torch.minimum(d2, s)
-        grid.data[b][torch.sqrt(d2) <= near_clip] = -100.0
+        near = mesh_mod.x_slab(torch.sqrt(d2) <= near_clip, params.density.shard, axis=0)
+        grid.data[b][near] = -100.0
     return params

@@ -202,29 +202,60 @@ def grid_sample_2d(plane: torch.Tensor, xy01: torch.Tensor) -> torch.Tensor:
     return gather_trilerp(plane.reshape(H * W, C), idx, w)
 
 
-def resize_grid_3d(grid: torch.Tensor, new_size) -> torch.Tensor:
+def _axis_lerp(n_old: int, n_new: int, first: int, stop: int, device):
+    """Output planes [first, stop) of an axis resized from ``n_old`` to
+    ``n_new`` (align-corners): (lo, f), the lower input plane of each, int64,
+    and its f32 fraction (None where an axis of size 1 repeats plane 0), from
+    the global plane indices. Output plane i reads input planes lo and lo + 1
+    (:func:`resize_source_planes`)."""
+    if n_new == 1 or n_old == 1:
+        return torch.zeros(stop - first, dtype=torch.int64, device=device), None
+    pos = torch.arange(first, stop, dtype=torch.float32, device=device) * (
+        (n_old - 1) / (n_new - 1))
+    lo = torch.floor(pos).to(torch.int64).clamp(0, n_old - 2)
+    return lo, pos - lo.to(torch.float32)
+
+
+def resize_source_planes(n_old: int, n_new: int, first: int, stop: int) -> tuple:
+    """The input planes [a, b) that output planes [first, stop) of an axis
+    resized from ``n_old`` to ``n_new`` by :func:`resize_grid_3d` read."""
+    if n_new == n_old:
+        return first, stop
+    lo, f = _axis_lerp(n_old, n_new, first, stop, "cpu")
+    return int(lo.min()), int(lo.max()) + (1 if f is None else 2)
+
+
+def resize_grid_3d(grid: torch.Tensor, new_size, x_slab: tuple | None = None) -> torch.Tensor:
     """Trilinear resize of a channel-last [X, Y, Z, C] grid to a new spatial
     size, one axis after the other, ``align_corners=True``: output voxel i
     reads input coordinate i * (in - 1) / (out - 1). An axis of size 1, old or
     new, repeats index 0. The JAX package's formula written out
     (``lo * (1 - f) + hi * f`` with an f32 fraction), in f32 whatever the
     grid's dtype: the result is f32 for a bf16 grid too, and the caller
-    rounds it once to the dtype it keeps."""
+    rounds it once to the dtype it keeps.
+
+    ``x_slab = (a, n_old, first, stop)``: ``grid`` holds input planes
+    [a, a + grid.shape[0]) of an ``n_old``-plane x axis, which must cover
+    what :func:`resize_source_planes` says output planes [first, stop) read,
+    and the result is those output planes alone. Positions and fractions
+    come from the global plane indices, so each plane equals the whole
+    grid's resize to the bit."""
     out = grid.to(torch.promote_types(grid.dtype, torch.float32))
     for axis, n_new in enumerate(int(n) for n in new_size):
-        n_old = out.shape[axis]
+        a, n_old, first, stop = (x_slab if axis == 0 and x_slab is not None
+                                 else (0, out.shape[axis], 0, n_new))
         if n_new == n_old:
+            if (first - a, stop - first) != (0, out.shape[axis]):
+                out = out.narrow(axis, first - a, stop - first)
             continue
-        if n_new == 1 or n_old == 1:
-            zeros = torch.zeros(n_new, dtype=torch.int64, device=out.device)
-            out = out.index_select(axis, zeros)
+        lo, f = _axis_lerp(n_old, n_new, first, stop, out.device)
+        lo = lo - a
+        if f is None:
+            out = out.index_select(axis, lo)
             continue
-        pos = torch.arange(n_new, dtype=torch.float32, device=out.device) * (
-            (n_old - 1) / (n_new - 1))
-        lo = torch.floor(pos).to(torch.int64).clamp(0, n_old - 2)
         shape = [1] * out.ndim
-        shape[axis] = n_new
-        f = (pos - lo.to(torch.float32)).reshape(shape)
+        shape[axis] = stop - first
+        f = f.reshape(shape)
         out = out.index_select(axis, lo) * (1.0 - f) + out.index_select(axis, lo + 1) * f
     return out
 

@@ -29,6 +29,13 @@ planes.
 :func:`partial_sample` is step 2 alone, on an extended slab given by the
 caller: a single process can emulate a grid group by handing each shard a
 copy of its neighbour's plane.
+
+A ``pg_scale`` boundary keeps a grid cut where the group divides its new X:
+:func:`resize_source` hands each shard the neighbours' planes that its share
+of the resize reads (:func:`resize_plan`: at most one on each side where the
+grid grows), and :func:`max_pool_3x3_slab` the neighbours' edge planes that
+the occupancy refresh's pool reads; :func:`all_gather_x` joins slabs (the
+refreshed mask, which stays whole on every rank).
 """
 
 from __future__ import annotations
@@ -58,23 +65,31 @@ class GridShard:
         return self.X // self.count
 
 
+def transportable(t: torch.Tensor) -> torch.Tensor:
+    """gloo takes no bfloat16 (nor bool): such a tensor travels as its bytes."""
+    return t.view(torch.uint8) if t.dtype in (torch.bfloat16, torch.bool) else t
+
+
+def _p2p(sends: list, recvs: list, shard: GridShard) -> None:
+    """One batch of point-to-point operations over the grid group: each
+    (tensor, shard index) of ``sends`` sent, each (buffer, shard index) of
+    ``recvs`` filled in place."""
+    ops = [dist.P2POp(dist.irecv, transportable(buf), shard.ranks[k], group=shard.group)
+           for buf, k in recvs]
+    ops += [dist.P2POp(dist.isend, transportable(t.contiguous()), shard.ranks[k],
+                       group=shard.group) for t, k in sends]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+
+
 def _shift(send: torch.Tensor | None, to: int | None, recv_from: int | None,
            like: torch.Tensor, shard: GridShard) -> torch.Tensor | None:
     """Send ``send`` to shard ``to`` and receive a tensor shaped as ``like``
     from shard ``recv_from`` (either may be None), as one batch of
     point-to-point operations over the grid group."""
-    # gloo takes no bfloat16: its bytes travel as they are
-    bits = (lambda t: t.view(torch.uint8)) if like.dtype == torch.bfloat16 else (lambda t: t)
-    ops, out = [], None
-    if recv_from is not None:
-        out = torch.empty_like(like)
-        ops.append(dist.P2POp(dist.irecv, bits(out), shard.ranks[recv_from], group=shard.group))
-    if to is not None:
-        ops.append(dist.P2POp(dist.isend, bits(send.contiguous()), shard.ranks[to],
-                              group=shard.group))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+    out = None if recv_from is None else torch.empty_like(like)
+    _p2p([] if to is None else [(send, to)], [] if out is None else [(out, recv_from)], shard)
     return out
 
 
@@ -170,3 +185,74 @@ def exchange_boundary_planes(slab: torch.Tensor, shard: GridShard):
     before = _shift(last, right, left, last, shard)
     after = _shift(first, left, right, first, shard)
     return before, after
+
+
+def all_gather_x(slab: torch.Tensor, shard: GridShard, axis: int = 1) -> torch.Tensor:
+    """The whole tensor, on every rank of the grid group, from each shard's
+    slab along ``axis``."""
+    parts = [torch.empty_like(slab) for _ in range(shard.count)]
+    dist.all_gather([transportable(p) for p in parts], transportable(slab.contiguous()),
+                    group=shard.group)
+    return torch.cat(parts, dim=axis)
+
+
+def resize_plan(count: int, x_old: int, x_new: int) -> list:
+    """For each of ``count`` shards of an ``x_old``-plane grid resized to
+    ``x_new`` planes (``count`` dividing both): (first, stop, a, b), its new
+    planes [first, stop) and the old planes [a, b) that they read
+    (``interp.resize_source_planes``). A new slab reads its own old slab and,
+    where the grid grows, the last plane of its left neighbour's and the
+    first of its right neighbour's."""
+    xs = x_new // count
+    return [(a, a + xs, *interp.resize_source_planes(x_old, x_new, a, a + xs))
+            for a in range(0, x_new, xs)]
+
+
+def resize_source(slab: torch.Tensor, shard: GridShard, x_new: int) -> tuple:
+    """(ext, a): this shard's x-slab [B, xs, ...] with the neighbours' planes
+    that its share of a resize to ``x_new`` planes reads (:func:`resize_plan`)
+    on either side, and the global index of ext's first plane. One batch of
+    point-to-point operations over the grid group; every rank of the group
+    calls it. A plan that reads past a neighbour's slab is refused."""
+    plan = resize_plan(shard.count, shard.X, x_new)
+    xs, k = shard.xs, shard.index
+
+    def need(j):  # planes shard j reads of its left and of its right neighbour
+        _, _, a, b = plan[j]
+        left, right = max(0, j * xs - a), max(0, b - (j + 1) * xs)
+        if left > xs or right > xs:
+            raise ValueError(f"a resize of {shard.X} to {x_new} planes over {shard.count} "
+                             f"shards reads past a neighbour's slab")
+        return left, right
+
+    left, right = need(k)
+    sends, recvs = [], []
+    before = after = None
+    if k > 0:
+        n = need(k - 1)[1]
+        if n:
+            sends.append((slab[:, :n], k - 1))
+        if left:
+            before = torch.empty_like(slab[:, :left])
+            recvs.append((before, k - 1))
+    if k + 1 < shard.count:
+        n = need(k + 1)[0]
+        if n:
+            sends.append((slab[:, xs - n:], k + 1))
+        if right:
+            after = torch.empty_like(slab[:, :right])
+            recvs.append((after, k + 1))
+    _p2p(sends, recvs, shard)
+    parts = [t for t in (before, slab, after) if t is not None]
+    return (torch.cat(parts, dim=1) if len(parts) > 1 else slab), k * xs - left
+
+
+def max_pool_3x3_slab(vol: torch.Tensor, shard: GridShard) -> torch.Tensor:
+    """``interp.max_pool_3d_same(window=3)`` of a grid [X, Y, Z] cut along x,
+    on this shard's slab [xs, Y, Z]: the neighbours' edge planes exchanged
+    (one batch each way), the slab pooled with them and cut back. Equal to
+    the whole grid's pool's planes, the max being exact."""
+    before, after = exchange_boundary_planes(vol[None], shard)  # [1, Y, Z] each, or None
+    ext = torch.cat([t for t in (before, vol, after) if t is not None], dim=0)
+    first = 0 if before is None else 1
+    return interp.max_pool_3d_same(ext, window=3)[first:first + vol.shape[0]]

@@ -22,8 +22,17 @@ in turn, each printing one JSON line on rank 0 (also appended to
 * ``grid``: ``waymo/waymo_block.py`` with ``--grid_parallel 2`` (data N/2 x
   grid 2): ``GRID_STEPS`` steps over the grids of 188^3 and 238^3 (the
   boundaries compressed to ``GRID_PG_SCALE``; 13a's grids before the last
-  boundary; the last, to 299^3, is not reached), which the grid axis cuts,
-  then on rank 0 alone: the losses and the median step time at 238^3;
+  boundary; the last, to 299^3, is not reached), which the grid axis cuts
+  and the 188^3 -> 238^3 boundary keeps cut, saved at step ``GRID_SAVE``
+  and at the end (rank 0 writes what each rank's host sends), then resumed
+  for one more step; then on rank 0 alone: the losses, the median step time
+  at 238^3, every rank's peak device GB against one rank's, and the saves'
+  seconds;
+* ``save_transport``: the two ways a save could bring 238^3 slabs (7 banks,
+  k0 3 channels bf16) to rank 0's host, timed: each rank's copy to its host
+  then a gather over a gloo group, or each slab in turn over NCCL into one
+  slab's buffer on rank 0's card, then copied to its pinned host memory
+  (``mesh.gather_to_host``, the port's since PR 18 measured both);
 * ``blocks``: ``waymo_block.py``'s recipe on two blocks of the views
   through ``train.block_parallel.run_train_blocks_parallel`` (block b on
   rank b, ``BLOCK_STEPS`` steps each at 299^3), its seconds against a block's
@@ -41,6 +50,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import subprocess
 import tempfile
 import time
 
@@ -61,7 +71,7 @@ BICYCLE = ROOT / "configs" / "nerf_unbounded" / "bicycle_single.py"
 WAYMO_BLOCK = ROOT / "configs" / "waymo" / "waymo_block.py"
 VIEWS, H, W = 20, 411, 618
 DP_STEPS, DP_PG_SCALE, WARMUP = 10, (3, 6), 2
-GRID_STEPS, GRID_PG_SCALE = 8, (1, 2, 3, 5, 100)
+GRID_STEPS, GRID_PG_SCALE, GRID_SAVE = 8, (1, 2, 3, 5, 100), 6
 BLOCK_STEPS = 3
 # --small: voxels and image size of the CPU rehearsal
 SMALL_VOXELS, SMALL_H, SMALL_W = 26**3, 24, 36
@@ -97,7 +107,7 @@ class StepClock:
         if "pg_scale" in metrics:
             rec = metrics["pg_scale"]
             self.boundaries.append({"step": step, "world_size": list(rec["world_size_density"]),
-                                    "sharded": rec.get("sharded")})
+                                    "sharded": rec.get("sharded"), "layout": rec.get("layout")})
 
 
 def _checksums(params) -> torch.Tensor:
@@ -182,28 +192,117 @@ def part_render(dev, data, cfg, mcfg, params):
     return rec
 
 
-def part_grid(dev, data, small: bool):
+def _peak_gb(dev) -> list:
+    """Every rank's peak device GB since its last reset (rank order)."""
+    if dev.type != "cuda":
+        return []
+    mine = torch.tensor([torch.cuda.max_memory_allocated() / 1e9], device=dev)
+    every = [torch.empty_like(mine) for _ in range(mesh_mod.world_size())]
+    dist.all_gather(every, mine)
+    return [float(t) for t in every]
+
+
+def part_grid(dev, data, small: bool, tmp: str):
+    from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+
     steps = GRID_STEPS
     cfg = _cfg(WAYMO_BLOCK, small, N_iters=steps, pg_scale=GRID_PG_SCALE)
     quiet = lambda *a, **k: None  # noqa: E731
-    clock, logs = StepClock(dev), []
-    loop.run_train(cfg, data, seed=0, device=dev, log_fn=logs.append, callback=clock,
-                   grid_parallel=2)
+    clock, logs, saves = StepClock(dev), [], []
+    real_save = ckpt.save_model
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        real_save(*args, **kw)
+        saves.append(time.perf_counter() - t0)
+
+    ckpt.save_model = timed_save
+    try:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        exp = os.path.join(tmp, "grid")
+        loop.run_train(cfg, data, seed=0, device=dev, log_fn=logs.append, callback=clock,
+                       grid_parallel=2, exp_dir=exp, save_every=GRID_SAVE)
+        peaks = _peak_gb(dev)
+        resumed = StepClock(dev)
+        more = dataclasses.replace(cfg, fine_train=dataclasses.replace(cfg.fine_train,
+                                                                       N_iters=steps + 1))
+        loop.run_train(more, data, seed=0, device=dev, log_fn=quiet, callback=resumed,
+                       grid_parallel=2, exp_dir=exp)
+    finally:
+        ckpt.save_model = real_save
     one = StepClock(dev)
-    _alone(lambda: loop.run_train(cfg, data, seed=0, device=dev, log_fn=quiet, callback=one,
-                                  use_mesh=False))
+
+    def alone():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        loop.run_train(cfg, data, seed=0, device=dev, log_fn=quiet, callback=one,
+                       use_mesh=False)
+        return torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+
+    peak_one = _alone(alone)
     first = GRID_PG_SCALE[3] + WARMUP
     rec = {"part": "grid", "config": "waymo/waymo_block.py", "grid_parallel": 2,
            "data_parallel": mesh_mod.world_size() // 2, "n_rand": cfg.fine_train.N_rand,
            "boundaries": clock.boundaries, "loss_grid": clock.loss, "step_ms_grid": clock.ms,
-           "median_ms_grid_238": _median_after(clock.ms, first),
+           "median_ms_grid_238": _median_after(clock.ms, first), "peak_gb_ranks": peaks,
+           "save_s": saves, "resumed_loss": resumed.loss,
            "layout": [line for line in logs if "mesh" in line or "cut" in line]}
     if mesh_mod.is_main():
         rel = [abs(a - b) / abs(b) for a, b in zip(clock.loss, one.loss)]
         rec.update(loss_one=one.loss, loss_rel_diff=rel, step_ms_one=one.ms,
-                   median_ms_one_238=_median_after(one.ms, first))
-        if not rel[0] <= 1e-5 or not np.isfinite(clock.loss).all():
-            raise AssertionError(f"[grid] first losses {clock.loss[0]} against {one.loss[0]}")
+                   median_ms_one_238=_median_after(one.ms, first), peak_gb_one=peak_one)
+        kept = [b for b in clock.boundaries if b["step"] == GRID_PG_SCALE[3]]
+        if not rel[0] <= 1e-5 or not np.isfinite(clock.loss).all() or not kept or \
+                kept[0]["sharded"] != ["density", "k0"] or len(resumed.loss) != 1:
+            raise AssertionError(f"[grid] first losses {clock.loss[0]} against {one.loss[0]}, "
+                                 f"boundaries {clock.boundaries}, resumed {resumed.loss}")
+    return rec
+
+
+def part_save_transport(dev, small: bool):
+    """A save's slabs to rank 0's host over the first grid group, both ways
+    (module docstring), each timed from a barrier to its end on rank 0."""
+    from unboundednerfpytorch_tpu_torch.parallel.halo import transportable
+
+    mesh = mesh_mod.make_mesh(grid_parallel=2)
+    cfg = _cfg(WAYMO_BLOCK, small)
+    fm = cfg.fine_model_and_render
+    mcfg = fg.config_from(fm, (-1.0,) * 3, (1.0,) * 3, int(fm.num_voxels_density / 2),
+                          int(fm.num_voxels_rgb / 2))
+    X, Y, Z = mcfg.world_size_rgb
+    shape = (2 * fm.fourier_freq_num + 1, X // 2, Y, Z, 4)  # density and k0 together
+    slab = torch.ones(shape, dtype=torch.bfloat16, device=dev)
+    shard = mesh.shard(X)
+    rec = {"part": "save_transport", "slab": list(shape), "slab_gb": slab.numel() * 2 / 1e9}
+    in_group = mesh.data_index == 0
+
+    def timed(fn):
+        mesh_mod.barrier()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if in_group:
+            fn()
+        mesh_mod.barrier()
+        return time.perf_counter() - t0
+
+    gloo = [dist.new_group(list(r), backend="gloo")
+            for r in (range(d * 2, d * 2 + 2) for d in range(mesh.data))][mesh.data_index]
+
+    def gloo_gather():
+        host = slab.cpu()
+        if shard.index:
+            dist.gather(transportable(host), None, dst=shard.ranks[0], group=gloo)
+            return
+        parts = [torch.empty_like(host) for _ in range(shard.count)]
+        dist.gather(transportable(host), [transportable(p) for p in parts], dst=shard.ranks[0],
+                    group=gloo)
+        torch.cat(parts, dim=1)
+
+    rec["gloo_host_gather_s"] = [timed(gloo_gather) for _ in range(3)]
+    rec["nccl_device_buffer_s"] = [timed(lambda: mesh_mod.gather_to_host(slab, shard))
+                                   for _ in range(3)]
     return rec
 
 
@@ -246,7 +345,11 @@ def main(argv=None, device=None) -> int:
     h, w = (SMALL_H, SMALL_W) if args.small else (H, W)
     data = synthetic.orbit_scene(VIEWS, h, w, seed=0, n_test=2)
     out_dir = pathlib.Path("chiprun_out")
-    card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    card = "cpu"
+    if dev.type == "cuda":  # every card's name and power limit, as nvidia-smi reads them
+        card = "; ".join(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines())
 
     def emit(rec):
         rec = {**rec, "card": card, "world_size": mesh_mod.world_size()}
@@ -263,11 +366,12 @@ def main(argv=None, device=None) -> int:
     del params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    emit(part_grid(dev, data, args.small))
     with tempfile.TemporaryDirectory(prefix="multi_gpu_") as tmp:
         # every rank writes into rank 0's directory (one node, one disk)
         shared = [tmp]
         dist.broadcast_object_list(shared, src=0)
+        emit(part_grid(dev, data, args.small, shared[0]))
+        emit(part_save_transport(dev, args.small))
         emit(part_blocks(dev, data, args.small, shared[0]))
         mesh_mod.barrier()
     dist.destroy_process_group()

@@ -7,7 +7,20 @@ over it, ``utils.reference_import.overlay_render_knobs``), the
 occupancy-adaptive budgets of ``--auto_budget`` (:func:`auto_budgets`) and the
 ARF stylization of ``--style_root`` (``render/arf.py``), and the block
 checkpoints of ``--num_per_block`` (``fine_last_merged``, else each block's
-``fine_last_<b>`` through :func:`run_render_blocks`). Inside a process group
+``fine_last_<b>`` through :func:`run_render_blocks`), and ``--constant_baked``.
+That flag's counterpart in the JAX package, ``render/staged_const.py``, packs
+the render cache's tables into XLA executables as compile-time constants
+(faster gathers on a TPU than tables passed as arguments) and computes the
+two-stage cached forward's values; without a two-stage cache the JAX flag
+renders through the ordinary cached forward. The port's kernels read tables
+passed as arguments, so the flag adds no layout here: the render goes
+through the forward and cache it takes without the flag
+(``models/fourier_grid.py::_forward_two_stage`` where FourierGrid's cache is
+two-stage: ``sample_budget``, ``fast_color_thres`` and ``color_budget`` all
+set). One value differs, as in the JAX package: the staged renderer
+composites on the data's background (``white_bkgd``), where the ordinary
+FourierGrid render composites on black (ROADMAP C), so the flag's
+two-stage render does too. Inside a process group
 every view renders cooperatively over all its ranks (the JAX render's
 ``mesh``, ``renderer.render_image(mesh=...)``) and rank 0 alone writes the
 images and videos. One departure: a view whose index
@@ -49,14 +62,6 @@ def write_video(path: str, frames, fps: int = 30) -> str:
         print(f"video backend unavailable ({type(e).__name__}); wrote "
               f"{len(frames)} frames to {outdir} instead of {path}")
         return outdir
-
-
-# options of the JAX package's run_render that the port does not take, each
-# with its ROADMAP item
-_NOT_PORTED = {
-    "constant_baked": "no counterpart: tables as compile-time constants are an XLA "
-                      "device (ROADMAP A18b records the decision)",
-}
 
 
 # --auto_budget: the occupied share of the mask under which the hierarchical
@@ -140,9 +145,6 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
     from unboundednerfpytorch_tpu_torch.utils import metrics as M
 
     dev = resolve_device(device)
-    for name, why in _NOT_PORTED.items():
-        if getattr(args, name, None):
-            raise NotImplementedError(f"--{name} is not ported: {why}")
 
     # as the JAX run_render: --ft_path, else the merged block checkpoint,
     # else fine_last; without fine_last but with block checkpoints, each
@@ -185,11 +187,21 @@ def run_render(args, cfg, data_dict, exp_dir: str, device=None, log_fn=print) ->
             flip_y=cfg.data.flip_y), dev, log_fn=log_fn)
     # each family's packed-table cache, as the JAX package picks it
     cache = FAMILIES[family].build_render_cache(params, mcfg, log_fn=log_fn)
+    if getattr(args, "constant_baked", False):
+        log_fn("--constant_baked: the tables are the CUDA kernels' arguments; the render goes "
+               "through the cached forward, whose values the JAX staged renderer computes")
     if cache is None:
         log_fn("render cache: none (packed tables off or over the memory guard); "
                "rendering from the grids")
     fwd_core = make_forward(mcfg, render_kwargs)
     fwd = lambda aux, ro, rd, vd: fwd_core(aux[0], ro, rd, vd, None, cache=aux[1])
+    if (getattr(args, "constant_baked", False) and family == "FourierGrid"
+            and cache is not None and cache.density_tables is not None
+            and mcfg.sample_budget > 0 and mcfg.fast_color_thres > 0):
+        # the JAX staged renderer's case: its values on the data's background
+        fwd = lambda aux, ro, rd, vd: fg.forward(aux[0], mcfg, ro, rd, vd, cache=aux[1],
+                                                 stepsize=render_kwargs["stepsize"],
+                                                 bg=render_kwargs["bg"])
     aux = (params, cache)
 
     # optional ARF stylization of the render set (run_render.py:119-122,170-172)

@@ -237,10 +237,15 @@ def pg_scale_boundary(state: TrainState, mcfg, cfg_model: ModelRenderConfig,
     (``occupancy``), the budget in force before and after, and the seconds of
     resize, refresh and rebuild. ``report``, if given, receives what the
     family's ``scale_volume_grid`` reports (FourierGrid's pooled alpha of the
-    refresh included). With ``mesh``, grids cut over its grid group are
-    joined first, so that the resize and the occupancy refresh see the whole
-    grids, and the resized grids are cut again before the optimizer is
-    built."""
+    refresh included).
+
+    With ``mesh``, a grid cut over its grid group stays cut where the group
+    divides its new X: each rank resizes and refreshes its own slab (the
+    family's ``scale_volume_grid``); where the group does not divide it, the
+    grid is joined and stands whole on every rank (the JAX rule). A whole
+    grid that the group now divides is cut. ``record["sharded"]`` names the
+    fields cut after the boundary and ``record["layout"]`` says of each field
+    whether the boundary "kept cut", "joined", "cut" or kept it "whole"."""
     pg_scale = [int(b) for b in cfg_train.pg_scale]
     n_rest = len(pg_scale) - pg_scale.index(global_step) - 1
     cur_vox_density = int(cfg_model.num_voxels_density / (2**n_rest))
@@ -252,12 +257,13 @@ def pg_scale_boundary(state: TrainState, mcfg, cfg_model: ModelRenderConfig,
         p.grad = None
     report = {} if report is None else report
     budget_before = getattr(mcfg, "sample_budget", 0)
-    mesh_mod.unshard_params(params)
+    was_cut = mesh_mod.sharded_names(params)
     _, mcfg = scale_model(family_of(mcfg), params, mcfg, cur_vox_density, cur_vox_rgb,
                           report=report)
     seconds = {part: report[part] for part in ("resize", "refresh")}
     params.act_shift -= cfg_train.decay_after_scale
-    cut = None if mesh is None else mesh_mod.shard_params(mesh, params)
+    if mesh is not None:
+        mesh_mod.shard_params(mesh, params)
     if deferred_budget:
         # the cache was just refreshed from trained density: cutting every
         # ray to a fixed budget of occupied samples is safe from here on
@@ -275,8 +281,12 @@ def pg_scale_boundary(state: TrainState, mcfg, cfg_model: ModelRenderConfig,
         "sample_budget": getattr(mcfg, "sample_budget", 0),
         "seconds": seconds,
     }
-    if cut is not None:
-        record["sharded"] = cut  # the fields cut over the grid axis
+    if mesh is not None:
+        cut = mesh_mod.sharded_names(params)  # the fields cut over the grid axis
+        record["sharded"] = cut
+        record["layout"] = {
+            name: ("kept cut" if name in cut else "joined") if name in was_cut
+            else ("cut" if name in cut else "whole") for name in mesh_mod.SHARDED_FIELDS}
     return state, mcfg, record
 
 
@@ -325,8 +335,9 @@ def apply_pervoxel_lr(state: TrainState, mcfg, cfg_train: TrainStageConfig, stor
     count = dvgo.voxel_count_views(params, mcfg, rays_o, rays_d, near=render_kwargs["near"],
                                    stepsize=render_kwargs["stepsize"])
     per_lr = count / torch.clamp_min(count.max(), 1.0)
+    per_lr = mesh_mod.x_slab(per_lr[None], getattr(params.density, "shard", None))
     trainable = opt_factory.split_trainable(params, cfg_train)
-    state.optimizer.set_per_lr(make_per_lr(trainable, {"density": [per_lr[None]]}))
+    state.optimizer.set_per_lr(make_per_lr(trainable, {"density": [per_lr]}))
     params.mask_cache.mask = params.mask_cache.mask & (count[..., 0] > 2)
     return {"views": n_img, "seconds": seconds_since(t0, dev),
             "occupancy": float(params.mask_cache.mask.float().mean())}
@@ -398,8 +409,15 @@ def scene_rep_reconstruction(
     ``N_rand`` (else every rank trains the whole batch alone, the JAX
     loop's single-device fallback, with its log line), with the density and
     k0 grids cut over its grid axis (:func:`..parallel.mesh.shard_params`)
-    where that is larger than 1; rank 0 alone writes the checkpoints, the
-    metrics and the panels. The stage hands on whole grids.
+    where that is larger than 1; rank 0 alone writes the metrics and the
+    panels. Once cut, a grid and its moments stand whole on no card again
+    (but where a boundary's new X is not divisible, the JAX rule): the
+    boundaries resize and refresh slab by slab, a save assembles the whole
+    arrays in host memory of rank 0, which writes them
+    (``utils.checkpoint.save_model``), a resume reads the checkpoint on the
+    host, cuts it there and moves this rank's slabs to the card, and the
+    stage hands on its grids cut. A caller that needs a whole field reads
+    the checkpoint.
     """
     n_iters = cfg_train.N_iters
     if cfg_train.ray_sampler not in ("flatten", "random", "in_maskcache"):
@@ -441,10 +459,18 @@ def scene_rep_reconstruction(
     if no_reload:
         reload_path = None
     start_step, opt_state = 0, None
+    grid_cut = dp is not None and dp.grid > 1
     if reload_path is not None:
         t0 = time.perf_counter()
+        # under --grid_parallel the checkpoint is read and cut on the host:
+        # only this rank's slabs and their moments reach the card
         family, mcfg, params, start_step, opt_state = ckpt.load_model(
-            reload_path, device=device, with_opt_state=not no_reload_optimizer)
+            reload_path, device="cpu" if grid_cut else device,
+            with_opt_state=not no_reload_optimizer)
+        if grid_cut:
+            mesh_mod.shard_params(dp, params)
+            opt_state = mesh_mod.shard_opt_state(params, opt_state)
+            params = params.to(device)
         if str(reload_path).endswith(".tar"):
             # a reference checkpoint carries no render/train-time knobs: the
             # scene config's values win
@@ -499,8 +525,9 @@ def scene_rep_reconstruction(
         report = apply_pervoxel_lr(state, mcfg, cfg_train, store, data_dict, render_kwargs)
         log_fn(f"{stage}: pervoxel_lr from {report['views']} views, "
                f"{report['seconds']:.2f} s; occupancy {report['occupancy']:.4f}")
-    if dp is not None and dp.grid > 1:
-        cut = mesh_mod.shard_params(dp, state.params, state.optimizer)
+    if grid_cut:
+        mesh_mod.shard_params(dp, state.params, state.optimizer)  # a resume's are cut already
+        cut = mesh_mod.sharded_names(state.params)
         log_fn(f"{stage}: grids cut over {dp.grid} ranks: {cut or 'none'} (a grid whose X "
                f"{dp.grid} does not divide stays whole)")
     part = None if dp is None else dp.batch_slice(cfg_train.N_rand)
@@ -562,16 +589,14 @@ def scene_rep_reconstruction(
             lr_decay_enabled=lr_decay_enabled, mesh=dp)
 
     def save(step: int) -> None:
-        # a sharded run saves whole grids and moments (every rank joins them)
-        cut = mesh_mod.unshard_params(state.params, state.optimizer)
-        if writer:
+        # cut grids and moments are assembled on rank 0's host: every rank
+        # of its grid group takes part
+        if writer or (grid_cut and dp.data_index == 0 and mesh_mod.sharded_names(state.params)):
             # never persist a deferral-zeroed budget: a resume must re-enter
             # the deferral with the configured one
             ckpt.save_model(os.path.join(exp_dir, f"{stage}_last"), family, undeferred(mcfg),
                             state.params, global_step=step,
                             opt_state=state.optimizer.state_dict())
-        if cut:
-            mesh_mod.shard_params(dp, state.params, state.optimizer)
 
     def record(rec: dict) -> None:
         if not writer:
@@ -657,14 +682,13 @@ def scene_rep_reconstruction(
         # a sharded model renders on every rank of its grid groups together
         if i_panel and exp_dir is not None and (global_step % i_panel == 0
                                                  or global_step == n_iters) and \
-                (writer or mesh_mod.sharded_fields(state.params)):
+                (writer or mesh_mod.sharded_names(state.params)):
             write_eval_panel(mcfg, global_step)
         if save_every and exp_dir is not None and global_step % save_every == 0 \
                 and global_step < n_iters:
             save(global_step)
         if callback is not None:
             callback(global_step, metrics)
-    mesh_mod.unshard_params(state.params, state.optimizer)
     if exp_dir is not None and n_iters > start_step:
         save(n_iters)
     if mesh is not None:
@@ -681,7 +705,8 @@ def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,
     """The recipe: the coarse stage where ``coarse_train.N_iters`` > 0 (the
     DVGO configs of ``nerf/`` and the like, and the DMPIGO ones of
     ``custom/``), then the fine stage. Returns the fine stage's (family,
-    model config, params, last logged psnr).
+    model config, params, last logged psnr); under ``grid_parallel`` its
+    grids come cut, as the stage trained them.
 
     As the JAX ``run_train``: the coarse stage trains on the camera-frustum
     box; the fine stage, except for waymo captures, on the box of the coarse
@@ -739,6 +764,9 @@ def run_train(cfg: ExpConfig, data_dict: dict, seed: int = 777, log_fn=print,
             cfg, cfg.coarse_model_and_render, cfg.coarse_train, xyz_min, xyz_max, data_dict,
             stage="coarse", **kw)
         if cfg.data.dataset_type != "waymo":
+            # the box and the seed read the whole coarse density: a cut one
+            # is joined here (the coarse lattice, some 100^3 f32 voxels)
+            mesh_mod.unshard_params(params_c)
             fm = cfg.fine_model_and_render
             xyz_min, xyz_max = bbox_mod.compute_bbox_by_coarse_geo(
                 params_c, mcfg_c, lambda d: dvgo.activate_density(params_c, mcfg_c, d),

@@ -57,6 +57,7 @@ import torch
 
 from unboundednerfpytorch_tpu_torch import convert
 from unboundednerfpytorch_tpu_torch.fields.grids import TENSORF_LEAVES, DenseGrid, TensoRFGrid
+from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
 from unboundednerfpytorch_tpu_torch.utils import flax_msgpack
 
 FAMILIES = tuple(convert.CONFIGS)
@@ -163,10 +164,25 @@ def _check_family(family: str) -> None:
 def save_model(path: str, family: str, cfg, params, global_step: int = 0,
                opt_state: dict | None = None) -> None:
     """``opt_state``: a ``MaskedAdam.state_dict()``, saved beside the
-    parameters (``has_opt_state``)."""
+    parameters (``has_opt_state``).
+
+    Grids cut along x over a grid group (``--grid_parallel``), and their
+    moments, are assembled whole in host memory of the group's first rank
+    (``parallel.mesh.gather_to_host``: no card holds more than its slab and
+    one in flight), which writes the checkpoint in the one format that every
+    reader takes; every rank of the group calls this, and the others write
+    nothing."""
     _check_family(family)
+    shards = {n: getattr(params, n).shard for n in mesh_mod.sharded_names(params)}
+    grids = {n: mesh_mod.gather_to_host(getattr(params, n).grid, s) for n, s in shards.items()}
+    if opt_state is not None and shards:
+        opt_state = {**opt_state, **{key: {
+            g: [mesh_mod.gather_to_host(m, shards[g]) for m in ms] if g in shards else ms
+            for g, ms in opt_state[key].items()} for key in ("exp_avg", "exp_avg_sq")}}
+    if any(g is None for g in grids.values()):
+        return  # not the group's first rank
     os.makedirs(path, exist_ok=True)
-    flat = _flatten(convert.params_to_numpy(params, bf16_bits=True))
+    flat = _flatten(convert.params_to_numpy(params, bf16_bits=True, grids=grids))
     if np.ndim(flat["act_shift"]) == 0:
         flat["act_shift"] = np.float64(params.act_shift)
     stored = {f"{name}/grid": "bfloat16" for name in ("density", "k0")
