@@ -1,0 +1,5 @@
+"""cumdist_thres's least time on the card over its kernels' time, in a render (%)."""
+
+
+def read(ctx):
+    return ctx.roofline("cumdist_thres")

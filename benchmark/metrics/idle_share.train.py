@@ -1,0 +1,5 @@
+"""Share of a train step's time (without the profiler) in which no kernel of it ran (%)."""
+
+
+def read(ctx):
+    return ctx.idle_share()

@@ -1,0 +1,8 @@
+"""The march forward's least time on the card over its kernels' time, in a train step (%).
+
+The DCVGO cells' copy: it moves their own rate, which has a bound of its own.
+"""
+
+
+def read(ctx):
+    return ctx.roofline("march_forward")

@@ -1,0 +1,5 @@
+"""TV's least time on the card over its kernels' time (%)."""
+
+
+def read(ctx):
+    return ctx.roofline("tv_add_grad")
