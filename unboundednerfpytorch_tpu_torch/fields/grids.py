@@ -18,14 +18,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from unboundednerfpytorch_tpu_torch.device import from_host
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
 from unboundednerfpytorch_tpu_torch.parallel import halo
 from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
 
 
 def _norm01(xyz: torch.Tensor, xyz_min, xyz_max) -> torch.Tensor:
-    mn = torch.tensor(xyz_min, dtype=xyz.dtype, device=xyz.device)
-    mx = torch.tensor(xyz_max, dtype=xyz.dtype, device=xyz.device)
+    mn = from_host(xyz_min, xyz.dtype, xyz.device)
+    mx = from_host(xyz_max, xyz.dtype, xyz.device)
     return (xyz - mn) / (mx - mn)
 
 
@@ -289,9 +290,9 @@ class MaskGrid(nn.Module):
 
     def scale_shift(self):
         dev = self.mask.device
-        mn = torch.tensor(self.xyz_min, dtype=torch.float32, device=dev)
-        mx = torch.tensor(self.xyz_max, dtype=torch.float32, device=dev)
-        size = torch.tensor(self.mask.shape, dtype=torch.float32, device=dev)
+        mn = from_host(self.xyz_min, torch.float32, dev)
+        mx = from_host(self.xyz_max, torch.float32, dev)
+        size = from_host(self.mask.shape, torch.float32, dev)
         scale = (size - 1) / (mx - mn)
         return scale, -mn * scale
 

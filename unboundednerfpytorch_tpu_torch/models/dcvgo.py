@@ -24,10 +24,9 @@ import time
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from unboundednerfpytorch_tpu_torch.configs.schema import normalize_fast_color_thres
-from unboundednerfpytorch_tpu_torch.device import seconds_since
+from unboundednerfpytorch_tpu_torch.device import from_host, seconds_since
 from unboundednerfpytorch_tpu_torch.fields.grids import DenseGrid, MaskGrid, _norm01
 from unboundednerfpytorch_tpu_torch.fields.mlp import MLP
 from unboundednerfpytorch_tpu_torch.models import common
@@ -37,6 +36,7 @@ from unboundednerfpytorch_tpu_torch.ops import interp, sampling
 from unboundednerfpytorch_tpu_torch.ops import packed as packed_ops
 from unboundednerfpytorch_tpu_torch.ops.cuda.ub360 import cumdist_thres
 from unboundednerfpytorch_tpu_torch.parallel import halo
+from unboundednerfpytorch_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,8 +183,8 @@ def activate_density(params: DCVGOParams, cfg: DCVGOConfig, density: torch.Tenso
 
 def sample_ray(cfg: DCVGOConfig, rays_o: torch.Tensor, rays_d: torch.Tensor):
     """Contracted central sampling: (pts [N, S, 3], inner [N, S], t [S])."""
-    center = torch.tensor(cfg.scene_center, dtype=rays_o.dtype, device=rays_o.device)
-    radius = torch.tensor(cfg.scene_radius, dtype=rays_o.dtype, device=rays_o.device)
+    center = from_host(cfg.scene_center, rays_o.dtype, rays_o.device)
+    radius = from_host(cfg.scene_radius, rays_o.dtype, rays_o.device)
     o = (rays_o - center) / radius
     d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     t = sampling.contracted_t_values(cfg.n_inner, cfg.n_inner, t_boundary=2.0,
@@ -234,7 +234,7 @@ def build_render_cache(params: DCVGOParams, cfg: DCVGOConfig, log_fn=None):
     need = packed_ops.packed_table_bytes(dg.shape[1:4], 1 + kg.shape[-1], dg.element_size())
     if need > fg._pack_bytes_limit(dg.device):
         return None
-    with torch.no_grad(), record_function("render/cache_build"):
+    with torch.no_grad(), span("render/cache_build"):
         table = packed_ops.pack_corners(torch.cat([dg[0], kg[0]], dim=-1))
     if log_fn is not None:
         log_fn(f"render cache: packed density+k0, {table.numel() * table.element_size() / 1e9:.3f}"
@@ -263,11 +263,11 @@ def forward(
     stepsize = cfg.stepsize if stepsize is None else stepsize
     N = rays_o.shape[0]
     interval = stepsize * cfg.voxel_size_ratio
-    with common.sample_grad(rays_o, rays_d), record_function("forward/sample"):
+    with common.sample_grad(rays_o, rays_d), span("forward/sample"):
         pts, inner, t = sample_ray(cfg, rays_o, rays_d)
         S = pts.shape[1]
         mask = oversample_mask(cfg, pts.detach(), inner, stepsize) & params.mask_cache(pts)
-    with record_function("forward/density_k0"):
+    with span("forward/density_k0"):
         if cache is not None:
             dims = params.density.grid.shape[1:4]
             c01 = _norm01(pts, params.density.xyz_min, params.density.xyz_max)
@@ -276,10 +276,10 @@ def forward(
             density, k0 = vals[..., 0], vals[..., 1:]
         else:
             density, k0 = query_fields(params, pts)
-    with record_function("forward/march"):
+    with span("forward/march"):
         alpha, weights, alphainv_last, mask = common.march(density, mask, params.act_shift,
                                                            interval, cfg.fast_color_thres)
-    with record_function("forward/rgb"):
+    with span("forward/rgb"):
         rgb = common.rgb_head(params.rgbnet, k0, viewdirs, cfg.viewbase_pe)
         rgb_marched = common.composite(weights, rgb, alphainv_last,
                                        bg if bg_color is None else bg_color)

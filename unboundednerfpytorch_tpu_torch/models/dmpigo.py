@@ -22,7 +22,6 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from unboundednerfpytorch_tpu_torch.configs.schema import normalize_fast_color_thres
 from unboundednerfpytorch_tpu_torch.fields.grids import DenseGrid, MaskGrid, _norm01
@@ -32,6 +31,7 @@ from unboundednerfpytorch_tpu_torch.models import dcvgo
 from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
 from unboundednerfpytorch_tpu_torch.ops import packed as packed_ops
+from unboundednerfpytorch_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,12 +162,12 @@ def forward(
     N = rays_o.shape[0]
     S = cfg.n_samples(stepsize)
     interval = stepsize * cfg.voxel_size_ratio
-    with common.sample_grad(rays_o, rays_d), record_function("forward/sample"):
+    with common.sample_grad(rays_o, rays_d), span("forward/sample"):
         pts, mask, t = sampling.sample_ndc_pts_on_rays(rays_o, rays_d, cfg.xyz_min,
                                                        cfg.xyz_max, S)
         mask = mask & params.mask_cache(pts)
         shift = act_shift_at(params, cfg, pts)
-    with record_function("forward/density_k0"):
+    with span("forward/density_k0"):
         if cache is not None:
             dims = params.density.grid.shape[1:4]
             c01 = _norm01(pts, params.density.xyz_min, params.density.xyz_max)
@@ -177,10 +177,10 @@ def forward(
         else:
             raw, k0 = dcvgo.query_fields(params, pts)
         density = raw + shift
-    with record_function("forward/march"):
+    with span("forward/march"):
         alpha, weights, alphainv_last, mask = common.march(density, mask, 0.0, interval,
                                                            cfg.fast_color_thres)
-    with record_function("forward/rgb"):
+    with span("forward/rgb"):
         rgb = common.rgb_head(params.rgbnet, k0, viewdirs, cfg.viewbase_pe)
         rgb_marched = common.composite(weights, rgb, alphainv_last,
                                        bg if bg_color is None else bg_color)

@@ -27,7 +27,6 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from unboundednerfpytorch_tpu_torch.configs.schema import normalize_fast_color_thres
 from unboundednerfpytorch_tpu_torch.fields.grids import (
@@ -40,6 +39,7 @@ from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
 from unboundednerfpytorch_tpu_torch.ops import packed as packed_ops
 from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
+from unboundednerfpytorch_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,10 +241,10 @@ def forward(
     :func:`build_render_cache`."""
     S = n_samples(cfg, stepsize)
     interval = stepsize * cfg.voxel_size_ratio
-    with common.sample_grad(rays_o, rays_d), record_function("forward/sample"):
+    with common.sample_grad(rays_o, rays_d), span("forward/sample"):
         pts, mask, t = _sample(cfg, rays_o, rays_d, near, stepsize, S)
         mask = mask & params.mask_cache(pts)
-    with record_function("forward/density_k0"):
+    with span("forward/density_k0"):
         if cache is not None:
             dims = params.density.grid.shape[1:4]
             c01 = _norm01(pts, params.density.xyz_min, params.density.xyz_max)
@@ -256,10 +256,10 @@ def forward(
             k0 = pts.new_zeros((*pts.shape[:-1], 0))
         else:
             density, k0 = dcvgo.query_fields(params, pts)
-    with record_function("forward/march"):
+    with span("forward/march"):
         alpha, weights, alphainv_last, mask = common.march(density, mask, params.act_shift,
                                                            interval, cfg.fast_color_thres)
-    with record_function("forward/rgb"):
+    with span("forward/rgb"):
         rgb = rgb_of(params, cfg, k0, viewdirs)
         rgb_marched = common.composite(weights, rgb, alphainv_last, bg)
     step_ids = torch.arange(S, dtype=weights.dtype, device=weights.device)[None, :]

@@ -48,10 +48,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from unboundednerfpytorch_tpu_torch.configs.schema import normalize_fast_color_thres
-from unboundednerfpytorch_tpu_torch.device import seconds_since
+from unboundednerfpytorch_tpu_torch.device import from_host, seconds_since
 from unboundednerfpytorch_tpu_torch.fields.grids import FourierGrid, MaskGrid, nerf_pos_embed_coords
 from unboundednerfpytorch_tpu_torch.fields.mlp import MLP
 from unboundednerfpytorch_tpu_torch.models import common
@@ -59,6 +58,7 @@ from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
 from unboundednerfpytorch_tpu_torch.ops import packed as packed_ops
 from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
+from unboundednerfpytorch_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,8 +277,8 @@ def create(cfg: FourierGridConfig, generator: torch.Generator | None = None,
 
 def sample_ray(cfg: FourierGridConfig, rays_o: torch.Tensor, rays_d: torch.Tensor):
     """Contracted sampling with t_boundary: (pts [N, S, 3], inner [N, S], t [S])."""
-    center = torch.tensor(cfg.scene_center, dtype=rays_o.dtype, device=rays_o.device)
-    radius = torch.tensor(cfg.scene_radius, dtype=rays_o.dtype, device=rays_o.device)
+    center = from_host(cfg.scene_center, rays_o.dtype, rays_o.device)
+    radius = from_host(cfg.scene_radius, rays_o.dtype, rays_o.device)
     o = (rays_o - center) / radius
     d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     t = sampling.contracted_t_values(cfg.n_inner, cfg.n_inner, t_boundary=cfg.t_boundary,
@@ -304,8 +304,8 @@ def _probe_points_at(cfg: FourierGridConfig, rays_o: torch.Tensor, rays_d: torch
     """Contracted points at per-ray sample indices ``idx`` [N, M], computed
     from the ray equation as :func:`sample_ray` computes them (so each equals
     that sample's point to the bit): [N, M, 3]."""
-    center = torch.tensor(cfg.scene_center, dtype=rays_o.dtype, device=rays_o.device)
-    radius = torch.tensor(cfg.scene_radius, dtype=rays_o.dtype, device=rays_o.device)
+    center = from_host(cfg.scene_center, rays_o.dtype, rays_o.device)
+    radius = from_host(cfg.scene_radius, rays_o.dtype, rays_o.device)
     o = (rays_o - center) / radius
     d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     pts = o[:, None, :] + d[:, None, :] * t[idx][..., None]
@@ -328,7 +328,7 @@ def _coarse_lookup(coarse: torch.Tensor, mask_cache: MaskGrid, pts: torch.Tensor
     the fine lattice is false."""
     scale, shift = mask_cache.scale_shift()
     ijk = torch.round(pts * scale + shift).to(torch.int64)
-    fsz = torch.tensor(mask_cache.mask.shape, dtype=torch.int64, device=pts.device)
+    fsz = from_host(mask_cache.mask.shape, torch.int64, pts.device)
     in_box = ((ijk >= 0) & (ijk < fsz)).all(dim=-1)
     blk = torch.minimum(ijk.clamp_min(0), fsz - 1) // p
     X, Y, Z = coarse.shape
@@ -396,8 +396,8 @@ def budget_select(params: FourierGridParams, cfg: FourierGridConfig, pts: torch.
 def _bank_coords01(cfg: FourierGridConfig, pts: torch.Tensor,
                    num_freqs: int | None = None) -> torch.Tensor:
     """Per-bank query coords in [0, 1]: [..., B, 3]."""
-    mn = torch.tensor(cfg.xyz_min, dtype=pts.dtype, device=pts.device)
-    mx = torch.tensor(cfg.xyz_max, dtype=pts.dtype, device=pts.device)
+    mn = from_host(cfg.xyz_min, pts.dtype, pts.device)
+    mx = from_host(cfg.xyz_max, pts.dtype, pts.device)
     coords = ((pts - mn) / (mx - mn)) * 2.0 - 1.0
     freqs = cfg.fourier_freq_num if num_freqs is None else num_freqs
     return (nerf_pos_embed_coords(coords, freqs) + 1.0) * 0.5
@@ -549,7 +549,7 @@ def build_render_cache(params: FourierGridParams, cfg: FourierGridConfig,
     if need > _cache_bytes_limit(dgrid.device):
         return None
 
-    with torch.no_grad(), record_function("render/cache_build"):
+    with torch.no_grad(), span("render/cache_build"):
         if cfg.color_budget > 0:
             fold = 16  # a 1-channel row holds 8 values; 16 bases make 128
             bake_dims = _baked_density_dims(cfg, dgrid.device)
@@ -610,15 +610,15 @@ def _colour_survivors(params, cfg, cache, pts, weights, mask, alphainv_last, vie
     """Stage 2 of the two-stage render: each ray's first ``cb`` live samples
     of ``mask`` (near -> far) coloured from the cache's k0 tables and
     composited with their weights: (rgb_marched [N, 3], rgb [N, cb, 3])."""
-    with record_function("forward/compact"):
+    with span("forward/compact"):
         sel2, sel2_mask = sampling.compact_samples(mask, cb)
         g = sampling.gather_samples(
             torch.cat([pts, weights[..., None].to(pts.dtype)], dim=-1), sel2)
         w_c = g[..., 3].to(weights.dtype) * sel2_mask.to(weights.dtype)
-    with record_function("forward/k0"):
+    with span("forward/k0"):
         k0 = _packed_bank_sum(cache.k0_tables, _bank_coords01(cfg, g[..., :3]),
                               params.density.grid.shape[1:4], cfg.k0_dim) / len(cache.k0_tables)
-    with record_function("forward/rgb"):
+    with span("forward/rgb"):
         rgb = rgb_of(params, cfg, k0, viewdirs, img_index)
         return common.composite(w_c, rgb, alphainv_last, bg), rgb
 
@@ -635,9 +635,9 @@ def _forward_two_stage(params, cfg, cache, pts, t2, mask, viewdirs, interval, th
     dims = params.density.grid.shape[1:4]
 
     # stage 1: density from the narrow packed rows
-    with record_function("forward/density"):
+    with span("forward/density"):
         density = _cache_density(cfg, cache, pts, dims)
-    with record_function("forward/march"):
+    with span("forward/march"):
         alpha, weights, alphainv_last, mask = common.march(
             density, mask, params.act_shift, interval, thres)
 
@@ -695,20 +695,20 @@ def _forward_train_two_stage(params, cfg, pts, t2, mask, viewdirs, interval, thr
     (``color_overflow_frac``). Every per-sample output is compacted to
     [N, train_survivor_budget] alike, so the training losses pair them."""
     tb = cfg.train_survivor_budget
-    with torch.no_grad(), record_function("forward/probe"):
+    with torch.no_grad(), span("forward/probe"):
         alpha_probe = alpha_ops.raw2alpha(_probe_density(params, cfg, pts.detach()),
                                           params.act_shift, interval)
         mask1 = mask & (alpha_probe > thres)
         overflow_frac = (mask1.sum(dim=-1) > tb).to(torch.float32).mean()
         sel, sel_mask = sampling.compact_samples(mask1, tb)
-    with record_function("forward/density_k0"):
+    with span("forward/density_k0"):
         g = sampling.gather_samples(torch.cat([pts, t2[..., None]], dim=-1), sel)
         pts_c, t_c = g[..., :3], g[..., 3]
         density, k0 = _query(params, cfg, pts_c)
-    with record_function("forward/march"):
+    with span("forward/march"):
         alpha, weights, alphainv_last, mask_c = common.march(
             density, sel_mask, params.act_shift, interval, thres)
-    with record_function("forward/rgb"):
+    with span("forward/rgb"):
         rgb = rgb_of(params, cfg, k0, viewdirs, img_index)
         rgb_marched = common.composite(weights, rgb, alphainv_last,
                                        bg if bg_color is None else bg_color)
@@ -749,7 +749,7 @@ def forward(
     N = rays_o.shape[0]
     interval = stepsize * cfg.voxel_size_ratio_density
 
-    with common.sample_grad(rays_o, rays_d), record_function("forward/sample"):
+    with common.sample_grad(rays_o, rays_d), span("forward/sample"):
         pts, _, t = sample_ray(cfg, rays_o, rays_d)
         S = pts.shape[1]
         n_max = S
@@ -776,7 +776,7 @@ def forward(
         return _forward_train_two_stage(params, cfg, pts, t2, mask, viewdirs, interval, thres,
                                         bg, bg_color, img_index, n_max)
 
-    with record_function("forward/density_k0"):
+    with span("forward/density_k0"):
         if cache is not None and cache.tables is not None and _use_packed(params, cfg):
             # rendering: tables packed once, one row gather per bank. (A
             # two-stage cache has tables=None and takes the grids below.)
@@ -787,10 +787,10 @@ def forward(
             density, k0 = vals[..., 0], vals[..., 1:]
         else:
             density, k0 = _query(params, cfg, pts)
-    with record_function("forward/march"):
+    with span("forward/march"):
         alpha, weights, alphainv_last, mask = common.march(
             density, mask, params.act_shift, interval, thres)
-    with record_function("forward/rgb"):
+    with span("forward/rgb"):
         rgb = rgb_of(params, cfg, k0, viewdirs, img_index)
         rgb_marched = common.composite(weights, rgb, alphainv_last,
                                        bg if bg_color is None else bg_color)
@@ -914,7 +914,7 @@ def render_rays_adaptive(params: FourierGridParams, cfg: FourierGridConfig,
     thres = cfg.fast_color_thres
     dims = params.density.grid.shape[1:4]
 
-    with record_function("adaptive/phase_a"):
+    with span("adaptive/phase_a"):
         pts_all, _, t = sample_ray(cfg, rays_o, rays_d)
         sel, sel_mask = sampling.compact_samples(_flat_probe(params, cfg, pts_all), S)
         g = sampling.gather_samples(
@@ -932,10 +932,10 @@ def render_rays_adaptive(params: FourierGridParams, cfg: FourierGridConfig,
     if report is not None:
         report.update(alive=n_alive, bucket=bucket)
 
-    with record_function("adaptive/phase_b"):
+    with span("adaptive/phase_b"):
         idx = torch.topk(alive.to(torch.int32), bucket).indices
         density_b = _cache_density(cfg, cache, pts[idx, seg:], dims)
-    with record_function("adaptive/finish"):
+    with span("adaptive/finish"):
         density = torch.zeros((N, S), dtype=density_a.dtype, device=density_a.device)
         density[:, :seg] = density_a
         density[idx, seg:] = density_b

@@ -20,7 +20,8 @@ The two launches are registered as ``torch.library`` custom ops
 (``unerf_kernels::march_forward`` / ``march_backward``): the libraries stay
 plain C loaded with ``ctypes``, but each launch now runs inside a dispatcher
 op, which is what ``torch.profiler`` needs to credit the kernel's device
-time to the op and to the ``record_function`` ranges around it.
+time to the op and to the spans around it; :class:`FusedMarch`'s backward
+runs under ``backward/march``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from torch import Tensor
 
 from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
 from unboundednerfpytorch_tpu_torch.ops.cuda import build
+from unboundednerfpytorch_tpu_torch.utils.profiling import span
 
 
 def fused_alpha2weights_plain(density, mask, shift, interval):
@@ -184,16 +186,17 @@ class FusedMarch(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gw, gl, galpha):
-        alpha, t_excl, ai, density, mask = ctx.saved_tensors
-        if gw is None:
-            gw = torch.zeros_like(alpha)
-        if gl is None:
-            gl = torch.zeros_like(ai)
-        gd = march_backward(alpha, t_excl, ai, gw, gl, ctx.shift, ctx.interval,
-                            density, mask)
-        if galpha is not None:
-            gd = gd + galpha * _dalpha_ddensity(density, ctx.shift, ctx.interval) * mask
-        return gd, None, None, None
+        with span("backward/march"):
+            alpha, t_excl, ai, density, mask = ctx.saved_tensors
+            if gw is None:
+                gw = torch.zeros_like(alpha)
+            if gl is None:
+                gl = torch.zeros_like(ai)
+            gd = march_backward(alpha, t_excl, ai, gw, gl, ctx.shift, ctx.interval,
+                                density, mask)
+            if galpha is not None:
+                gd = gd + galpha * _dalpha_ddensity(density, ctx.shift, ctx.interval) * mask
+            return gd, None, None, None
 
 
 def fused_alpha2weights(density: torch.Tensor, mask: torch.Tensor, shift, interval):

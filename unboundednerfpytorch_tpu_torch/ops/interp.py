@@ -21,6 +21,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from unboundednerfpytorch_tpu_torch.device import from_host
+from unboundednerfpytorch_tpu_torch.utils.profiling import span
+
 
 def trilerp_corners(xyz01: torch.Tensor, dims: tuple):
     """Corner indices + weights for trilinear interpolation.
@@ -29,7 +32,7 @@ def trilerp_corners(xyz01: torch.Tensor, dims: tuple):
     int64 clamped in range, w [..., 8] with out-of-bounds corners zeroed).
     """
     X, Y, Z = (int(d) for d in dims)
-    scale = torch.tensor([X - 1, Y - 1, Z - 1], dtype=xyz01.dtype, device=xyz01.device)
+    scale = from_host([X - 1, Y - 1, Z - 1], xyz01.dtype, xyz01.device)
     return corners_at(xyz01 * scale, dims)
 
 
@@ -103,24 +106,26 @@ class GatherTrilerp(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        table, idx, w = ctx.saved_tensors
-        K, C = idx.shape[-1], table.shape[-1]
-        slices = _slices(idx.shape[0], K, C)
-        g_table = g_w = None
-        if ctx.needs_input_grad[0]:
-            acc_dtype = torch.promote_types(table.dtype, torch.float32)
-            acc = torch.zeros(table.shape, dtype=acc_dtype, device=table.device)
-            for sl in slices:
-                contrib = grad_out[sl].to(acc_dtype)[:, None, :] * w[sl].to(acc_dtype)[..., None]
-                acc.index_add_(0, idx[sl].reshape(-1), contrib.reshape(-1, C))
-            g_table = acc.to(table.dtype)
-        if ctx.needs_input_grad[2]:
-            parts = []
-            for sl in slices:
-                rows = table.index_select(0, idx[sl].reshape(-1)).reshape(-1, K, C)
-                parts.append((rows.to(grad_out.dtype) * grad_out[sl, None, :]).sum(-1))
-            g_w = torch.cat(parts).to(w.dtype)
-        return g_table, None, g_w
+        with span("backward/gather"):
+            table, idx, w = ctx.saved_tensors
+            K, C = idx.shape[-1], table.shape[-1]
+            slices = _slices(idx.shape[0], K, C)
+            g_table = g_w = None
+            if ctx.needs_input_grad[0]:
+                acc_dtype = torch.promote_types(table.dtype, torch.float32)
+                acc = torch.zeros(table.shape, dtype=acc_dtype, device=table.device)
+                for sl in slices:
+                    contrib = (grad_out[sl].to(acc_dtype)[:, None, :]
+                               * w[sl].to(acc_dtype)[..., None])
+                    acc.index_add_(0, idx[sl].reshape(-1), contrib.reshape(-1, C))
+                g_table = acc.to(table.dtype)
+            if ctx.needs_input_grad[2]:
+                parts = []
+                for sl in slices:
+                    rows = table.index_select(0, idx[sl].reshape(-1)).reshape(-1, K, C)
+                    parts.append((rows.to(grad_out.dtype) * grad_out[sl, None, :]).sum(-1))
+                g_w = torch.cat(parts).to(w.dtype)
+            return g_table, None, g_w
 
 
 def gather_trilerp(flat_grid: torch.Tensor, flat_idx: torch.Tensor, w: torch.Tensor):

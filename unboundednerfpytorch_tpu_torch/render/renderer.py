@@ -26,11 +26,11 @@ from typing import Callable
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
-from unboundednerfpytorch_tpu_torch.device import resolve_device
+from unboundednerfpytorch_tpu_torch.device import from_host, resolve_device, to_host
 from unboundednerfpytorch_tpu_torch.ops import rays as ray_ops
 from unboundednerfpytorch_tpu_torch.utils import metrics as M
+from unboundednerfpytorch_tpu_torch.utils.profiling import span
 
 DEFAULT_CHUNK = 8192  # the reference's render chunk
 
@@ -70,11 +70,10 @@ def render_image(
         raise ValueError("a cooperative render takes no whole-image rays_fn")
     chunk = -(-chunk // ranks) * ranks  # a chunk shares out evenly
     with torch.no_grad():
-        with record_function("render/rays"):
+        with span("render/rays"):
             # K may arrive as float64 (render_viewpoints); rays are float32
             ro, rd, vd = ray_ops.get_rays_of_a_view(
-                H, W, torch.as_tensor(np.asarray(K), device=dev),
-                torch.as_tensor(np.asarray(c2w), device=dev),
+                H, W, from_host(np.asarray(K), None, dev), from_host(np.asarray(c2w), None, dev),
                 ndc=ndc, inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y)
             ro, rd, vd = (x.reshape(-1, 3) for x in (ro, rd, vd))
             n = ro.shape[0]
@@ -89,7 +88,7 @@ def render_image(
             first = 0 if ranks == 1 else mesh.data_index * share
             outs = []
             for a in range(0, ro.shape[0], chunk):
-                with record_function("render/chunk"):
+                with span("render/chunk"):
                     sl = slice(a + first, a + first + share)
                     if aux is not None:
                         res = forward_fn(aux, ro[sl], rd[sl], vd[sl])
@@ -100,8 +99,8 @@ def render_image(
             if ranks > 1:
                 rgbs, depths, bgws = _gather_shares(mesh, share, rgbs, depths, bgws)
         # one device-to-host copy per image
-        packed = torch.cat([rgbs.reshape(-1, 3)[:n], depths.reshape(-1, 1)[:n],
-                            bgws.reshape(-1, 1)[:n]], dim=1).cpu().numpy()
+        packed = to_host(torch.cat([rgbs.reshape(-1, 3)[:n], depths.reshape(-1, 1)[:n],
+                                    bgws.reshape(-1, 1)[:n]], dim=1)).numpy()
     rgb = np.ascontiguousarray(packed[:, :3]).reshape(H, W, 3)
     depth = np.ascontiguousarray(packed[:, 3]).reshape(H, W)
     bgw = np.ascontiguousarray(packed[:, 4]).reshape(H, W)

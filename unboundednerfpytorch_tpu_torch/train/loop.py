@@ -66,7 +66,6 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from unboundednerfpytorch_tpu_torch import convert
 from unboundednerfpytorch_tpu_torch.configs.schema import (
@@ -87,6 +86,7 @@ from unboundednerfpytorch_tpu_torch.train.step import (
     make_train_step,
 )
 from unboundednerfpytorch_tpu_torch.utils import checkpoint as ckpt
+from unboundednerfpytorch_tpu_torch.utils.profiling import span
 
 # rays a call of the in_maskcache filter takes at a time
 FILTER_CHUNK = 65536
@@ -666,7 +666,7 @@ def scene_rep_reconstruction(
                    f"refresh {sec['refresh']:.3f}s rebuild {sec['rebuild']:.3f}s")
             if exp_dir is not None:
                 record({"step": global_step, "pg_scale": boundary})
-        with record_function("train_loop/batch"):
+        with span("train_loop/batch"):
             batch, bg_color = next_batch()
         metrics = step_fn(state, batch, bg_color)
         if boundary is not None:

@@ -10,10 +10,10 @@ before the optimizer, through the fused CUDA kernel
 gradient of its smooth-L1 TV loss (:func:`..ops.tv.tensorf_tv_grads`)
 instead, as in the JAX package.
 
-The step's phases run under ``torch.profiler.record_function`` ranges
-(``train_step/forward_loss``, ``/backward``, ``/allreduce``, ``/tv``,
+The step's phases run under spans (``utils/profiling.py::span``:
+``train_step/forward_loss``, ``/backward``, ``/allreduce``, ``/tv``,
 ``/adam``), so a profiler trace attributes device time to them; without an
-active profiler a range costs a few microseconds of host time.
+active profiler a span costs one flag check.
 
 Data parallelism (``mesh``, a :class:`..parallel.mesh.Mesh`): the JAX step
 is one program over the global batch, so a rank's step must add up to the
@@ -36,7 +36,6 @@ from typing import Callable
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from unboundednerfpytorch_tpu_torch.configs.schema import TrainStageConfig
 from unboundednerfpytorch_tpu_torch.models.common import RenderResult
@@ -47,6 +46,7 @@ from unboundednerfpytorch_tpu_torch.optim import factory
 from unboundednerfpytorch_tpu_torch.optim.masked_adam import MaskedAdam
 from unboundednerfpytorch_tpu_torch.parallel import halo
 from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
+from unboundednerfpytorch_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -187,23 +187,23 @@ def make_train_step(
         params = state.params
         for p in params.parameters():
             p.grad = None
-        with record_function("train_step/forward_loss"):
+        with span("train_step/forward_loss"):
             loss, metrics = loss_fn(params, batch, bg_color)
-        with record_function("train_step/backward"):
+        with span("train_step/backward"):
             loss.backward()
         n_rays = batch["rgb"].shape[0]
         if mesh is not None:
-            with record_function("train_step/allreduce"):
+            with span("train_step/allreduce"):
                 mesh_mod.all_reduce_grads(params, mesh)
                 metrics = global_metrics(metrics)
             n_rays *= mesh.data
-        with record_function("train_step/tv"):
+        with span("train_step/tv"):
             add_tv_grads(params, step, n_rays)
         lr_scale = 1.0
         if lr_decay_enabled:
             lr_scale = factory.lr_decay_scale(float(max(step - lr_anchor, 0)),
                                               train_cfg.lrate_decay)
-        with record_function("train_step/adam"):
+        with span("train_step/adam"):
             state.optimizer.step(lr_scale=lr_scale)
         state.step = step
         metrics["lr_scale"] = lr_scale
