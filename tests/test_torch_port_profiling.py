@@ -8,10 +8,13 @@ profiler, the ``backward/gather`` and ``backward/march`` spans inside the
 step's ``train_step/backward`` (the march through ``FusedMarch`` with its
 kernels replaced by their plain versions, as on the card); their train step
 and their render view open one ``sync/*`` span for each call of the helpers,
-and no port module but ``device.py`` copies host values to the device or
-reads the device's back. On the card (marked ``cuda``), every synchronisation
-that CUDA reports during a step and a view comes from ``device.py``. ``trace``
-writes a Chrome trace of a train step that holds its ``train_step/*`` ranges.
+and, once warm, a step copies nothing and a view only its camera and image,
+every constant of theirs an ``h2d/reused`` span; no port module but
+``device.py`` copies host values to the device or reads the device's back.
+On the card (marked ``cuda``), every synchronisation that CUDA reports during
+a step and a view comes from ``device.py``: none in a warm step, three in a
+warm view. ``trace`` writes a Chrome trace of a train step that holds its
+``train_step/*`` ranges.
 """
 
 import collections
@@ -185,10 +188,10 @@ def test_backward_spans_lie_inside_the_steps_backward(tmp_path, monkeypatch, fam
 @pytest.mark.parametrize("unit", ["train", "render"])
 @pytest.mark.parametrize("family", ["FourierGrid", "dcvgo"])
 def test_a_sync_span_for_every_call_of_the_helpers(tmp_path, monkeypatch, family, unit):
-    """A step opens as many ``sync/h2d`` spans as ``from_host`` copies
-    (FourierGrid 10, DCVGO 9, whatever the batch), a view as many as it
-    copies (K and c2w, then FourierGrid 12 a chunk, DCVGO 9) and one
-    ``sync/d2h`` for its image."""
+    """A ``sync/h2d`` span for each copy, a ``sync/d2h`` for each read back.
+    Warm, a step copies nothing and reuses its constants (FourierGrid 10,
+    DCVGO 9, whatever the batch); a view copies K and c2w, reuses
+    FourierGrid's 12 constants a chunk or DCVGO's 9, and reads its image."""
     fn = run_unit(tmp_path, family, unit)
     with host_copies(monkeypatch) as calls, profile(activities=[ProfilerActivity.CPU]) as prof:
         fn()
@@ -198,47 +201,52 @@ def test_a_sync_span_for_every_call_of_the_helpers(tmp_path, monkeypatch, family
     assert (spans["sync/h2d"], spans["sync/d2h"]) == (helper["as_tensor"], helper["cpu"])
     chunks = -(-H * W // CHUNK)
     per_chunk = {"FourierGrid": 12, "dcvgo": 9}[family]
-    want = ({"FourierGrid": 10, "dcvgo": 9}[family] if unit == "train"
-            else 2 + chunks * per_chunk)
-    assert spans["sync/h2d"] == want
+    reused = ({"FourierGrid": 10, "dcvgo": 9}[family] if unit == "train"
+              else chunks * per_chunk)
+    assert spans["sync/h2d"] == (0 if unit == "train" else 2)
     assert spans["sync/d2h"] == (unit == "render")
+    assert len(ranges(prof, "h2d/reused")) == reused
 
 
 @pytest.mark.parametrize("unit", ["train", "render"])
 @pytest.mark.parametrize("family", ["FourierGrid", "dcvgo"])
 def test_only_the_helpers_copy_between_host_and_device(tmp_path, monkeypatch, family, unit):
     """During a step or a view no port module but ``device.py`` calls
-    ``torch.tensor``, ``torch.as_tensor`` or ``Tensor.cpu``."""
+    ``torch.tensor``, ``torch.as_tensor`` or ``Tensor.cpu``; warm, a step
+    calls none of them, and a view copies K and c2w and reads its image."""
     fn = run_unit(tmp_path, family, unit)
     with host_copies(monkeypatch) as calls:
         fn()
-    assert calls
     outside = [(what, str(path.relative_to(PORT)), line) for what, path, line in calls
                if path != HELPER]
     assert outside == []
+    want = {} if unit == "train" else {"as_tensor": 2, "cpu": 1}
+    assert collections.Counter(what for what, _, _ in calls) == want
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", ["FourierGrid", "dcvgo"])
 def test_on_the_card_every_synchronisation_is_the_helpers(cuda, tmp_path, family):
-    """With CUDA's synchronisation report on, a step and a view of each
-    family synchronise only in ``device.py``, once a ``sync/*`` span."""
-    fns = [run_unit(tmp_path, family, unit, "cuda") for unit in ("train", "render")]
-    torch.cuda.synchronize()
-    try:
-        with warnings.catch_warnings(record=True) as caught, \
-                profile(activities=[ProfilerActivity.CPU]) as prof:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            for fn in fns:
+    """With CUDA's synchronisation report on, a warm step and a warm view of
+    each family synchronise only in ``device.py``, once a ``sync/*`` span:
+    the step never, the view three times (K, c2w, the image)."""
+    fns = {unit: run_unit(tmp_path, family, unit, "cuda") for unit in ("train", "render")}
+    for unit, fn in fns.items():
+        torch.cuda.synchronize()
+        try:
+            with warnings.catch_warnings(record=True) as caught, \
+                    profile(activities=[ProfilerActivity.CPU]) as prof:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
                 fn()
+                torch.cuda.set_sync_debug_mode("default")
+        finally:
             torch.cuda.set_sync_debug_mode("default")
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
-    where = collections.Counter(f"{w.filename}:{w.lineno}: {str(w.message)[:80]}" for w in caught)
-    assert syncs and all(pathlib.Path(w.filename).resolve() == HELPER for w in syncs), where
-    assert len(syncs) == len(ranges(prof, "sync/"))
+        syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+        where = collections.Counter(f"{w.filename}:{w.lineno}: {str(w.message)[:80]}"
+                                    for w in caught)
+        assert all(pathlib.Path(w.filename).resolve() == HELPER for w in syncs), where
+        assert len(syncs) == len(ranges(prof, "sync/")) == (0 if unit == "train" else 3), where
 
 
 def test_trace_writes_the_train_steps_ranges(tmp_path):

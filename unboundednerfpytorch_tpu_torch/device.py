@@ -9,15 +9,28 @@ paths copy host values to the card or read the card's back. Either copy
 waits for the card's queue to drain (a copy from pageable memory, then a
 stream synchronisation), so each opens a span, ``sync/h2d`` or
 ``sync/d2h``, that a trace counts and times (on the CPU too).
+
+:func:`constant` is for host values that stay the same from call to call (a
+box, a scene's centre and radius, a grid's shape): the first call copies
+them as :func:`from_host` does, and every later one gets the same device
+tensor back, with no copy and no wait, under an ``h2d/reused`` span. Every
+caller of those values shares that tensor, so no caller writes into it.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 import time
 
+import numpy as np
 import torch
 
 from unboundednerfpytorch_tpu_torch.utils.profiling import span
+
+CONSTANTS_KEPT = 256
+_constants: collections.OrderedDict = collections.OrderedDict()
+_constants_lock = threading.Lock()
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -46,6 +59,31 @@ def from_host(values, dtype: torch.dtype | None, device) -> torch.Tensor:
     values (a tuple, a list, a numpy array) under a ``sync/h2d`` span."""
     with span("sync/h2d"):
         return torch.as_tensor(values, dtype=dtype, device=device)
+
+
+def constant(values, dtype: torch.dtype | None, device) -> torch.Tensor:
+    """:func:`from_host` of values that do not change between calls, made
+    once: one device tensor for each set of values (their bits, shape and
+    dtype), ``dtype`` and device, of which the last ``CONSTANTS_KEPT`` used
+    are kept. The caller must not write into it."""
+    a = np.asarray(values)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (a.tobytes(), a.shape, a.dtype.str, dtype, dev)
+    with _constants_lock:
+        t = _constants.get(key)
+        if t is not None:
+            _constants.move_to_end(key)
+    if t is not None:
+        with span("h2d/reused"):
+            return t
+    t = from_host(values, dtype, dev)
+    with _constants_lock:
+        _constants[key] = t
+        if len(_constants) > CONSTANTS_KEPT:
+            _constants.popitem(last=False)
+    return t
 
 
 def to_host(x: torch.Tensor) -> torch.Tensor:

@@ -18,15 +18,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from unboundednerfpytorch_tpu_torch.device import from_host
+from unboundednerfpytorch_tpu_torch.device import constant
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
 from unboundednerfpytorch_tpu_torch.parallel import halo
 from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
 
 
 def _norm01(xyz: torch.Tensor, xyz_min, xyz_max) -> torch.Tensor:
-    mn = from_host(xyz_min, xyz.dtype, xyz.device)
-    mx = from_host(xyz_max, xyz.dtype, xyz.device)
+    mn = constant(xyz_min, xyz.dtype, xyz.device)
+    mx = constant(xyz_max, xyz.dtype, xyz.device)
     return (xyz - mn) / (mx - mn)
 
 
@@ -290,9 +290,9 @@ class MaskGrid(nn.Module):
 
     def scale_shift(self):
         dev = self.mask.device
-        mn = from_host(self.xyz_min, torch.float32, dev)
-        mx = from_host(self.xyz_max, torch.float32, dev)
-        size = from_host(self.mask.shape, torch.float32, dev)
+        mn = constant(self.xyz_min, torch.float32, dev)
+        mx = constant(self.xyz_max, torch.float32, dev)
+        size = constant(self.mask.shape, torch.float32, dev)
         scale = (size - 1) / (mx - mn)
         return scale, -mn * scale
 

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from unboundednerfpytorch_tpu_torch.configs.schema import normalize_fast_color_thres
-from unboundednerfpytorch_tpu_torch.device import from_host, seconds_since
+from unboundednerfpytorch_tpu_torch.device import constant, seconds_since
 from unboundednerfpytorch_tpu_torch.fields.grids import DenseGrid, MaskGrid, _norm01
 from unboundednerfpytorch_tpu_torch.fields.mlp import MLP
 from unboundednerfpytorch_tpu_torch.models import common
@@ -183,8 +183,8 @@ def activate_density(params: DCVGOParams, cfg: DCVGOConfig, density: torch.Tenso
 
 def sample_ray(cfg: DCVGOConfig, rays_o: torch.Tensor, rays_d: torch.Tensor):
     """Contracted central sampling: (pts [N, S, 3], inner [N, S], t [S])."""
-    center = from_host(cfg.scene_center, rays_o.dtype, rays_o.device)
-    radius = from_host(cfg.scene_radius, rays_o.dtype, rays_o.device)
+    center = constant(cfg.scene_center, rays_o.dtype, rays_o.device)
+    radius = constant(cfg.scene_radius, rays_o.dtype, rays_o.device)
     o = (rays_o - center) / radius
     d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     t = sampling.contracted_t_values(cfg.n_inner, cfg.n_inner, t_boundary=2.0,

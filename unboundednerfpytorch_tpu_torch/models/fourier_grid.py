@@ -50,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unboundednerfpytorch_tpu_torch.configs.schema import normalize_fast_color_thres
-from unboundednerfpytorch_tpu_torch.device import from_host, seconds_since
+from unboundednerfpytorch_tpu_torch.device import constant, seconds_since
 from unboundednerfpytorch_tpu_torch.fields.grids import FourierGrid, MaskGrid, nerf_pos_embed_coords
 from unboundednerfpytorch_tpu_torch.fields.mlp import MLP
 from unboundednerfpytorch_tpu_torch.models import common
@@ -277,8 +277,8 @@ def create(cfg: FourierGridConfig, generator: torch.Generator | None = None,
 
 def sample_ray(cfg: FourierGridConfig, rays_o: torch.Tensor, rays_d: torch.Tensor):
     """Contracted sampling with t_boundary: (pts [N, S, 3], inner [N, S], t [S])."""
-    center = from_host(cfg.scene_center, rays_o.dtype, rays_o.device)
-    radius = from_host(cfg.scene_radius, rays_o.dtype, rays_o.device)
+    center = constant(cfg.scene_center, rays_o.dtype, rays_o.device)
+    radius = constant(cfg.scene_radius, rays_o.dtype, rays_o.device)
     o = (rays_o - center) / radius
     d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     t = sampling.contracted_t_values(cfg.n_inner, cfg.n_inner, t_boundary=cfg.t_boundary,
@@ -304,8 +304,8 @@ def _probe_points_at(cfg: FourierGridConfig, rays_o: torch.Tensor, rays_d: torch
     """Contracted points at per-ray sample indices ``idx`` [N, M], computed
     from the ray equation as :func:`sample_ray` computes them (so each equals
     that sample's point to the bit): [N, M, 3]."""
-    center = from_host(cfg.scene_center, rays_o.dtype, rays_o.device)
-    radius = from_host(cfg.scene_radius, rays_o.dtype, rays_o.device)
+    center = constant(cfg.scene_center, rays_o.dtype, rays_o.device)
+    radius = constant(cfg.scene_radius, rays_o.dtype, rays_o.device)
     o = (rays_o - center) / radius
     d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     pts = o[:, None, :] + d[:, None, :] * t[idx][..., None]
@@ -328,7 +328,7 @@ def _coarse_lookup(coarse: torch.Tensor, mask_cache: MaskGrid, pts: torch.Tensor
     the fine lattice is false."""
     scale, shift = mask_cache.scale_shift()
     ijk = torch.round(pts * scale + shift).to(torch.int64)
-    fsz = from_host(mask_cache.mask.shape, torch.int64, pts.device)
+    fsz = constant(mask_cache.mask.shape, torch.int64, pts.device)
     in_box = ((ijk >= 0) & (ijk < fsz)).all(dim=-1)
     blk = torch.minimum(ijk.clamp_min(0), fsz - 1) // p
     X, Y, Z = coarse.shape
@@ -396,8 +396,8 @@ def budget_select(params: FourierGridParams, cfg: FourierGridConfig, pts: torch.
 def _bank_coords01(cfg: FourierGridConfig, pts: torch.Tensor,
                    num_freqs: int | None = None) -> torch.Tensor:
     """Per-bank query coords in [0, 1]: [..., B, 3]."""
-    mn = from_host(cfg.xyz_min, pts.dtype, pts.device)
-    mx = from_host(cfg.xyz_max, pts.dtype, pts.device)
+    mn = constant(cfg.xyz_min, pts.dtype, pts.device)
+    mx = constant(cfg.xyz_max, pts.dtype, pts.device)
     coords = ((pts - mn) / (mx - mn)) * 2.0 - 1.0
     freqs = cfg.fourier_freq_num if num_freqs is None else num_freqs
     return (nerf_pos_embed_coords(coords, freqs) + 1.0) * 0.5

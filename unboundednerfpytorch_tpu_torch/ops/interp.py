@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from unboundednerfpytorch_tpu_torch.device import from_host
+from unboundednerfpytorch_tpu_torch.device import constant
 from unboundednerfpytorch_tpu_torch.utils.profiling import span
 
 
@@ -32,7 +32,7 @@ def trilerp_corners(xyz01: torch.Tensor, dims: tuple):
     int64 clamped in range, w [..., 8] with out-of-bounds corners zeroed).
     """
     X, Y, Z = (int(d) for d in dims)
-    scale = from_host([X - 1, Y - 1, Z - 1], xyz01.dtype, xyz01.device)
+    scale = constant([X - 1, Y - 1, Z - 1], xyz01.dtype, xyz01.device)
     return corners_at(xyz01 * scale, dims)
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from unboundednerfpytorch_tpu_torch.device import from_host
+from unboundednerfpytorch_tpu_torch.device import constant
 
 # corner enumeration order: must match ops.interp.trilerp_corners
 CORNERS = [(dx, dy, dz) for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
@@ -72,7 +72,7 @@ def corner_base_and_weights(xyz01: torch.Tensor, dims: tuple):
     index lies inside the table.
     """
     X, Y, Z = (int(d) for d in dims)
-    size = from_host([X, Y, Z], torch.int64, xyz01.device)
+    size = constant([X, Y, Z], torch.int64, xyz01.device)
     c = xyz01 * (size.to(xyz01.dtype) - 1)
     c0 = torch.floor(c)
     f = c - c0

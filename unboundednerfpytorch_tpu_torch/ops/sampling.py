@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from unboundednerfpytorch_tpu_torch.device import from_host
+from unboundednerfpytorch_tpu_torch.device import constant
 
 
 def ray_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor, xyz_min, xyz_max, near: float,
@@ -21,8 +21,8 @@ def ray_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor, xyz_min, xyz_max, near:
     """The slab test: per ray [t_min, t_max], each clamped to [near, far]
     (the maximum with ``near`` first, then the minimum with ``far``). A zero
     component of a direction counts as 1e-6."""
-    mn = from_host(xyz_min, rays_o.dtype, rays_o.device)
-    mx = from_host(xyz_max, rays_o.dtype, rays_o.device)
+    mn = constant(xyz_min, rays_o.dtype, rays_o.device)
+    mx = constant(xyz_max, rays_o.dtype, rays_o.device)
     vec = torch.where(rays_d == 0, torch.full_like(rays_d, 1e-6), rays_d)
     rate_a = (mx - rays_o) / vec
     rate_b = (mn - rays_o) / vec
@@ -58,8 +58,8 @@ def sample_pts_on_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, xyz_min, xyz_
     step = torch.arange(n_samples, dtype=rays_o.dtype, device=rays_o.device)
     dist = step * stepdist
     pts = start[:, None, :] + dirn[:, None, :] * dist[None, :, None]
-    mn = from_host(xyz_min, pts.dtype, pts.device)
-    mx = from_host(xyz_max, pts.dtype, pts.device)
+    mn = constant(xyz_min, pts.dtype, pts.device)
+    mx = constant(xyz_max, pts.dtype, pts.device)
     in_range = step[None, :] < n_steps[:, None]
     in_bbox = ((pts >= mn) & (pts <= mx)).all(dim=-1)
     t = t_min[:, None] + dist[None, :] / torch.clamp_min(d_norm[:, None], 1e-12)
@@ -113,8 +113,8 @@ def sample_ndc_pts_on_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, xyz_min, 
     o + d * i / (S - 1), in-bbox mask [N, S], t [N, S] = i / (S - 1))."""
     dist = torch.arange(n_samples, dtype=rays_o.dtype, device=rays_o.device) / (n_samples - 1)
     pts = rays_o[:, None, :] + rays_d[:, None, :] * dist[None, :, None]
-    mn = from_host(xyz_min, pts.dtype, pts.device)
-    mx = from_host(xyz_max, pts.dtype, pts.device)
+    mn = constant(xyz_min, pts.dtype, pts.device)
+    mx = constant(xyz_max, pts.dtype, pts.device)
     in_bbox = ((pts >= mn) & (pts <= mx)).all(dim=-1)
     return pts, in_bbox, dist.expand(in_bbox.shape)
 
@@ -164,7 +164,7 @@ def maskcache_lookup(
     """Nearest-voxel occupancy lookup: ijk = round(xyz*scale + shift)
     (half to even, as ``jnp.round``); out of bounds -> False."""
     ijk = torch.round(xyz * xyz2ijk_scale + xyz2ijk_shift).to(torch.int64)
-    sz = from_host(mask_grid.shape, torch.int64, xyz.device)
+    sz = constant(mask_grid.shape, torch.int64, xyz.device)
     in_bounds = ((ijk >= 0) & (ijk < sz)).all(dim=-1)
     ijk_c = torch.minimum(torch.clamp_min(ijk, 0), sz - 1)
     flat_idx = (ijk_c[..., 0] * sz[1] + ijk_c[..., 1]) * sz[2] + ijk_c[..., 2]
