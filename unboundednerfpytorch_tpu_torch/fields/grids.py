@@ -22,6 +22,7 @@ from unboundednerfpytorch_tpu_torch.device import constant
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
 from unboundednerfpytorch_tpu_torch.parallel import halo
 from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
+from unboundednerfpytorch_tpu_torch.utils.profiling import span
 
 
 def _norm01(xyz: torch.Tensor, xyz_min, xyz_max) -> torch.Tensor:
@@ -169,6 +170,65 @@ class DenseGrid(FourierGrid):
 TENSORF_LEAVES = ("xy_plane", "xz_plane", "yz_plane", "x_vec", "y_vec", "z_vec", "f_vec")
 
 
+def vm_lookup(n01: torch.Tensor, f_vec: torch.Tensor | None, tables: tuple) -> torch.Tensor:
+    """A TensoRF field at points ``n01`` [..., 3] in [0, 1]: ``tables`` the
+    planes xy, xz, yz and the vectors x, y, z (:class:`TensoRFGrid`'s
+    leaves), each plane's bilinear sample times its complementary vector's
+    linear one, the three products concatenated and projected by ``f_vec``
+    (or, without it, summed to one channel): [..., C]."""
+    xy_plane, xz_plane, yz_plane, x_vec, y_vec, z_vec = tables
+    x, y, z = n01[..., 0], n01[..., 1], n01[..., 2]
+
+    def line(vec, c):  # [A, R] at c in [0, 1] -> [..., R]
+        return interp.grid_sample_2d(vec[:, None, :], torch.stack([c, torch.zeros_like(c)], -1))
+
+    xy = interp.grid_sample_2d(xy_plane, torch.stack([x, y], -1))
+    xz = interp.grid_sample_2d(xz_plane, torch.stack([x, z], -1))
+    yz = interp.grid_sample_2d(yz_plane, torch.stack([y, z], -1))
+    xv, yv, zv = line(x_vec, x), line(y_vec, y), line(z_vec, z)
+    if f_vec is not None:
+        return torch.cat([xy * zv, xz * yv, yz * xv], dim=-1) @ f_vec
+    val = (xy * zv).sum(-1) + (xz * yv).sum(-1) + (yz * xv).sum(-1)
+    return val[..., None]
+
+
+class VMQuery(torch.autograd.Function):
+    """:func:`vm_lookup` as one node of autograd, so that its whole backward
+    (the lookups' index-add, the products' and the projection's) runs under
+    the ``backward/vm`` span. The forward runs :func:`vm_lookup` with
+    autograd on, over detached copies of the inputs, and keeps that graph;
+    the backward is that graph's: the same operations in the same order as
+    without the node, so the values and gradients are equal to the bit."""
+
+    @staticmethod
+    def forward(ctx, n01, f_vec, *tables):
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip((n01, f_vec, *tables), ctx.needs_input_grad)]
+            out = vm_lookup(leaves[0], leaves[1], tuple(leaves[2:]))
+        ctx.leaves, ctx.out = leaves, out
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        with span("backward/vm"):
+            want = [i for i, t in enumerate(ctx.leaves) if t is not None and t.requires_grad]
+            got = torch.autograd.grad(ctx.out, [ctx.leaves[i] for i in want], grad)
+        grads = [None] * len(ctx.leaves)
+        for i, g in zip(want, got):
+            grads[i] = g
+        del ctx.leaves, ctx.out
+        return tuple(grads)
+
+
+def vm_query(n01: torch.Tensor, f_vec: torch.Tensor | None, tables: tuple) -> torch.Tensor:
+    """:func:`vm_lookup`, through :class:`VMQuery` where autograd records it."""
+    args = (n01, f_vec, *tables)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        return VMQuery.apply(*args)
+    return vm_lookup(n01, f_vec, tables)
+
+
 class TensoRFGrid(nn.Module):
     """Vector-matrix decomposed grid (TensoRF; the JAX ``TensoRFGrid``):
     planes xy [X, Y, Rxy], xz [X, Z, R], yz [Y, Z, R] and vectors x [X, R],
@@ -180,7 +240,11 @@ class TensoRFGrid(nn.Module):
     ``leaves`` (name -> tensor) builds it from given values, e.g. the JAX
     package's; otherwise planes and vectors are drawn N(0, 0.1^2) and
     ``f_vec`` U(+-sqrt(6 / (6 fan_in))) from ``generator``, on the CPU, then
-    moved (the JAX package's distributions; its draws differ)."""
+    moved (the JAX package's distributions; its draws differ).
+
+    A query runs under the ``field/vm`` span (:func:`vm_query`: the six
+    lookups, the products and the projection), and its whole backward, while
+    autograd runs it, under ``backward/vm``, inside ``train_step/backward``."""
 
     dense = False
 
@@ -220,20 +284,10 @@ class TensoRFGrid(nn.Module):
         return (self.xy_plane.shape[0], self.xy_plane.shape[1], self.xz_plane.shape[1])
 
     def forward(self, xyz: torch.Tensor) -> torch.Tensor:
-        n01 = _norm01(xyz, self.xyz_min, self.xyz_max)
-        x, y, z = n01[..., 0], n01[..., 1], n01[..., 2]
-
-        def line(vec, c):  # [A, R] at c in [0, 1] -> [..., R]
-            return interp.grid_sample_2d(vec[:, None, :], torch.stack([c, torch.zeros_like(c)], -1))
-
-        xy = interp.grid_sample_2d(self.xy_plane, torch.stack([x, y], -1))
-        xz = interp.grid_sample_2d(self.xz_plane, torch.stack([x, z], -1))
-        yz = interp.grid_sample_2d(self.yz_plane, torch.stack([y, z], -1))
-        xv, yv, zv = line(self.x_vec, x), line(self.y_vec, y), line(self.z_vec, z)
-        if self.channels > 1:
-            return torch.cat([xy * zv, xz * yv, yz * xv], dim=-1) @ self.f_vec
-        val = (xy * zv).sum(-1) + (xz * yv).sum(-1) + (yz * xv).sum(-1)
-        return val[..., None]
+        with span("field/vm"):
+            n01 = _norm01(xyz, self.xyz_min, self.xyz_max)
+            return vm_query(n01, self.f_vec, tuple(getattr(self, name)
+                                                   for name in TENSORF_LEAVES[:6]))
 
     @torch.no_grad()
     def scale_volume_grid(self, new_world_size) -> None:

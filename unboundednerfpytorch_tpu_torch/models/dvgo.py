@@ -17,7 +17,10 @@ Z, C]`` in the port's layout, as DCVGO's, or, where the config names them
 (:func:`make_grid`); the scan is the fused CUDA march of
 :func:`.common.march`, and a ``pg_scale`` boundary is DCVGO's
 :func:`.dcvgo.resize_and_refresh`, through the grid's ``get_dense_grid``. As
-in the JAX package a TensoRF model renders without a cache.
+in the JAX package a TensoRF model renders without a cache. A TensoRF
+field's query runs under the ``field/vm`` span inside ``forward/density_k0``,
+and its backward under ``backward/vm`` inside ``train_step/backward``
+(:class:`..fields.grids.TensoRFGrid`).
 """
 
 from __future__ import annotations

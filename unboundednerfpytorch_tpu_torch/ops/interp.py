@@ -13,7 +13,10 @@ through the same gather.
 The gather is a ``torch.autograd.Function`` whose backward is one
 ``index_add_`` into an f32 buffer the size of the table (cast once to the
 table's dtype), rather than autograd's per-index scatter, which would
-allocate a table-sized zero buffer for every corner.
+allocate a table-sized zero buffer for every corner. Its backward runs under
+a span (``utils/profiling.py::span``) that the caller names:
+``backward/gather`` for the voxel grids, ``backward/vm`` for a TensoRF
+grid's planes and lines (:func:`grid_sample_2d`).
 """
 
 from __future__ import annotations
@@ -86,11 +89,12 @@ class GatherTrilerp(torch.autograd.Function):
     table [T, C]; idx [M, K] int64; w [M, K] f32. Differentiable w.r.t.
     ``table`` (index-add backward) and ``w``. Both directions run over
     slices of the M samples (``SLICE_BYTES``), each sample's sum in the same
-    order whatever the slicing.
+    order whatever the slicing. ``span_name``: the span its backward runs
+    under.
     """
 
     @staticmethod
-    def forward(ctx, table, idx, w):
+    def forward(ctx, table, idx, w, span_name="backward/gather"):
         K, C = idx.shape[-1], table.shape[-1]
         out_dtype = torch.promote_types(table.dtype, torch.float32)
         parts = []
@@ -102,11 +106,12 @@ class GatherTrilerp(torch.autograd.Function):
                 out = contrib if out is None else out + contrib
             parts.append(out)
         ctx.save_for_backward(table, idx, w)
+        ctx.span_name = span_name
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     @staticmethod
     def backward(ctx, grad_out):
-        with span("backward/gather"):
+        with span(ctx.span_name):
             table, idx, w = ctx.saved_tensors
             K, C = idx.shape[-1], table.shape[-1]
             slices = _slices(idx.shape[0], K, C)
@@ -125,14 +130,15 @@ class GatherTrilerp(torch.autograd.Function):
                     rows = table.index_select(0, idx[sl].reshape(-1)).reshape(-1, K, C)
                     parts.append((rows.to(grad_out.dtype) * grad_out[sl, None, :]).sum(-1))
                 g_w = torch.cat(parts).to(w.dtype)
-            return g_table, None, g_w
+            return g_table, None, g_w, None
 
 
-def gather_trilerp(flat_grid: torch.Tensor, flat_idx: torch.Tensor, w: torch.Tensor):
+def gather_trilerp(flat_grid: torch.Tensor, flat_idx: torch.Tensor, w: torch.Tensor,
+                   span_name: str = "backward/gather"):
     """Weighted corner gather over a flat [T, C] table; [..., K] idx/w."""
     batch = flat_idx.shape[:-1]
     K = flat_idx.shape[-1]
-    out = GatherTrilerp.apply(flat_grid, flat_idx.reshape(-1, K), w.reshape(-1, K))
+    out = GatherTrilerp.apply(flat_grid, flat_idx.reshape(-1, K), w.reshape(-1, K), span_name)
     return out.reshape(*batch, flat_grid.shape[-1])
 
 
@@ -201,10 +207,10 @@ def grid_sample_2d(plane: torch.Tensor, xy01: torch.Tensor) -> torch.Tensor:
     ``grid_sample_2d``, which TensoRF's planes use; a line [A, 1, C] (the
     second coordinate 0) is a plane of width 1. Through the sliced corner
     gather of :class:`GatherTrilerp`, so a plane's gathered rows stay under
-    ``SLICE_BYTES`` a slice."""
+    ``SLICE_BYTES`` a slice; its backward runs under ``backward/vm``."""
     H, W, C = plane.shape
     idx, w = bilerp_corners(xy01, (H, W))
-    return gather_trilerp(plane.reshape(H * W, C), idx, w)
+    return gather_trilerp(plane.reshape(H * W, C), idx, w, "backward/vm")
 
 
 def _axis_lerp(n_old: int, n_new: int, first: int, stop: int, device):

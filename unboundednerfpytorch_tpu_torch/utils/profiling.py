@@ -8,7 +8,8 @@ otherwise, which costs one flag check and no dispatcher call. The step's
 phases run under ``train_step/*`` spans, the forwards' under ``forward/*``,
 a view's under ``render/*``; the host's waits on the card under ``sync/h2d``
 and ``sync/d2h`` (:mod:`..device`); the grids' gather backward and the
-march's under ``backward/gather`` and ``backward/march``. The hand-written
+march's under ``backward/gather`` and ``backward/march``; a TensoRF field's
+query under ``field/vm`` and its backward under ``backward/vm``. The hand-written
 kernels launch inside ``torch.library`` ops, so their device time is
 credited to the span around the op. A train step's backward runs on
 autograd's thread while the main thread waits in ``train_step/backward``:
