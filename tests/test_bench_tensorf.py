@@ -124,8 +124,9 @@ def test_the_forward_and_losses_agree(both):
     for a, b in ((res.rgb_marched, out["rgb"]), (res.alphainv_last, out["alphainv_last"]),
                  (res.weights, out["weights"])):
         assert torch.allclose(a, b, atol=2e-6, rtol=1e-5)
+    # the forward colours the kept samples alone, in order (compacted)
     keep = out["mask"]
-    assert torch.allclose(res.raw_rgb[keep], out["raw_rgb"][keep], atol=1e-6, rtol=1e-5)
+    assert torch.allclose(res.raw_rgb, out["raw_rgb"][keep], atol=1e-6, rtol=1e-5)
     ft = R.train
     port = (ft["weight_main"] * L.mse(res.rgb_marched, target)
             + ft["weight_entropy_last"] * L.entropy_last(res.alphainv_last)
@@ -183,9 +184,12 @@ def test_the_counter_counts_each_query(both):
     ro, rd, vd, _ = _rays(cap, R, model, 16)
     spies = Spies(ROOT, {"colour_budget": 0})
     with spies.installed(), torch.no_grad():
-        loop.make_forward(mcfg, rk)(params, ro, rd, vd)
-    n = 16 * R.n_samples  # the port queries both fields at every sample slot
-    want = [vm.lookup_work(n, (2,) * 3, 1, 4), vm.lookup_work(n, (3,) * 3, 6, 4)]
+        res = loop.make_forward(mcfg, rk)(params, ro, rd, vd)
+    # the port queries the density at every sample slot, k0 at the samples
+    # over both thresholds alone
+    n, kept = 16 * R.n_samples, int(res.mask.sum())
+    assert 0 < kept < n
+    want = [vm.lookup_work(n, (2,) * 3, 1, 4), vm.lookup_work(kept, (3,) * 3, 6, 4)]
     assert spies.totals()["ops"]["vm_lookup"] == tuple(float(sum(w)) for w in zip(*want))
 
 

@@ -9,11 +9,13 @@ step's ``train_step/backward`` (the march through ``FusedMarch`` with its
 kernels replaced by their plain versions, as on the card); their train step
 and their render view open one ``sync/*`` span for each call of the helpers,
 and, once warm, a step copies nothing and a view only its camera and image,
-every constant of theirs an ``h2d/reused`` span; no port module but
-``device.py`` copies host values to the device or reads the device's back.
-On the card (marked ``cuda``), every synchronisation that CUDA reports during
-a step and a view comes from ``device.py``: none in a warm step, three in a
-warm view. ``trace`` writes a Chrome trace of a train step that holds its
+every constant of theirs an ``h2d/reused`` span, but that DCVGO's forward
+reads back one count, its kept samples' (``models/common.py::colour``); no
+port module but ``device.py`` copies host values to the device or reads the
+device's back. On the card (marked ``cuda``), every synchronisation that
+CUDA reports during a step and a view comes from ``device.py``: FourierGrid's
+none in a warm step and three in a warm view, DCVGO's one more a forward.
+``trace`` writes a Chrome trace of a train step that holds its
 ``train_step/*`` ranges.
 """
 
@@ -44,6 +46,12 @@ PORT = pathlib.Path(unboundednerfpytorch_tpu_torch.__file__).resolve().parent
 HELPER = pathlib.Path(device_mod.__file__).resolve()
 CONFIGS = {"FourierGrid": "bicycle_single.py", "dcvgo": "bicycle.py"}
 N_RAYS, H, W, CHUNK = 64, 12, 16, 64  # a view of 3 chunks
+
+
+def forwards(family, unit):
+    """The reads back of a unit's forwards: DCVGO's, one a forward (its kept
+    samples' count), a step's one, a view's one a chunk."""
+    return 0 if family == "FourierGrid" else 1 if unit == "train" else -(-H * W // CHUNK)
 
 
 @pytest.fixture
@@ -191,7 +199,8 @@ def test_a_sync_span_for_every_call_of_the_helpers(tmp_path, monkeypatch, family
     """A ``sync/h2d`` span for each copy, a ``sync/d2h`` for each read back.
     Warm, a step copies nothing and reuses its constants (FourierGrid 10,
     DCVGO 9, whatever the batch); a view copies K and c2w, reuses
-    FourierGrid's 12 constants a chunk or DCVGO's 9, and reads its image."""
+    FourierGrid's 12 constants a chunk or DCVGO's 9, and reads its image;
+    each DCVGO forward reads back its kept samples' count."""
     fn = run_unit(tmp_path, family, unit)
     with host_copies(monkeypatch) as calls, profile(activities=[ProfilerActivity.CPU]) as prof:
         fn()
@@ -204,7 +213,7 @@ def test_a_sync_span_for_every_call_of_the_helpers(tmp_path, monkeypatch, family
     reused = ({"FourierGrid": 10, "dcvgo": 9}[family] if unit == "train"
               else chunks * per_chunk)
     assert spans["sync/h2d"] == (0 if unit == "train" else 2)
-    assert spans["sync/d2h"] == (unit == "render")
+    assert spans["sync/d2h"] == (unit == "render") + forwards(family, unit)
     assert len(ranges(prof, "h2d/reused")) == reused
 
 
@@ -213,14 +222,16 @@ def test_a_sync_span_for_every_call_of_the_helpers(tmp_path, monkeypatch, family
 def test_only_the_helpers_copy_between_host_and_device(tmp_path, monkeypatch, family, unit):
     """During a step or a view no port module but ``device.py`` calls
     ``torch.tensor``, ``torch.as_tensor`` or ``Tensor.cpu``; warm, a step
-    calls none of them, and a view copies K and c2w and reads its image."""
+    calls none of them, and a view copies K and c2w and reads its image;
+    each DCVGO forward reads back its kept samples' count."""
     fn = run_unit(tmp_path, family, unit)
     with host_copies(monkeypatch) as calls:
         fn()
     outside = [(what, str(path.relative_to(PORT)), line) for what, path, line in calls
                if path != HELPER]
     assert outside == []
-    want = {} if unit == "train" else {"as_tensor": 2, "cpu": 1}
+    want = collections.Counter({} if unit == "train" else {"as_tensor": 2, "cpu": 1})
+    want["cpu"] += forwards(family, unit)
     assert collections.Counter(what for what, _, _ in calls) == want
 
 
@@ -229,7 +240,8 @@ def test_only_the_helpers_copy_between_host_and_device(tmp_path, monkeypatch, fa
 def test_on_the_card_every_synchronisation_is_the_helpers(cuda, tmp_path, family):
     """With CUDA's synchronisation report on, a warm step and a warm view of
     each family synchronise only in ``device.py``, once a ``sync/*`` span:
-    the step never, the view three times (K, c2w, the image)."""
+    the step never, the view three times (K, c2w, the image), and DCVGO's
+    once more a forward (its kept samples' count)."""
     fns = {unit: run_unit(tmp_path, family, unit, "cuda") for unit in ("train", "render")}
     for unit, fn in fns.items():
         torch.cuda.synchronize()
@@ -246,7 +258,8 @@ def test_on_the_card_every_synchronisation_is_the_helpers(cuda, tmp_path, family
         where = collections.Counter(f"{w.filename}:{w.lineno}: {str(w.message)[:80]}"
                                     for w in caught)
         assert all(pathlib.Path(w.filename).resolve() == HELPER for w in syncs), where
-        assert len(syncs) == len(ranges(prof, "sync/")) == (0 if unit == "train" else 3), where
+        want = (0 if unit == "train" else 3) + forwards(family, unit)
+        assert len(syncs) == len(ranges(prof, "sync/")) == want, where
 
 
 def test_trace_writes_the_train_steps_ranges(tmp_path):

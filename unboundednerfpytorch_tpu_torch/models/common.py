@@ -1,6 +1,7 @@
 """Shared model pieces: the render result, view-direction embedding,
-compositing, the act_shift initialiser, and the march and color head that
-the FourierGrid, DCVGO and DMPIGO forwards share.
+compositing, the act_shift initialiser, the march and color head that
+the FourierGrid, DCVGO and DMPIGO forwards share, and the colouring of the
+DVGO family's samples (every slot, or those over both thresholds alone).
 
 Counterpart of ``unboundednerfpytorch_tpu/models/common.py``.
 """
@@ -13,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from unboundednerfpytorch_tpu_torch.device import to_host
 from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
 from unboundednerfpytorch_tpu_torch.ops.cuda.march import fused_alpha2weights
 
@@ -42,6 +44,11 @@ class RenderResult(NamedTuple):
     # DCVGO only: per ray, the weight of the samples inside the unit
     # (uncontracted) region. None elsewhere.
     wsum_mid: torch.Tensor | None = None
+    # the DVGO family's compacted forward only (``colour(..., compact=True)``):
+    # raw_rgb above is [K, 3], the colours of the samples at these flat
+    # indices [K] of [N, S], those over both thresholds (``mask``), in order;
+    # ``losses.rgbper`` takes it. None where raw_rgb is [N, S, 3].
+    rgb_rows: torch.Tensor | None = None
 
 
 def sample_grad(rays_o: torch.Tensor, rays_d: torch.Tensor):
@@ -63,7 +70,7 @@ def act_shift_from_alpha_init(alpha_init: float) -> float:
 def viewdir_embedding(viewdirs: torch.Tensor, viewbase_pe: int) -> torch.Tensor:
     """(v, sin 2^k v, cos 2^k v): [N, 3] -> [N, 3 + 6 * viewbase_pe]."""
     freqs = 2.0 ** torch.arange(viewbase_pe, dtype=viewdirs.dtype, device=viewdirs.device)
-    emb = (viewdirs[..., None] * freqs).reshape(*viewdirs.shape[:-1], -1)
+    emb = (viewdirs[..., None] * freqs).flatten(-2)
     return torch.cat([viewdirs, torch.sin(emb), torch.cos(emb)], dim=-1)
 
 
@@ -108,3 +115,37 @@ def rgb_head(rgbnet, k0: torch.Tensor, viewdirs: torch.Tensor, viewbase_pe: int,
     if emb is not None:
         feats.append(emb[:, None, :].expand(N, S, emb.shape[-1]))
     return torch.sigmoid(rgbnet(torch.cat(feats, dim=-1)))
+
+
+def rows_of(x: torch.Tensor, rows: torch.Tensor | None) -> torch.Tensor:
+    """``x`` [N, S, C] at the flat sample indices ``rows`` [K] of [N, S]
+    ([K, C]), or whole where ``rows`` is None."""
+    return x if rows is None else x.reshape(-1, x.shape[-1])[rows]
+
+
+def colour(mask: torch.Tensor, weights: torch.Tensor, alphainv_last: torch.Tensor, bg,
+           viewdirs: torch.Tensor, k0_at, head, compact: bool):
+    """The samples' colours and the composite on ``bg`` (a scalar or [N,
+    3]): (rgb_marched [N, 3], raw_rgb, rows). ``k0_at(rows)`` looks k0 up at
+    the flat sample indices ``rows`` of [N, S] (:func:`rows_of`), or at every
+    sample for None; ``head(k0, viewdirs)`` colours k0 [M, S', C] seen along
+    ``viewdirs`` [M, 3].
+
+    Dense: the head at every sample, raw_rgb [N, S, 3], rows None. Compact:
+    the samples of ``mask`` alone, the march's kept mask, outside which the
+    weights are 0 and no colour reaches the image, the losses or a gradient.
+    Their flat indices ``rows`` [K] (one wait on the card, for K), k0 looked
+    up there, the head on [K, 1, C] and their rays' view directions, and the
+    weighted colours added up a ray: raw_rgb [K, 3]. Both give the same
+    composite and gradients, but for the order of the sums; K may be 0."""
+    if not compact:
+        rgb = head(k0_at(None), viewdirs)
+        return composite(weights, rgb, alphainv_last, bg), rgb, None
+    N, S = mask.shape
+    flat = mask.reshape(-1)
+    rows = torch.nonzero_static(flat, size=int(to_host(flat.sum())))[:, 0]
+    ray = torch.div(rows, S, rounding_mode="floor")
+    rgb = head(k0_at(rows)[:, None, :], viewdirs[ray])[:, 0]
+    w = weights.reshape(-1)[rows]
+    acc = rgb.new_zeros((N, 3)).index_add(0, ray, w[:, None] * rgb)
+    return acc + alphainv_last[:, None] * bg, rgb, rows

@@ -207,20 +207,33 @@ def oversample_mask(cfg: DCVGOConfig, pts: torch.Tensor, inner: torch.Tensor,
     return mask
 
 
-def query_fields(params: DCVGOParams, pts: torch.Tensor):
-    """(density [N, S], k0 [N, S, k0_dim]) in f32 from the grids. On one
-    lattice (always, but after a mask-only change) the corners are found once
-    for both grids; a field without a voxel grid (TensoRF) or whose grid is
-    cut over a grid group (the halo sample) is queried itself."""
+def query_density(params: DCVGOParams, pts: torch.Tensor, cache: torch.Tensor | None = None):
+    """(density [N, S] in f32 at every point, ``k0_at``): ``k0_at(rows)``
+    gives k0 in f32 at the flat indices ``rows`` of the points
+    (:func:`..common.rows_of`: [K, k0_dim], or [N, S, k0_dim] for None), so
+    that k0 is looked up after the march, where it is needed. With the render
+    ``cache`` (:func:`build_render_cache`) both come from one packed lookup
+    at every point. On one lattice (always, but after a mask-only change) the
+    corners are found once for both grids; a field without a voxel grid
+    (TensoRF) or whose grid is cut over a grid group (the halo sample) is
+    queried itself, k0 at the given points alone."""
+    if cache is not None:
+        dims = params.density.grid.shape[1:4]
+        c01 = _norm01(pts, params.density.xyz_min, params.density.xyz_max)
+        base, w = packed_ops.corner_base_and_weights(c01, dims)
+        vals = packed_ops.packed_trilerp(cache, base, w, 1 + params.k0.grid.shape[-1])
+        return vals[..., 0], lambda rows: common.rows_of(vals, rows)[..., 1:]
     if not (params.density.dense and params.k0.dense) or \
             params.density.world_size != params.k0.world_size or \
             params.density.shard is not None or params.k0.shard is not None:
-        return params.density(pts)[..., 0], params.k0(pts)
+        return params.density(pts)[..., 0], lambda rows: params.k0(common.rows_of(pts, rows))
     dg, kg = params.density.grid, params.k0.grid
     c01 = _norm01(pts, params.density.xyz_min, params.density.xyz_max)
     idx, w = interp.trilerp_corners(c01, dg.shape[1:4])
     density = interp.gather_trilerp(dg.reshape(-1, 1), idx, w)[..., 0]
-    return density, interp.gather_trilerp(kg.reshape(-1, kg.shape[-1]), idx, w)
+    kflat = kg.reshape(-1, kg.shape[-1])
+    return density, lambda rows: interp.gather_trilerp(kflat, common.rows_of(idx, rows),
+                                                       common.rows_of(w, rows))
 
 
 def build_render_cache(params: DCVGOParams, cfg: DCVGOConfig, log_fn=None):
@@ -254,11 +267,14 @@ def forward(
     bg: float = 1.0,
     bg_color: torch.Tensor | None = None,
     cache: torch.Tensor | None = None,
+    compact: bool = False,
 ) -> common.RenderResult:
     """Volume rendering. ``near`` is ignored (the contracted sampling starts
     at the camera). ``bg_color`` [N, 3] is the random background of
     ``rand_bkgd`` training, else ``bg`` is composited. ``cache`` is the table
-    of :func:`build_render_cache`."""
+    of :func:`build_render_cache`. ``compact``: k0 and the colours only at
+    the samples over both thresholds (:func:`..common.colour`), raw_rgb
+    [K, 3] at ``rgb_rows``; else at every sample."""
     del near
     stepsize = cfg.stepsize if stepsize is None else stepsize
     N = rays_o.shape[0]
@@ -268,21 +284,14 @@ def forward(
         S = pts.shape[1]
         mask = oversample_mask(cfg, pts.detach(), inner, stepsize) & params.mask_cache(pts)
     with span("forward/density_k0"):
-        if cache is not None:
-            dims = params.density.grid.shape[1:4]
-            c01 = _norm01(pts, params.density.xyz_min, params.density.xyz_max)
-            base, w = packed_ops.corner_base_and_weights(c01, dims)
-            vals = packed_ops.packed_trilerp(cache, base, w, 1 + params.k0.grid.shape[-1])
-            density, k0 = vals[..., 0], vals[..., 1:]
-        else:
-            density, k0 = query_fields(params, pts)
+        density, k0_at = query_density(params, pts, cache)
     with span("forward/march"):
         alpha, weights, alphainv_last, mask = common.march(density, mask, params.act_shift,
                                                            interval, cfg.fast_color_thres)
     with span("forward/rgb"):
-        rgb = common.rgb_head(params.rgbnet, k0, viewdirs, cfg.viewbase_pe)
-        rgb_marched = common.composite(weights, rgb, alphainv_last,
-                                       bg if bg_color is None else bg_color)
+        rgb_marched, rgb, rows = common.colour(
+            mask, weights, alphainv_last, bg if bg_color is None else bg_color, viewdirs, k0_at,
+            lambda k0, vd: common.rgb_head(params.rgbnet, k0, vd, cfg.viewbase_pe), compact)
     t2 = t.expand(N, S)
     s = 1.0 - 1.0 / (1.0 + t2)
     return common.RenderResult(
@@ -298,6 +307,7 @@ def forward(
         depth=torch.sum(weights * s, dim=-1),
         n_max=S,
         wsum_mid=torch.sum(weights * inner.to(weights.dtype), dim=-1),
+        rgb_rows=rows,
     )
 
 

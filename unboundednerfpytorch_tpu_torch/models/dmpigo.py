@@ -24,13 +24,12 @@ import torch
 from torch import nn
 
 from unboundednerfpytorch_tpu_torch.configs.schema import normalize_fast_color_thres
-from unboundednerfpytorch_tpu_torch.fields.grids import DenseGrid, MaskGrid, _norm01
+from unboundednerfpytorch_tpu_torch.fields.grids import DenseGrid, MaskGrid
 from unboundednerfpytorch_tpu_torch.fields.mlp import MLP
 from unboundednerfpytorch_tpu_torch.models import common
 from unboundednerfpytorch_tpu_torch.models import dcvgo
 from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
-from unboundednerfpytorch_tpu_torch.ops import packed as packed_ops
 from unboundednerfpytorch_tpu_torch.utils.profiling import span
 
 
@@ -155,9 +154,13 @@ def forward(
     bg: float = 1.0,
     bg_color: torch.Tensor | None = None,
     cache: torch.Tensor | None = None,
+    compact: bool = False,
 ) -> common.RenderResult:
     """Volume rendering of NDC rays. ``bg_color`` [N, 3] is the random
-    background of ``rand_bkgd`` training, else ``bg`` is composited."""
+    background of ``rand_bkgd`` training, else ``bg`` is composited.
+    ``compact``: k0 and the colours only at the samples over both thresholds
+    (:func:`..common.colour`), raw_rgb [K, 3] at ``rgb_rows``; else at every
+    sample."""
     stepsize = cfg.stepsize if stepsize is None else stepsize
     N = rays_o.shape[0]
     S = cfg.n_samples(stepsize)
@@ -168,22 +171,15 @@ def forward(
         mask = mask & params.mask_cache(pts)
         shift = act_shift_at(params, cfg, pts)
     with span("forward/density_k0"):
-        if cache is not None:
-            dims = params.density.grid.shape[1:4]
-            c01 = _norm01(pts, params.density.xyz_min, params.density.xyz_max)
-            base, w = packed_ops.corner_base_and_weights(c01, dims)
-            vals = packed_ops.packed_trilerp(cache, base, w, 1 + params.k0.grid.shape[-1])
-            raw, k0 = vals[..., 0], vals[..., 1:]
-        else:
-            raw, k0 = dcvgo.query_fields(params, pts)
+        raw, k0_at = dcvgo.query_density(params, pts, cache)
         density = raw + shift
     with span("forward/march"):
         alpha, weights, alphainv_last, mask = common.march(density, mask, 0.0, interval,
                                                            cfg.fast_color_thres)
     with span("forward/rgb"):
-        rgb = common.rgb_head(params.rgbnet, k0, viewdirs, cfg.viewbase_pe)
-        rgb_marched = common.composite(weights, rgb, alphainv_last,
-                                       bg if bg_color is None else bg_color)
+        rgb_marched, rgb, rows = common.colour(
+            mask, weights, alphainv_last, bg if bg_color is None else bg_color, viewdirs, k0_at,
+            lambda k0, vd: common.rgb_head(params.rgbnet, k0, vd, cfg.viewbase_pe), compact)
     step_ids = torch.arange(S, dtype=weights.dtype, device=weights.device)[None, :]
     s = ((step_ids + 0.5) / S).expand(N, S)
     return common.RenderResult(
@@ -198,6 +194,7 @@ def forward(
         s=s,
         depth=torch.sum(weights * s, dim=-1),
         n_max=S,
+        rgb_rows=rows,
     )
 
 

@@ -40,7 +40,6 @@ from unboundednerfpytorch_tpu_torch.models import common, dcvgo
 from unboundednerfpytorch_tpu_torch.models import fourier_grid as fg
 from unboundednerfpytorch_tpu_torch.ops import alpha as alpha_ops
 from unboundednerfpytorch_tpu_torch.ops import interp, sampling
-from unboundednerfpytorch_tpu_torch.ops import packed as packed_ops
 from unboundednerfpytorch_tpu_torch.parallel import mesh as mesh_mod
 from unboundednerfpytorch_tpu_torch.utils.profiling import span
 
@@ -238,33 +237,31 @@ def forward(
     stepsize: float,
     bg: float = 1.0,
     cache: torch.Tensor | None = None,
+    compact: bool = False,
 ) -> common.RenderResult:
     """Volume rendering on the scalar background ``bg`` (the JAX DVGO forward
     takes no random background). ``cache`` is the table of
-    :func:`build_render_cache`."""
+    :func:`build_render_cache`. ``compact``: k0 and the colours only at the
+    samples over both thresholds (:func:`..common.colour`), raw_rgb [K, 3]
+    at ``rgb_rows``; else at every sample."""
     S = n_samples(cfg, stepsize)
     interval = stepsize * cfg.voxel_size_ratio
     with common.sample_grad(rays_o, rays_d), span("forward/sample"):
         pts, mask, t = _sample(cfg, rays_o, rays_d, near, stepsize, S)
         mask = mask & params.mask_cache(pts)
     with span("forward/density_k0"):
-        if cache is not None:
-            dims = params.density.grid.shape[1:4]
-            c01 = _norm01(pts, params.density.xyz_min, params.density.xyz_max)
-            base, w = packed_ops.corner_base_and_weights(c01, dims)
-            vals = packed_ops.packed_trilerp(cache, base, w, 1 + params.k0.grid.shape[-1])
-            density, k0 = vals[..., 0], vals[..., 1:]
-        elif cfg.rgbnet_full_implicit:
+        if cfg.rgbnet_full_implicit:  # no k0 and no render cache
             density = params.density(pts)[..., 0]
-            k0 = pts.new_zeros((*pts.shape[:-1], 0))
+            k0_at = lambda rows: common.rows_of(pts, rows)[..., :0]
         else:
-            density, k0 = dcvgo.query_fields(params, pts)
+            density, k0_at = dcvgo.query_density(params, pts, cache)
     with span("forward/march"):
         alpha, weights, alphainv_last, mask = common.march(density, mask, params.act_shift,
                                                            interval, cfg.fast_color_thres)
     with span("forward/rgb"):
-        rgb = rgb_of(params, cfg, k0, viewdirs)
-        rgb_marched = common.composite(weights, rgb, alphainv_last, bg)
+        rgb_marched, rgb, rows = common.colour(
+            mask, weights, alphainv_last, bg, viewdirs, k0_at,
+            lambda k0, vd: rgb_of(params, cfg, k0, vd), compact)
     step_ids = torch.arange(S, dtype=weights.dtype, device=weights.device)[None, :]
     return common.RenderResult(
         rgb_marched=rgb_marched,
@@ -278,6 +275,7 @@ def forward(
         s=t,
         depth=torch.sum(weights * step_ids, dim=-1),
         n_max=S,
+        rgb_rows=rows,
     )
 
 

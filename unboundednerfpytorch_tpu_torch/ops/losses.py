@@ -32,10 +32,19 @@ def entropy_last(alphainv_last: torch.Tensor) -> torch.Tensor:
 
 
 def rgbper(raw_rgb: torch.Tensor, target: torch.Tensor, weights: torch.Tensor, n_rays: int,
-           mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Per-point color loss weighted by the detached marching weights."""
-    per = torch.sum((raw_rgb - target[:, None, :]) ** 2, dim=-1)
+           mask: torch.Tensor | None = None, rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-point color loss weighted by the detached marching weights.
+    ``raw_rgb`` is [N, S, 3], or the compacted forward's [K, 3]: the colours
+    at the flat indices ``rows`` of [N, S] (where ``mask`` holds, if not
+    given), the one value either way but for the order of the sum."""
     w = weights.detach()
+    if raw_rgb.dim() == 2:
+        if rows is None:
+            rows = mask.reshape(-1).nonzero()[:, 0]
+        ray = torch.div(rows, w.shape[-1], rounding_mode="floor")
+        per = torch.sum((raw_rgb - target[ray]) ** 2, dim=-1)
+        return torch.sum(per * w.reshape(-1)[rows]) / n_rays
+    per = torch.sum((raw_rgb - target[:, None, :]) ** 2, dim=-1)
     if mask is not None:
         per = per * mask.to(per.dtype)
     return torch.sum(per * w) / n_rays

@@ -177,7 +177,11 @@ def make_forward(mcfg, render_kwargs: dict, cache=None) -> Callable:
     random background a FourierGrid forward composites on its default
     ``bg=0.0`` (reproduced from the reference package, where it looks like an
     oversight; see ROADMAP queue C). ``cache`` is a render cache for
-    rendering with frozen params; it may also be given per call."""
+    rendering with frozen params; it may also be given per call.
+
+    Every caller reads the colours through the weights alone (the composite,
+    rgbper), so the DVGO, DCVGO and DMPIGO forwards colour only the samples
+    over both thresholds (``compact``; raw_rgb [K, 3] at ``rgb_rows``)."""
     family = family_of(mcfg)
 
     def fwd(params, ro, rd, vd, bg_color=None, cache=cache, img_index=None):
@@ -187,10 +191,11 @@ def make_forward(mcfg, render_kwargs: dict, cache=None) -> Callable:
         if family == "dvgo":
             return dvgo.forward(params, mcfg, ro, rd, vd, near=render_kwargs["near"],
                                 stepsize=render_kwargs["stepsize"], bg=render_kwargs["bg"],
-                                cache=cache)
+                                cache=cache, compact=True)
         if family == "dcvgo":
             kw["near"] = render_kwargs["near"]
-        return FAMILIES[family].forward(params, mcfg, ro, rd, vd, bg=render_kwargs["bg"], **kw)
+        return FAMILIES[family].forward(params, mcfg, ro, rd, vd, bg=render_kwargs["bg"],
+                                        compact=True, **kw)
 
     return fwd
 

@@ -121,7 +121,8 @@ def make_train_step(
             loss = loss + train_cfg.weight_distortion * term
             components["loss_distortion"] = term
         if train_cfg.weight_rgbper > 0:
-            term = L.rgbper(res.raw_rgb, target, res.weights, n_rays, mask=res.mask)
+            term = L.rgbper(res.raw_rgb, target, res.weights, n_rays, mask=res.mask,
+                            rows=res.rgb_rows)
             loss = loss + train_cfg.weight_rgbper * term
             components["loss_rgbper"] = term
         metrics = {"loss": loss.detach(), "mse": mse_loss.detach(),
